@@ -1,0 +1,132 @@
+"""The PyTorch port's copies of pure-Python state, held equal to the JAX
+package, and the port's import and configuration contracts."""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import pointcloud_obstacle_processing_tpu as ref
+import pointcloud_obstacle_processing_tpu.models as ref_models
+from pointcloud_obstacle_processing_tpu.utils.scene import SceneSpec as RefSpec
+from pointcloud_obstacle_processing_tpu.utils.scene import make_scene as ref_make_scene
+
+import pointcloud_obstacle_processing_tpu_torch as port
+import pointcloud_obstacle_processing_tpu_torch.models as port_models
+from pointcloud_obstacle_processing_tpu_torch.utils.scene import SceneSpec, make_scene
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["default", "REFERENCE_YAML_CONFIG", "FLAGSHIP_CONFIG", "REFERENCE_FULLSCALE_CONFIG"],
+)
+def test_config_copy_equals_reference(name):
+    if name == "default":
+        a, b = ref.PipelineConfig(), port.PipelineConfig()
+    elif name == "REFERENCE_YAML_CONFIG":
+        a, b = ref.REFERENCE_YAML_CONFIG, port.REFERENCE_YAML_CONFIG
+    else:
+        a, b = getattr(ref_models, name), getattr(port_models, name)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    for prop in ("grid_width", "grid_height", "grid_size", "eps_angle_radians"):
+        assert getattr(a, prop) == getattr(b, prop)
+
+
+def test_config_from_dict_copy_matches_reference():
+    d = {
+        "x_min": 0.5,
+        "obstacle_detection": {"x_min": 9.0, "downsame_input_data": False, "block_size": 0.05,
+                               "statistical_outlier_meanK": 12},
+    }
+    a = ref.config_from_dict(d)
+    b = port.config_from_dict(d)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert b.x_min == 0.5 and b.downsample_input_data is False
+
+
+@pytest.mark.parametrize(
+    "override",
+    [
+        dict(voxel_binning="mxu"),
+        dict(voxel_binning="scatter"),
+        dict(voxel_order="morton"),
+        dict(knn_backend="exact"),
+        dict(knn_backend="approx"),
+        dict(knn_backend="banded_approx"),
+        dict(cluster_band_window=128),
+        dict(downsample_input_data=False),
+    ],
+)
+def test_validate_refuses_unported_engines(override):
+    base = port_models.FLAGSHIP_CONFIG
+    with pytest.raises(ValueError):
+        base.replace(**override).validate()
+
+
+def test_validate_accepts_the_ported_slice():
+    port_models.FLAGSHIP_CONFIG.validate()
+    port_models.FLAGSHIP_CONFIG.replace(voxel_payload_packing=False).validate()
+    with pytest.raises(ValueError):  # needs the banded cluster sweep
+        port_models.REFERENCE_FULLSCALE_CONFIG.validate()
+
+
+@pytest.mark.parametrize("seed,nan_frac", [(0, 0.0), (11, 0.01)])
+def test_scene_copy_equals_reference(seed, nan_frac):
+    spec_kw = dict(n_ground=3000, n_rocks=2, points_per_rock=200, n_noise=50)
+    a = ref_make_scene(seed=seed, spec=RefSpec(**spec_kw), nan_frac=nan_frac)
+    b = make_scene(seed=seed, spec=SceneSpec(**spec_kw), nan_frac=nan_frac)
+    for field in ("points", "labels", "rock_centers", "rock_radii", "crater_centers",
+                  "crater_radii"):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys\n"
+        "import pointcloud_obstacle_processing_tpu_torch as p\n"
+        "import pointcloud_obstacle_processing_tpu_torch.pipeline\n"
+        "import pointcloud_obstacle_processing_tpu_torch.models\n"
+        "import pointcloud_obstacle_processing_tpu_torch.utils.scene\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'pointcloud_obstacle_processing_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_port_sources_name_no_jax():
+    pkg = os.path.join(ROOT, "pointcloud_obstacle_processing_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                text = open(os.path.join(dirpath, f)).read()
+                for word in ("import jax", "from jax", "import flax", "from flax",
+                             "import pointcloud_obstacle_processing_tpu\n",
+                             "from pointcloud_obstacle_processing_tpu ",
+                             "from pointcloud_obstacle_processing_tpu."):
+                    assert word not in text, (f, word)
+
+
+def test_from_reference_carries_config_cloud_and_pose():
+    cfg = ref.REFERENCE_YAML_CONFIG.replace(max_points=256, max_voxels=128)
+    rng = np.random.default_rng(3)
+    pts = rng.standard_normal((256, 3)).astype(np.float32)
+    valid = rng.random(256) < 0.7
+    q = np.array([0.0, 0.0, 0.38268343, 0.92387953], np.float32)
+    t = np.array([1.0, -2.0, 0.5], np.float32)
+    st = port.from_reference(dataclasses.asdict(cfg), pts, valid, q, t)
+    assert dataclasses.asdict(st.config) == dataclasses.asdict(cfg)
+    np.testing.assert_array_equal(st.cloud.points.numpy(), pts)
+    np.testing.assert_array_equal(st.cloud.valid.numpy(), valid)
+    np.testing.assert_array_equal(st.pose.quat_xyzw.numpy(), q)
+    np.testing.assert_array_equal(st.pose.translation.numpy(), t)
+    assert port.from_reference().cloud is None
+    with pytest.raises(ValueError):
+        port.from_reference(quat_xyzw=q)

@@ -1,0 +1,103 @@
+"""The whole slice: ``process_scan`` of the PyTorch port against the JAX
+package, held to the crosscheck bar of scripts/crosscheck_tpu_cpu.py
+(grid bit-identical, stage counts and every StageStats flag exact,
+centroids within 1e-5), with the reference's RANSAC key chain replayed."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+
+from test_torch_ransac import jax_key_chain_draw
+
+import pointcloud_obstacle_processing_tpu as ref
+import pointcloud_obstacle_processing_tpu.models as ref_models
+from pointcloud_obstacle_processing_tpu.pipeline import jit_pipeline
+from pointcloud_obstacle_processing_tpu.utils.scene import SceneSpec, make_scene
+
+import pointcloud_obstacle_processing_tpu_torch as port
+from pointcloud_obstacle_processing_tpu_torch.models import ObstacleDetectionModel
+from pointcloud_obstacle_processing_tpu_torch.pipeline import process_scan
+
+# the small config of tests/test_pipeline.py
+CFG = ref.REFERENCE_YAML_CONFIG.replace(
+    max_points=32768, max_voxels=8192, cluster_capacity=2048, max_clusters=16,
+    downsample_leaf_size=0.06,
+)
+SPEC = SceneSpec(n_ground=24000, n_rocks=3, points_per_rock=1500, n_noise=150)
+
+COUNTS = ("accumulated_points", "cropped_points", "voxel_points", "inlier_points",
+          "nonplane_points", "num_planes", "num_clusters")
+FLAGS = ("voxel_overflow", "cluster_overflow", "cluster_band_overflow", "planes_truncated",
+         "cluster_unconverged")
+
+
+def _crosscheck(ref_cfg, scene_pts, key_seed):
+    n = ref_cfg.max_points
+    pts = scene_pts[:n]
+    buf = np.zeros((n, 3), np.float32)
+    buf[: len(pts)] = pts
+    valid = np.arange(n) < len(pts)
+    key = jax.random.PRNGKey(key_seed)
+    r = jit_pipeline(ref_cfg)(ref.Cloud.from_points(buf, valid), key)
+    st = port.from_reference(dataclasses.asdict(ref_cfg), buf, valid)
+    st.config.validate()
+    p = process_scan(st.cloud, st.config,
+                     draw=jax_key_chain_draw(key, ref_cfg.ransac_hypotheses))
+    np.testing.assert_array_equal(np.asarray(r.grid.data), p.grid.data.numpy())
+    for k in COUNTS + FLAGS:
+        assert int(getattr(r.stats, k)) == int(getattr(p.stats, k)), k
+    ca = np.asarray(r.centroids.points.xyzr)[np.asarray(r.centroids.valid)]
+    cb = p.centroids.points.xyzr.numpy()[p.centroids.valid.numpy()]
+    assert ca.shape == cb.shape
+    if len(ca):
+        assert np.abs(np.sort(ca, axis=0) - np.sort(cb, axis=0)).max() < 1e-5
+    return r, p
+
+
+@pytest.mark.parametrize("packing", [False, True])
+def test_slice_meets_crosscheck_bar(packing):
+    scene = make_scene(seed=11, spec=SPEC, nan_frac=0.01)
+    r, p = _crosscheck(CFG.replace(voxel_payload_packing=packing), scene.points, 0)
+    assert int(p.stats.num_planes) >= 1 and int(p.stats.num_clusters) >= 3
+    # the debug clouds the reference publishes
+    for name in ("voxel_cloud", "outlier_filtered_cloud", "plane_cloud", "last_plane_cloud",
+                 "nonplane_cloud"):
+        np.testing.assert_array_equal(np.asarray(getattr(r, name).valid),
+                                      getattr(p, name).valid.numpy())
+    k = int(p.stats.voxel_points)
+    np.testing.assert_array_equal(np.asarray(r.voxel_cloud.points)[:k],
+                                  p.voxel_cloud.points.numpy()[:k])
+    np.testing.assert_array_equal(np.asarray(r.clusters.point_cluster),
+                                  p.clusters.point_cluster.numpy())
+    np.testing.assert_allclose(p.planes.coeffs.numpy(), np.asarray(r.planes.coeffs), atol=1e-6)
+
+
+def test_model_facade_runs_the_slice_with_its_generator():
+    cfg = port.REFERENCE_YAML_CONFIG.replace(
+        max_points=8192, max_voxels=2048, cluster_capacity=512, max_clusters=8,
+        downsample_leaf_size=0.06, knn_band=256, knn_row_tile=256,
+    )
+    scene = make_scene(seed=3, spec=SceneSpec(n_ground=6000, n_rocks=2, points_per_rock=600,
+                                              n_noise=40))
+    cloud = port.Cloud.pad_to(scene.points[: cfg.max_points], cfg.max_points)
+    a = ObstacleDetectionModel(cfg, seed=1)(cloud)
+    b = ObstacleDetectionModel(cfg, seed=1)(cloud)
+    np.testing.assert_array_equal(a.grid.data.numpy(), b.grid.data.numpy())
+    assert a.grid.data.shape == (cfg.grid_height, cfg.grid_width)
+    assert int(a.stats.num_planes) >= 1 and int(a.stats.num_clusters) >= 1
+    assert np.isfinite(a.centroids.points.xyzr.numpy()).all()
+    assert 0 <= a.host_syncs < cfg.cluster_max_iters
+    with pytest.raises(ValueError):
+        ObstacleDetectionModel(cfg.replace(knn_backend="exact"))
+
+
+@pytest.mark.slow
+def test_flagship_crosscheck_case():
+    """The crosscheck script's "flagship" case through both packages."""
+    scene = make_scene(seed=0, spec=SceneSpec(n_ground=90_000, n_rocks=4, points_per_rock=2_000,
+                                              n_noise=500))
+    _crosscheck(ref_models.FLAGSHIP_CONFIG, scene.points, 5)
