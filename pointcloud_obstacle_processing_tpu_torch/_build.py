@@ -1,8 +1,9 @@
 """Builds and loads the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with ``ctypes``.  The
-build runs at first use, never at import, into ``_build/`` beside this file
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+runs at first use, never at import, into ``_build/`` beside this file
 (listed in ``.gitignore``); the library's name carries a hash of the sources
 and flags, so an edited source is rebuilt and a current one is reused.
 
@@ -27,7 +28,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "kernels", "check", "stream_handle", "require_cuda"]
+__all__ = ["LAUNCHES", "reset_launch_counts", "kernels", "check", "stream_handle", "require_cuda",
+           "resolve_device"]
 
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
@@ -36,11 +38,12 @@ _OUT = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 # kernel name -> launches since the last reset
-LAUNCHES = {"runreduce": 0, "compact_gather": 0, "knn_select": 0, "cluster_sweep": 0}
+LAUNCHES = {"runreduce": 0, "compact_gather": 0, "knn_select": 0, "cluster_sweep": 0,
+            "cluster_sweep_banded": 0}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -58,6 +61,10 @@ _SIGNATURES = {
                        _F, _VP, _VP],
     # px, py, pz, psq, valid, labels, c, tol2, out, stream
     "pcp_cluster_sweep": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _F, _VP, _VP],
+    # px, py, pz, psq, valid, labels, starts, tile_live, c, window, tol2,
+    # out, stream
+    "pcp_cluster_sweep_banded": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F,
+                                 _VP, _VP],
 }
 
 BUILD_SECONDS: list[float] = []  # wall time of each build this process ran
@@ -91,11 +98,18 @@ def kernels() -> ctypes.CDLL:
     if not lib_path.exists():
         _OUT.mkdir(exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        objs = [_OUT / f"{s.stem}.{os.getpid()}.o" for s in sources]
         t0 = time.perf_counter()
-        subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            check=True,
-        )
+        nvcc = _nvcc()
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)])
+                 for s, o in zip(sources, objs)]
+        failed = [str(s) for s, p in zip(sources, procs) if p.wait() != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}")
+        subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                       check=True)
+        for o in objs:
+            o.unlink()
         BUILD_SECONDS.append(time.perf_counter() - t0)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
@@ -114,6 +128,19 @@ def check(err: int, name: str) -> None:
 
 def stream_handle() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises if it names CUDA and no card
+    is present (the entry points default to the card and never fall back
+    to the CPU on their own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA device is present; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU"
+        )
+    return device
 
 
 def require_cuda(name: str, *tensors: torch.Tensor, dtypes=None) -> None:

@@ -262,11 +262,6 @@ class PipelineConfig:
             # without the voxel stage the reference switches the kNN to the
             # full-width 'approx' engine, which the port lacks
             raise ValueError("downsample_input_data=False is not ported")
-        if self.cluster_band_window > 0:
-            raise ValueError(
-                "cluster_band_window > 0 (the banded cluster sweep) is not "
-                "ported; set cluster_band_window=0 for the full sweep"
-            )
 
 
 # params.yaml:1-31 values — the configuration the robot actually shipped with.

@@ -106,8 +106,9 @@ extern "C" int pcp_knn_select(const float* px, const float* py, const float* pz,
   const int threads = 128;
   const size_t smem = static_cast<size_t>(width) * (4 * sizeof(float) + 1);
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(knn_select, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_select, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   dim3 grid(n_q / row_tile, (row_tile + threads - 1) / threads);
   knn_select<<<grid, threads, smem, s>>>(px, py, pz, psq, valid, starts, tile_live, n, n_q,

@@ -163,16 +163,18 @@ extern "C" int pcp_runreduce(const int* skey, const void* pay_a, const void* pay
   const int threads = w < 1024 ? w : 1024;
   const size_t smem = static_cast<size_t>(w) * 40;
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(rr_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        rr_scan, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   rr_scan<<<steps, threads, smem, s>>>(skey, pay_a, pay_b, static_cast<const float*>(pay_c),
                                        packed, quantum, n, w, sentinel, local, lastcol,
                                        first_head);
   const size_t smem2 = static_cast<size_t>(steps) * 20;
   if (smem2 > 48 * 1024) {
-    cudaFuncSetAttribute(rr_carry, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem2));
+    const cudaError_t err = cudaFuncSetAttribute(
+        rr_carry, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem2));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   rr_carry<<<1, 256, smem2, s>>>(lastcol, first_head, steps, w, carry);
   rr_scatter<<<n / 128, 128, 0, s>>>(skey, local, first_head, carry, excl, n, w, sentinel,

@@ -14,6 +14,7 @@ from typing import Any, Mapping, NamedTuple
 
 import numpy as np
 
+from . import _build
 from .config import PipelineConfig
 from .ops.transforms import RigidTransform
 from .types import Cloud
@@ -33,14 +34,16 @@ def from_reference(
     valid: np.ndarray | None = None,
     quat_xyzw: np.ndarray | None = None,
     translation: np.ndarray | None = None,
-    device="cpu",
+    device="cuda",
 ) -> ReferenceState:
     """Build the port's config, cloud and pose from the reference's state.
 
     Any part may be omitted (it comes back as None).  ``valid`` defaults to
     all-True for the given points; a pose needs both its quaternion and its
-    translation.
+    translation.  Tensors go to the card unless ``device`` says otherwise;
+    without a card this raises.
     """
+    device = _build.resolve_device(device)
     cfg = PipelineConfig(**dict(config)) if config is not None else None
     cloud = None
     if points is not None:

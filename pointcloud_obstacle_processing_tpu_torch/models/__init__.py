@@ -2,14 +2,16 @@
 
 Counterpart of ``pointcloud_obstacle_processing_tpu/models/__init__.py``.
 The presets are copied from it (``tests/test_torch_config_scene.py`` holds
-them equal).  ``REFERENCE_FULLSCALE_CONFIG`` is declared but refused by
-``PipelineConfig.validate`` until the banded cluster sweep is ported.
+them equal).  Both run on the card: ``FLAGSHIP_CONFIG`` through kernels
+K1-K4, ``REFERENCE_FULLSCALE_CONFIG`` through K1-K3 and the banded cluster
+sweep K5.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import _build
 from ..config import REFERENCE_YAML_CONFIG, PipelineConfig
 from ..pipeline import process_scan
 
@@ -37,7 +39,9 @@ FLAGSHIP_CONFIG = REFERENCE_YAML_CONFIG.replace(
 )
 
 # The full-scale reference workload: a 200-frame window at the shipped
-# 0.015 leaf.  It needs the banded cluster sweep, not ported yet.
+# 0.015 leaf: 2M points into 262 144 voxel slots, banded kNN (row tile 1024,
+# band 1280), a 16 384-point cluster buffer with the banded sweep (window
+# 4096, kernel K5).
 REFERENCE_FULLSCALE_CONFIG = REFERENCE_YAML_CONFIG.replace(
     max_points=2 * 1024 * 1024,
     max_voxels=262144,
@@ -55,13 +59,14 @@ REFERENCE_FULLSCALE_CONFIG = REFERENCE_YAML_CONFIG.replace(
 class ObstacleDetectionModel(torch.nn.Module):
     """Stateful facade over ``process_scan``: a validated config, a device,
     and a seeded generator for the RANSAC draws.  The pipeline has no
-    weights; the module holds no parameters."""
+    weights; the module holds no parameters.  It runs on the card unless
+    ``device`` says otherwise, and raises where there is no card."""
 
-    def __init__(self, config: PipelineConfig | None = None, device="cpu", seed: int = 0):
+    def __init__(self, config: PipelineConfig | None = None, device="cuda", seed: int = 0):
         super().__init__()
         self.config = config or FLAGSHIP_CONFIG
         self.config.validate()
-        self.device = torch.device(device)
+        self.device = _build.resolve_device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 

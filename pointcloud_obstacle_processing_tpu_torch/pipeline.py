@@ -8,7 +8,8 @@ Counterpart of ``pointcloud_obstacle_processing_tpu/pipeline.py``
 2. VoxelGrid downsample (sort engine, kernel K1)
 3. statistical outlier removal (banded kNN, kernel K3)
 4. iterative RANSAC plane removal
-5. compaction (kernel K2) + euclidean clustering (kernel K4) + centroids
+5. compaction (kernel K2) + euclidean clustering (full sweep, kernel K4;
+   banded sweep when ``cluster_band_window`` is set, kernel K5) + centroids
 6. shadow casting, 7. obstacle marking
 
 Every stage runs on the device of the input cloud.  The only host reads are
@@ -81,6 +82,9 @@ def _post_voxel(voxel_cloud: Cloud, n_voxels: torch.Tensor, hole_grid: torch.Ten
                 world_from_sensor: RigidTransform, draw: Draw,
                 voxel_overflow: torch.Tensor) -> PipelineResult:
     """Stages 3-8."""
+    # knn_skip_dead_tiles needs no code here: K3 and its plain version
+    # always write `big` for query tiles with no valid point, the output the
+    # reference's per-tile skip gives (those rows are masked downstream)
     outl = remove_statistical_outliers(
         voxel_cloud,
         config.statistical_outlier_mean_k,
@@ -97,6 +101,7 @@ def _post_voxel(voxel_cloud: Cloud, n_voxels: torch.Tensor, hole_grid: torch.Ten
         config.euc_max_cluster_size,
         config.max_clusters,
         config.cluster_max_iters,
+        band_window=config.cluster_band_window,
     )
     centroids = cluster_centroids(comp.cloud, clus.clusters)
     shadows = cast_shadows(hole_grid, comp.cloud, clus.clusters, world_from_sensor, config)

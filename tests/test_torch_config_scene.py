@@ -60,7 +60,7 @@ def test_config_from_dict_copy_matches_reference():
         dict(knn_backend="exact"),
         dict(knn_backend="approx"),
         dict(knn_backend="banded_approx"),
-        dict(cluster_band_window=128),
+        dict(cluster_band_window=4096, cluster_capacity=4104),  # band needs 128-multiple capacity
         dict(downsample_input_data=False),
     ],
 )
@@ -73,8 +73,46 @@ def test_validate_refuses_unported_engines(override):
 def test_validate_accepts_the_ported_slice():
     port_models.FLAGSHIP_CONFIG.validate()
     port_models.FLAGSHIP_CONFIG.replace(voxel_payload_packing=False).validate()
-    with pytest.raises(ValueError):  # needs the banded cluster sweep
-        port_models.REFERENCE_FULLSCALE_CONFIG.validate()
+    port_models.REFERENCE_FULLSCALE_CONFIG.validate()  # the fullscale preset validates
+
+
+def test_fullscale_lattice_fits_the_sort_engine():
+    """The fullscale crop box at the 0.015 leaf packs into 302 x 254 x 52 =
+    3,988,816 bins: at most 2^23, so the sort engine applies, and below
+    2^24, so K1's float32 key channel is exact.  The port refuses larger
+    lattices rather than lose key bits."""
+    from pointcloud_obstacle_processing_tpu.ops.voxel import _pack_spec as ref_pack_spec
+
+    from pointcloud_obstacle_processing_tpu_torch.ops import voxel
+
+    cfg = port_models.REFERENCE_FULLSCALE_CONFIG
+    bounds = ((cfg.x_min, cfg.y_min, cfg.z_min), (cfg.x_max, cfg.y_max, cfg.z_max))
+    imin, dims = voxel._pack_spec(bounds, cfg.downsample_leaf_size)
+    assert (imin, dims) == ref_pack_spec(bounds, cfg.downsample_leaf_size)
+    assert dims == [302, 254, 52]
+    bins = dims[0] * dims[1] * dims[2]
+    assert bins == 3_988_816 and bins <= 2**23 and bins < 2**24
+    cloud = port.Cloud.from_points(np.zeros((128, 3), np.float32), device="cpu")
+    big = ((0.0, 0.0, -0.5), (9.0, 7.56, 0.25))  # 4x the bins: past 2^23
+    with pytest.raises(ValueError, match="2\\^23"):
+        voxel.voxel_partials(cloud, cfg.downsample_leaf_size, 1024, big)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """The model and ``from_reference`` run on the card unless told
+    otherwise; with no card they raise rather than run on the CPU."""
+    import inspect
+
+    import torch
+
+    assert inspect.signature(port_models.ObstacleDetectionModel).parameters["device"].default == "cuda"
+    assert inspect.signature(port.from_reference).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_models.ObstacleDetectionModel()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.from_reference(points=np.zeros((4, 3), np.float32))
+    assert port_models.ObstacleDetectionModel(device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("seed,nan_frac", [(0, 0.0), (11, 0.01)])
@@ -121,12 +159,12 @@ def test_from_reference_carries_config_cloud_and_pose():
     valid = rng.random(256) < 0.7
     q = np.array([0.0, 0.0, 0.38268343, 0.92387953], np.float32)
     t = np.array([1.0, -2.0, 0.5], np.float32)
-    st = port.from_reference(dataclasses.asdict(cfg), pts, valid, q, t)
+    st = port.from_reference(dataclasses.asdict(cfg), pts, valid, q, t, device="cpu")
     assert dataclasses.asdict(st.config) == dataclasses.asdict(cfg)
     np.testing.assert_array_equal(st.cloud.points.numpy(), pts)
     np.testing.assert_array_equal(st.cloud.valid.numpy(), valid)
     np.testing.assert_array_equal(st.pose.quat_xyzw.numpy(), q)
     np.testing.assert_array_equal(st.pose.translation.numpy(), t)
-    assert port.from_reference().cloud is None
+    assert port.from_reference(device="cpu").cloud is None
     with pytest.raises(ValueError):
-        port.from_reference(quat_xyzw=q)
+        port.from_reference(quat_xyzw=q, device="cpu")

@@ -33,6 +33,57 @@ def _eq(a, b):
     assert torch.equal(a.cpu(), b.cpu())
 
 
+# offsets of the probe's d2 from tol2, in float32 ulps
+TOL2_PROBE_OFFSETS = (-8, -2, -1, 0, 1, 2, 8)
+
+
+def _d2_unfused(q, c):
+    """The sweeps' expanded d2 in float32, each product and sum rounded
+    (numpy does not contract); ``c`` may be a stack of candidates."""
+    q_sq = (q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]
+    c_sq = (c[..., 0] * c[..., 0] + c[..., 1] * c[..., 1]) + c[..., 2] * c[..., 2]
+    cross = (q[0] * c[..., 0] + q[1] * c[..., 1]) + q[2] * c[..., 2]
+    return (q_sq + c_sq) - np.float32(2.0) * cross
+
+
+def near_threshold_pairs(tol2: float, capacity: int = 256, bases: int = 6, seed: int = 0):
+    """Point pairs whose expanded d2 lies exactly ``TOL2_PROBE_OFFSETS`` ulps
+    from float32(tol2).
+
+    Each pair is its own buffer: a point q near the origin in row 0 (small
+    |p| keeps the d2 grid fine) and a point c about the tolerance away in
+    row 1, found by stepping c's x and y by single ulps; every other row is
+    invalid at 0.  Returns (points [P, capacity, 3], valid [capacity],
+    labels [capacity] (each row its own), offsets [P])."""
+    rng = np.random.default_rng(seed)
+    t2 = np.float32(tol2)
+    targets = {}
+    for k in TOL2_PROBE_OFFSETS:
+        v = t2
+        for _ in range(abs(k)):
+            v = np.nextafter(v, np.float32(np.inf if k > 0 else -np.inf))
+        targets[v.item()] = k
+    steps = np.arange(-64, 65, dtype=np.int32)
+    bufs, offsets = [], []
+    for _ in range(bases):
+        q = rng.uniform(-0.05, 0.05, 3).astype(np.float32)
+        u = rng.normal(size=3)
+        c0 = (q + np.sqrt(tol2) * u / np.linalg.norm(u)).astype(np.float32)
+        cand = np.repeat(c0[None, None, :], len(steps), axis=0).repeat(len(steps), axis=1)
+        cand[..., 0] = (c0[0:1].view(np.int32) + steps[:, None]).view(np.float32)
+        cand[..., 1] = (c0[1:2].view(np.int32) + steps[None, :]).view(np.float32)
+        d2 = _d2_unfused(q, cand)
+        for v, k in targets.items():
+            hit = np.argwhere(d2 == np.float32(v))
+            if len(hit):
+                buf = np.zeros((capacity, 3), np.float32)
+                buf[0], buf[1] = q, cand[tuple(hit[0])]
+                bufs.append(buf)
+                offsets.append(k)
+    valid = np.arange(capacity) < 2
+    return np.stack(bufs), valid, np.arange(capacity, dtype=np.int32), np.array(offsets)
+
+
 @pytest.mark.parametrize(
     "n,n_runs,n_valid,cap,packed,group",
     [
@@ -107,6 +158,49 @@ def test_cluster_sweep_kernel_equals_plain(dev, c, n_valid):
     _eq(cluster.sweep_jump(p, valid, labels, 0.16), cluster.sweep_jump_plain(p, valid, labels, 0.16))
 
 
+@pytest.mark.parametrize(
+    "c,n_valid,window,gated",
+    [
+        (16384, 7000, 4096, False),  # the fullscale shape, every tile live
+        (16384, 7000, 4096, True),  # the same with a random tile_live
+        (1024, 1024, 128, True),  # no padding tile; the smallest window
+        (640, 500, 512, False),
+    ],
+)
+def test_cluster_sweep_banded_kernel_equals_plain(dev, c, n_valid, window, gated):
+    rng = np.random.default_rng(c + window)
+    pts = rng.uniform([-2.2, -1.9, -0.3], [2.2, 1.9, 0.3], (c, 3)).astype(np.float32)
+    pts = pts[np.argsort(pts[:, 0], kind="stable")]
+    valid = torch.tensor(np.arange(c) < n_valid, device=dev)
+    p = torch.where(valid[:, None], torch.tensor(pts, device=dev), 0.0)
+    lab = np.arange(c, dtype=np.int32)
+    lab[:n_valid] = rng.integers(0, np.arange(n_valid) + 1)
+    labels = torch.tensor(lab, device=dev)
+    starts, _ = cluster.band_starts(p, valid, 128, window, 0.4)
+    live = torch.tensor(rng.random(c // 128) < 0.5, device=dev) if gated else None
+    before = _build.LAUNCHES["cluster_sweep_banded"]
+    got = cluster.sweep_jump_banded(p, valid, labels, 0.16, 128, window, starts, live)
+    assert _build.LAUNCHES["cluster_sweep_banded"] == before + 1
+    _eq(got, cluster.sweep_jump_banded_plain(p, valid, labels, 0.16, 128, window, starts, live))
+
+
+def test_sweep_kernels_on_near_threshold_pairs(dev):
+    """K4 and K5 make the plain versions' adjacency decision on pairs whose
+    d2 lies within 8 ulps of tol2."""
+    tol2 = 0.4 ** 2
+    pts, valid, labels, offsets = near_threshold_pairs(tol2)
+    v = torch.tensor(valid, device=dev)
+    lab = torch.tensor(labels, device=dev)
+    starts = torch.zeros(pts.shape[1] // 128, dtype=torch.int32, device=dev)
+    for k in range(pts.shape[0]):
+        p = torch.tensor(pts[k], device=dev)
+        full = cluster.sweep_jump(p, v, lab, tol2)
+        _eq(full, cluster.sweep_jump_plain(p, v, lab, tol2))
+        band = cluster.sweep_jump_banded(p, v, lab, tol2, 128, 128, starts)
+        _eq(band, cluster.sweep_jump_banded_plain(p, v, lab, tol2, 128, 128, starts))
+        assert int(band[1]) == (0 if offsets[k] <= 0 else 1)
+
+
 def test_wrappers_refuse_bad_operands(dev):
     k = torch.zeros(1024, dtype=torch.int64, device=dev)
     with pytest.raises(TypeError):
@@ -123,12 +217,20 @@ def test_wrappers_refuse_bad_operands(dev):
     starts = torch.zeros(4, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):  # validity mask of the wrong length
         outliers.knn_select(ch, ch[0], v[:256], starts, 128, 256)
+    lab = torch.zeros(512, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # a window that is not a multiple of 128
+        cluster.sweep_jump_banded(p, v, lab, 0.16, 128, 192, starts)
+    with pytest.raises(ValueError):  # a window as wide as the buffer
+        cluster.sweep_jump_banded(p, v, lab, 0.16, 128, 512, starts)
+    with pytest.raises(TypeError):  # int64 starts
+        cluster.sweep_jump_banded(p, v, lab, 0.16, 128, 256, starts.long())
 
 
-def test_slice_on_the_card_equals_cpu(dev):
+@pytest.mark.parametrize("band_window", [0, 512])
+def test_slice_on_the_card_equals_cpu(dev, band_window):
     cfg = REFERENCE_YAML_CONFIG.replace(
         max_points=32768, max_voxels=8192, cluster_capacity=2048, max_clusters=16,
-        downsample_leaf_size=0.06, voxel_payload_packing=True,
+        downsample_leaf_size=0.06, voxel_payload_packing=True, cluster_band_window=band_window,
     )
     scene = make_scene(seed=11, spec=SceneSpec(n_ground=24000, n_rocks=3, points_per_rock=1500,
                                                n_noise=150))
@@ -136,11 +238,14 @@ def test_slice_on_the_card_equals_cpu(dev):
     u = np.random.default_rng(0).random((cfg.max_planes, cfg.ransac_hypotheses, 3)).astype(np.float32)
     _build.reset_launch_counts()
     a = process_scan(cloud.to(dev), cfg, draw=draw_from_uniform(torch.tensor(u, device=dev)))
-    assert all(v > 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
+    sweep = "cluster_sweep_banded" if band_window else "cluster_sweep"
+    path = ("runreduce", "compact_gather", "knn_select", sweep)
+    assert all(_build.LAUNCHES[k] > 0 for k in path), _build.LAUNCHES
     b = process_scan(cloud, cfg, draw=draw_from_uniform(torch.tensor(u)))
     _eq(a.grid.data, b.grid.data)
     for f in ("voxel_points", "inlier_points", "nonplane_points", "num_planes", "num_clusters",
-              "voxel_overflow", "cluster_overflow", "planes_truncated", "cluster_unconverged"):
+              "voxel_overflow", "cluster_overflow", "cluster_band_overflow", "planes_truncated",
+              "cluster_unconverged"):
         assert getattr(a.stats, f).item() == getattr(b.stats, f).item(), f
     np.testing.assert_allclose(a.centroids.points.xyzr.cpu().numpy(),
                                b.centroids.points.xyzr.numpy(), atol=1e-5)

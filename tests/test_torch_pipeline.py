@@ -20,6 +20,7 @@ from pointcloud_obstacle_processing_tpu.utils.scene import SceneSpec, make_scene
 
 import pointcloud_obstacle_processing_tpu_torch as port
 from pointcloud_obstacle_processing_tpu_torch.models import ObstacleDetectionModel
+from pointcloud_obstacle_processing_tpu_torch.ops import cluster as port_cluster
 from pointcloud_obstacle_processing_tpu_torch.pipeline import process_scan
 
 # the small config of tests/test_pipeline.py
@@ -43,7 +44,7 @@ def _crosscheck(ref_cfg, scene_pts, key_seed):
     valid = np.arange(n) < len(pts)
     key = jax.random.PRNGKey(key_seed)
     r = jit_pipeline(ref_cfg)(ref.Cloud.from_points(buf, valid), key)
-    st = port.from_reference(dataclasses.asdict(ref_cfg), buf, valid)
+    st = port.from_reference(dataclasses.asdict(ref_cfg), buf, valid, device="cpu")
     st.config.validate()
     p = process_scan(st.cloud, st.config,
                      draw=jax_key_chain_draw(key, ref_cfg.ransac_hypotheses))
@@ -84,15 +85,54 @@ def test_model_facade_runs_the_slice_with_its_generator():
     scene = make_scene(seed=3, spec=SceneSpec(n_ground=6000, n_rocks=2, points_per_rock=600,
                                               n_noise=40))
     cloud = port.Cloud.pad_to(scene.points[: cfg.max_points], cfg.max_points)
-    a = ObstacleDetectionModel(cfg, seed=1)(cloud)
-    b = ObstacleDetectionModel(cfg, seed=1)(cloud)
+    a = ObstacleDetectionModel(cfg, device="cpu", seed=1)(cloud)
+    b = ObstacleDetectionModel(cfg, device="cpu", seed=1)(cloud)
     np.testing.assert_array_equal(a.grid.data.numpy(), b.grid.data.numpy())
     assert a.grid.data.shape == (cfg.grid_height, cfg.grid_width)
     assert int(a.stats.num_planes) >= 1 and int(a.stats.num_clusters) >= 1
     assert np.isfinite(a.centroids.points.xyzr.numpy()).all()
     assert 0 <= a.host_syncs < cfg.cluster_max_iters
     with pytest.raises(ValueError):
-        ObstacleDetectionModel(cfg.replace(knn_backend="exact"))
+        ObstacleDetectionModel(cfg.replace(knn_backend="exact"), device="cpu")
+
+
+def test_slice_with_banded_cluster_sweep_meets_crosscheck_bar():
+    """The small config with a 512-column band over its 2048-point cluster
+    buffer: the banded sweep, its frontier gating and its overflow flag."""
+    scene = make_scene(seed=11, spec=SPEC, nan_frac=0.01)
+    r, p = _crosscheck(CFG.replace(cluster_band_window=512, voxel_payload_packing=True),
+                       scene.points, 0)
+    assert int(p.stats.num_clusters) >= 3
+    np.testing.assert_array_equal(np.asarray(r.clusters.point_cluster),
+                                  p.clusters.point_cluster.numpy())
+
+
+@pytest.mark.slow
+def test_fullscale_knobs_crosscheck_case(monkeypatch):
+    """The fullscale preset's knobs (0.015 leaf, kNN row tile 1024 and band
+    1280, a 16384-point cluster buffer with the 4096-column band) on a
+    quarter of the arena's x extent at authentic density (the window of
+    tests/test_outliers.py: 524,288 points into 49,152 voxel slots),
+    through both packages."""
+    from pointcloud_obstacle_processing_tpu.models import REFERENCE_FULLSCALE_CONFIG as f
+
+    cfg = f.replace(x_max=f.x_max / 4, max_points=524288, max_voxels=49152)
+    spec = SceneSpec(x_max=cfg.x_max, n_ground=230_000 // 4, n_rocks=2, points_per_rock=3_000,
+                     n_noise=500, n_craters=1)
+    base = make_scene(seed=11, spec=spec).points
+    jit_rng = np.random.default_rng(3)
+    pts = np.concatenate([base + jit_rng.normal(0, 0.003, base.shape).astype(np.float32)
+                          for _ in range(8)])
+    banded_sweeps = []
+    sweep = port_cluster.sweep_jump_banded
+    monkeypatch.setattr(port_cluster, "sweep_jump_banded",
+                        lambda *a: banded_sweeps.append(1) or sweep(*a))
+    r, p = _crosscheck(cfg, pts, 42)
+    assert banded_sweeps and int(p.stats.nonplane_points) > 500
+    for k in ("voxel_overflow", "cluster_overflow", "cluster_band_overflow"):
+        assert not bool(getattr(p.stats, k)), k
+    np.testing.assert_array_equal(np.asarray(r.clusters.point_cluster),
+                                  p.clusters.point_cluster.numpy())
 
 
 @pytest.mark.slow
