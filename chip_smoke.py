@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: the flagship scan and the
-fullscale 2M-point window.
+"""Smoke run of the PyTorch port on one CUDA card: the flagship scan, the
+fullscale 2M-point window, and the segmented scan and weighted binning
+entry points.
 
     python3 chip_smoke.py
 
@@ -27,6 +28,15 @@ Phases (any failure raises and exits non-zero before the last line):
    checks that K1, K2, K3 and K5 were launched and that no overflow flag is
    set, and compares it with the same window through the plain versions on
    the CPU by the same bar.  Times a few scans (p50) and counts host syncs.
+5. The two entry points off the pipeline, each driven with the counts from
+   0: ``segmented_inclusive_scan`` (K6) at [4, 131,072] (the reference's
+   Pallas shape) and [4, 2,097,152] (the fullscale buffer) with heads from a
+   sorted key buffer, held against the plain version in bit patterns; and
+   ``binned_weighted_sum`` (K7) at N = 131,072, k = 214,000, C = 4 (x, y, z
+   weights and a unit count channel), 90% valid, held against the plain
+   version with counts exact and sums within the float32 reordering bound.
+   Times each with CUDA events beside its bound and, for K7, the library's
+   ``index_add_``.
 
 Its last line is ``{"ok": true, "device": {...}}``; the line before it is
 the JSON list of kernels, one entry per kernel and path, with launches on
@@ -54,6 +64,8 @@ SCENE_SEEDS = (0, 1, 2)
 TIMED_SCANS = 20
 FULLSCALE_POINTS = 2_097_152
 FULLSCALE_TIMED_SCANS = 5
+SEGSCAN_N = 131_072  # the reference's Pallas shape for the segmented scan
+BINNING_N, BINNING_K = 131_072, 214_000  # the binning kernel's documented shape
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes per second and float32 operations per second outside the tensor
@@ -219,16 +231,17 @@ def _cluster_buffer(dev, rng, c, n_valid, spread):
 
 def check_k4(dev, rng, path, c, n_valid, tol2):
     """K4 on a centered cluster buffer with chained labels."""
-    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster, sum_sq3
 
     p, valid, labels = _cluster_buffer(dev, rng, c, n_valid, 3.0)
     err = _assert_equal(f"K4 cluster_sweep {path}", cluster.sweep_jump(p, valid, labels, tol2),
                         cluster.sweep_jump_plain(p, valid, labels, tol2))
+    p_sq = sum_sq3(*p.T)  # the cluster loop computes it once for all its sweeps
     return _row(
         "cluster_sweep", path, f"C {c}, {n_valid} valid",
         "cluster_sweep.cu", "cluster.py:86", err,
-        _time_ms(lambda: cluster.sweep_jump(p, valid, labels, tol2)),
-        _time_ms(lambda: cluster.sweep_jump_plain(p, valid, labels, tol2)),
+        _time_ms(lambda: cluster.sweep_jump(p, valid, labels, tol2, p_sq)),
+        _time_ms(lambda: cluster.sweep_jump_plain(p, valid, labels, tol2, p_sq)),
         _bound(c * 21 + c * 4, n_valid * c * D2_OPS),
     )
 
@@ -238,16 +251,17 @@ def check_k5(dev, rng, path, c, n_valid, window, tolerance):
     with a seeded random tile_live; starts from ``band_starts``."""
     import torch
 
-    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster, sum_sq3
 
     p, valid, labels = _cluster_buffer(dev, rng, c, n_valid, 4.5)
+    p_sq = sum_sq3(*p.T)  # the cluster loop computes it once for all its sweeps
     tol2 = tolerance ** 2
     starts, _ = cluster.band_starts(p, valid, 128, window, tolerance)
     has_valid = valid.reshape(c // 128, 128).any(dim=1)
     rows = []
     for gated in (False, True):
         live = torch.tensor(rng.random(c // 128) < 0.5, device=dev) if gated else None
-        args = (p, valid, labels, tol2, 128, window, starts, live)
+        args = (p, valid, labels, tol2, 128, window, starts, live, p_sq)
         err = _assert_equal(f"K5 cluster_sweep_banded {path} gated={gated}",
                             cluster.sweep_jump_banded(*args), cluster.sweep_jump_banded_plain(*args))
         computed = int((has_valid & live).sum()) if gated else int(has_valid.sum())
@@ -261,6 +275,95 @@ def check_k5(dev, rng, path, c, n_valid, window, tolerance):
             _bound(c * 21 + (c // 128) * 5 + c * 4, computed * 128 * window * D2_OPS),
         ))
     return rows
+
+
+def _sorted_key_heads(rng, n: int, n_keys: int) -> np.ndarray:
+    keys = np.sort(rng.integers(0, n_keys, n))
+    return np.concatenate([[True], keys[1:] != keys[:-1]])
+
+
+def run_segscan_binning(dev, card: str) -> tuple[list[dict], dict]:
+    """Phase 5: K6 and K7 through their entry points.  Returns the kernel
+    rows and the launches of each path."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import _build
+    from pointcloud_obstacle_processing_tpu_torch.ops import binning, segscan
+
+    rng = np.random.default_rng(3)
+    scans = []
+    for n in (SEGSCAN_N, FULLSCALE_POINTS):
+        v = rng.standard_normal((4, n)).astype(np.float32)
+        v[:, rng.random(n) < 0.01] = -0.0
+        heads = _sorted_key_heads(rng, n, n // 12)
+        scans.append((torch.tensor(v, device=dev), torch.tensor(heads, device=dev)))
+    n, k, c = BINNING_N, BINNING_K, 4
+    ids = torch.tensor(rng.integers(0, k, n).astype(np.int32), device=dev)
+    weights = torch.tensor(np.concatenate(
+        [rng.uniform(-4.5, 4.5, (n, 3)), np.ones((n, 1))], axis=1).astype(np.float32), device=dev)
+    valid = torch.tensor(rng.random(n) < 0.9, device=dev)
+
+    # the two paths: counts from 0, then read
+    launches = {}
+    _build.reset_launch_counts()
+    scanned = [segscan.segmented_inclusive_scan(v, h) for v, h in scans]
+    torch.cuda.synchronize()
+    launches["segscan"] = dict(_build.LAUNCHES)
+    _build.reset_launch_counts()
+    binned = binning.binned_weighted_sum(ids, weights, valid, k)
+    torch.cuda.synchronize()
+    launches["binning"] = dict(_build.LAUNCHES)
+    for path, name in (("segscan", "segscan"), ("binning", "binned_sum")):
+        if launches[path][name] <= 0:
+            raise AssertionError(f"kernel {name} not launched on the {path} path")
+
+    rows = []
+    for (v, h), out in zip(scans, scanned):
+        c_, n_ = v.shape
+        plain = segscan.segmented_inclusive_scan_plain(v, h)
+        if not torch.isfinite(out).all():
+            raise AssertionError("K6: non-finite output on finite input")
+        err = _assert_equal(f"K6 segscan [{c_}, {n_}] (bit patterns)",
+                            out.view(torch.int32), plain.view(torch.int32))
+        steps = len(segscan.scan_steps(n_))
+        rows.append(_row(
+            "segscan", "segscan", f"[{c_}, {n_}] float32, {steps} steps, "
+            f"{int(h.sum())} segments", "segscan.cu", "segscan.py:59", err,
+            _time_ms(lambda: segscan.segmented_inclusive_scan(v, h)),
+            _time_ms(lambda: segscan.segmented_inclusive_scan_plain(v, h)),
+            _bound(c_ * n_ * 8 + n_, steps * c_ * n_),
+        ))
+
+    plain = binning.binned_weighted_sum_plain(ids, weights, valid, k)
+    if not torch.equal(binned[:, 3], plain[:, 3]):
+        raise AssertionError("K7: counts differ from the plain version")
+    keep = valid & (ids < k)
+    if not torch.equal(binned[:, 3], torch.bincount(ids[keep].long(), minlength=k).float()):
+        raise AssertionError("K7: counts differ from the member counts")
+    bound = binning.reordering_bound(ids, weights, valid, k)
+    diff = (binned.double() - plain.double()).abs()
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"K7: sums differ from the plain version beyond the bound "
+                             f"(max |d| {diff.max().item()})")
+    rows_k = ids[keep].long()
+    terms = binning.weight_terms(weights[keep], True)
+    rows_k2, terms2 = torch.cat([rows_k, rows_k]), torch.cat(terms)
+    n_terms = int(sum((t != 0).sum() for t in terms))  # adds the kernel makes
+    rows.append(_row(
+        "binned_sum", "binning", f"N {n}, k {k}, C {c}, {int(keep.sum())} valid rows, exact_f32",
+        "binning.cu", "pallas_binning.py:52", diff.max().item(),
+        _time_ms(lambda: binning.binned_weighted_sum(ids, weights, valid, k)),
+        _time_ms(lambda: binning.binned_weighted_sum_plain(ids, weights, valid, k)),
+        _bound(n * (4 + 4 * c + 1) + k * c * 4, n_terms),
+        library_ms=_time_ms(lambda: torch.zeros(k, c, device=dev).index_add_(0, rows_k2, terms2)),
+    ))
+    for r in rows:
+        print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: "
+              f"{'bit patterns equal' if r['name'] == 'segscan' else 'counts exact, sums within bound'}"
+              f" to plain (max |d| {r['max_abs_err']:.3g}); {r['ms']:.4f} ms vs plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+              f"{r['library_ms']} ms; launches on the path {launches[r['path']][r['name']]} [{card}]")
+    return rows, launches
 
 
 def check_kernels(dev, card: str) -> list[dict]:
@@ -511,6 +614,9 @@ def main() -> None:
 
     rows = check_kernels(dev, card)
     launches = {"flagship": run_flagship(dev, card), "fullscale": run_fullscale(dev, card)}
+    more_rows, more_launches = run_segscan_binning(dev, card)
+    rows += more_rows
+    launches.update(more_launches)
 
     for r in rows:
         r["launches"] = launches[r["path"]][r["name"]]

@@ -43,7 +43,7 @@ NVCC_FLAGS = [
 
 # kernel name -> launches since the last reset
 LAUNCHES = {"runreduce": 0, "compact_gather": 0, "knn_select": 0, "cluster_sweep": 0,
-            "cluster_sweep_banded": 0}
+            "cluster_sweep_banded": 0, "segscan": 0, "binned_sum": 0}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -65,6 +65,10 @@ _SIGNATURES = {
     # out, stream
     "pcp_cluster_sweep_banded": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F,
                                  _VP, _VP],
+    # values, heads, c, n, out, scratch, flags, stream
+    "pcp_segscan": [_VP, _VP, _I, _I, _VP, _VP, _VP, _VP],
+    # ids, weights, valid, n, c, k, exact, out, stream
+    "pcp_binned_sum": [_VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP],
 }
 
 BUILD_SECONDS: list[float] = []  # wall time of each build this process ran

@@ -14,3 +14,30 @@ def f32(value: float) -> torch.Tensor:
     for the stream.
     """
     return torch.tensor(np.float32(value))
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` in float32 with one rounding.
+
+    XLA:CPU contracts a multiply that feeds an add into a fused
+    multiply-add, so the reference evaluates many of its float32 sums of
+    products this way; the port writes out each such chain where a decision
+    or a bitwise result depends on it.  The float64 product of two float32
+    values is exact and the float64 sum rounds only when the addends lie
+    far apart in magnitude, so rounding the sum to float32 once gives the
+    fused result except in rare double-rounding ties.  The same float64
+    operations run on every device, so the CPU and the card agree bit for
+    bit."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def sum_sq3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``jnp.sum(p * p, axis=-1)`` over (x, y, z) as XLA:CPU evaluates it:
+    the reduction's chain ``fma(z, z, fma(y, y, x * x))``."""
+    return fma(z, z, fma(y, y, x * x))
+
+
+def add_sq3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The written-out ``x*x + y*y + z*z`` as XLA:CPU evaluates it: the
+    first product fused into the first add, ``fma(z, z, fma(x, x, y * y))``."""
+    return fma(z, z, fma(x, x, y * y))

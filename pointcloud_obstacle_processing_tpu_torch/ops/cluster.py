@@ -35,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import f32
+from . import add_sq3, f32, fma, sum_sq3
 from .. import _build
 from ..types import Cloud, ClusterSet, PointIndicesArray, PointWithRad
 
@@ -53,17 +53,18 @@ __all__ = [
 BAND_TILE = 128  # query rows per tile of the banded sweep
 
 
-def _sq3(x, y, z):
-    """x*x + y*y + z*z, left to right (the reference's 3-term sums)."""
-    return x * x + y * y + z * z
+def _norms(p, p_sq):
+    """|p|^2 as the reference's sweeps compute it, unless given (it does
+    not change across the sweeps of one clustering)."""
+    return sum_sq3(p[:, 0], p[:, 1], p[:, 2]) if p_sq is None else p_sq
 
 
-def sweep_jump_plain(p, valid, labels, tol2: float) -> torch.Tensor:
+def sweep_jump_plain(p, valid, labels, tol2: float, p_sq=None) -> torch.Tensor:
     """Plain PyTorch version of kernel K4 (the reference's ``_xla_sweep_jump``
     contract): min over {label[i]} ∪ {label_col[label[i]]} ∪ neighbours."""
     n = p.shape[0]
     x, y, z = p[:, 0], p[:, 1], p[:, 2]
-    p_sq = _sq3(x, y, z)
+    p_sq = _norms(p, p_sq)
     t2 = f32(tol2)
     labels_col = torch.where(valid, labels, n)
     col_ids = torch.arange(n, device=p.device)
@@ -79,16 +80,18 @@ def sweep_jump_plain(p, valid, labels, tol2: float) -> torch.Tensor:
     return out
 
 
-def sweep_jump(p, valid, labels, tol2: float) -> torch.Tensor:
+def sweep_jump(p, valid, labels, tol2: float, p_sq=None) -> torch.Tensor:
     """One fused neighbour-min + pointer-jump sweep: kernel K4 for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors.  ``p_sq``: |p|^2 as
+    ``ops.sum_sq3`` gives it, computed here when not given."""
     if p.device.type == "cpu":
-        return sweep_jump_plain(p, valid, labels, tol2)
+        return sweep_jump_plain(p, valid, labels, tol2, p_sq)
     n = p.shape[0]
-    if p.shape != (n, 3) or valid.shape != (n,) or labels.shape != (n,):
-        raise ValueError("sweep_jump: points [C, 3], valid [C] and labels [C]")
+    if p.shape != (n, 3) or valid.shape != (n,) or labels.shape != (n,) or \
+            (p_sq is not None and p_sq.shape != (n,)):
+        raise ValueError("sweep_jump: points [C, 3], valid [C], labels [C] and p_sq [C]")
     x, y, z = (p[:, c].contiguous() for c in range(3))
-    p_sq = _sq3(x, y, z)
+    p_sq = _norms(p, p_sq).contiguous()
     _build.require_cuda("sweep_jump", x, y, z, p_sq, valid, labels,
                         dtypes=[torch.float32] * 4 + [torch.bool, torch.int32])
     lib = _build.kernels()
@@ -132,7 +135,7 @@ def band_starts(p, valid, tile: int, window: int, tolerance: float):
 
 
 def sweep_jump_banded_plain(p, valid, labels, tol2: float, tile: int, window: int, starts,
-                            tile_live=None) -> torch.Tensor:
+                            tile_live=None, p_sq=None) -> torch.Tensor:
     """Plain PyTorch version of kernel K5 (the reference's
     ``_xla_sweep_jump_banded`` contract): for row i of tile t,
     ``min(labels[i], labels_col[j])`` over the window columns j in
@@ -143,7 +146,7 @@ def sweep_jump_banded_plain(p, valid, labels, tol2: float, tile: int, window: in
     tiles = n // tile
     dev = p.device
     x, y, z = p[:, 0], p[:, 1], p[:, 2]
-    p_sq = _sq3(x, y, z)
+    p_sq = _norms(p, p_sq)
     t2 = f32(tol2)
     labels_col = torch.where(valid, labels, n)
     w_ids = torch.arange(window, device=dev)
@@ -165,7 +168,7 @@ def sweep_jump_banded_plain(p, valid, labels, tol2: float, tile: int, window: in
 
 
 def sweep_jump_banded(p, valid, labels, tol2: float, tile: int, window: int, starts,
-                      tile_live=None) -> torch.Tensor:
+                      tile_live=None, p_sq=None) -> torch.Tensor:
     """One banded neighbour-min + in-window pointer-jump sweep: kernel K5 for
     CUDA tensors, the plain version for CPU tensors.
 
@@ -176,7 +179,8 @@ def sweep_jump_banded(p, valid, labels, tol2: float, tile: int, window: int, sta
     reads the same minima (the reference's skip note,
     ``_pallas_sweep_jump_banded``)."""
     if p.device.type == "cpu":
-        return sweep_jump_banded_plain(p, valid, labels, tol2, tile, window, starts, tile_live)
+        return sweep_jump_banded_plain(p, valid, labels, tol2, tile, window, starts, tile_live,
+                                       p_sq)
     n = p.shape[0]
     if tile != BAND_TILE or n % tile or window % 128 or not tile <= window < n:
         raise ValueError(
@@ -186,11 +190,12 @@ def sweep_jump_banded(p, valid, labels, tol2: float, tile: int, window: int, sta
         )
     tiles = n // tile
     if p.shape != (n, 3) or valid.shape != (n,) or labels.shape != (n,) or \
-            starts.shape != (tiles,) or (tile_live is not None and tile_live.shape != (tiles,)):
-        raise ValueError("sweep_jump_banded: points [C, 3], valid and labels [C], "
+            starts.shape != (tiles,) or (tile_live is not None and tile_live.shape != (tiles,)) or \
+            (p_sq is not None and p_sq.shape != (n,)):
+        raise ValueError("sweep_jump_banded: points [C, 3], valid, labels and p_sq [C], "
                          "starts and tile_live [C / 128]")
     x, y, z = (p[:, c].contiguous() for c in range(3))
-    p_sq = _sq3(x, y, z)
+    p_sq = _norms(p, p_sq).contiguous()
     ops = [x, y, z, p_sq, valid, labels, starts]
     dtypes = [torch.float32] * 4 + [torch.bool, torch.int32, torch.int32]
     if tile_live is not None:
@@ -246,9 +251,10 @@ def euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: i
     # real edges; seed each run with its head index
     prev = torch.cat([p[:1], p[:-1]])
     dp = p - prev
-    gap2 = _sq3(dp[:, 0], dp[:, 1], dp[:, 2])
+    gap2 = sum_sq3(dp[:, 0], dp[:, 1], dp[:, 2])
     prev_valid = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), valid[:-1]])
-    maxsq = torch.where(valid, _sq3(p[:, 0], p[:, 1], p[:, 2]), 0.0).max()
+    p_sq = _norms(p, None)  # the sweeps' |p|^2, fixed for the whole loop
+    maxsq = torch.where(valid, p_sq, 0.0).max()
     seed_thresh = f32(tol2 * (1.0 - 1e-6)) - maxsq * (2.0**-20)
     chain = valid & prev_valid & (gap2 <= seed_thresh)
     head = valid & ~chain
@@ -274,9 +280,9 @@ def euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: i
             cs = torch.cumsum(changed, dim=0, dtype=torch.int32)
             tile_live = (cs[win_hi] - torch.where(starts > 0, cs[win_lo], 0)) > 0
             nbr_min = sweep_jump_banded(p, valid, labels, tol2, BAND_TILE, band_window, starts,
-                                        tile_live)
+                                        tile_live, p_sq)
         else:
-            nbr_min = sweep_jump(p, valid, labels, tol2)
+            nbr_min = sweep_jump(p, valid, labels, tol2, p_sq)
         # hook: each point's neighbourhood minimum onto its root (scatter-
         # min; the same int32 minima as the reference's one-hot form)
         upd = torch.full((n,), n, dtype=torch.int32, device=dev)
@@ -342,13 +348,12 @@ def cluster_centroids(cloud: Cloud, clusters: ClusterSet) -> PointIndicesArray:
     wm = member.to(torch.float32)
     x, y, z = cloud.points[:, 0], cloud.points[:, 1], cloud.points[:, 2]
     inv = 1.0 / torch.clamp_min(clusters.sizes.to(torch.float32), 1.0)
-    cx = (wm * x[:, None]).sum(dim=0) * inv
-    cy = (wm * y[:, None]).sum(dim=0) * inv
-    cz = (wm * z[:, None]).sum(dim=0) * inv
-    dx = x[:, None] - cx[None, :]
-    dy = y[:, None] - cy[None, :]
-    dz = z[:, None] - cz[None, :]
-    d_all = torch.sqrt(_sq3(dx, dy, dz))
+    sums = [(wm * c[:, None]).sum(dim=0) for c in (x, y, z)]
+    cx, cy, cz = (s * inv for s in sums)
+    # the reference fuses the centroid's product into the offset,
+    # x - sum * inv with one rounding, and the squares as a written-out sum
+    dx, dy, dz = (fma(-s[None, :], inv[None, :], c[:, None]) for s, c in zip(sums, (x, y, z)))
+    d_all = torch.sqrt(add_sq3(dx, dy, dz))
     radii = torch.where(member, d_all, 0.0).max(dim=0).values
     xyzr = torch.stack([cx, cy, cz, radii], dim=-1)
     xyzr = torch.where(clusters.valid[:, None], xyzr, 0.0)

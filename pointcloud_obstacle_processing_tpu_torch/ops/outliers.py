@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import f32
+from . import add_sq3, f32
 from .. import _build
 from ..types import Cloud
 
@@ -147,7 +147,7 @@ def knn_mean_distances(cloud: Cloud, k: int, row_tile: int = 512, band: int = 10
         col = pts[:, c]
         center_c = torch.where(valid, col, 0.0).sum() / denom
         pch.append(torch.where(valid, col - center_c, 0.0).contiguous())
-    p_sq = pch[0] * pch[0] + pch[1] * pch[1] + pch[2] * pch[2]
+    p_sq = add_sq3(*pch)  # the reference's written-out sum, as XLA:CPU fuses it
     starts = band_starts(n, row_tile, band, tiles, pts.device)
     vals = knn_select(pch, p_sq, valid.contiguous(), starts, row_tile, width)
     out = mean_from_sorted(vals, k)[:n]

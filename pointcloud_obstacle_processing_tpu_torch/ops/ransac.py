@@ -19,7 +19,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import f32
+from . import f32, fma
 from ..config import PipelineConfig
 from ..types import Cloud, PlaneModel
 
@@ -57,6 +57,16 @@ def _smallest_eigvec_3x3(cov: torch.Tensor, init: torch.Tensor, iters: int = 24)
         nrm = torch.linalg.norm(w)
         v = torch.where(nrm > 1e-20, w / torch.clamp_min(nrm, 1e-20), v)
     return v
+
+
+def _plane_dist(x, y, z, nx, ny, nz, d) -> torch.Tensor:
+    """Signed point-plane distance ``x*nx + y*ny + z*nz + d`` as XLA:CPU
+    evaluates the reference's scoring and refinement: the first product
+    fused into the first add, the third into the second, then the offset,
+    ``fma(z, nz, fma(x, nx, y * ny)) + d``.  An inlier decision at the
+    threshold follows this rounding (tests/test_torch_ransac.py probes it
+    at the threshold and 1, 2 and 8 ulps either side)."""
+    return fma(z, nz, fma(x, nx, y * ny)) + d
 
 
 class PlaneOnceResult(NamedTuple):
@@ -100,10 +110,8 @@ def ransac_plane_once(cloud: Cloud, u: torch.Tensor, config: PipelineConfig,
     cosang = torch.clamp(torch.abs(nx * ax[0] + ny * ax[1] + nz * ax[2]), 0.0, 1.0)
     axis_ok = torch.arccos(cosang) <= eps_angle
 
-    dists = torch.abs(
-        x[:, None] * nx[None, :] + y[:, None] * ny[None, :] + z[:, None] * nz[None, :]
-        + ds[None, :]
-    )  # [N, K]
+    dists = torch.abs(_plane_dist(x[:, None], y[:, None], z[:, None],
+                                  nx[None, :], ny[None, :], nz[None, :], ds[None, :]))  # [N, K]
     inl = (dists < thresh) & valid[:, None]
     counts = inl.sum(dim=0, dtype=torch.int32)
     counts = torch.where(axis_ok & ~degenerate & (n_valid >= 3), counts, -1)
@@ -136,7 +144,7 @@ def ransac_plane_once(cloud: Cloud, u: torch.Tensor, config: PipelineConfig,
         nrm = _smallest_eigvec_3x3(cov, r_normal)
         nrm = nrm * torch.sign((nrm * r_normal).sum() + 1e-30)
         nd = -(nrm[0] * cx + nrm[1] * cy + nrm[2] * cz)
-        new_in = (torch.abs(x * nrm[0] + y * nrm[1] + z * nrm[2] + nd) < thresh) & valid
+        new_in = (torch.abs(_plane_dist(x, y, z, nrm[0], nrm[1], nrm[2], nd)) < thresh) & valid
         ok = n_inl >= 3.0
         r_normal = torch.where(ok, nrm, r_normal)
         r_d = torch.where(ok, nd, r_d)

@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import f32
+from . import f32, fma
 from ..types import Cloud
 from .runreduce import sorted_run_reduce
 
@@ -39,17 +39,6 @@ class VoxelPartials(NamedTuple):
     counts: torch.Tensor  # [cap] float32 member counts (0 = empty)
     num_voxels: torch.Tensor  # [] int32
     overflow: torch.Tensor  # [] bool
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` with one rounding, as the reference's XLA:CPU program
-    evaluates the two multiply-adds of this stage (it contracts them into
-    fused multiply-adds).  The float64 product of two float32 values is
-    exact, and for the operands here (a lattice coordinate times the leaf,
-    times a point count; an offset next to its corner) the float64 sum is
-    exact too, so rounding it to float32 once equals a fused multiply-add.
-    """
-    return (a.double() * b.double() + c.double()).to(torch.float32)
 
 
 def _pack_spec(bounds, leaf_size: float):
@@ -96,7 +85,10 @@ def _sort_segment_partials(pts, valid, ijk, imin, dims, leaf_size: float, capaci
     # voxel does not depend on its sorted position
     lf = f32(leaf_size)
     lattice = torch.stack([ix + imin[0], iy + imin[1], iz + imin[2]]).to(torch.float32)
-    off0 = _fma(-lattice, lf, pts.T)  # pts - lattice * leaf
+    # the reference contracts both multiply-adds of this stage; for these
+    # operands (a lattice coordinate times the leaf, times a point count;
+    # an offset next to its corner) the float64 sum inside ``fma`` is exact
+    off0 = fma(-lattice, lf, pts.T)  # pts - lattice * leaf
     off0 = torch.where(valid[None, :], off0, torch.zeros_like(off0))
 
     skey, order = torch.sort(packed, stable=True)
@@ -125,7 +117,7 @@ def _sort_segment_partials(pts, valid, ijk, imin, dims, leaf_size: float, capaci
     for ch, l in ((1, lx), (2, ly), (3, lz)):
         key_cols.append(torch.where(out_valid, l, _I32_MAX))
         sum_cols.append(
-            torch.where(out_valid, _fma(l.to(torch.float32) * lf, slot_counts, sv[ch]), 0.0)
+            torch.where(out_valid, fma(l.to(torch.float32) * lf, slot_counts, sv[ch]), 0.0)
         )
     return VoxelPartials(
         keys=torch.stack(key_cols, dim=-1).to(torch.int32),

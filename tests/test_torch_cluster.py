@@ -96,3 +96,29 @@ def test_slot_ties_keep_root_order():
     assert (sizes == 20).all()
     roots = [int(out.labels[out.clusters.point_cluster == s][0]) for s in range(4)]
     assert roots == sorted(roots)
+
+
+@pytest.mark.parametrize("form", ["sum", "written_out"])
+def test_squared_norms_equal_reference_bitwise(form):
+    """|p|^2 of 1,048,576 seeded points, half of them with coordinates of
+    widely different magnitudes, is bitwise the reference's on XLA:CPU: the
+    reduction ``jnp.sum(p * p, axis=-1)`` (the sweeps, the chain seeding)
+    against ``ops.sum_sq3``, and the written-out ``x*x + y*y + z*z`` (the
+    kNN centering, the centroid radius) against ``ops.add_sq3``.  The port
+    evaluates each fused multiply-add in float64 and rounds once, which can
+    differ from a true fused multiply-add only in rare double-rounding ties;
+    this pins that none occurs here."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import add_sq3, sum_sq3
+
+    rng = np.random.default_rng(2024)
+    n = 1 << 20
+    p = rng.uniform(-30.0, 30.0, (n, 3))
+    p[n // 2:] *= 2.0 ** rng.integers(-12, 13, (n // 2, 3))
+    p = p.astype(np.float32)
+    if form == "sum":
+        want = jax.jit(lambda a: jnp.sum(a * a, axis=-1))(p)
+        got = sum_sq3(*torch.tensor(p).T)
+    else:
+        want = jax.jit(lambda a: a[:, 0] * a[:, 0] + a[:, 1] * a[:, 1] + a[:, 2] * a[:, 2])(p)
+        got = add_sq3(*torch.tensor(p).T)
+    np.testing.assert_array_equal(np.asarray(want).view(np.int32), got.numpy().view(np.int32))

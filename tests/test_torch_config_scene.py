@@ -132,6 +132,8 @@ def test_port_imports_without_jax():
         "import pointcloud_obstacle_processing_tpu_torch.pipeline\n"
         "import pointcloud_obstacle_processing_tpu_torch.models\n"
         "import pointcloud_obstacle_processing_tpu_torch.utils.scene\n"
+        "import pointcloud_obstacle_processing_tpu_torch.ops.segscan\n"
+        "import pointcloud_obstacle_processing_tpu_torch.ops.binning\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'pointcloud_obstacle_processing_tpu')]\n"
         "assert not bad, bad\n"

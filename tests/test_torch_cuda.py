@@ -14,7 +14,14 @@ import torch
 
 from pointcloud_obstacle_processing_tpu_torch import Cloud, _build
 from pointcloud_obstacle_processing_tpu_torch.config import REFERENCE_YAML_CONFIG
-from pointcloud_obstacle_processing_tpu_torch.ops import cluster, compaction, outliers, runreduce
+from pointcloud_obstacle_processing_tpu_torch.ops import (
+    binning,
+    cluster,
+    compaction,
+    outliers,
+    runreduce,
+    segscan,
+)
 from pointcloud_obstacle_processing_tpu_torch.ops.ransac import draw_from_uniform
 from pointcloud_obstacle_processing_tpu_torch.pipeline import process_scan
 from pointcloud_obstacle_processing_tpu_torch.utils.scene import SceneSpec, make_scene
@@ -37,11 +44,19 @@ def _eq(a, b):
 TOL2_PROBE_OFFSETS = (-8, -2, -1, 0, 1, 2, 8)
 
 
-def _d2_unfused(q, c):
-    """The sweeps' expanded d2 in float32, each product and sum rounded
-    (numpy does not contract); ``c`` may be a stack of candidates."""
-    q_sq = (q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]
-    c_sq = (c[..., 0] * c[..., 0] + c[..., 1] * c[..., 1]) + c[..., 2] * c[..., 2]
+def fma32(a, b, c):
+    """float32 ``a * b + c`` with one rounding, in numpy (the float64
+    product is exact; the float64 sum rounds, then the float32 cast)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def d2_port(q, c):
+    """The sweeps' expanded d2 in float32 as the port evaluates it: |p|^2 as
+    the reference's fused chain ``fma(z, z, fma(y, y, x * x))``, the cross
+    term and the rest with each product and sum rounded (numpy does not
+    contract); ``c`` may be a stack of candidates."""
+    q_sq = fma32(q[2], q[2], fma32(q[1], q[1], q[0] * q[0]))
+    c_sq = fma32(c[..., 2], c[..., 2], fma32(c[..., 1], c[..., 1], c[..., 0] * c[..., 0]))
     cross = (q[0] * c[..., 0] + q[1] * c[..., 1]) + q[2] * c[..., 2]
     return (q_sq + c_sq) - np.float32(2.0) * cross
 
@@ -72,7 +87,7 @@ def near_threshold_pairs(tol2: float, capacity: int = 256, bases: int = 6, seed:
         cand = np.repeat(c0[None, None, :], len(steps), axis=0).repeat(len(steps), axis=1)
         cand[..., 0] = (c0[0:1].view(np.int32) + steps[:, None]).view(np.float32)
         cand[..., 1] = (c0[1:2].view(np.int32) + steps[None, :]).view(np.float32)
-        d2 = _d2_unfused(q, cand)
+        d2 = d2_port(q, cand)
         for v, k in targets.items():
             hit = np.argwhere(d2 == np.float32(v))
             if len(hit):
@@ -186,7 +201,8 @@ def test_cluster_sweep_banded_kernel_equals_plain(dev, c, n_valid, window, gated
 
 def test_sweep_kernels_on_near_threshold_pairs(dev):
     """K4 and K5 make the plain versions' adjacency decision on pairs whose
-    d2 lies within 8 ulps of tol2."""
+    d2 lies within 8 ulps of tol2, with |p|^2 as the reference's fused
+    chain (the decision the reference's XLA sweeps make)."""
     tol2 = 0.4 ** 2
     pts, valid, labels, offsets = near_threshold_pairs(tol2)
     v = torch.tensor(valid, device=dev)
@@ -199,6 +215,49 @@ def test_sweep_kernels_on_near_threshold_pairs(dev):
         band = cluster.sweep_jump_banded(p, v, lab, tol2, 128, 128, starts)
         _eq(band, cluster.sweep_jump_banded_plain(p, v, lab, tol2, 128, 128, starts))
         assert int(band[1]) == (0 if offsets[k] <= 0 else 1)
+
+
+@pytest.mark.parametrize("c,n", [(4, 131_072), (4, 2_097_152), (3, 1000), (5, 1025), (1, 1)])
+def test_segscan_kernel_equals_plain(dev, c, n):
+    """K6 against its plain version in bit patterns, with heads from a
+    sorted key buffer, -0.0 values and non-finite values."""
+    rng = np.random.default_rng(c + n)
+    keys = np.sort(rng.integers(0, max(n // 8, 1), n))
+    heads = np.concatenate([[True], keys[1:] != keys[:-1]])
+    v = rng.standard_normal((c, n)).astype(np.float32)
+    v[:, rng.random(n) < 0.05] = -0.0
+    if n > 100:
+        v[0, 50], v[-1, 70] = np.inf, np.nan
+    vt, ht = torch.tensor(v, device=dev), torch.tensor(heads, device=dev)
+    before = _build.LAUNCHES["segscan"]
+    got = segscan.segmented_inclusive_scan(vt, ht)
+    assert _build.LAUNCHES["segscan"] == before + 1
+    want = segscan.segmented_inclusive_scan_plain(vt, ht)
+    _eq(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,k,c,exact_f32,unit", [(131_072, 214_000, 4, True, False),
+                                                  (131_072, 214_000, 4, False, False),
+                                                  (131_072, 3000, 4, True, True),
+                                                  (8192, 1, 2, True, False)])
+def test_binned_sum_kernel_equals_plain(dev, n, k, c, exact_f32, unit):
+    """K7 against its plain version: counts exact, sums within the float32
+    reordering bound (both add with atomics in run-dependent orders)."""
+    rng = np.random.default_rng(n + k)
+    ids = rng.integers(-50, k + 50, n).astype(np.int32)
+    ids[:64] = 2**30
+    w = (np.ones((n, c)) if unit else rng.standard_normal((n, c)) * 100).astype(np.float32)
+    valid = rng.random(n) < 0.9
+    args = [torch.tensor(a, device=dev) for a in (ids, w, valid)]
+    before = _build.LAUNCHES["binned_sum"]
+    got = binning.binned_weighted_sum(*args, k, exact_f32=exact_f32).cpu().numpy()
+    assert _build.LAUNCHES["binned_sum"] == before + 1
+    want = binning.binned_weighted_sum_plain(*args, k, exact_f32=exact_f32).cpu().numpy()
+    if unit:
+        np.testing.assert_array_equal(got, want)
+    else:
+        bound = binning.reordering_bound(*args, k, exact_f32).cpu().numpy()
+        assert (np.abs(got.astype(np.float64) - want) <= bound).all()
 
 
 def test_wrappers_refuse_bad_operands(dev):
@@ -224,6 +283,13 @@ def test_wrappers_refuse_bad_operands(dev):
         cluster.sweep_jump_banded(p, v, lab, 0.16, 128, 512, starts)
     with pytest.raises(TypeError):  # int64 starts
         cluster.sweep_jump_banded(p, v, lab, 0.16, 128, 256, starts.long())
+    with pytest.raises(ValueError):  # heads of the wrong length
+        segscan.segmented_inclusive_scan(torch.zeros(2, 512, device=dev), v[:256])
+    with pytest.raises(ValueError):  # heads on the CPU
+        segscan.segmented_inclusive_scan(torch.zeros(2, 512, device=dev), v.cpu())
+    with pytest.raises(TypeError):  # float64 weights
+        binning.binned_weighted_sum(lab, torch.zeros(512, 4, dtype=torch.float64, device=dev), v, 10,
+                                    chunk=512)
 
 
 @pytest.mark.parametrize("band_window", [0, 512])

@@ -4,7 +4,9 @@ PyTorch port against the JAX package.
 Bar: mean distances within 1e-4 relative, keep masks identical.  Bit
 identity is not claimed: the centering sums reduce in another order in
 torch, and the expanded d2 turns one ulp of the center into up to about
-|p|^2 * 2^-23 of absolute error.
+|p|^2 * 2^-23 of absolute error; and XLA:CPU fuses the reference's cross
+term into multiply-adds, while kernel K3 and its plain version round each
+product (ROADMAP C).
 """
 
 from __future__ import annotations
