@@ -11,17 +11,20 @@ Phases (any failure raises and exits non-zero before the last line):
    and power limit) and builds the CUDA kernels from ``csrc/`` with nvcc.
 2. Calls each kernel on seeded tensors on the card and holds it bitwise
    against its plain PyTorch version on the same inputs, then times both
-   with CUDA events: K1 run-reduce, K2 compaction, K3 banded k-select and
-   K4 cluster sweep at the flagship shapes; K1, K2 and K3 at the fullscale
-   shapes; K5 banded cluster sweep at the fullscale shape, once with every
-   tile live and once with a seeded random ``tile_live``.
+   with CUDA events, and the wrapper and the library call also by device
+   time alone (``torch.profiler``) and by host time alone (200 calls issued
+   back to back on the host's clock): K1 run-reduce, K2 compaction, K3
+   banded k-select and K4 cluster sweep at the flagship shapes; K1, K2 and
+   K3 at the fullscale shapes; K5 banded cluster sweep at the fullscale
+   shape, once with every tile live and once with a seeded random
+   ``tile_live``.
 3. Flagship path: counts from 0, ``ObstacleDetectionModel(FLAGSHIP_CONFIG)``
    on the card over three seeded scenes; checks that K1-K4 were launched,
    that no overflow flag is set and that each rock of the scene is matched
    by a cluster, and compares each scan with the same scan through the
    plain versions on the CPU (same RANSAC draws): grid, stage counts and
    flags exact, centroids within 1e-5.  Times ``process_scan`` per scan
-   (p50) and counts its host syncs.
+   (p50) and counts its host syncs, which must all be the cluster loop's.
 4. Fullscale path: counts from 0, one scan of the canonical fullscale
    window (``make_fullscale_window(2_097_152)``) through
    ``ObstacleDetectionModel(REFERENCE_FULLSCALE_CONFIG)`` on the card;
@@ -72,7 +75,7 @@ BINNING_N, BINNING_K = 131_072, 214_000  # the binning kernel's documented shape
 # cores; bound_ms is the larger of bytes / HBM rate and operations / fp32 rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-D2_OPS = 9  # flops per scored pair: cross 3 mul + 2 add; d2 add, mul, sub; the compare
+D2_OPS = 9  # flops per scored pair: cross 1 mul + 2 fma; d2 add, mul, sub; the compare
 
 
 def _nvidia_smi() -> str:
@@ -98,6 +101,56 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _device_ms(fn, reps: int = 20) -> float:
+    """Device time per call: ``torch.profiler`` over ``reps`` calls after a
+    warm-up, the summed durations of the device's kernels, memsets and
+    copies over ``reps``.  Unlike ``_time_ms`` it leaves out the host's
+    gaps between launches.  A profiling session now and then returns no
+    device events at all; such a session is taken again, up to 3 times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    raise AssertionError("torch.profiler recorded no device time in 3 sessions")
+
+
+def _host_ms(fn, reps: int = 200) -> float:
+    """Host time per call: ``reps`` calls issued back to back after a
+    warm-up, timed on the host's clock up to the last call's return (not
+    to the device's end); a call that waits for the device (a host sync)
+    includes that wait."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def _times(r: dict) -> str:
+    lib = "none" if r["library_ms"] is None else \
+        f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f} ms, " \
+        f"host {r['library_host_ms']:.4f} ms)"
+    return (f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms, host {r['host_ms']:.4f} ms) "
+            f"vs plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib}")
+
+
 def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
@@ -117,11 +170,20 @@ def _assert_equal(name: str, a, b) -> float:
     return diff
 
 
-def _row(name, path, shape, source, replaces, err, ms, plain_ms, bound, library_ms=None):
+def _row(name, path, shape, source, replaces, err, fn, plain_fn, bound, library_fn=None,
+         plain_reps=20):
+    """One kernel's line: ``fn`` calls its wrapper, ``plain_fn`` the plain
+    version and ``library_fn`` one PyTorch call of the same function (or
+    None), each timed with CUDA events; the wrapper and the library call
+    also by device time alone and by host time alone."""
     return dict(
         name=name, path=path, shape=shape, route="cuda", source=f"{PKG}/csrc/{source}",
-        replaces=f"{TPU}/ops/{replaces}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms,
+        replaces=f"{TPU}/ops/{replaces}", max_abs_err=err, ms=_time_ms(fn),
+        device_ms=_device_ms(fn), host_ms=_host_ms(fn), plain_ms=_time_ms(plain_fn, plain_reps),
+        bound_ms=bound[0], bound_by=bound[1],
+        library_ms=None if library_fn is None else _time_ms(library_fn),
+        library_device_ms=None if library_fn is None else _device_ms(library_fn),
+        library_host_ms=None if library_fn is None else _host_ms(library_fn),
     )
 
 
@@ -150,9 +212,9 @@ def check_k1(dev, rng, path, n, cap, n_valid, n_keys, sentinel, leaf):
     return _row(
         "runreduce", path, f"{n} rows, {w}-row windows, {int(nk)} runs, cap {cap}",
         "runreduce.cu", "pallas_runreduce.py:462", err,
-        _time_ms(lambda: runreduce.sorted_run_reduce(*args, sentinel, cap, quantum=quantum)),
-        _time_ms(lambda: runreduce.sorted_run_reduce_plain(*args, sentinel, cap, quantum=quantum), 3),
-        bound,
+        lambda: runreduce.sorted_run_reduce(*args, sentinel, cap, quantum=quantum),
+        lambda: runreduce.sorted_run_reduce_plain(*args, sentinel, cap, quantum=quantum),
+        bound, plain_reps=3,
     )
 
 
@@ -165,6 +227,7 @@ def check_k2(dev, rng, path, nv, ccap, density):
     occ = torch.tensor(rng.random(nv) < density, device=dev)
     bins = torch.tensor(rng.standard_normal((4, nv)).astype(np.float32), device=dev)
     bins[3] = occ.to(torch.float32)
+    c = bins.shape[0]
     occ2d = occ.reshape(nv // 128, 128)
     lk, nk, vk = compaction.compact_and_gather_exact(bins, occ2d, ccap)
     lp, np_, vp = compaction.compact_and_gather_plain(bins, occ2d, ccap)
@@ -176,10 +239,11 @@ def check_k2(dev, rng, path, nv, ccap, density):
     return _row(
         "compact_gather", path, f"{nv} -> {ccap} slots, {int(nk)} occupied",
         "compaction.cu", "pallas_compaction.py:59", err,
-        _time_ms(lambda: compaction.compact_and_gather_exact(bins, occ2d, ccap)),
-        _time_ms(lambda: compaction.compact_and_gather_plain(bins, occ2d, ccap)),
-        _bound(nv * (16 + 1) + ccap * (4 + 16), 0),
-        library_ms=_time_ms(lambda: bins.T[occ]),  # boolean-mask gather
+        lambda: compaction.compact_and_gather_exact(bins, occ2d, ccap),
+        lambda: compaction.compact_and_gather_plain(bins, occ2d, ccap),
+        # the mask once; each filled slot's channels read, loc and vals written; num
+        _bound(nv + min(int(nk), ccap) * (4 * c + 4 + 4 * c) + 4, 0),
+        library_fn=lambda: bins.T[occ],  # boolean-mask gather
     )
 
 
@@ -214,9 +278,10 @@ def check_k3(dev, rng, path, nv, n_valid, rt, band):
     return _row(
         "knn_select", path, f"{nv} queries, row tile {rt}, window {width}",
         "knn_select.cu", "outliers.py:142", err,
-        _time_ms(lambda: outliers.knn_select(pch, p_sq, valid, starts, rt, width)),
-        _time_ms(lambda: outliers.knn_select_plain(pch, p_sq, valid, starts, rt, width), 3),
+        lambda: outliers.knn_select(pch, p_sq, valid, starts, rt, width),
+        lambda: outliers.knn_select_plain(pch, p_sq, valid, starts, rt, width),
         _bound(nv * 17 + tiles * 4 + 16 * tiles * rt * 4, live_tiles * rt * width * D2_OPS),
+        plain_reps=3,
     )
 
 
@@ -240,8 +305,8 @@ def check_k4(dev, rng, path, c, n_valid, tol2):
     return _row(
         "cluster_sweep", path, f"C {c}, {n_valid} valid",
         "cluster_sweep.cu", "cluster.py:86", err,
-        _time_ms(lambda: cluster.sweep_jump(p, valid, labels, tol2, p_sq)),
-        _time_ms(lambda: cluster.sweep_jump_plain(p, valid, labels, tol2, p_sq)),
+        lambda: cluster.sweep_jump(p, valid, labels, tol2, p_sq),
+        lambda: cluster.sweep_jump_plain(p, valid, labels, tol2, p_sq),
         _bound(c * 21 + c * 4, n_valid * c * D2_OPS),
     )
 
@@ -270,8 +335,8 @@ def check_k5(dev, rng, path, c, n_valid, window, tolerance):
             f"C {c}, {n_valid} valid, window {window}, "
             f"{'random tile_live' if gated else 'every tile live'}, {computed} tiles computed",
             "cluster_sweep_banded.cu", "cluster.py:329", err,
-            _time_ms(lambda: cluster.sweep_jump_banded(*args)),
-            _time_ms(lambda: cluster.sweep_jump_banded_plain(*args)),
+            lambda: cluster.sweep_jump_banded(*args),
+            lambda: cluster.sweep_jump_banded_plain(*args),
             _bound(c * 21 + (c // 128) * 5 + c * 4, computed * 128 * window * D2_OPS),
         ))
     return rows
@@ -280,6 +345,55 @@ def check_k5(dev, rng, path, c, n_valid, window, tolerance):
 def _sorted_key_heads(rng, n: int, n_keys: int) -> np.ndarray:
     keys = np.sort(rng.integers(0, n_keys, n))
     return np.concatenate([[True], keys[1:] != keys[:-1]])
+
+
+def binning_inputs(dev, rng):
+    """K7's inputs at the reference kernel's documented shape: ids in [0, k),
+    x, y, z weights and a unit count channel, 90% valid."""
+    import torch
+
+    n, k = BINNING_N, BINNING_K
+    ids = torch.tensor(rng.integers(0, k, n).astype(np.int32), device=dev)
+    weights = torch.tensor(np.concatenate(
+        [rng.uniform(-4.5, 4.5, (n, 3)), np.ones((n, 1))], axis=1).astype(np.float32), device=dev)
+    valid = torch.tensor(rng.random(n) < 0.9, device=dev)
+    return ids, weights, valid, k
+
+
+def check_k7(dev, ids, weights, valid, k, binned=None) -> dict:
+    """K7 against its plain version: counts exact (and equal to the member
+    counts), sums within the float32 reordering bound.  ``binned``: the
+    path run's output, computed here when not given."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.ops import binning
+
+    if binned is None:
+        binned = binning.binned_weighted_sum(ids, weights, valid, k)
+    n, c = weights.shape
+    plain = binning.binned_weighted_sum_plain(ids, weights, valid, k)
+    if not torch.equal(binned[:, 3], plain[:, 3]):
+        raise AssertionError("K7: counts differ from the plain version")
+    keep = valid & (ids < k)
+    if not torch.equal(binned[:, 3], torch.bincount(ids[keep].long(), minlength=k).float()):
+        raise AssertionError("K7: counts differ from the member counts")
+    bound = binning.reordering_bound(ids, weights, valid, k)
+    diff = (binned.double() - plain.double()).abs()
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"K7: sums differ from the plain version beyond the bound "
+                             f"(max |d| {diff.max().item()})")
+    rows_k = ids[keep].long()
+    terms = binning.weight_terms(weights[keep], True)
+    rows_k2, terms2 = torch.cat([rows_k, rows_k]), torch.cat(terms)
+    n_terms = int(sum((t != 0).sum() for t in terms))  # the adds of the plain version's terms
+    return _row(
+        "binned_sum", "binning", f"N {n}, k {k}, C {c}, {int(keep.sum())} valid rows, exact_f32",
+        "binning.cu", "pallas_binning.py:52", diff.max().item(),
+        lambda: binning.binned_weighted_sum(ids, weights, valid, k),
+        lambda: binning.binned_weighted_sum_plain(ids, weights, valid, k),
+        _bound(n * (4 + 4 * c + 1) + k * c * 4, n_terms),
+        library_fn=lambda: torch.zeros(k, c, device=dev).index_add_(0, rows_k2, terms2),
+    )
 
 
 def run_segscan_binning(dev, card: str) -> tuple[list[dict], dict]:
@@ -297,11 +411,7 @@ def run_segscan_binning(dev, card: str) -> tuple[list[dict], dict]:
         v[:, rng.random(n) < 0.01] = -0.0
         heads = _sorted_key_heads(rng, n, n // 12)
         scans.append((torch.tensor(v, device=dev), torch.tensor(heads, device=dev)))
-    n, k, c = BINNING_N, BINNING_K, 4
-    ids = torch.tensor(rng.integers(0, k, n).astype(np.int32), device=dev)
-    weights = torch.tensor(np.concatenate(
-        [rng.uniform(-4.5, 4.5, (n, 3)), np.ones((n, 1))], axis=1).astype(np.float32), device=dev)
-    valid = torch.tensor(rng.random(n) < 0.9, device=dev)
+    ids, weights, valid, k = binning_inputs(dev, rng)
 
     # the two paths: counts from 0, then read
     launches = {}
@@ -329,40 +439,16 @@ def run_segscan_binning(dev, card: str) -> tuple[list[dict], dict]:
         rows.append(_row(
             "segscan", "segscan", f"[{c_}, {n_}] float32, {steps} steps, "
             f"{int(h.sum())} segments", "segscan.cu", "segscan.py:59", err,
-            _time_ms(lambda: segscan.segmented_inclusive_scan(v, h)),
-            _time_ms(lambda: segscan.segmented_inclusive_scan_plain(v, h)),
+            lambda: segscan.segmented_inclusive_scan(v, h),
+            lambda: segscan.segmented_inclusive_scan_plain(v, h),
             _bound(c_ * n_ * 8 + n_, steps * c_ * n_),
         ))
-
-    plain = binning.binned_weighted_sum_plain(ids, weights, valid, k)
-    if not torch.equal(binned[:, 3], plain[:, 3]):
-        raise AssertionError("K7: counts differ from the plain version")
-    keep = valid & (ids < k)
-    if not torch.equal(binned[:, 3], torch.bincount(ids[keep].long(), minlength=k).float()):
-        raise AssertionError("K7: counts differ from the member counts")
-    bound = binning.reordering_bound(ids, weights, valid, k)
-    diff = (binned.double() - plain.double()).abs()
-    if not bool((diff <= bound).all()):
-        raise AssertionError(f"K7: sums differ from the plain version beyond the bound "
-                             f"(max |d| {diff.max().item()})")
-    rows_k = ids[keep].long()
-    terms = binning.weight_terms(weights[keep], True)
-    rows_k2, terms2 = torch.cat([rows_k, rows_k]), torch.cat(terms)
-    n_terms = int(sum((t != 0).sum() for t in terms))  # adds the kernel makes
-    rows.append(_row(
-        "binned_sum", "binning", f"N {n}, k {k}, C {c}, {int(keep.sum())} valid rows, exact_f32",
-        "binning.cu", "pallas_binning.py:52", diff.max().item(),
-        _time_ms(lambda: binning.binned_weighted_sum(ids, weights, valid, k)),
-        _time_ms(lambda: binning.binned_weighted_sum_plain(ids, weights, valid, k)),
-        _bound(n * (4 + 4 * c + 1) + k * c * 4, n_terms),
-        library_ms=_time_ms(lambda: torch.zeros(k, c, device=dev).index_add_(0, rows_k2, terms2)),
-    ))
+    rows.append(check_k7(dev, ids, weights, valid, k, binned))
     for r in rows:
         print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: "
               f"{'bit patterns equal' if r['name'] == 'segscan' else 'counts exact, sums within bound'}"
-              f" to plain (max |d| {r['max_abs_err']:.3g}); {r['ms']:.4f} ms vs plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
-              f"{r['library_ms']} ms; launches on the path {launches[r['path']][r['name']]} [{card}]")
+              f" to plain (max |d| {r['max_abs_err']:.3g}); {_times(r)}; launches on the path "
+              f"{launches[r['path']][r['name']]} [{card}]")
     return rows, launches
 
 
@@ -387,9 +473,7 @@ def check_kernels(dev, card: str) -> list[dict]:
                   fs.euc_cluster_tolerance),
     ]
     for r in rows:
-        print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: equal to plain; "
-              f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), library {r['library_ms']} ms [{card}]")
+        print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: equal to plain; {_times(r)} [{card}]")
     return rows
 
 
@@ -501,6 +585,12 @@ def _count_syncs(model, cloud, draw) -> tuple[int, object]:
     return sum("called a synchronizing" in str(w.message) for w in caught), res
 
 
+def _check_syncs(label: str, n_sync: int, res) -> None:
+    """Every host sync of the scan is one of the cluster loop's reads."""
+    if n_sync != res.host_syncs:
+        raise AssertionError(f"{label}: {n_sync} host syncs, the cluster loop makes {res.host_syncs}")
+
+
 def _draws(cfg, dev):
     import torch
 
@@ -542,6 +632,7 @@ def run_flagship(dev, card: str) -> dict:
 
     times = _time_scans(model, gpu_clouds, draw_cuda, TIMED_SCANS)
     n_sync, res = _count_syncs(model, gpu_clouds[0], draw_cuda)
+    _check_syncs("flagship", n_sync, res)
     print(f"flagship process_scan p50 {statistics.median(times):.3f} ms per scan over "
           f"{len(times)} scans (min {min(times):.3f}, max {max(times):.3f}); host syncs per scan "
           f"{n_sync} (sync debug mode; cluster loop counts {res.host_syncs}); kernel launches "
@@ -582,6 +673,7 @@ def run_fullscale(dev, card: str) -> dict:
 
     times = _time_scans(model, [gpu_cloud], draw_cuda, FULLSCALE_TIMED_SCANS)
     n_sync, res = _count_syncs(model, gpu_cloud, draw_cuda)
+    _check_syncs("fullscale", n_sync, res)
     print(f"fullscale process_scan p50 {statistics.median(times):.3f} ms per scan over "
           f"{len(times)} scans (min {min(times):.3f}, max {max(times):.3f}); host syncs per scan "
           f"{n_sync} (sync debug mode; cluster loop counts {res.host_syncs}); kernel launches on "
@@ -623,7 +715,8 @@ def main() -> None:
         if r["launches"] <= 0:
             raise AssertionError(f"kernel {r['name']} was not launched on the {r['path']} path")
     keys = ("name", "path", "shape", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms", "library_host_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

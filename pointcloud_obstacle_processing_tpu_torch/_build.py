@@ -10,6 +10,8 @@ and flags, so an edited source is rebuilt and a current one is reused.
 ``-fmad=false`` keeps every ``a*b + c`` as a rounded multiply then a rounded
 add, the fixed float32 expression trees the reference's kernels are written
 to; the kernels' results then do not depend on what the compiler fuses.
+Where the reference's chain is fused (XLA:CPU contracts it), a kernel
+writes ``__fmaf_rn`` out, which the flag leaves alone.
 
 Each kernel wrapper counts its launches in ``LAUNCHES``: one per call that
 launched the kernel, none for calls that took the plain PyTorch version.
@@ -53,8 +55,8 @@ _SIGNATURES = {
     # capacity, local, lastcol, first_head, carry, out, stream
     "pcp_runreduce": [_VP, _VP, _VP, _VP, _I, _F, _I, _I, _I, _VP,
                       _I, _VP, _VP, _VP, _VP, _VP, _VP],
-    # bins, occ, excl, c, k, capacity, loc, vals, stream
-    "pcp_compact_gather": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP],
+    # bins, occ, c, k, capacity, loc, vals, scratch (num, block counts), stream
+    "pcp_compact_gather": [_VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP],
     # px, py, pz, psq, valid, starts, tile_live, n, n_q, row_tile, width,
     # big, out, stream
     "pcp_knn_select": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
@@ -67,7 +69,7 @@ _SIGNATURES = {
                                  _VP, _VP],
     # values, heads, c, n, out, scratch, flags, stream
     "pcp_segscan": [_VP, _VP, _I, _I, _VP, _VP, _VP, _VP],
-    # ids, weights, valid, n, c, k, exact, out, stream
+    # ids, weights, valid, n, c, k, exact, out (zeroed by the call), stream
     "pcp_binned_sum": [_VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP],
 }
 
@@ -131,7 +133,11 @@ def check(err: int, name: str) -> None:
 
 
 def stream_handle() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current CUDA stream as a ``cudaStream_t``
+    handle, the value of ``torch.cuda.current_stream().cuda_stream``,
+    without building a ``torch.cuda.Stream`` (the call PyTorch's generated
+    kernels use to find their stream; a card test holds the two equal)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def resolve_device(device) -> torch.device:
@@ -149,10 +155,11 @@ def resolve_device(device) -> torch.device:
 
 def require_cuda(name: str, *tensors: torch.Tensor, dtypes=None) -> None:
     """Check that every tensor is a contiguous CUDA tensor on one device,
-    with the dtype ``dtypes[i]`` where one is given."""
-    dev = tensors[0].device
+    with the dtype ``dtypes[i]`` where one is given.  (``get_device`` and
+    ``is_cuda`` build no ``torch.device``: this runs on every launch.)"""
+    index = tensors[0].get_device()
     for i, t in enumerate(tensors):
-        if t.device != dev or t.device.type != "cuda":
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"{name}: every operand must lie on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operand {i} must be contiguous")

@@ -16,8 +16,9 @@
 //
 // One block of 256 threads per 256-row query tile; the columns are staged
 // through shared memory in chunks of 1024 (x, y, z, |p|^2, labels_col).
-// The distance is the reference's expression tree without FMA contraction:
-// cross = (qx*cx + qy*cy) + qz*cz; d2 = (q_sq + c_sq) - 2*cross.  Only the
+// The distance is the reference's expression tree as XLA:CPU evaluates it:
+// cross = fma(qz, cz, fma(qx, cx, qy*cy)) with explicit fused multiply-adds
+// (-fmad=false leaves the intrinsics alone); d2 = (q_sq + c_sq) - 2*cross.  Only the
 // adjacency test reads it, and the output is an integer, so the result is
 // exact once that tree is kept.
 //
@@ -72,7 +73,7 @@ __global__ void cluster_sweep(const float* __restrict__ px, const float* __restr
     if (row && qv) {
       for (int j = 0; j < len; ++j) {
         const float cross =
-            __fadd_rn(__fadd_rn(__fmul_rn(qx, sx[j]), __fmul_rn(qy, sy[j])), __fmul_rn(qz, sz[j]));
+            __fmaf_rn(qz, sz[j], __fmaf_rn(qx, sx[j], __fmul_rn(qy, sy[j])));
         const float d2 = __fsub_rn(__fadd_rn(qsq, ss[j]), __fmul_rn(2.0f, cross));
         if (d2 <= tol2 && sl[j] < best) best = sl[j];
       }

@@ -25,8 +25,9 @@
 // time (a broadcast).  The window is staged through shared memory in chunks
 // of 1024 columns (x, y, z, |p|^2, lc); the four partial minima meet in
 // shared memory.  Min over int32 is exact in any order.  The distance is
-// the reference's expression tree without FMA contraction:
-// cross = (qx*cx + qy*cy) + qz*cz; d2 = (q_sq + c_sq) - 2*cross.
+// the reference's expression tree as XLA:CPU evaluates it:
+// cross = fma(qz, cz, fma(qx, cx, qy*cy)) with explicit fused multiply-adds
+// (-fmad=false leaves the intrinsics alone); d2 = (q_sq + c_sq) - 2*cross.
 //
 // Bound on the H100: at the fullscale shape (C = 16384, W = 4096) a sweep
 // scores at most 128 x 128 x 4096 = 67 M pairs of ~11 flops, 0.74 GFLOP,
@@ -92,7 +93,7 @@ __global__ void cluster_sweep_banded(const float* __restrict__ px, const float* 
     if (qv) {
       for (int j = g; j < len; j += kSplit) {
         const float cross =
-            __fadd_rn(__fadd_rn(__fmul_rn(qx, sx[j]), __fmul_rn(qy, sy[j])), __fmul_rn(qz, sz[j]));
+            __fmaf_rn(qz, sz[j], __fmaf_rn(qx, sx[j], __fmul_rn(qy, sy[j])));
         const float d2 = __fsub_rn(__fadd_rn(qsq, ss[j]), __fmul_rn(2.0f, cross));
         if (d2 <= tol2 && sl[j] < best) best = sl[j];
       }

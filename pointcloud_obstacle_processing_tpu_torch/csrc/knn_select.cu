@@ -17,9 +17,10 @@
 // each thread keeps its query's 16 smallest values in a sorted register
 // array (insertion by one unrolled compare-exchange pass).  Any exact
 // selection yields the same sorted 16, so the network is not copied.
-// The distance is the reference's expression tree, without FMA
-// contraction: cross = (qx*cx + qy*cy) + qz*cz; d2 = (q_sq + c_sq) -
-// 2*cross; clamped at 0; `big` for invalid columns and for self.  Tiles
+// The distance is the reference's expression tree as XLA:CPU evaluates
+// it: cross = fma(qz, cz, fma(qx, cx, qy*cy)) with explicit fused
+// multiply-adds (-fmad=false leaves the intrinsics alone); d2 = (q_sq +
+// c_sq) - 2*cross; clamped at 0; `big` for invalid columns and for self.  Tiles
 // with no valid query write `big` (their rows are masked downstream).
 //
 // Bound on the H100: 24576 queries x 1408 columns = 34.6 M distances of
@@ -77,7 +78,7 @@ __global__ void knn_select(const float* __restrict__ px, const float* __restrict
   for (int s = 0; s < kSel; ++s) top[s] = big;
   for (int j = 0; j < width; ++j) {
     const float cross =
-        __fadd_rn(__fadd_rn(__fmul_rn(qx, cx[j]), __fmul_rn(qy, cy[j])), __fmul_rn(qz, cz[j]));
+        __fmaf_rn(qz, cz[j], __fmaf_rn(qx, cx[j], __fmul_rn(qy, cy[j])));
     float d2 = __fsub_rn(__fadd_rn(qsq, cs[j]), __fmul_rn(2.0f, cross));
     d2 = d2 < 0.0f ? 0.0f : d2;
     if (!cv[j] || q == start + j) d2 = big;

@@ -31,13 +31,35 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).to(torch.float32)
 
 
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root on every device, as
+    XLA:CPU's ``sqrt`` gives it.  On the card that is ``torch.sqrt`` itself
+    (IEEE round-to-nearest; ``tests/test_torch_cuda.py::
+    test_card_sqrt_is_the_float64_root`` holds it bitwise to the float64
+    form).  On the CPU the root is taken in float64 and rounded
+    once (53 >= 2 * 24 + 2 bits, so the double rounding is innocuous):
+    torch's vectorized float32 ``sqrt`` on an AVX-512 CPU misses it on about
+    0.6% of inputs."""
+    if x.device.type == "cuda":
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(torch.float32)
+
+
 def sum_sq3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """``jnp.sum(p * p, axis=-1)`` over (x, y, z) as XLA:CPU evaluates it:
     the reduction's chain ``fma(z, z, fma(y, y, x * x))``."""
     return fma(z, z, fma(y, y, x * x))
 
 
+def dot3(ax, ay, az, bx, by, bz) -> torch.Tensor:
+    """The written-out ``ax*bx + ay*by + az*bz`` as XLA:CPU evaluates it: the
+    first product fused into the first add, the third into the second,
+    ``fma(az, bz, fma(ax, bx, ay * by))`` (the distance kernels' cross term
+    and RANSAC's plane distance)."""
+    return fma(az, bz, fma(ax, bx, ay * by))
+
+
 def add_sq3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """The written-out ``x*x + y*y + z*z`` as XLA:CPU evaluates it: the
-    first product fused into the first add, ``fma(z, z, fma(x, x, y * y))``."""
-    return fma(z, z, fma(x, x, y * y))
+    """The written-out ``x*x + y*y + z*z`` as XLA:CPU evaluates it,
+    ``fma(z, z, fma(x, x, y * y))``."""
+    return dot3(x, y, z, x, y, z)

@@ -24,6 +24,8 @@ from .. import _build
 
 __all__ = ["binned_weighted_sum", "binned_weighted_sum_plain", "weight_terms", "reordering_bound"]
 
+_DTYPES = (torch.int32, torch.float32, torch.bool)  # ids, weights, valid for kernel K7
+
 
 def weight_terms(weights: torch.Tensor, exact_f32: bool) -> list[torch.Tensor]:
     """The float32 terms each weight contributes: [hi] or [hi, lo]."""
@@ -89,15 +91,16 @@ def binned_weighted_sum(ids, weights, valid, k: int, hi_size: int = 128, chunk: 
         return binned_weighted_sum_plain(ids, weights, valid, k, hi_size, chunk, exact_f32)
     _check(ids, weights, valid, k, chunk)
     n, c = weights.shape
-    ids = ids.to(torch.int32).contiguous()
-    _build.require_cuda("binned_weighted_sum", ids, weights, valid,
-                        dtypes=[torch.int32, torch.float32, torch.bool])
-    out = torch.zeros(k, c, dtype=torch.float32, device=weights.device)
+    if ids.dtype != torch.int32 or not ids.is_contiguous():
+        ids = ids.to(torch.int32).contiguous()  # as the reference casts them
+    _build.require_cuda("binned_weighted_sum", ids, weights, valid, dtypes=_DTYPES)
     if n * c == 0:
-        return out
-    lib = _build.kernels()
-    err = lib.pcp_binned_sum(ids.data_ptr(), weights.data_ptr(), valid.data_ptr(), n, c, k,
-                             int(exact_f32), out.data_ptr(), _build.stream_handle())
+        return torch.zeros(k, c, dtype=torch.float32, device=weights.device)
+    # the C call zeroes ``out`` and launches on the same stream
+    out = torch.empty(k, c, dtype=torch.float32, device=weights.device)
+    err = _build.kernels().pcp_binned_sum(ids.data_ptr(), weights.data_ptr(), valid.data_ptr(),
+                                          n, c, k, int(exact_f32), out.data_ptr(),
+                                          _build.stream_handle())
     _build.check(err, "binned_sum")
     _build.LAUNCHES["binned_sum"] += 1
     return out

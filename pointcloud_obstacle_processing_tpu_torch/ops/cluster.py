@@ -35,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import add_sq3, f32, fma, sum_sq3
+from . import add_sq3, dot3, f32, fma, sum_sq3
 from .. import _build
 from ..types import Cloud, ClusterSet, PointIndicesArray, PointWithRad
 
@@ -71,7 +71,7 @@ def sweep_jump_plain(p, valid, labels, tol2: float, p_sq=None) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.int32, device=p.device)
     for r0 in range(0, n, 256):  # 256-row tiles bound the [T, C] temporaries
         r = slice(r0, min(r0 + 256, n))
-        cross = x[r, None] * x[None, :] + y[r, None] * y[None, :] + z[r, None] * z[None, :]
+        cross = dot3(x[r, None], y[r, None], z[r, None], x[None, :], y[None, :], z[None, :])
         d2 = (p_sq[r, None] + p_sq[None, :]) - 2.0 * cross
         adj = (d2 <= t2) & valid[None, :] & valid[r, None]
         hit = adj | (labels[r, None] == col_ids[None, :])
@@ -156,7 +156,8 @@ def sweep_jump_banded_plain(p, valid, labels, tol2: float, tile: int, window: in
         cols = starts[t0:t1].long()[:, None] + w_ids  # [t, W]
         rows = slice(t0 * tile, t1 * tile)
         q = [v[rows].reshape(t1 - t0, tile, 1) for v in (x, y, z, p_sq, labels, valid)]
-        cross = q[0] * x[cols][:, None, :] + q[1] * y[cols][:, None, :] + q[2] * z[cols][:, None, :]
+        cs = [v[cols][:, None, :] for v in (x, y, z)]  # [t, 1, W]
+        cross = dot3(q[0], q[1], q[2], *cs)
         d2 = (q[3] + p_sq[cols][:, None, :]) - 2.0 * cross
         adj = (d2 <= t2) & valid[cols][:, None, :] & q[5]
         hit = adj | (q[4] == cols[:, None, :])

@@ -27,6 +27,9 @@ __all__ = [
 ]
 
 
+_DTYPES = (torch.float32, torch.bool)  # bins, occupancy for kernel K2
+
+
 class CompactResult(NamedTuple):
     cloud: Cloud  # [capacity_out] valid-first compaction
     count: torch.Tensor  # [] int32 number of valid points moved
@@ -46,8 +49,11 @@ def compact_and_gather_exact(bins: torch.Tensor, occ2d: torch.Tensor, capacity: 
     """Compaction + exact per-slot gather.
 
     ``bins``: [C, A*128] float32 channel-leading table; ``occ2d``: its
-    [A, 128] occupancy.  Returns (loc, num, vals) as the plain version;
-    slots at or past ``num`` are unspecified.
+    [A, 128] occupancy, at any start (a view such as ``valid[1:]`` of a
+    padded buffer too).  Returns (loc, num, vals) as the plain version;
+    slots at or past ``num`` are unspecified.  On the card: three
+    allocations and one C call (kernel K2's two launches); ``num`` stays on
+    the device.
     """
     c, k = bins.shape
     a, b = occ2d.shape
@@ -55,22 +61,19 @@ def compact_and_gather_exact(bins: torch.Tensor, occ2d: torch.Tensor, capacity: 
         raise ValueError("compact_and_gather_exact: occ2d must be the [K/128, 128] view of bins")
     if bins.device.type == "cpu":
         return compact_and_gather_plain(bins, occ2d, capacity)
-    occ = occ2d.reshape(k)
-    _build.require_cuda("compact_and_gather_exact", bins, occ, dtypes=[torch.float32, torch.bool])
-    lib = _build.kernels()
-    per_block = occ2d.sum(dim=1, dtype=torch.int32)
-    offsets = torch.cumsum(per_block, dim=0, dtype=torch.int32)
-    num = offsets[-1]
-    excl = (offsets - per_block).contiguous()
-    loc = torch.zeros(capacity, dtype=torch.int32, device=bins.device)
-    vals = torch.zeros(capacity, c, dtype=torch.float32, device=bins.device)
-    err = lib.pcp_compact_gather(
-        bins.data_ptr(), occ.data_ptr(), excl.data_ptr(), c, k, capacity,
-        loc.data_ptr(), vals.data_ptr(), _build.stream_handle(),
+    _build.require_cuda("compact_and_gather_exact", bins, occ2d, dtypes=_DTYPES)
+    dev = bins.device
+    loc = torch.empty(capacity, dtype=torch.int32, device=dev)
+    vals = torch.empty(capacity, c, dtype=torch.float32, device=dev)
+    # num, then the kernel's per-1,024-column block counts
+    scratch = torch.empty(1 + -(-k // 1024), dtype=torch.int32, device=dev)
+    err = _build.kernels().pcp_compact_gather(
+        bins.data_ptr(), occ2d.data_ptr(), c, k, capacity, loc.data_ptr(), vals.data_ptr(),
+        scratch.data_ptr(), _build.stream_handle(),
     )
     _build.check(err, "compact_gather")
     _build.LAUNCHES["compact_gather"] += 1
-    return loc, num, vals
+    return loc, scratch[0], vals
 
 
 def compact(cloud: Cloud, capacity_out: int | None = None) -> CompactResult:

@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import add_sq3, f32
+from . import add_sq3, dot3, f32, sqrt32
 from .. import _build
 from ..types import Cloud
 
@@ -69,7 +69,7 @@ def knn_select_plain(pch, p_sq, valid, starts, row_tile: int, width: int) -> tor
         cols = starts[ts].long()[:, None] + torch.arange(width, device=dev)  # [t, W]
         qs = [c.reshape(tiles, row_tile)[ts][:, :, None] for c in q_ch]  # [t, T, 1]
         cs = [c[cols][:, None, :] for c in pch]  # [t, 1, W]
-        cross = qs[0] * cs[0] + qs[1] * cs[1] + qs[2] * cs[2]
+        cross = dot3(*qs, *cs)  # the reference's fused chain, as kernel K3
         d2 = (q_sq.reshape(tiles, row_tile)[ts][:, :, None] + p_sq[cols][:, None, :]) - 2.0 * cross
         d2 = torch.clamp_min(d2, 0.0)
         d2 = torch.where(valid[cols][:, None, :], d2, bigt)
@@ -112,13 +112,16 @@ def knn_select(pch, p_sq, valid, starts, row_tile: int, width: int) -> torch.Ten
 def mean_from_sorted(vals: torch.Tensor, k: int) -> torch.Tensor:
     """[16, Q] ascending values -> mean of the k smallest real values'
     square roots (the reference's ``_sortnet_mean_from_sorted``); the sum
-    runs row by row, the same order on every device."""
+    runs row by row, the order XLA:CPU takes, on every device, over
+    correctly rounded roots (``ops.sqrt32``)."""
     half = f32(BIG * 0.5)
+    rows = min(k, _SEL)
+    roots = sqrt32(vals[:rows])
     s = torch.zeros(vals.shape[1], dtype=torch.float32, device=vals.device)
     cnt = torch.zeros_like(s)
-    for i in range(min(k, _SEL)):
+    for i in range(rows):
         take = vals[i] < half
-        s = s + torch.where(take, torch.sqrt(vals[i]), 0.0)
+        s = s + torch.where(take, roots[i], 0.0)
         cnt = cnt + take.to(torch.float32)
     return s / torch.clamp_min(cnt, 1.0)
 

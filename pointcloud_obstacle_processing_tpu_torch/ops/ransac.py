@@ -19,7 +19,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import f32, fma
+from . import add_sq3, dot3, f32, fma, sqrt32
 from ..config import PipelineConfig
 from ..types import Cloud, PlaneModel
 
@@ -66,7 +66,7 @@ def _plane_dist(x, y, z, nx, ny, nz, d) -> torch.Tensor:
     ``fma(z, nz, fma(x, nx, y * ny)) + d``.  An inlier decision at the
     threshold follows this rounding (tests/test_torch_ransac.py probes it
     at the threshold and 1, 2 and 8 ulps either side)."""
-    return fma(z, nz, fma(x, nx, y * ny)) + d
+    return dot3(x, y, z, nx, ny, nz) + d
 
 
 class PlaneOnceResult(NamedTuple):
@@ -98,14 +98,16 @@ def ransac_plane_once(cloud: Cloud, u: torch.Tensor, config: PipelineConfig,
 
     ux, uy, uz = p1x - p0x, p1y - p0y, p1z - p0z
     vx, vy, vz = p2x - p0x, p2y - p0y, p2z - p0z
-    nx = uy * vz - uz * vy
-    ny = uz * vx - ux * vz
-    nz = ux * vy - uy * vx
-    norms = torch.sqrt(nx * nx + ny * ny + nz * nz)
+    # cross product, norm and offset as XLA:CPU contracts the reference's
+    # expressions (bitwise equal to it: tests/test_torch_ransac.py)
+    nx = fma(uy, vz, -(uz * vy))
+    ny = fma(uz, vx, -(ux * vz))
+    nz = fma(ux, vy, -(uy * vx))
+    norms = sqrt32(add_sq3(nx, ny, nz))
     degenerate = norms < f32(1e-12)
     inv = 1.0 / torch.clamp_min(norms, 1e-20)
     nx, ny, nz = nx * inv, ny * inv, nz * inv
-    ds = -(nx * p0x + ny * p0y + nz * p0z)
+    ds = -dot3(nx, ny, nz, p0x, p0y, p0z)
 
     cosang = torch.clamp(torch.abs(nx * ax[0] + ny * ax[1] + nz * ax[2]), 0.0, 1.0)
     axis_ok = torch.arccos(cosang) <= eps_angle

@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Two checkouts of the PyTorch port, timed in turns on one CUDA card.
+
+    python3 scripts/torch_kernel_ab.py --parent _parent
+
+``--parent`` names a directory that holds another checkout's
+``pointcloud_obstacle_processing_tpu_torch/`` (for example the parent
+commit's, from ``git archive``).  The script runs the parent, this checkout,
+this checkout and the parent, each in a process of its own that imports the
+package from its checkout and builds that checkout's kernels.  Each run
+takes ``chip_smoke.py``'s kernel checks from this checkout and applies them
+to its own package: K2, K3 and K4 at the flagship shapes, K2, K3 and K5 at
+the fullscale shapes, K7 at its documented shape, each held against that
+package's plain version and timed (CUDA events around 20 calls, and device
+time alone from ``torch.profiler`` and host time alone, beside the library
+call where there is one); then the ``process_scan`` p50 of the flagship scenes (20 scans) and of
+the fullscale window (5 scans).  It prints one line per kernel and run,
+and with ``--out FILE`` writes every number to FILE as JSON.  Every line
+names the card and its power limit.  It needs a CUDA card.
+
+    python3 scripts/torch_kernel_ab.py --run DIR --label NAME
+
+is one such run, printing its results as one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+KEYS = ("name", "path", "shape", "max_abs_err", "ms", "device_ms", "host_ms", "plain_ms",
+        "bound_ms", "library_ms", "library_device_ms", "library_host_ms")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run(root: str, label: str) -> dict:
+    import torch
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    from pointcloud_obstacle_processing_tpu_torch import Cloud, _build
+    from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as fl
+    from pointcloud_obstacle_processing_tpu_torch.models import REFERENCE_FULLSCALE_CONFIG as fs
+    from pointcloud_obstacle_processing_tpu_torch.models import ObstacleDetectionModel
+    from pointcloud_obstacle_processing_tpu_torch.utils.scene import make_fullscale_window
+
+    cs = _chip_smoke()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_ab: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = f"{torch.cuda.get_device_name(0)}; nvidia-smi: {cs._nvidia_smi()}"
+    _build.kernels()
+    rng = np.random.default_rng(0)
+    rows = [
+        cs.check_k2(dev, rng, "flagship", fl.max_voxels, fl.cluster_capacity, 0.025),
+        cs.check_k3(dev, rng, "flagship", fl.max_voxels, 21_500, fl.knn_row_tile, fl.knn_band),
+        cs.check_k4(dev, rng, "flagship", fl.cluster_capacity, 600, fl.euc_cluster_tolerance ** 2),
+        cs.check_k2(dev, rng, "fullscale", fs.max_voxels, fs.cluster_capacity,
+                    7_000 / fs.max_voxels),
+        cs.check_k3(dev, rng, "fullscale", fs.max_voxels, 166_000, fs.knn_row_tile, fs.knn_band),
+        *cs.check_k5(dev, rng, "fullscale", fs.cluster_capacity, 7_000, fs.cluster_band_window,
+                     fs.euc_cluster_tolerance),
+        cs.check_k7(dev, *cs.binning_inputs(dev, rng)),
+    ]
+
+    p50 = {}
+    model = ObstacleDetectionModel(fl, device=dev)
+    draw, _ = cs._draws(fl, dev)
+    clouds = [Cloud.pad_to(cs._scene(s).points[: fl.max_points], fl.max_points).to(dev)
+              for s in cs.SCENE_SEEDS]
+    p50["flagship"] = statistics.median(cs._time_scans(model, clouds, draw, cs.TIMED_SCANS))
+    model = ObstacleDetectionModel(fs, device=dev)
+    draw, _ = cs._draws(fs, dev)
+    pts, valid = make_fullscale_window(cs.FULLSCALE_POINTS)
+    cloud = Cloud(points=torch.tensor(pts), valid=torch.tensor(valid)).to(dev)
+    p50["fullscale"] = statistics.median(
+        cs._time_scans(model, [cloud], draw, cs.FULLSCALE_TIMED_SCANS))
+    return {"label": label, "root": root, "card": card, "scan_p50_ms": p50,
+            "rows": [{k: r[k] for k in KEYS} for r in rows]}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="checkout to compare this one with, in turns")
+    ap.add_argument("--run", help="one run: the checkout whose package to time")
+    ap.add_argument("--label", default="")
+    ap.add_argument("--out", help="JSON file for every run's numbers")
+    args = ap.parse_args()
+    if args.run:
+        print(json.dumps(run(args.run, args.label)))
+        return
+    if not args.parent:
+        ap.error("give --parent DIR (or --run DIR)")
+    runs = []
+    for label, root in (("parent", args.parent), ("change", str(ROOT)), ("change", str(ROOT)),
+                        ("parent", args.parent)):
+        out = subprocess.run([sys.executable, __file__, "--run", root, "--label", label],
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode:
+            sys.stderr.write(out.stdout[-4000:] + out.stderr[-8000:])
+            raise SystemExit(f"torch_kernel_ab: the {label} run failed ({out.returncode})")
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    for i, r in enumerate(runs):
+        p50 = r["scan_p50_ms"]
+        print(f"run {i} {r['label']}: process_scan p50 flagship {p50['flagship']:.3f} ms, "
+              f"fullscale {p50['fullscale']:.3f} ms [{r['card']}]")
+        for row in r["rows"]:
+            lib = row["library_ms"]
+            print(f"  {row['name']:20s} {row['path']:9s} call {row['ms']:.4f} ms, device "
+                  f"{row['device_ms']:.4f} ms, host {row['host_ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms"
+                  + ("" if lib is None else
+                     f", library {lib:.4f} ms (device {row['library_device_ms']:.4f} ms, "
+                     f"host {row['library_host_ms']:.4f} ms)")
+                  + f"  [{row['shape']}]")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(runs, indent=1))
+
+
+if __name__ == "__main__":
+    main()

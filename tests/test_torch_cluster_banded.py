@@ -21,7 +21,12 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_cuda import TOL2_PROBE_OFFSETS, d2_port, fma32, near_threshold_pairs
+from test_torch_cuda import (
+    TOL2_PROBE_OFFSETS,
+    cross_term_pairs,
+    d2_unfused_cross,
+    near_threshold_pairs,
+)
 
 from pointcloud_obstacle_processing_tpu import Cloud as RefCloud
 from pointcloud_obstacle_processing_tpu.ops import cluster as ref_cluster
@@ -215,11 +220,12 @@ def _probe_decisions(which):
     return offsets, out
 
 
-def test_near_threshold_pairs_follow_the_unfused_tree():
+def test_near_threshold_pairs_follow_the_fused_tree():
     """Pairs whose expanded-form d2 lies at tol2 and 1, 2 and 8 ulps on
     either side: the port's full and banded sweeps call a pair adjacent
-    exactly when its d2 is <= tol2, with |p|^2 taken as the reference's
-    fused chain and the rest of the expanded tree unfused."""
+    exactly when its d2 is <= tol2, with |p|^2 and the cross term taken as
+    the reference's fused chains and the rest of the expanded tree
+    rounded at each step."""
     offsets, out = _probe_decisions("port")
     assert sorted(set(offsets.tolist())) == sorted(TOL2_PROBE_OFFSETS)
     want = [0 if k <= 0 else 1 for k in offsets]
@@ -229,7 +235,8 @@ def test_near_threshold_pairs_follow_the_unfused_tree():
 
 def test_near_threshold_pairs_agree_with_reference():
     """The reference's XLA sweeps make the port's decision on every probe
-    pair (they compute |p|^2 as the fused chain the port now writes out)."""
+    pair (they compute |p|^2 and the cross term as the fused chains the
+    port writes out)."""
     offsets, port = _probe_decisions("port")
     _, ref = _probe_decisions("reference")
     flips = [int(k) for k, a, b in zip(offsets, port["full"], ref["full"]) if a != b]
@@ -237,46 +244,28 @@ def test_near_threshold_pairs_agree_with_reference():
     assert not flips, flips
 
 
-def _d2_fused_cross(q, c):
-    """The port's d2 (``d2_port``) with the cross term as the chain
-    fma(qz, cz, fma(qx, cx, qy * cy))."""
-    sq = lambda p: fma32(p[..., 2], p[..., 2], fma32(p[..., 1], p[..., 1], p[..., 0] * p[..., 0]))
-    cross = fma32(q[2], c[..., 2], fma32(q[0], c[..., 0], q[1] * c[..., 1]))
-    return (sq(q) + sq(c)) - np.float32(2.0) * cross
-
-
 def test_reference_sweeps_fuse_the_cross_term():
     """Where the pair sits away from the origin, the cross term's rounding
     reaches the decision: on 128 pairs near tol2 whose decision differs
-    between the two cross-term forms, the reference's full and banded XLA
-    sweeps decide as the fused chain on every pair.  The port's sweeps (K4,
-    K5 and their plain versions) round each product of the cross term and
-    so decide as the reference on fewer than half of them (ROADMAP C)."""
-    rng = np.random.default_rng(11)
-    t2 = np.float32(TOL2)
-    steps = np.arange(-40, 41, dtype=np.int32)
-    pairs = []
-    while len(pairs) < 128:
-        q = rng.uniform(-1.5, 1.5, 3).astype(np.float32)
-        u = rng.normal(size=3)
-        c0 = (q + 0.4 * u / np.linalg.norm(u)).astype(np.float32)
-        cand = np.repeat(c0[None], len(steps), 0)
-        cand[:, 0] = (c0[0:1].view(np.int32) + steps).view(np.float32)
-        fused = _d2_fused_cross(q, cand) <= t2
-        for i in np.flatnonzero((d2_port(q, cand) <= t2) != fused)[:1]:
-            pairs.append((q, cand[i], bool(fused[i])))
+    between the fused chain fma(qz, cz, fma(qx, cx, qy * cy)) and the
+    rounded products, the reference's full and banded XLA sweeps decide as
+    the fused chain on every pair, and so do the port's (K4's and K5's
+    plain versions here; the kernels on the card in tests/test_torch_cuda.py)."""
+    pairs = cross_term_pairs(TOL2)
     full = jax.jit(lambda a, b, c: ref_cluster._xla_sweep_jump(a, b, c, TOL2, 128))
     band = jax.jit(lambda a, b, c: ref_cluster._xla_sweep_jump_banded(
         a, b, c, TOL2, 128, 128, jnp.zeros(2, jnp.int32)))
-    valid = jnp.asarray(np.arange(256) < 2)
-    labels = jnp.arange(256, dtype=jnp.int32)
-    port_agrees = 0
+    valid = np.arange(256) < 2
+    labels = np.arange(256, dtype=np.int32)
+    starts = torch.zeros(2, dtype=torch.int32)
     for q, c, fused_adjacent in pairs:
+        # the unfused form would have decided the other way
+        assert (d2_unfused_cross(q, c) <= np.float32(TOL2)) != fused_adjacent
         buf = np.zeros((256, 3), np.float32)
         buf[0], buf[1] = q, c
         for sweep in (full, band):
-            assert (int(np.asarray(sweep(jnp.asarray(buf), valid, labels))[1]) == 0) == fused_adjacent
-        port = cluster.sweep_jump(torch.tensor(buf), torch.tensor(np.asarray(valid)),
-                                  torch.tensor(np.asarray(labels)), TOL2)
-        port_agrees += (int(port[1]) == 0) == fused_adjacent
-    assert port_agrees < len(pairs) // 2, port_agrees
+            ref = sweep(jnp.asarray(buf), jnp.asarray(valid), jnp.asarray(labels))
+            assert (int(np.asarray(ref)[1]) == 0) == fused_adjacent
+        args = (torch.tensor(buf), torch.tensor(valid), torch.tensor(labels), TOL2)
+        assert (int(cluster.sweep_jump(*args)[1]) == 0) == fused_adjacent
+        assert (int(cluster.sweep_jump_banded(*args, 128, 128, starts)[1]) == 0) == fused_adjacent

@@ -50,15 +50,49 @@ def fma32(a, b, c):
     return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
 
 
+def _sq(p):
+    """|p|^2 as the reference's sweeps compute it: ``fma(z, z, fma(y, y, x * x))``."""
+    return fma32(p[..., 2], p[..., 2], fma32(p[..., 1], p[..., 1], p[..., 0] * p[..., 0]))
+
+
 def d2_port(q, c):
-    """The sweeps' expanded d2 in float32 as the port evaluates it: |p|^2 as
-    the reference's fused chain ``fma(z, z, fma(y, y, x * x))``, the cross
-    term and the rest with each product and sum rounded (numpy does not
-    contract); ``c`` may be a stack of candidates."""
-    q_sq = fma32(q[2], q[2], fma32(q[1], q[1], q[0] * q[0]))
-    c_sq = fma32(c[..., 2], c[..., 2], fma32(c[..., 1], c[..., 1], c[..., 0] * c[..., 0]))
+    """The sweeps' expanded d2 in float32 as the port evaluates it: |p|^2 and
+    the cross term as the reference's fused chains, ``fma(z, z, fma(y, y,
+    x * x))`` and ``fma(qz, cz, fma(qx, cx, qy * cy))``, the rest with each
+    product and sum rounded; ``c`` may be a stack of candidates."""
+    cross = fma32(q[2], c[..., 2], fma32(q[0], c[..., 0], q[1] * c[..., 1]))
+    return (_sq(q) + _sq(c)) - np.float32(2.0) * cross
+
+
+def d2_unfused_cross(q, c):
+    """``d2_port`` with each product of the cross term rounded (numpy does
+    not contract): ``(qx*cx + qy*cy) + qz*cz``."""
     cross = (q[0] * c[..., 0] + q[1] * c[..., 1]) + q[2] * c[..., 2]
-    return (q_sq + c_sq) - np.float32(2.0) * cross
+    return (_sq(q) + _sq(c)) - np.float32(2.0) * cross
+
+
+def cross_term_pairs(tol2: float, n_pairs: int = 128, seed: int = 11):
+    """Point pairs near tol2 that the two cross-term forms decide apart.
+
+    q is drawn in [-1.5, 1.5]^3 (away from the origin the cross term's
+    rounding reaches the decision) and c about the tolerance away; c's x is
+    stepped by single ulps and the first step whose fused decision (``d2 <=
+    tol2`` by ``d2_port``) differs from the unfused one is kept.  Returns a
+    list of (q [3], c [3], fused_adjacent)."""
+    rng = np.random.default_rng(seed)
+    t2 = np.float32(tol2)
+    steps = np.arange(-40, 41, dtype=np.int32)
+    pairs = []
+    while len(pairs) < n_pairs:
+        q = rng.uniform(-1.5, 1.5, 3).astype(np.float32)
+        u = rng.normal(size=3)
+        c0 = (q + np.sqrt(tol2) * u / np.linalg.norm(u)).astype(np.float32)
+        cand = np.repeat(c0[None], len(steps), 0)
+        cand[:, 0] = (c0[0:1].view(np.int32) + steps).view(np.float32)
+        fused = d2_port(q, cand) <= t2
+        for i in np.flatnonzero((d2_unfused_cross(q, cand) <= t2) != fused)[:1]:
+            pairs.append((q, cand[i], bool(fused[i])))
+    return pairs
 
 
 def near_threshold_pairs(tol2: float, capacity: int = 256, bases: int = 6, seed: int = 0):
@@ -130,6 +164,31 @@ def test_runreduce_kernel_equals_plain(dev, n, n_runs, n_valid, cap, packed, gro
     _eq(vk[:m], vp[:m])
 
 
+@pytest.mark.parametrize("k,occupied,cap", [
+    (24576, 600, 563), (24576, 600, 600), (24576, 600, 1024),  # the flagship buffers
+    (262144, 7000, 4096), (262144, 7000, 7000), (262144, 7000, 16384),  # the fullscale buffers
+    (1152, 1, 8),  # a ragged last block of 128 columns
+])
+def test_compaction_kernel_capacities(dev, k, occupied, cap):
+    """K2 with a capacity below, at and above the occupied count: ``num`` is
+    the whole count, a 0-d int32 tensor left on the device; the slots below
+    min(num, capacity) equal the plain version's."""
+    rng = np.random.default_rng(k + occupied + cap)
+    occ_np = np.zeros(k, bool)
+    occ_np[rng.choice(k, occupied, replace=False)] = True
+    occ2d = torch.tensor(occ_np, device=dev).reshape(k // 128, 128)
+    bins = torch.tensor(rng.standard_normal((4, k)).astype(np.float32), device=dev)
+    before = _build.LAUNCHES["compact_gather"]
+    lk, nk, vk = compaction.compact_and_gather_exact(bins, occ2d, cap)
+    assert _build.LAUNCHES["compact_gather"] == before + 1
+    assert nk.device == bins.device and nk.shape == () and nk.dtype == torch.int32
+    assert int(nk) == occupied
+    lp, _, vp = compaction.compact_and_gather_plain(bins, occ2d, cap)
+    m = min(occupied, cap)
+    _eq(lk[:m], lp[:m])
+    _eq(vk[:m], vp[:m])
+
+
 @pytest.mark.parametrize("k,density,cap", [(24576, 0.025, 1024), (4096, 0.6, 1024), (1024, 0.0, 128)])
 def test_compaction_kernel_equals_plain(dev, k, density, cap):
     rng = np.random.default_rng(k)
@@ -139,6 +198,24 @@ def test_compaction_kernel_equals_plain(dev, k, density, cap):
     lk, nk, vk = compaction.compact_and_gather_exact(bins, occ2d, cap)
     lp, np_, vp = compaction.compact_and_gather_plain(bins, occ2d, cap)
     assert int(nk) == int(np_)
+    m = min(int(nk), cap)
+    _eq(lk[:m], lp[:m])
+    _eq(vk[:m], vp[:m])
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_compaction_kernel_unaligned_mask(dev, offset):
+    """K2 on a mask view that does not start 4-byte aligned (the kernel
+    then reads its bytes one at a time) equals the plain version."""
+    k, cap = 24576, 1024
+    rng = np.random.default_rng(offset)
+    buf = torch.tensor(rng.random(k + 4) < 0.05, device=dev)
+    occ2d = buf[offset:offset + k].reshape(k // 128, 128)
+    assert occ2d.data_ptr() % 4
+    bins = torch.tensor(rng.standard_normal((4, k)).astype(np.float32), device=dev)
+    lk, nk, vk = compaction.compact_and_gather_exact(bins, occ2d, cap)
+    lp, np_, vp = compaction.compact_and_gather_plain(bins, occ2d, cap)
+    assert int(nk) == int(np_) == int(occ2d.sum())
     m = min(int(nk), cap)
     _eq(lk[:m], lp[:m])
     _eq(vk[:m], vp[:m])
@@ -201,8 +278,9 @@ def test_cluster_sweep_banded_kernel_equals_plain(dev, c, n_valid, window, gated
 
 def test_sweep_kernels_on_near_threshold_pairs(dev):
     """K4 and K5 make the plain versions' adjacency decision on pairs whose
-    d2 lies within 8 ulps of tol2, with |p|^2 as the reference's fused
-    chain (the decision the reference's XLA sweeps make)."""
+    d2 lies within 8 ulps of tol2, with |p|^2 and the cross term as the
+    reference's fused chains (the decision the reference's XLA sweeps
+    make)."""
     tol2 = 0.4 ** 2
     pts, valid, labels, offsets = near_threshold_pairs(tol2)
     v = torch.tensor(valid, device=dev)
@@ -215,6 +293,34 @@ def test_sweep_kernels_on_near_threshold_pairs(dev):
         band = cluster.sweep_jump_banded(p, v, lab, tol2, 128, 128, starts)
         _eq(band, cluster.sweep_jump_banded_plain(p, v, lab, tol2, 128, 128, starts))
         assert int(band[1]) == (0 if offsets[k] <= 0 else 1)
+
+
+def test_distance_kernels_on_cross_term_pairs(dev):
+    """K3, K4 and K5 bitwise equal to their plain versions on the 128 pairs
+    near tol2 that the fused and the unfused cross term decide apart; the
+    sweeps decide as the fused chain, and K3's squared distance of the pair
+    is the fused d2."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import sum_sq3
+
+    tol2 = 0.4 ** 2
+    valid = torch.tensor(np.arange(256) < 2, device=dev)
+    labels = torch.arange(256, dtype=torch.int32, device=dev)
+    starts = torch.zeros(2, dtype=torch.int32, device=dev)
+    kstarts = outliers.band_starts(256, 128, 64, 2, dev)
+    for q, c, fused_adjacent in cross_term_pairs(tol2):
+        buf = np.zeros((256, 3), np.float32)
+        buf[0], buf[1] = q, c
+        p = torch.tensor(buf, device=dev)
+        full = cluster.sweep_jump(p, valid, labels, tol2)
+        _eq(full, cluster.sweep_jump_plain(p, valid, labels, tol2))
+        band = cluster.sweep_jump_banded(p, valid, labels, tol2, 128, 128, starts)
+        _eq(band, cluster.sweep_jump_banded_plain(p, valid, labels, tol2, 128, 128, starts))
+        assert (int(full[1]) == 0) == fused_adjacent and (int(band[1]) == 0) == fused_adjacent
+        pch = [p[:, i].contiguous() for i in range(3)]
+        p_sq = sum_sq3(*pch)
+        sel = outliers.knn_select(pch, p_sq, valid, kstarts, 128, 256)
+        _eq(sel, outliers.knn_select_plain(pch, p_sq, valid, kstarts, 128, 256))
+        assert sel[0, 0].item() == max(float(d2_port(q, c)), 0.0)
 
 
 @pytest.mark.parametrize("c,n", [(4, 131_072), (4, 2_097_152), (3, 1000), (5, 1025), (1, 1)])
@@ -258,6 +364,75 @@ def test_binned_sum_kernel_equals_plain(dev, n, k, c, exact_f32, unit):
     else:
         bound = binning.reordering_bound(*args, k, exact_f32).cpu().numpy()
         assert (np.abs(got.astype(np.float64) - want) <= bound).all()
+
+
+@pytest.mark.parametrize("c,aligned,strided_ids",
+                         [(4, True, False), (3, True, False), (4, False, False), (4, True, True)])
+def test_binned_sum_vector_and_scalar_paths(dev, c, aligned, strided_ids):
+    """K7's float4 path (C = 4, 16-byte aligned weights) and its scalar path
+    (C = 3, and C = 4 with weights one float off alignment): the unit count
+    channel exact and equal to the member counts, sums within the reordering
+    bound, and rows with ids outside [0, k) dropped (their weights of 1e30
+    would show in any sum).  ``strided_ids``: int32 ids as a view of every
+    other element of a buffer, which the wrapper copies."""
+    n, k = 131_072, 214_000
+    rng = np.random.default_rng(c + aligned)
+    ids = rng.integers(0, k, n).astype(np.int32)
+    out_of_range = rng.random(n) < 0.05
+    ids[out_of_range] = rng.choice([-1, -7, k, k + 3, 2**30], out_of_range.sum())
+    w = rng.uniform(-4.5, 4.5, (n, c)).astype(np.float32)
+    w[:, -1] = 1.0
+    w[out_of_range, :-1] = 1e30
+    valid = rng.random(n) < 0.9
+    if aligned:
+        wt = torch.tensor(w, device=dev)
+    else:  # a view one float past a 16-byte boundary
+        flat = torch.empty(n * c + 1, device=dev)
+        flat[1:] = torch.tensor(w.reshape(-1), device=dev)
+        wt = flat[1:].view(n, c)
+        assert wt.data_ptr() % 16
+    it, vt = torch.tensor(ids, device=dev), torch.tensor(valid, device=dev)
+    if strided_ids:
+        it = torch.stack([it, torch.zeros_like(it)], dim=1)[:, 0]
+        assert not it.is_contiguous()
+    got = binning.binned_weighted_sum(it, wt, vt, k)
+    want = binning.binned_weighted_sum_plain(it, wt, vt, k)
+    keep = valid & ~out_of_range
+    np.testing.assert_array_equal(got[:, -1].cpu().numpy(),
+                                  np.bincount(ids[keep], minlength=k).astype(np.float32))
+    bound = binning.reordering_bound(it, wt, vt, k).cpu().numpy()
+    assert (np.abs(got.cpu().numpy().astype(np.float64) - want.cpu().numpy()) <= bound).all()
+
+
+def test_card_sqrt_is_the_float64_root(dev):
+    """``torch.sqrt`` in float32 on the card is correctly rounded: bitwise
+    the float64 root rounded once, on 2^22 random non-negative float32 bit
+    patterns (subnormals, zeros, infinity included), so ``ops.sqrt32``
+    takes it as it is there."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import sqrt32
+
+    rng = np.random.default_rng(7)
+    bits = rng.integers(0, 0x7F800001, 1 << 22, dtype=np.int64).astype(np.int32)
+    bits[:4] = [0, 1, 0x007FFFFF, 0x7F800000]
+    x = torch.tensor(bits, device=dev).view(torch.float32)
+    want = torch.sqrt(x.double()).to(torch.float32)
+    _eq(torch.sqrt(x).view(torch.int32), want.view(torch.int32))
+    _eq(sqrt32(x).view(torch.int32), want.view(torch.int32))
+    _eq(want.cpu().view(torch.int32), sqrt32(x.cpu()).view(torch.int32))
+
+
+def test_stream_handle_is_the_current_stream(dev):
+    """The wrappers launch on PyTorch's current stream, inside a stream
+    context too."""
+    assert _build.stream_handle() == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.stream_handle() == side.cuda_stream != 0
+        ids = torch.zeros(1024, dtype=torch.int32, device=dev)
+        w = torch.ones(1024, 4, device=dev)
+        got = binning.binned_weighted_sum(ids, w, torch.ones(1024, dtype=torch.bool, device=dev), 4)
+    side.synchronize()
+    assert got[0].tolist() == [1024.0] * 4 and got[1:].abs().sum().item() == 0
 
 
 def test_wrappers_refuse_bad_operands(dev):

@@ -71,6 +71,11 @@ def test_segment_planes_match_reference(seed, n, n_fill, overrides):
                        jax_key_chain_draw(key, cfg.ransac_hypotheses))
     assert int(r.planes.num_planes) == int(p.planes.num_planes)
     np.testing.assert_array_equal(np.asarray(r.planes.valid), p.planes.valid.numpy())
+    # the hypotheses are bitwise the reference's (test_hypothesis_arithmetic_
+    # is_bitwise_the_reference); the refinement's centroid and covariance are
+    # sums over every inlier, which torch reduces in another order than
+    # XLA:CPU, and the power iteration carries that rounding into the
+    # coefficients: within 1e-6, not bitwise
     np.testing.assert_allclose(p.planes.coeffs.numpy(), np.asarray(r.planes.coeffs), atol=1e-6)
     np.testing.assert_array_equal(np.asarray(r.nonplane_cloud.valid), p.nonplane_cloud.valid.numpy())
     np.testing.assert_array_equal(np.asarray(r.plane_union), p.plane_union.numpy())
@@ -83,6 +88,42 @@ def test_uniform_draws_stay_in_range():
     draw = draw_from_uniform(u)
     np.testing.assert_array_equal(draw(0, torch.tensor(10, dtype=torch.int32)).numpy(), [[0, 5, 9]])
     np.testing.assert_array_equal(draw(0, torch.tensor(0, dtype=torch.int32)).numpy(), [[0, 0, 0]])
+
+
+def test_hypothesis_arithmetic_is_bitwise_the_reference(monkeypatch):
+    """Each hypothesis' normal and offset, refinement off, on 300 random
+    triples: the port's cross product ``fma(uy, vz, -(uz * vy))`` (and its
+    turns), norm ``sqrt(fma(nz, nz, fma(nx, nx, ny * ny)))`` and offset
+    ``-fma(nz, p0z, fma(nx, p0x, ny * p0y))`` equal the reference's bit for
+    bit; the unfused expressions would differ on most triples."""
+    from pointcloud_obstacle_processing_tpu.ops import ransac as ref_ransac
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    k, cap = 8, 128
+    rng = np.random.default_rng(21)
+    tris = rng.uniform([-3, -3, -0.3], [3, 3, 0.5], (300, 3, 3)).astype(np.float32)
+    valid = np.arange(cap) < 3
+    bufs = np.zeros((len(tris), cap, 3), np.float32)
+    bufs[:, :3] = tris
+    monkeypatch.setattr(jax.random, "randint", lambda key, shape, lo, hi, *a, **kw:
+                        jnp.broadcast_to(jnp.arange(3, dtype=jnp.int32), shape))
+    ref_cfg = REF_CFG.replace(ransac_refine_iters=0, ransac_hypotheses=k)
+    once = jax.jit(lambda c: ref_ransac.ransac_plane_once(c, jax.random.PRNGKey(0), ref_cfg))
+    ref = [once(RefCloud.from_points(b, valid)) for b in bufs]  # traced once, with the patch
+    monkeypatch.undo()
+    cfg = CFG.replace(ransac_refine_iters=0, ransac_hypotheses=k)
+    got = [ransac.ransac_plane_once(Cloud.from_points(b, valid), torch.arange(3).repeat(k, 1), cfg)
+           for b in bufs]
+    want_n = np.stack([np.asarray(r.normal) for r in ref])
+    want_d = np.array([np.asarray(r.d) for r in ref])
+    np.testing.assert_array_equal(np.stack([g.normal.numpy() for g in got]), want_n)
+    np.testing.assert_array_equal(np.array([g.d.numpy() for g in got]), want_d)
+    u, v = tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]
+    n = np.stack([u[:, 1] * v[:, 2] - u[:, 2] * v[:, 1], u[:, 2] * v[:, 0] - u[:, 0] * v[:, 2],
+                  u[:, 0] * v[:, 1] - u[:, 1] * v[:, 0]], 1)
+    norm = np.sqrt((n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1]) + n[:, 2] * n[:, 2])
+    n = n * (np.float32(1.0) / norm)[:, None]
+    assert (n != want_n).any(1).sum() > len(tris) // 4
 
 
 # offsets of the probe's distance from the threshold, in float32 ulps
