@@ -14,23 +14,28 @@ Phases (any failure raises and exits non-zero before the last line):
    with CUDA events, and the wrapper and the library call also by device
    time alone (``torch.profiler``) and by host time alone (200 calls issued
    back to back on the host's clock): K1 run-reduce, K2 compaction, K3
-   banded k-select and K4 cluster sweep at the flagship shapes; K1, K2 and
-   K3 at the fullscale shapes; K5 banded cluster sweep at the fullscale
-   shape, once with every tile live and once with a seeded random
-   ``tile_live``.
+   banded kNN mean (on x-sorted random points) and K4 cluster sweep at the
+   flagship shapes; K1, K2 and K3 at the fullscale shapes; K5 banded
+   cluster sweep at the fullscale shape, once with every tile live and once
+   with a seeded random ``tile_live``.  K4 and K5 take the points as the clustering lays them
+   out once for all its sweeps (``point_channels``, ``pack_points``).
 3. Flagship path: counts from 0, ``ObstacleDetectionModel(FLAGSHIP_CONFIG)``
    on the card over three seeded scenes; checks that K1-K4 were launched,
    that no overflow flag is set and that each rock of the scene is matched
    by a cluster, and compares each scan with the same scan through the
    plain versions on the CPU (same RANSAC draws): grid, stage counts and
    flags exact, centroids within 1e-5.  Times ``process_scan`` per scan
-   (p50) and counts its host syncs, which must all be the cluster loop's.
+   (p50), counts its host syncs, which must all be the cluster loop's, and
+   its device operations (kernels, memsets, copies; ``torch.profiler``).
+   Then K3 again, checked and timed as in phase 2, on the inputs the scan
+   of scene 0 gives it (its lattice-ordered voxel cloud).
 4. Fullscale path: counts from 0, one scan of the canonical fullscale
    window (``make_fullscale_window(2_097_152)``) through
    ``ObstacleDetectionModel(REFERENCE_FULLSCALE_CONFIG)`` on the card;
    checks that K1, K2, K3 and K5 were launched and that no overflow flag is
    set, and compares it with the same window through the plain versions on
-   the CPU by the same bar.  Times a few scans (p50) and counts host syncs.
+   the CPU by the same bar.  Times a few scans (p50) and counts host syncs
+   and device operations; then K3 on the scan's own inputs, as in phase 3.
 5. The two entry points off the pipeline, each driven with the counts from
    0: ``segmented_inclusive_scan`` (K6) at [4, 131,072] (the reference's
    Pallas shape) and [4, 2,097,152] (the fullscale buffer) with heads from a
@@ -259,10 +264,10 @@ def _lattice_buffer(dev, rng, n, n_valid, lo, hi):
     return p, valid
 
 
-def check_k3(dev, rng, path, nv, n_valid, rt, band):
-    """K3 on a lattice-ordered, front-compacted voxel cloud."""
-    import torch
-
+def check_k3(dev, rng, path, nv, n_valid, rt, band, k):
+    """K3 on front-compacted random points sorted by x (the voxel cloud's
+    shape, not its lattice order: a query's rank neighbours are not its
+    nearest, so the selection inserts more than on a scan's cloud)."""
     from pointcloud_obstacle_processing_tpu_torch.ops import outliers
 
     p, valid = _lattice_buffer(dev, rng, nv, n_valid, [0, 0, -0.1], [4.5, 3.78, 0.3])
@@ -271,18 +276,50 @@ def check_k3(dev, rng, path, nv, n_valid, rt, band):
     tiles = -(-nv // rt)
     starts = outliers.band_starts(nv, rt, band, tiles, dev)
     width = rt + 2 * band
-    sk = outliers.knn_select(pch, p_sq, valid, starts, rt, width)
-    sp = outliers.knn_select_plain(pch, p_sq, valid, starts, rt, width)
-    err = _assert_equal(f"K3 knn_select {path}", sk, sp)
-    live_tiles = -(-n_valid // rt)  # the buffer is front-compacted
+    return _k3_row(path, f"{nv} x-sorted random queries", (pch, p_sq, valid, starts, rt, width, k))
+
+
+def _k3_row(path, what, args):
+    """K3's line: the kernel's mean against the plain version's, bitwise."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import outliers
+
+    pch, p_sq, valid, starts, rt, width, k = args
+    nv, tiles = p_sq.shape[0], starts.shape[0]
+    err = _assert_equal(f"K3 knn_mean {path} ({what})", outliers.knn_mean(*args),
+                        outliers.knn_mean_plain(*args))
+    live_tiles = int(outliers._tile_live(valid, tiles, rt).sum())
     return _row(
-        "knn_select", path, f"{nv} queries, row tile {rt}, window {width}",
+        "knn_mean", path, f"{what}, row tile {rt}, window {width}, k {k}",
         "knn_select.cu", "outliers.py:142", err,
-        lambda: outliers.knn_select(pch, p_sq, valid, starts, rt, width),
-        lambda: outliers.knn_select_plain(pch, p_sq, valid, starts, rt, width),
-        _bound(nv * 17 + tiles * 4 + 16 * tiles * rt * 4, live_tiles * rt * width * D2_OPS),
+        lambda: outliers.knn_mean(*args),
+        lambda: outliers.knn_mean_plain(*args),
+        # channels, |p|^2 and the mask read once, the starts, the [n_q] mean written
+        _bound(nv * 17 + tiles * 4 + tiles * rt * 4, live_tiles * rt * width * D2_OPS),
         plain_reps=3,
     )
+
+
+def capture_k3_args(model, cloud, draw, name: str = "knn_mean") -> tuple:
+    """The arguments of the one call a scan makes to ``ops.outliers.<name>``
+    (K3's wrapper, which ``knn_mean_distances`` looks up at call time)."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import outliers
+
+    seen, kernel = [], getattr(outliers, name)
+    setattr(outliers, name, lambda *a: seen.append(a) or kernel(*a))
+    try:
+        model(cloud, draw=draw)
+    finally:
+        setattr(outliers, name, kernel)
+    (args,) = seen
+    return args
+
+
+def check_k3_scan(path, model, cloud, draw):
+    """K3 on the inputs one main-path scan gives it: the centered,
+    lattice-ordered voxel cloud, taken from the scan's own call."""
+    args = capture_k3_args(model, cloud, draw)
+    nv = int(args[2].sum())
+    return _k3_row(path, f"the scan's voxel cloud ({nv} valid of {args[1].shape[0]})", args)
 
 
 def _cluster_buffer(dev, rng, c, n_valid, spread):
@@ -296,17 +333,17 @@ def _cluster_buffer(dev, rng, c, n_valid, spread):
 
 def check_k4(dev, rng, path, c, n_valid, tol2):
     """K4 on a centered cluster buffer with chained labels."""
-    from pointcloud_obstacle_processing_tpu_torch.ops import cluster, sum_sq3
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
 
     p, valid, labels = _cluster_buffer(dev, rng, c, n_valid, 3.0)
-    err = _assert_equal(f"K4 cluster_sweep {path}", cluster.sweep_jump(p, valid, labels, tol2),
-                        cluster.sweep_jump_plain(p, valid, labels, tol2))
-    p_sq = sum_sq3(*p.T)  # the cluster loop computes it once for all its sweeps
+    chans = cluster.point_channels(p)  # as the cluster loop lays them out, once
+    err = _assert_equal(f"K4 cluster_sweep {path}", cluster.sweep_jump(chans, valid, labels, tol2),
+                        cluster.sweep_jump_plain(chans, valid, labels, tol2))
     return _row(
         "cluster_sweep", path, f"C {c}, {n_valid} valid",
         "cluster_sweep.cu", "cluster.py:86", err,
-        lambda: cluster.sweep_jump(p, valid, labels, tol2, p_sq),
-        lambda: cluster.sweep_jump_plain(p, valid, labels, tol2, p_sq),
+        lambda: cluster.sweep_jump(chans, valid, labels, tol2),
+        lambda: cluster.sweep_jump_plain(chans, valid, labels, tol2),
         _bound(c * 21 + c * 4, n_valid * c * D2_OPS),
     )
 
@@ -316,17 +353,17 @@ def check_k5(dev, rng, path, c, n_valid, window, tolerance):
     with a seeded random tile_live; starts from ``band_starts``."""
     import torch
 
-    from pointcloud_obstacle_processing_tpu_torch.ops import cluster, sum_sq3
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
 
     p, valid, labels = _cluster_buffer(dev, rng, c, n_valid, 4.5)
-    p_sq = sum_sq3(*p.T)  # the cluster loop computes it once for all its sweeps
+    packed = cluster.pack_points(p)  # as the cluster loop lays them out, once
     tol2 = tolerance ** 2
     starts, _ = cluster.band_starts(p, valid, 128, window, tolerance)
     has_valid = valid.reshape(c // 128, 128).any(dim=1)
     rows = []
     for gated in (False, True):
         live = torch.tensor(rng.random(c // 128) < 0.5, device=dev) if gated else None
-        args = (p, valid, labels, tol2, 128, window, starts, live, p_sq)
+        args = (packed, valid, labels, tol2, 128, window, starts, live)
         err = _assert_equal(f"K5 cluster_sweep_banded {path} gated={gated}",
                             cluster.sweep_jump_banded(*args), cluster.sweep_jump_banded_plain(*args))
         computed = int((has_valid & live).sum()) if gated else int(has_valid.sum())
@@ -337,6 +374,7 @@ def check_k5(dev, rng, path, c, n_valid, window, tolerance):
             "cluster_sweep_banded.cu", "cluster.py:329", err,
             lambda: cluster.sweep_jump_banded(*args),
             lambda: cluster.sweep_jump_banded_plain(*args),
+            # packed points, valid and labels; starts and tile_live; out
             _bound(c * 21 + (c // 128) * 5 + c * 4, computed * 128 * window * D2_OPS),
         ))
     return rows
@@ -461,14 +499,16 @@ def check_kernels(dev, card: str) -> list[dict]:
         check_k1(dev, rng, "flagship", fl.max_points, fl.max_voxels, 90_000, 21_500, 230_000,
                  fl.downsample_leaf_size),
         check_k2(dev, rng, "flagship", fl.max_voxels, fl.cluster_capacity, 0.025),
-        check_k3(dev, rng, "flagship", fl.max_voxels, 21_500, fl.knn_row_tile, fl.knn_band),
+        check_k3(dev, rng, "flagship", fl.max_voxels, 21_500, fl.knn_row_tile, fl.knn_band,
+                 fl.statistical_outlier_mean_k),
         check_k4(dev, rng, "flagship", fl.cluster_capacity, 600, fl.euc_cluster_tolerance ** 2),
         # the fullscale window: ~2.0 M points, ~166 k voxels of a 302 x 254 x
         # 52 lattice, ~7 k non-plane points
         check_k1(dev, rng, "fullscale", fs.max_points, fs.max_voxels, 2_000_000, 166_000,
                  3_988_816, fs.downsample_leaf_size),
         check_k2(dev, rng, "fullscale", fs.max_voxels, fs.cluster_capacity, 7_000 / fs.max_voxels),
-        check_k3(dev, rng, "fullscale", fs.max_voxels, 166_000, fs.knn_row_tile, fs.knn_band),
+        check_k3(dev, rng, "fullscale", fs.max_voxels, 166_000, fs.knn_row_tile, fs.knn_band,
+                 fs.statistical_outlier_mean_k),
         *check_k5(dev, rng, "fullscale", fs.cluster_capacity, 7_000, fs.cluster_band_window,
                   fs.euc_cluster_tolerance),
     ]
@@ -571,6 +611,26 @@ def _time_scans(model, clouds, draw, n: int) -> list[float]:
     return times
 
 
+def scan_device_ops(model, cloud, draw) -> tuple[int, float]:
+    """Device operations (kernels, memsets, copies) of one scan and their
+    summed device time in ms, from ``torch.profiler``, after a warm-up scan.
+    A session that records no device events is taken again, up to 3 times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model(cloud, draw=draw)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model(cloud, draw=draw)
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if us:
+            return len(us), sum(us) / 1e3
+    raise AssertionError("torch.profiler recorded no device operation in 3 sessions")
+
+
 def _count_syncs(model, cloud, draw) -> tuple[int, object]:
     """Host syncs of one scan, as torch's sync debug mode reports them."""
     import torch
@@ -601,7 +661,7 @@ def _draws(cfg, dev):
     return draw_from_uniform(torch.tensor(u, device=dev)), draw_from_uniform(torch.tensor(u))
 
 
-def run_flagship(dev, card: str) -> dict:
+def run_flagship(dev, card: str) -> tuple[dict, list[dict]]:
     from pointcloud_obstacle_processing_tpu_torch import Cloud, _build
     from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG, ObstacleDetectionModel
 
@@ -614,7 +674,7 @@ def run_flagship(dev, card: str) -> dict:
     gpu_clouds = [clouds[s].to(dev) for s in SCENE_SEEDS]
 
     # main path: counts from 0, one scan of each scene on the card
-    path = ["runreduce", "compact_gather", "knn_select", "cluster_sweep"]
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep"]
     launches = dict.fromkeys(_build.LAUNCHES, 0)
     results = {}
     for s, gc in zip(SCENE_SEEDS, gpu_clouds):
@@ -633,14 +693,16 @@ def run_flagship(dev, card: str) -> dict:
     times = _time_scans(model, gpu_clouds, draw_cuda, TIMED_SCANS)
     n_sync, res = _count_syncs(model, gpu_clouds[0], draw_cuda)
     _check_syncs("flagship", n_sync, res)
+    n_ops, dev_ms = scan_device_ops(model, gpu_clouds[0], draw_cuda)
     print(f"flagship process_scan p50 {statistics.median(times):.3f} ms per scan over "
           f"{len(times)} scans (min {min(times):.3f}, max {max(times):.3f}); host syncs per scan "
-          f"{n_sync} (sync debug mode; cluster loop counts {res.host_syncs}); kernel launches "
-          f"over the {len(SCENE_SEEDS)} main-path scans {launches} [{card}]")
-    return launches
+          f"{n_sync} (sync debug mode; cluster loop counts {res.host_syncs}); device operations "
+          f"per scan {n_ops} ({dev_ms:.3f} ms of device time, scene {SCENE_SEEDS[0]}); kernel "
+          f"launches over the {len(SCENE_SEEDS)} main-path scans {launches} [{card}]")
+    return launches, [check_k3_scan("flagship", model, gpu_clouds[0], draw_cuda)]
 
 
-def run_fullscale(dev, card: str) -> dict:
+def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
     import torch
 
     from pointcloud_obstacle_processing_tpu_torch.models import (
@@ -658,7 +720,7 @@ def run_fullscale(dev, card: str) -> dict:
     cloud = Cloud(points=torch.tensor(pts), valid=torch.tensor(valid))
     gpu_cloud = cloud.to(dev)
 
-    path = ["runreduce", "compact_gather", "knn_select", "cluster_sweep_banded"]
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded"]
     res, launches = _drive(model, gpu_cloud, draw_cuda, path)
     _check_overflows("fullscale", res)
     if int(res.stats.num_clusters) < 1:
@@ -674,11 +736,13 @@ def run_fullscale(dev, card: str) -> dict:
     times = _time_scans(model, [gpu_cloud], draw_cuda, FULLSCALE_TIMED_SCANS)
     n_sync, res = _count_syncs(model, gpu_cloud, draw_cuda)
     _check_syncs("fullscale", n_sync, res)
+    n_ops, dev_ms = scan_device_ops(model, gpu_cloud, draw_cuda)
     print(f"fullscale process_scan p50 {statistics.median(times):.3f} ms per scan over "
           f"{len(times)} scans (min {min(times):.3f}, max {max(times):.3f}); host syncs per scan "
-          f"{n_sync} (sync debug mode; cluster loop counts {res.host_syncs}); kernel launches on "
-          f"the main-path scan {launches} [{card}]")
-    return launches
+          f"{n_sync} (sync debug mode; cluster loop counts {res.host_syncs}); device operations "
+          f"per scan {n_ops} ({dev_ms:.3f} ms of device time); kernel launches on the main-path "
+          f"scan {launches} [{card}]")
+    return launches, [check_k3_scan("fullscale", model, gpu_cloud, draw_cuda)]
 
 
 def main() -> None:
@@ -705,7 +769,13 @@ def main() -> None:
           f"(nvcc {sum(_build.BUILD_SECONDS):.1f} s)")
 
     rows = check_kernels(dev, card)
-    launches = {"flagship": run_flagship(dev, card), "fullscale": run_fullscale(dev, card)}
+    launches = {}
+    for path, run in (("flagship", run_flagship), ("fullscale", run_fullscale)):
+        launches[path], scan_rows = run(dev, card)
+        for r in scan_rows:
+            print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: equal to plain; {_times(r)} "
+                  f"[{card}]")
+        rows += scan_rows
     more_rows, more_launches = run_segscan_binning(dev, card)
     rows += more_rows
     launches.update(more_launches)

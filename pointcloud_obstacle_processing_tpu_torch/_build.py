@@ -44,7 +44,7 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches since the last reset
-LAUNCHES = {"runreduce": 0, "compact_gather": 0, "knn_select": 0, "cluster_sweep": 0,
+LAUNCHES = {"runreduce": 0, "compact_gather": 0, "knn_mean": 0, "cluster_sweep": 0,
             "cluster_sweep_banded": 0, "segscan": 0, "binned_sum": 0}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -57,16 +57,15 @@ _SIGNATURES = {
                       _I, _VP, _VP, _VP, _VP, _VP, _VP],
     # bins, occ, c, k, capacity, loc, vals, scratch (num, block counts), stream
     "pcp_compact_gather": [_VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP],
-    # px, py, pz, psq, valid, starts, tile_live, n, n_q, row_tile, width,
-    # big, out, stream
-    "pcp_knn_select": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
-                       _F, _VP, _VP],
+    # px, py, pz, psq, valid, starts, n, tiles, row_tile, width, k, big,
+    # half, out, stream
+    "pcp_knn_mean": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F,
+                     _F, _VP, _VP],
     # px, py, pz, psq, valid, labels, c, tol2, out, stream
     "pcp_cluster_sweep": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _F, _VP, _VP],
-    # px, py, pz, psq, valid, labels, starts, tile_live, c, window, tol2,
-    # out, stream
-    "pcp_cluster_sweep_banded": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F,
-                                 _VP, _VP],
+    # pts (packed [C, 4]), valid, labels, starts, tile_live, c, window,
+    # tol2, out, stream
+    "pcp_cluster_sweep_banded": [_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _VP, _VP],
     # values, heads, c, n, out, scratch, flags, stream
     "pcp_segscan": [_VP, _VP, _I, _I, _VP, _VP, _VP, _VP],
     # ids, weights, valid, n, c, k, exact, out (zeroed by the call), stream

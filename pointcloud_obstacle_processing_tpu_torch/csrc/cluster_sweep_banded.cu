@@ -19,105 +19,116 @@
 // padding row's value is its own label).  tile_live may be null: all live.
 //
 // Labels stay int32 (the Pallas kernel carried them as f32 only for its DMA
-// layout).  One block of 512 threads per query tile: four groups of 128
-// threads, thread r of each group on query row r, each group on every
-// fourth column of the window, so a warp reads one shared-memory word at a
-// time (a broadcast).  The window is staged through shared memory in chunks
-// of 1024 columns (x, y, z, |p|^2, lc); the four partial minima meet in
-// shared memory.  Min over int32 is exact in any order.  The distance is
-// the reference's expression tree as XLA:CPU evaluates it:
-// cross = fma(qz, cz, fma(qx, cx, qy*cy)) with explicit fused multiply-adds
-// (-fmad=false leaves the intrinsics alone); d2 = (q_sq + c_sq) - 2*cross.
+// layout).  The points come packed, one float4 (x, y, z, |p|^2) a row,
+// made once per clustering.  Each tile's window is split over a thread-block
+// cluster of kCluster blocks (__cluster_dims__), block rank b scoring the
+// quarter [s + b*W/4, s + (b+1)*W/4).  In a block of 512 threads, thread r
+// of each of four groups holds query row r, each group on every fourth
+// column of the quarter, so a warp reads one shared-memory float4 at a time
+// (a broadcast).  The quarter is staged in chunks of 1024 columns (the
+// float4 and lc = valid ? labels : C).  The four groups' partial minima meet
+// in the block's shared memory, the four blocks' through distributed shared
+// memory: rank 0 reads its peers' partials (map_shared_rank) after a
+// cluster barrier and writes out; a second barrier keeps every peer's
+// shared memory alive until then.  Every block of a cluster reads the same
+// tile, so all four take the skip alike.  Min over int32 is exact in any
+// order.  The distance is the reference's expression tree as XLA:CPU
+// evaluates it: cross = fma(qz, cz, fma(qx, cx, qy*cy)) with explicit fused
+// multiply-adds (-fmad=false leaves the intrinsics alone); d2 = (q_sq +
+// c_sq) - 2*cross.
 //
 // Bound on the H100: at the fullscale shape (C = 16384, W = 4096) a sweep
-// scores at most 128 x 128 x 4096 = 67 M pairs of ~11 flops, 0.74 GFLOP,
-// ~11 us at the fp32 rate, and the live tiles are about half of that; it
-// reads ~1.4 MB.  The loop runs one launch per sweep, so launch latency and
-// the 128 blocks on 132 SMs (most of them padding or converged tiles)
-// bound it.
+// scores at most 128 x 128 x 4096 = 67 M pairs of ~9 operations, 0.6
+// GFLOP, ~9 us at the fp32 rate, and the live tiles are about half of that;
+// it reads ~0.4 MB.  The loop runs one launch per sweep, so launch latency
+// and the few live tiles bound it: the cluster split puts four SMs, not
+// one, on each live tile.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kTile = 128;
-constexpr int kSplit = 4;
+constexpr int kSplit = 4;    // column groups of a block
+constexpr int kCluster = 4;  // blocks of a cluster, one window quarter each
 constexpr int kChunk = 1024;
 
-__global__ void cluster_sweep_banded(const float* __restrict__ px, const float* __restrict__ py,
-                                     const float* __restrict__ pz,
-                                     const float* __restrict__ psq,
-                                     const unsigned char* __restrict__ valid,
-                                     const int* __restrict__ labels,
-                                     const int* __restrict__ starts,
-                                     const unsigned char* __restrict__ tile_live, int c,
-                                     int window, float tol2, int* __restrict__ out) {
-  __shared__ float sx[kChunk];
-  __shared__ float sy[kChunk];
-  __shared__ float sz[kChunk];
-  __shared__ float ss[kChunk];
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kTile * kSplit)
+    cluster_sweep_banded(const float4* __restrict__ pts, const unsigned char* __restrict__ valid,
+                         const int* __restrict__ labels, const int* __restrict__ starts,
+                         const unsigned char* __restrict__ tile_live, int c, int window,
+                         float tol2, int* __restrict__ out) {
+  __shared__ float4 sp[kChunk];
   __shared__ int sl[kChunk];
   __shared__ int part[kSplit][kTile];
-  const int t = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int t = blockIdx.x / kCluster;
   const int r = threadIdx.x % kTile;
   const int g = threadIdx.x / kTile;
   const int i = t * kTile + r;
   const int qlab = labels[i];
   const bool qv = valid[i] != 0;
   const bool live = tile_live == nullptr || tile_live[t] != 0;
-  if (!__syncthreads_or(live && qv)) {  // uniform over the block
-    if (g == 0) out[i] = qlab;
+  if (!__syncthreads_or(live && qv)) {  // uniform over the block and the cluster
+    if (rank == 0 && g == 0) out[i] = qlab;
     return;
   }
   const int start = starts[t];
-  const float qx = px[i];
-  const float qy = py[i];
-  const float qz = pz[i];
-  const float qsq = psq[i];
+  const int quarter = window / kCluster;
+  const int lo = start + rank * quarter;
+  const float4 q = pts[i];
   int best = c;
-  if (g == 0 && qlab >= start && qlab < start + window) {  // the in-window jump column
+  if (rank == 0 && g == 0 && qlab >= start && qlab < start + window) {  // the jump column
     best = valid[qlab] ? labels[qlab] : c;
   }
-  for (int base = 0; base < window; base += kChunk) {
-    const int len = window - base < kChunk ? window - base : kChunk;
+  for (int base = 0; base < quarter; base += kChunk) {
+    const int len = quarter - base < kChunk ? quarter - base : kChunk;
     __syncthreads();
     for (int j = threadIdx.x; j < len; j += blockDim.x) {
-      const int col = start + base + j;
-      sx[j] = px[col];
-      sy[j] = py[col];
-      sz[j] = pz[col];
-      ss[j] = psq[col];
+      const int col = lo + base + j;
+      sp[j] = pts[col];
       sl[j] = valid[col] ? labels[col] : c;
     }
     __syncthreads();
     if (qv) {
       for (int j = g; j < len; j += kSplit) {
-        const float cross =
-            __fmaf_rn(qz, sz[j], __fmaf_rn(qx, sx[j], __fmul_rn(qy, sy[j])));
-        const float d2 = __fsub_rn(__fadd_rn(qsq, ss[j]), __fmul_rn(2.0f, cross));
+        const float4 p = sp[j];
+        const float cross = __fmaf_rn(q.z, p.z, __fmaf_rn(q.x, p.x, __fmul_rn(q.y, p.y)));
+        const float d2 = __fsub_rn(__fadd_rn(q.w, p.w), __fmul_rn(2.0f, cross));
         if (d2 <= tol2 && sl[j] < best) best = sl[j];
       }
     }
   }
   part[g][r] = best;
-  __syncthreads();
-  if (g == 0) {
+  cluster.sync();  // every block's partials are written
+  if (rank == 0 && g == 0) {
 #pragma unroll
-    for (int k = 1; k < kSplit; ++k) best = part[k][r] < best ? part[k][r] : best;
+    for (int b = 0; b < kCluster; ++b) {
+      const int* peer = cluster.map_shared_rank(&part[0][0], b);
+#pragma unroll
+      for (int k = 0; k < kSplit; ++k) {
+        const int v = peer[k * kTile + r];
+        best = v < best ? v : best;
+      }
+    }
     out[i] = best < qlab ? best : qlab;
   }
+  cluster.sync();  // no block leaves while rank 0 may still read its partials
 }
 
 }  // namespace
 
-extern "C" int pcp_cluster_sweep_banded(const float* px, const float* py, const float* pz,
-                                        const float* psq, const unsigned char* valid,
+extern "C" int pcp_cluster_sweep_banded(const float* pts, const unsigned char* valid,
                                         const int* labels, const int* starts,
                                         const unsigned char* tile_live, int c, int window,
                                         float tol2, int* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cluster_sweep_banded<<<c / kTile, kTile * kSplit, 0, s>>>(px, py, pz, psq, valid, labels,
-                                                            starts, tile_live, c, window, tol2,
-                                                            out);
+  cluster_sweep_banded<<<(c / kTile) * kCluster, kTile * kSplit, 0, s>>>(
+      reinterpret_cast<const float4*>(pts), valid, labels, starts, tile_live, c, window, tol2,
+      out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,9 @@ propagation over the compacted non-plane buffer.
 * each sweep computes ``min(label[i], label[label[i]], neighbour labels)``
   (kernel K4, ``csrc/cluster_sweep.cu``; ``sweep_jump_plain`` for CPU
   tensors), then hooks each point's minimum onto its root;
+* the points and |p|^2 do not change within a clustering: they are laid
+  out once for the sweeps, as the [4, C] channel rows K4 reads
+  (``point_channels``) or the [C, 4] rows K5 reads (``pack_points``);
 * with ``band_window`` the sweep is banded: query tile t (128 rows) scores
   only the ``band_window`` columns at ``starts[t]`` (``band_starts``, from
   the x envelopes of the lattice-ordered cloud), tiles whose window saw no
@@ -41,6 +44,8 @@ from ..types import Cloud, ClusterSet, PointIndicesArray, PointWithRad
 
 __all__ = [
     "euclidean_cluster",
+    "point_channels",
+    "pack_points",
     "cluster_centroids",
     "sweep_jump",
     "sweep_jump_plain",
@@ -59,16 +64,28 @@ def _norms(p, p_sq):
     return sum_sq3(p[:, 0], p[:, 1], p[:, 2]) if p_sq is None else p_sq
 
 
-def sweep_jump_plain(p, valid, labels, tol2: float, p_sq=None) -> torch.Tensor:
+def point_channels(p, p_sq=None) -> torch.Tensor:
+    """[4, C] float32 rows x, y, z, |p|^2 (``sum_sq3`` unless given): the
+    sweep points as kernel K4 reads them, laid out once per clustering."""
+    return torch.stack([p[:, 0], p[:, 1], p[:, 2], _norms(p, p_sq)])
+
+
+def pack_points(p, p_sq=None) -> torch.Tensor:
+    """[C, 4] float32 rows (x, y, z, |p|^2) (``sum_sq3`` unless given): the
+    sweep points as kernel K5 reads them, laid out once per clustering."""
+    return torch.cat([p, _norms(p, p_sq)[:, None]], dim=1)
+
+
+def sweep_jump_plain(pch, valid, labels, tol2: float) -> torch.Tensor:
     """Plain PyTorch version of kernel K4 (the reference's ``_xla_sweep_jump``
-    contract): min over {label[i]} ∪ {label_col[label[i]]} ∪ neighbours."""
-    n = p.shape[0]
-    x, y, z = p[:, 0], p[:, 1], p[:, 2]
-    p_sq = _norms(p, p_sq)
+    contract): min over {label[i]} ∪ {label_col[label[i]]} ∪ neighbours.
+    ``pch``: ``point_channels``' [4, C] rows."""
+    n = labels.shape[0]
+    x, y, z, p_sq = pch
     t2 = f32(tol2)
     labels_col = torch.where(valid, labels, n)
-    col_ids = torch.arange(n, device=p.device)
-    out = torch.empty(n, dtype=torch.int32, device=p.device)
+    col_ids = torch.arange(n, device=pch.device)
+    out = torch.empty(n, dtype=torch.int32, device=pch.device)
     for r0 in range(0, n, 256):  # 256-row tiles bound the [T, C] temporaries
         r = slice(r0, min(r0 + 256, n))
         cross = dot3(x[r, None], y[r, None], z[r, None], x[None, :], y[None, :], z[None, :])
@@ -80,22 +97,20 @@ def sweep_jump_plain(p, valid, labels, tol2: float, p_sq=None) -> torch.Tensor:
     return out
 
 
-def sweep_jump(p, valid, labels, tol2: float, p_sq=None) -> torch.Tensor:
+def sweep_jump(pch, valid, labels, tol2: float) -> torch.Tensor:
     """One fused neighbour-min + pointer-jump sweep: kernel K4 for CUDA
-    tensors, the plain version for CPU tensors.  ``p_sq``: |p|^2 as
-    ``ops.sum_sq3`` gives it, computed here when not given."""
-    if p.device.type == "cpu":
-        return sweep_jump_plain(p, valid, labels, tol2, p_sq)
-    n = p.shape[0]
-    if p.shape != (n, 3) or valid.shape != (n,) or labels.shape != (n,) or \
-            (p_sq is not None and p_sq.shape != (n,)):
-        raise ValueError("sweep_jump: points [C, 3], valid [C], labels [C] and p_sq [C]")
-    x, y, z = (p[:, c].contiguous() for c in range(3))
-    p_sq = _norms(p, p_sq).contiguous()
-    _build.require_cuda("sweep_jump", x, y, z, p_sq, valid, labels,
-                        dtypes=[torch.float32] * 4 + [torch.bool, torch.int32])
+    tensors, the plain version for CPU tensors.  ``pch``:
+    ``point_channels``' [4, C] rows, which the kernel reads as they are."""
+    if pch.device.type == "cpu":
+        return sweep_jump_plain(pch, valid, labels, tol2)
+    n = labels.shape[0]
+    if pch.shape != (4, n) or valid.shape != (n,) or labels.shape != (n,):
+        raise ValueError("sweep_jump: point channels [4, C], valid [C] and labels [C]")
+    _build.require_cuda("sweep_jump", pch, valid, labels,
+                        dtypes=[torch.float32, torch.bool, torch.int32])
+    x, y, z, p_sq = pch
     lib = _build.kernels()
-    out = torch.empty(n, dtype=torch.int32, device=p.device)
+    out = torch.empty(n, dtype=torch.int32, device=pch.device)
     err = lib.pcp_cluster_sweep(
         x.data_ptr(), y.data_ptr(), z.data_ptr(), p_sq.data_ptr(), valid.data_ptr(),
         labels.data_ptr(), n, float(np.float32(tol2)), out.data_ptr(), _build.stream_handle(),
@@ -134,19 +149,19 @@ def band_starts(p, valid, tile: int, window: int, tolerance: float):
     return start.to(torch.int32), ((hi - start) > window).any()
 
 
-def sweep_jump_banded_plain(p, valid, labels, tol2: float, tile: int, window: int, starts,
-                            tile_live=None, p_sq=None) -> torch.Tensor:
+def sweep_jump_banded_plain(pk, valid, labels, tol2: float, tile: int, window: int, starts,
+                            tile_live=None) -> torch.Tensor:
     """Plain PyTorch version of kernel K5 (the reference's
     ``_xla_sweep_jump_banded`` contract): for row i of tile t,
     ``min(labels[i], labels_col[j])`` over the window columns j in
     ``[starts[t], starts[t] + window)`` that are neighbours of i or equal
     ``labels[i]``.  Tiles with ``tile_live[t]`` False write ``labels``
-    through, as the kernel skips them."""
-    n = p.shape[0]
+    through, as the kernel skips them.  ``pk``: ``pack_points``' [C, 4]
+    rows."""
+    n = labels.shape[0]
     tiles = n // tile
-    dev = p.device
-    x, y, z = p[:, 0], p[:, 1], p[:, 2]
-    p_sq = _norms(p, p_sq)
+    dev = pk.device
+    x, y, z, p_sq = pk.unbind(1)
     t2 = f32(tol2)
     labels_col = torch.where(valid, labels, n)
     w_ids = torch.arange(window, device=dev)
@@ -168,10 +183,11 @@ def sweep_jump_banded_plain(p, valid, labels, tol2: float, tile: int, window: in
     return out
 
 
-def sweep_jump_banded(p, valid, labels, tol2: float, tile: int, window: int, starts,
-                      tile_live=None, p_sq=None) -> torch.Tensor:
+def sweep_jump_banded(pk, valid, labels, tol2: float, tile: int, window: int, starts,
+                      tile_live=None) -> torch.Tensor:
     """One banded neighbour-min + in-window pointer-jump sweep: kernel K5 for
-    CUDA tensors, the plain version for CPU tensors.
+    CUDA tensors, the plain version for CPU tensors.  ``pk``:
+    ``pack_points``' [C, 4] rows, which the kernel reads as they are.
 
     A tile is skipped (its labels written through) where ``tile_live`` is
     False or it holds no valid row.  Both skips leave the cluster loop's
@@ -179,10 +195,9 @@ def sweep_jump_banded(p, valid, labels, tol2: float, tile: int, window: int, sta
     and for a tile whose window saw no label change the hook that follows
     reads the same minima (the reference's skip note,
     ``_pallas_sweep_jump_banded``)."""
-    if p.device.type == "cpu":
-        return sweep_jump_banded_plain(p, valid, labels, tol2, tile, window, starts, tile_live,
-                                       p_sq)
-    n = p.shape[0]
+    if pk.device.type == "cpu":
+        return sweep_jump_banded_plain(pk, valid, labels, tol2, tile, window, starts, tile_live)
+    n = labels.shape[0]
     if tile != BAND_TILE or n % tile or window % 128 or not tile <= window < n:
         raise ValueError(
             f"sweep_jump_banded: needs tile {BAND_TILE}, a capacity divisible by it and "
@@ -190,24 +205,22 @@ def sweep_jump_banded(p, valid, labels, tol2: float, tile: int, window: int, sta
             f"window={window}, capacity={n})"
         )
     tiles = n // tile
-    if p.shape != (n, 3) or valid.shape != (n,) or labels.shape != (n,) or \
-            starts.shape != (tiles,) or (tile_live is not None and tile_live.shape != (tiles,)) or \
-            (p_sq is not None and p_sq.shape != (n,)):
-        raise ValueError("sweep_jump_banded: points [C, 3], valid, labels and p_sq [C], "
+    if pk.shape != (n, 4) or valid.shape != (n,) or labels.shape != (n,) or \
+            starts.shape != (tiles,) or (tile_live is not None and tile_live.shape != (tiles,)):
+        raise ValueError("sweep_jump_banded: packed points [C, 4], valid and labels [C], "
                          "starts and tile_live [C / 128]")
-    x, y, z = (p[:, c].contiguous() for c in range(3))
-    p_sq = _norms(p, p_sq).contiguous()
-    ops = [x, y, z, p_sq, valid, labels, starts]
-    dtypes = [torch.float32] * 4 + [torch.bool, torch.int32, torch.int32]
+    if pk.data_ptr() % 16:
+        raise ValueError("sweep_jump_banded: the packed points must be 16-byte aligned")
+    ops = [pk, valid, labels, starts]
+    dtypes = [torch.float32, torch.bool, torch.int32, torch.int32]
     if tile_live is not None:
         ops.append(tile_live)
         dtypes.append(torch.bool)
     _build.require_cuda("sweep_jump_banded", *ops, dtypes=dtypes)
     lib = _build.kernels()
-    out = torch.empty(n, dtype=torch.int32, device=p.device)
+    out = torch.empty(n, dtype=torch.int32, device=pk.device)
     err = lib.pcp_cluster_sweep_banded(
-        x.data_ptr(), y.data_ptr(), z.data_ptr(), p_sq.data_ptr(), valid.data_ptr(),
-        labels.data_ptr(), starts.data_ptr(),
+        pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), starts.data_ptr(),
         None if tile_live is None else tile_live.data_ptr(), n, window,
         float(np.float32(tol2)), out.data_ptr(), _build.stream_handle(),
     )
@@ -254,7 +267,7 @@ def euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: i
     dp = p - prev
     gap2 = sum_sq3(dp[:, 0], dp[:, 1], dp[:, 2])
     prev_valid = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), valid[:-1]])
-    p_sq = _norms(p, None)  # the sweeps' |p|^2, fixed for the whole loop
+    p_sq = sum_sq3(p[:, 0], p[:, 1], p[:, 2])  # the sweeps' |p|^2, fixed for the whole loop
     maxsq = torch.where(valid, p_sq, 0.0).max()
     seed_thresh = f32(tol2 * (1.0 - 1e-6)) - maxsq * (2.0**-20)
     chain = valid & prev_valid & (gap2 <= seed_thresh)
@@ -263,6 +276,8 @@ def euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: i
     labels = torch.where(valid, run_head, idx).to(torch.int32)
 
     banded = bool(band_window) and BAND_TILE <= band_window < n and n % BAND_TILE == 0
+    # the sweeps' operand, laid out once for the whole loop
+    sweep_pts = pack_points(p, p_sq) if banded else point_channels(p, p_sq)
     if banded:
         starts, band_overflow = band_starts(p, valid, BAND_TILE, band_window, tolerance)
         win_hi = (starts + (band_window - 1)).long()
@@ -280,10 +295,10 @@ def euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: i
             # in the previous sweep (a prefix-sum difference per window)
             cs = torch.cumsum(changed, dim=0, dtype=torch.int32)
             tile_live = (cs[win_hi] - torch.where(starts > 0, cs[win_lo], 0)) > 0
-            nbr_min = sweep_jump_banded(p, valid, labels, tol2, BAND_TILE, band_window, starts,
-                                        tile_live, p_sq)
+            nbr_min = sweep_jump_banded(sweep_pts, valid, labels, tol2, BAND_TILE, band_window,
+                                        starts, tile_live)
         else:
-            nbr_min = sweep_jump(p, valid, labels, tol2, p_sq)
+            nbr_min = sweep_jump(sweep_pts, valid, labels, tol2)
         # hook: each point's neighbourhood minimum onto its root (scatter-
         # min; the same int32 minima as the reference's one-hot form)
         upd = torch.full((n,), n, dtype=torch.int32, device=dev)

@@ -7,10 +7,10 @@ valid neighbours among a rank window (query tile t scores the ``row_tile +
 2*band`` columns at ``starts[t]``); then PCL's global gate ``mean_dist <=
 mu + mult * sigma`` with the n-1 estimator.
 
-Kernel K3 (``csrc/knn_select.cu``) emits the 16 smallest squared distances
-of each query, ascending; ``knn_select_plain`` is its plain version, taken
-only for CPU tensors.  The masked mean of the k smallest square roots is
-one PyTorch expression shared by both.
+Kernel K3 (``csrc/knn_select.cu``, wrapper ``knn_mean``) selects the 16
+smallest squared distances of each query and emits the masked mean of the k
+smallest square roots.  Its plain version, taken only for CPU tensors, is
+``knn_select_plain`` (the sorted 16) followed by ``mean_from_sorted``.
 """
 
 from __future__ import annotations
@@ -27,15 +27,19 @@ from ..types import Cloud
 __all__ = [
     "knn_mean_distances",
     "remove_statistical_outliers",
-    "knn_select",
+    "knn_mean",
+    "knn_mean_plain",
     "knn_select_plain",
+    "mean_from_sorted",
     "band_starts",
+    "centre_out_chunks",
     "OutlierResult",
     "BIG",
 ]
 
 BIG = 3.0e38  # sentinel squared distance for invalid and self columns
 _SEL = 16
+KNN_CHUNK = 256  # window columns per chunk of kernel K3 (kChunk)
 
 
 def band_starts(n: int, row_tile: int, band: int, tiles: int, device) -> torch.Tensor:
@@ -43,6 +47,20 @@ def band_starts(n: int, row_tile: int, band: int, tiles: int, device) -> torch.T
     width = row_tile + 2 * band
     t = torch.arange(tiles, dtype=torch.int32, device=device)
     return torch.clamp(t * row_tile - band, 0, n - width).to(torch.int32)
+
+
+def centre_out_chunks(off: int, width: int, row_tile: int, chunk: int = KNN_CHUNK) -> list:
+    """(begin, end) of kernel K3's chunks of a window [0, width), in the
+    order the kernel takes them (``chunk_at``): the chunks right of the
+    tile's first row ``off`` that cover the tile's rows, then left and right
+    chunks in turns.  The selected values do not depend on it."""
+    right = [(b, min(b + chunk, width)) for b in range(off, width, chunk)]
+    left = [(max(e - chunk, 0), e) for e in range(off, 0, -chunk)]
+    own = min(-(-row_tile // chunk), len(right))
+    order, rest = right[:own], right[own:]
+    for i in range(max(len(rest), len(left))):
+        order += left[i:i + 1] + rest[i:i + 1]
+    return order
 
 
 def _tile_live(valid: torch.Tensor, tiles: int, row_tile: int) -> torch.Tensor:
@@ -80,35 +98,6 @@ def knn_select_plain(pch, p_sq, valid, starts, row_tile: int, width: int) -> tor
     return out.reshape(n_q, _SEL).T.contiguous()
 
 
-def knn_select(pch, p_sq, valid, starts, row_tile: int, width: int) -> torch.Tensor:
-    """The 16 smallest banded squared distances of every query, ascending:
-    kernel K3 for CUDA tensors, the plain version for CPU tensors."""
-    if p_sq.device.type == "cpu":
-        return knn_select_plain(pch, p_sq, valid, starts, row_tile, width)
-    n = p_sq.shape[0]
-    tiles = starts.shape[0]
-    n_q = tiles * row_tile
-    if width > n or width % 16:
-        raise ValueError(f"knn_select: window width {width} must be <= {n} and a multiple of 16")
-    if any(t.shape != (n,) for t in (*pch, valid)) or len(pch) != 3 or starts.dim() != 1:
-        raise ValueError("knn_select: three [N] channels, [N] p_sq and valid, [tiles] starts")
-    _build.require_cuda(
-        "knn_select", *pch, p_sq, valid, starts,
-        dtypes=[torch.float32] * 4 + [torch.bool, torch.int32],
-    )
-    lib = _build.kernels()
-    live = _tile_live(valid, tiles, row_tile).contiguous()
-    out = torch.empty(_SEL, n_q, dtype=torch.float32, device=p_sq.device)
-    err = lib.pcp_knn_select(
-        pch[0].data_ptr(), pch[1].data_ptr(), pch[2].data_ptr(), p_sq.data_ptr(),
-        valid.data_ptr(), starts.data_ptr(), live.data_ptr(), n, n_q, row_tile, width,
-        float(np.float32(BIG)), out.data_ptr(), _build.stream_handle(),
-    )
-    _build.check(err, "knn_select")
-    _build.LAUNCHES["knn_select"] += 1
-    return out
-
-
 def mean_from_sorted(vals: torch.Tensor, k: int) -> torch.Tensor:
     """[16, Q] ascending values -> mean of the k smallest real values'
     square roots (the reference's ``_sortnet_mean_from_sorted``); the sum
@@ -124,6 +113,41 @@ def mean_from_sorted(vals: torch.Tensor, k: int) -> torch.Tensor:
         s = s + torch.where(take, roots[i], 0.0)
         cnt = cnt + take.to(torch.float32)
     return s / torch.clamp_min(cnt, 1.0)
+
+
+def knn_mean_plain(pch, p_sq, valid, starts, row_tile: int, width: int, k: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel K3: [n_q] mean distance to the k
+    nearest valid neighbours in each query's tile window."""
+    return mean_from_sorted(knn_select_plain(pch, p_sq, valid, starts, row_tile, width), k)
+
+
+def knn_mean(pch, p_sq, valid, starts, row_tile: int, width: int, k: int) -> torch.Tensor:
+    """[n_q] mean distance to the k nearest valid neighbours in each query's
+    tile window (0 for tiles with no valid query): kernel K3 for CUDA
+    tensors, the plain version for CPU tensors."""
+    if p_sq.device.type == "cpu":
+        return knn_mean_plain(pch, p_sq, valid, starts, row_tile, width, k)
+    n = p_sq.shape[0]
+    tiles = starts.shape[0]
+    if width > n or width % 16 or not 1 <= k <= _SEL:
+        raise ValueError(f"knn_mean: window width {width} must be <= {n} and a multiple of 16, "
+                         f"and 1 <= k <= {_SEL} (got k={k})")
+    if any(t.shape != (n,) for t in (*pch, valid)) or len(pch) != 3 or starts.dim() != 1:
+        raise ValueError("knn_mean: three [N] channels, [N] p_sq and valid, [tiles] starts")
+    _build.require_cuda(
+        "knn_mean", *pch, p_sq, valid, starts,
+        dtypes=[torch.float32] * 4 + [torch.bool, torch.int32],
+    )
+    lib = _build.kernels()
+    out = torch.empty(tiles * row_tile, dtype=torch.float32, device=p_sq.device)
+    err = lib.pcp_knn_mean(
+        pch[0].data_ptr(), pch[1].data_ptr(), pch[2].data_ptr(), p_sq.data_ptr(),
+        valid.data_ptr(), starts.data_ptr(), n, tiles, row_tile, width, k,
+        float(np.float32(BIG)), float(f32(BIG * 0.5)), out.data_ptr(), _build.stream_handle(),
+    )
+    _build.check(err, "knn_mean")
+    _build.LAUNCHES["knn_mean"] += 1
+    return out
 
 
 def knn_mean_distances(cloud: Cloud, k: int, row_tile: int = 512, band: int = 1024) -> torch.Tensor:
@@ -152,8 +176,7 @@ def knn_mean_distances(cloud: Cloud, k: int, row_tile: int = 512, band: int = 10
         pch.append(torch.where(valid, col - center_c, 0.0).contiguous())
     p_sq = add_sq3(*pch)  # the reference's written-out sum, as XLA:CPU fuses it
     starts = band_starts(n, row_tile, band, tiles, pts.device)
-    vals = knn_select(pch, p_sq, valid.contiguous(), starts, row_tile, width)
-    out = mean_from_sorted(vals, k)[:n]
+    out = knn_mean(pch, p_sq, valid.contiguous(), starts, row_tile, width, k)[:n]
     return torch.where(valid, out, 0.0)
 
 

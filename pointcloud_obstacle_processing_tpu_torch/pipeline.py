@@ -83,8 +83,9 @@ def _post_voxel(voxel_cloud: Cloud, n_voxels: torch.Tensor, hole_grid: torch.Ten
                 voxel_overflow: torch.Tensor) -> PipelineResult:
     """Stages 3-8."""
     # knn_skip_dead_tiles needs no code here: K3 and its plain version
-    # always write `big` for query tiles with no valid point, the output the
-    # reference's per-tile skip gives (those rows are masked downstream)
+    # always give query tiles with no valid point the mean of `big` rows,
+    # 0, the output the reference's per-tile skip gives (those rows are
+    # masked downstream)
     outl = remove_statistical_outliers(
         voxel_cloud,
         config.statistical_outlier_mean_k,

@@ -14,7 +14,13 @@ the fullscale shapes, K7 at its documented shape, each held against that
 package's plain version and timed (CUDA events around 20 calls, and device
 time alone from ``torch.profiler`` and host time alone, beside the library
 call where there is one); then the ``process_scan`` p50 of the flagship scenes (20 scans) and of
-the fullscale window (5 scans).  It prints one line per kernel and run,
+the fullscale window (5 scans), the device operations of one scan of each,
+and K3 once more on the inputs each scan gives it (its voxel cloud).
+A checkout from before the kNN mean was fused into K3 and before the
+clustering packed its sweep points is driven through the same calls by
+``_adapt``: its K3 row times the selection and ``mean_from_sorted``, the
+function the fused kernel computes, and its K4 and K5 rows take the points
+and |p|^2 apart, as that checkout's cluster loop does.  It prints one line per kernel and run,
 and with ``--out FILE`` writes every number to FILE as JSON.  Every line
 names the card and its power limit.  It needs a CUDA card.
 
@@ -31,6 +37,7 @@ import json
 import statistics
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -47,6 +54,50 @@ def _chip_smoke():
     return mod
 
 
+def _adapt(ops):
+    """Give an older checkout's ``ops.outliers`` and ``ops.cluster`` the
+    calls this checkout's kernel checks make (``knn_mean``,
+    ``pack_points``, ``point_channels``), as stand-ins on the ``ops``
+    package that the modules' own code never sees; returns the function
+    that puts the modules back."""
+    saved = {name: getattr(ops, name) for name in ("outliers", "cluster")}
+    outliers, cluster = saved["outliers"], saved["cluster"]
+    if not hasattr(outliers, "knn_mean"):
+        def mean(select):
+            return lambda pch, p_sq, valid, starts, rt, width, k: outliers.mean_from_sorted(
+                select(pch, p_sq, valid, starts, rt, width), k)
+
+        ops.outliers = types.SimpleNamespace(
+            **vars(outliers), knn_mean=mean(outliers.knn_select),
+            knn_mean_plain=mean(outliers.knn_select_plain))
+    if not hasattr(cluster, "pack_points"):
+        def split(fn):
+            return lambda pk, *a: fn(pk[0], *a, p_sq=pk[1])
+
+        ops.cluster = types.SimpleNamespace(**{
+            **vars(cluster),
+            "pack_points": lambda p, p_sq=None: (p, p_sq),
+            "point_channels": lambda p, p_sq=None: (p, p_sq),
+            **{name: split(getattr(cluster, name)) for name in (
+                "sweep_jump", "sweep_jump_plain", "sweep_jump_banded", "sweep_jump_banded_plain")},
+        })
+
+    def restore():
+        for name, module in saved.items():
+            setattr(ops, name, module)
+
+    return restore
+
+
+def _scan_k3_args(cs, model, cloud, draw, k: int) -> tuple:
+    """K3's operands in one scan, taken from the kNN stage's own call (the
+    fused ``knn_mean`` or, in an older checkout, ``knn_select``)."""
+    module = sys.modules["pointcloud_obstacle_processing_tpu_torch.ops.outliers"]
+    if hasattr(module, "knn_mean"):
+        return cs.capture_k3_args(model, cloud, draw)
+    return (*cs.capture_k3_args(model, cloud, draw, "knn_select"), k)
+
+
 def run(root: str, label: str) -> dict:
     import torch
 
@@ -55,6 +106,7 @@ def run(root: str, label: str) -> dict:
     from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as fl
     from pointcloud_obstacle_processing_tpu_torch.models import REFERENCE_FULLSCALE_CONFIG as fs
     from pointcloud_obstacle_processing_tpu_torch.models import ObstacleDetectionModel
+    from pointcloud_obstacle_processing_tpu_torch import ops as ops_pkg
     from pointcloud_obstacle_processing_tpu_torch.utils.scene import make_fullscale_window
 
     cs = _chip_smoke()
@@ -64,32 +116,47 @@ def run(root: str, label: str) -> dict:
     dev = torch.device("cuda")
     card = f"{torch.cuda.get_device_name(0)}; nvidia-smi: {cs._nvidia_smi()}"
     _build.kernels()
+    restore = _adapt(ops_pkg)
     rng = np.random.default_rng(0)
     rows = [
         cs.check_k2(dev, rng, "flagship", fl.max_voxels, fl.cluster_capacity, 0.025),
-        cs.check_k3(dev, rng, "flagship", fl.max_voxels, 21_500, fl.knn_row_tile, fl.knn_band),
+        cs.check_k3(dev, rng, "flagship", fl.max_voxels, 21_500, fl.knn_row_tile, fl.knn_band,
+                    fl.statistical_outlier_mean_k),
         cs.check_k4(dev, rng, "flagship", fl.cluster_capacity, 600, fl.euc_cluster_tolerance ** 2),
         cs.check_k2(dev, rng, "fullscale", fs.max_voxels, fs.cluster_capacity,
                     7_000 / fs.max_voxels),
-        cs.check_k3(dev, rng, "fullscale", fs.max_voxels, 166_000, fs.knn_row_tile, fs.knn_band),
+        cs.check_k3(dev, rng, "fullscale", fs.max_voxels, 166_000, fs.knn_row_tile, fs.knn_band,
+                    fs.statistical_outlier_mean_k),
         *cs.check_k5(dev, rng, "fullscale", fs.cluster_capacity, 7_000, fs.cluster_band_window,
                      fs.euc_cluster_tolerance),
         cs.check_k7(dev, *cs.binning_inputs(dev, rng)),
     ]
+    restore()
 
-    p50 = {}
+    p50, ops = {}, {}
     model = ObstacleDetectionModel(fl, device=dev)
     draw, _ = cs._draws(fl, dev)
     clouds = [Cloud.pad_to(cs._scene(s).points[: fl.max_points], fl.max_points).to(dev)
               for s in cs.SCENE_SEEDS]
     p50["flagship"] = statistics.median(cs._time_scans(model, clouds, draw, cs.TIMED_SCANS))
+    ops["flagship"] = cs.scan_device_ops(model, clouds[0], draw)
+    scan_k3 = [("flagship",
+                _scan_k3_args(cs, model, clouds[0], draw, fl.statistical_outlier_mean_k))]
     model = ObstacleDetectionModel(fs, device=dev)
     draw, _ = cs._draws(fs, dev)
     pts, valid = make_fullscale_window(cs.FULLSCALE_POINTS)
     cloud = Cloud(points=torch.tensor(pts), valid=torch.tensor(valid)).to(dev)
     p50["fullscale"] = statistics.median(
         cs._time_scans(model, [cloud], draw, cs.FULLSCALE_TIMED_SCANS))
+    ops["fullscale"] = cs.scan_device_ops(model, cloud, draw)
+    scan_k3.append(("fullscale",
+                    _scan_k3_args(cs, model, cloud, draw, fs.statistical_outlier_mean_k)))
+    restore = _adapt(ops_pkg)
+    for path, args in scan_k3:
+        rows.append(cs._k3_row(path, "the scan's voxel cloud", args))
+    restore()
     return {"label": label, "root": root, "card": card, "scan_p50_ms": p50,
+            "scan_device_ops": ops,
             "rows": [{k: r[k] for k in KEYS} for r in rows]}
 
 
@@ -115,9 +182,11 @@ def main() -> None:
             raise SystemExit(f"torch_kernel_ab: the {label} run failed ({out.returncode})")
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
     for i, r in enumerate(runs):
-        p50 = r["scan_p50_ms"]
+        p50, ops = r["scan_p50_ms"], r["scan_device_ops"]
         print(f"run {i} {r['label']}: process_scan p50 flagship {p50['flagship']:.3f} ms, "
-              f"fullscale {p50['fullscale']:.3f} ms [{r['card']}]")
+              f"fullscale {p50['fullscale']:.3f} ms; device operations per scan flagship "
+              f"{ops['flagship'][0]} ({ops['flagship'][1]:.3f} ms), fullscale "
+              f"{ops['fullscale'][0]} ({ops['fullscale'][1]:.3f} ms) [{r['card']}]")
         for row in r["rows"]:
             lib = row["library_ms"]
             print(f"  {row['name']:20s} {row['path']:9s} call {row['ms']:.4f} ms, device "

@@ -82,7 +82,8 @@ def test_sweep_plain_matches_reference_xla_sweep(capacity):
     tol2 = 0.4 ** 2
     want = jax.jit(lambda a, b, c: ref_cluster._xla_sweep_jump(a, b, c, tol2, 128))(
         jnp.asarray(p), jnp.asarray(valid), jnp.asarray(labels))
-    got = cluster.sweep_jump(torch.tensor(p), torch.tensor(valid), torch.tensor(labels), tol2)
+    got = cluster.sweep_jump(cluster.point_channels(torch.tensor(p)), torch.tensor(valid),
+                             torch.tensor(labels), tol2)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
 

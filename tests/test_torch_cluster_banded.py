@@ -132,9 +132,9 @@ def test_frontier_gating_leaves_labels_unchanged(monkeypatch):
     plain = cluster.sweep_jump_banded
     skipped = []
 
-    def ungated(p, valid, labels, tol2, tile, window, starts, tile_live=None, p_sq=None):
+    def ungated(p, valid, labels, tol2, tile, window, starts, tile_live=None):
         skipped.append(int((~tile_live).sum()))
-        return plain(p, valid, labels, tol2, tile, window, starts, None, p_sq)
+        return plain(p, valid, labels, tol2, tile, window, starts, None)
 
     monkeypatch.setattr(cluster, "sweep_jump_banded", ungated)
     full = cluster.euclidean_cluster(cloud, 0.4, 5, 20000, 8, band_window=band_window)
@@ -184,7 +184,8 @@ def test_banded_sweep_plain_matches_reference_xla_sweep(seed, n, n_valid, window
     want = np.asarray(jax.jit(
         lambda a, b, c, s: ref_cluster._xla_sweep_jump_banded(a, b, c, 0.16, 128, window, s)
     )(jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(labels), jnp.asarray(starts.numpy())))
-    args = (torch.tensor(pts), torch.tensor(valid), torch.tensor(labels), 0.16, 128, window, starts)
+    args = (cluster.pack_points(torch.tensor(pts)), torch.tensor(valid), torch.tensor(labels),
+            0.16, 128, window, starts)
     np.testing.assert_array_equal(want, cluster.sweep_jump_banded(*args).numpy())
     live = np.random.default_rng(seed).random(n // 128) < 0.5
     got = cluster.sweep_jump_banded(*args, torch.tensor(live)).numpy()
@@ -201,10 +202,11 @@ def _probe_decisions(which):
     starts = np.zeros(p.shape[1] // 128, np.int32)  # each pair sits in rows 0 and 1
     if which == "port":
         def full(a, b, c):
-            return cluster.sweep_jump(a, b, c, TOL2)
+            return cluster.sweep_jump(cluster.point_channels(a), b, c, TOL2)
 
         def band(a, b, c):
-            return cluster.sweep_jump_banded(a, b, c, TOL2, 128, 128, torch.tensor(starts))
+            return cluster.sweep_jump_banded(cluster.pack_points(a), b, c, TOL2, 128, 128,
+                                             torch.tensor(starts))
 
         wrap = torch.tensor
     else:
@@ -266,6 +268,31 @@ def test_reference_sweeps_fuse_the_cross_term():
         for sweep in (full, band):
             ref = sweep(jnp.asarray(buf), jnp.asarray(valid), jnp.asarray(labels))
             assert (int(np.asarray(ref)[1]) == 0) == fused_adjacent
-        args = (torch.tensor(buf), torch.tensor(valid), torch.tensor(labels), TOL2)
-        assert (int(cluster.sweep_jump(*args)[1]) == 0) == fused_adjacent
-        assert (int(cluster.sweep_jump_banded(*args, 128, 128, starts)[1]) == 0) == fused_adjacent
+        p, v, lab = torch.tensor(buf), torch.tensor(valid), torch.tensor(labels)
+        got_full = cluster.sweep_jump(cluster.point_channels(p), v, lab, TOL2)
+        got_band = cluster.sweep_jump_banded(cluster.pack_points(p), v, lab, TOL2, 128, 128,
+                                             starts)
+        assert (int(got_full[1]) == 0) == fused_adjacent
+        assert (int(got_band[1]) == 0) == fused_adjacent
+
+
+@pytest.mark.parametrize("seed,n,n_valid,window,gated",
+                         [(6, 1024, 900, 512, False), (6, 1024, 900, 512, True),
+                          (7, 2048, 1700, 1024, False), (8, 640, 600, 512, True)])
+def test_banded_sweep_over_window_quarters(seed, n, n_valid, window, gated):
+    """Kernel K5 splits each tile's window over four blocks: the plain
+    sweep over each quarter window (starts + b * W/4, width W/4), with the
+    minimum of the four partials, is the sweep over the whole window, with
+    every tile live and with a random tile_live (the in-window jump column
+    falls in exactly one quarter)."""
+    pts, valid, labels = _lattice_cloud(seed, n, n_valid)
+    p = cluster.pack_points(torch.tensor(pts))
+    v, lab = torch.tensor(valid), torch.tensor(labels)
+    starts, _ = cluster.band_starts(torch.tensor(pts), v, 128, window, 0.4)
+    live = torch.tensor(np.random.default_rng(seed).random(n // 128) < 0.5) if gated else None
+    whole = cluster.sweep_jump_banded_plain(p, v, lab, 0.16, 128, window, starts, live)
+    q = window // 4
+    parts = [cluster.sweep_jump_banded_plain(p, v, lab, 0.16, 128, q, starts + b * q, live)
+             for b in range(4)]
+    np.testing.assert_array_equal(torch.stack(parts).min(dim=0).values.numpy(), whole.numpy())
+    assert (whole != lab).any()  # the sweep moves some labels

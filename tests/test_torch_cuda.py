@@ -221,25 +221,44 @@ def test_compaction_kernel_unaligned_mask(dev, offset):
     _eq(vk[:m], vp[:m])
 
 
-@pytest.mark.parametrize("n,n_valid,rt,band", [(24576, 21500, 384, 512), (5000, 3000, 256, 128),
-                                               (4096, 4096, 512, 1536)])
-def test_knn_select_kernel_equals_plain(dev, n, n_valid, rt, band):
-    rng = np.random.default_rng(n)
+@pytest.mark.parametrize("n,n_valid,rt,band,k,sparse", [
+    (24576, 21500, 384, 512, 15, False),  # the flagship shape
+    (262144, 166000, 1024, 1280, 15, False),  # the fullscale shape
+    (5000, 3000, 256, 128, 15, False),  # a padded query tail
+    (4096, 4096, 512, 1536, 15, False),
+    (24576, 21500, 384, 512, 8, False),  # k < 16
+    (24576, 21500, 384, 512, 1, False),
+    (8192, 8192, 1024, 256, 15, True),  # tiles with fewer than k valid neighbours
+])
+def test_knn_select_kernel_equals_plain(dev, n, n_valid, rt, band, k, sparse):
+    """K3's mean bitwise equal to the plain version's (the sorted 16, then
+    ``mean_from_sorted``)."""
+    rng = np.random.default_rng(n + k)
     pts = rng.uniform([0, 0, -0.1], [4.5, 3.78, 0.3], (n, 3)).astype(np.float32)
     pts = pts[np.argsort(pts[:, 0], kind="stable")]
-    valid = torch.tensor(np.arange(n) < n_valid, device=dev)
+    live = np.arange(n) < n_valid
+    if sparse:
+        live &= rng.random(n) < 0.004
+    valid = torch.tensor(live, device=dev)
     p = torch.tensor(pts, device=dev)
     pch = [torch.where(valid, p[:, c] - 2.0, 0.0).contiguous() for c in range(3)]
     p_sq = pch[0] * pch[0] + pch[1] * pch[1] + pch[2] * pch[2]
     tiles = -(-n // rt)
     starts = outliers.band_starts(n, rt, band, tiles, dev)
     width = rt + 2 * band
-    _eq(outliers.knn_select(pch, p_sq, valid, starts, rt, width),
-        outliers.knn_select_plain(pch, p_sq, valid, starts, rt, width))
+    before = _build.LAUNCHES["knn_mean"]
+    got = outliers.knn_mean(pch, p_sq, valid, starts, rt, width, k)
+    assert _build.LAUNCHES["knn_mean"] == before + 1
+    _eq(got, outliers.knn_mean_plain(pch, p_sq, valid, starts, rt, width, k))
+    if sparse:  # some live query has fewer than k valid neighbours in its window
+        vals = outliers.knn_select_plain(pch, p_sq, valid, starts, rt, width)
+        assert ((vals[k - 1] == np.float32(outliers.BIG)) & valid).any()
 
 
 @pytest.mark.parametrize("c,n_valid", [(1024, 600), (2048, 2000), (700, 500)])
 def test_cluster_sweep_kernel_equals_plain(dev, c, n_valid):
+    """K4 on ``point_channels``' [4, C] rows (the clustering's form, made
+    once for all its sweeps)."""
     rng = np.random.default_rng(c)
     valid = torch.tensor(np.arange(c) < n_valid, device=dev)
     p = torch.where(valid[:, None], torch.tensor(
@@ -247,7 +266,9 @@ def test_cluster_sweep_kernel_equals_plain(dev, c, n_valid):
     lab = np.arange(c, dtype=np.int32)
     lab[:n_valid] = rng.integers(0, np.arange(n_valid) + 1)
     labels = torch.tensor(lab, device=dev)
-    _eq(cluster.sweep_jump(p, valid, labels, 0.16), cluster.sweep_jump_plain(p, valid, labels, 0.16))
+    pch = cluster.point_channels(p)
+    _eq(cluster.sweep_jump(pch, valid, labels, 0.16),
+        cluster.sweep_jump_plain(pch, valid, labels, 0.16))
 
 
 @pytest.mark.parametrize(
@@ -255,11 +276,14 @@ def test_cluster_sweep_kernel_equals_plain(dev, c, n_valid):
     [
         (16384, 7000, 4096, False),  # the fullscale shape, every tile live
         (16384, 7000, 4096, True),  # the same with a random tile_live
+        (16384, 16384, 4096, False),  # every row valid
         (1024, 1024, 128, True),  # no padding tile; the smallest window
         (640, 500, 512, False),
     ],
 )
 def test_cluster_sweep_banded_kernel_equals_plain(dev, c, n_valid, window, gated):
+    """K5 over its thread-block cluster against the plain version, on
+    ``pack_points``' [C, 4] rows (the clustering's form)."""
     rng = np.random.default_rng(c + window)
     pts = rng.uniform([-2.2, -1.9, -0.3], [2.2, 1.9, 0.3], (c, 3)).astype(np.float32)
     pts = pts[np.argsort(pts[:, 0], kind="stable")]
@@ -270,10 +294,11 @@ def test_cluster_sweep_banded_kernel_equals_plain(dev, c, n_valid, window, gated
     labels = torch.tensor(lab, device=dev)
     starts, _ = cluster.band_starts(p, valid, 128, window, 0.4)
     live = torch.tensor(rng.random(c // 128) < 0.5, device=dev) if gated else None
+    pk = cluster.pack_points(p)
     before = _build.LAUNCHES["cluster_sweep_banded"]
-    got = cluster.sweep_jump_banded(p, valid, labels, 0.16, 128, window, starts, live)
+    got = cluster.sweep_jump_banded(pk, valid, labels, 0.16, 128, window, starts, live)
     assert _build.LAUNCHES["cluster_sweep_banded"] == before + 1
-    _eq(got, cluster.sweep_jump_banded_plain(p, valid, labels, 0.16, 128, window, starts, live))
+    _eq(got, cluster.sweep_jump_banded_plain(pk, valid, labels, 0.16, 128, window, starts, live))
 
 
 def test_sweep_kernels_on_near_threshold_pairs(dev):
@@ -288,10 +313,11 @@ def test_sweep_kernels_on_near_threshold_pairs(dev):
     starts = torch.zeros(pts.shape[1] // 128, dtype=torch.int32, device=dev)
     for k in range(pts.shape[0]):
         p = torch.tensor(pts[k], device=dev)
-        full = cluster.sweep_jump(p, v, lab, tol2)
-        _eq(full, cluster.sweep_jump_plain(p, v, lab, tol2))
-        band = cluster.sweep_jump_banded(p, v, lab, tol2, 128, 128, starts)
-        _eq(band, cluster.sweep_jump_banded_plain(p, v, lab, tol2, 128, 128, starts))
+        pch, pk = cluster.point_channels(p), cluster.pack_points(p)
+        full = cluster.sweep_jump(pch, v, lab, tol2)
+        _eq(full, cluster.sweep_jump_plain(pch, v, lab, tol2))
+        band = cluster.sweep_jump_banded(pk, v, lab, tol2, 128, 128, starts)
+        _eq(band, cluster.sweep_jump_banded_plain(pk, v, lab, tol2, 128, 128, starts))
         assert int(band[1]) == (0 if offsets[k] <= 0 else 1)
 
 
@@ -299,7 +325,8 @@ def test_distance_kernels_on_cross_term_pairs(dev):
     """K3, K4 and K5 bitwise equal to their plain versions on the 128 pairs
     near tol2 that the fused and the unfused cross term decide apart; the
     sweeps decide as the fused chain, and K3's squared distance of the pair
-    is the fused d2."""
+    is the fused d2 (the plain version's smallest value; the kernel's mean
+    over the one neighbour is its correctly rounded root)."""
     from pointcloud_obstacle_processing_tpu_torch.ops import sum_sq3
 
     tol2 = 0.4 ** 2
@@ -311,16 +338,19 @@ def test_distance_kernels_on_cross_term_pairs(dev):
         buf = np.zeros((256, 3), np.float32)
         buf[0], buf[1] = q, c
         p = torch.tensor(buf, device=dev)
-        full = cluster.sweep_jump(p, valid, labels, tol2)
-        _eq(full, cluster.sweep_jump_plain(p, valid, labels, tol2))
-        band = cluster.sweep_jump_banded(p, valid, labels, tol2, 128, 128, starts)
-        _eq(band, cluster.sweep_jump_banded_plain(p, valid, labels, tol2, 128, 128, starts))
+        pc, pk = cluster.point_channels(p), cluster.pack_points(p)
+        full = cluster.sweep_jump(pc, valid, labels, tol2)
+        _eq(full, cluster.sweep_jump_plain(pc, valid, labels, tol2))
+        band = cluster.sweep_jump_banded(pk, valid, labels, tol2, 128, 128, starts)
+        _eq(band, cluster.sweep_jump_banded_plain(pk, valid, labels, tol2, 128, 128, starts))
         assert (int(full[1]) == 0) == fused_adjacent and (int(band[1]) == 0) == fused_adjacent
         pch = [p[:, i].contiguous() for i in range(3)]
         p_sq = sum_sq3(*pch)
-        sel = outliers.knn_select(pch, p_sq, valid, kstarts, 128, 256)
-        _eq(sel, outliers.knn_select_plain(pch, p_sq, valid, kstarts, 128, 256))
-        assert sel[0, 0].item() == max(float(d2_port(q, c)), 0.0)
+        mean = outliers.knn_mean(pch, p_sq, valid, kstarts, 128, 256, 15)
+        _eq(mean, outliers.knn_mean_plain(pch, p_sq, valid, kstarts, 128, 256, 15))
+        d2 = max(float(d2_port(q, c)), 0.0)
+        assert outliers.knn_select_plain(pch, p_sq, valid, kstarts, 128, 256)[0, 0].item() == d2
+        assert mean[0].item() == float(np.float32(np.sqrt(np.float64(d2))))
 
 
 @pytest.mark.parametrize("c,n", [(4, 131_072), (4, 2_097_152), (3, 1000), (5, 1025), (1, 1)])
@@ -446,12 +476,16 @@ def test_wrappers_refuse_bad_operands(dev):
     p = torch.zeros(512, 3, device=dev)
     v = torch.ones(512, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):  # labels of the wrong length
-        cluster.sweep_jump(p, v, torch.zeros(256, dtype=torch.int32, device=dev), 0.16)
+        cluster.sweep_jump(cluster.point_channels(p), v,
+                           torch.zeros(256, dtype=torch.int32, device=dev), 0.16)
     ch = [torch.zeros(512, device=dev) for _ in range(3)]
     starts = torch.zeros(4, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):  # validity mask of the wrong length
-        outliers.knn_select(ch, ch[0], v[:256], starts, 128, 256)
+        outliers.knn_mean(ch, ch[0], v[:256], starts, 128, 256, 15)
+    with pytest.raises(ValueError):  # k > 16
+        outliers.knn_mean(ch, ch[0], v, starts, 128, 256, 17)
     lab = torch.zeros(512, dtype=torch.int32, device=dev)
+    p = cluster.pack_points(p)
     with pytest.raises(ValueError):  # a window that is not a multiple of 128
         cluster.sweep_jump_banded(p, v, lab, 0.16, 128, 192, starts)
     with pytest.raises(ValueError):  # a window as wide as the buffer
@@ -480,7 +514,7 @@ def test_slice_on_the_card_equals_cpu(dev, band_window):
     _build.reset_launch_counts()
     a = process_scan(cloud.to(dev), cfg, draw=draw_from_uniform(torch.tensor(u, device=dev)))
     sweep = "cluster_sweep_banded" if band_window else "cluster_sweep"
-    path = ("runreduce", "compact_gather", "knn_select", sweep)
+    path = ("runreduce", "compact_gather", "knn_mean", sweep)
     assert all(_build.LAUNCHES[k] > 0 for k in path), _build.LAUNCHES
     b = process_scan(cloud, cfg, draw=draw_from_uniform(torch.tensor(u)))
     _eq(a.grid.data, b.grid.data)

@@ -21,6 +21,8 @@ import pytest
 import torch
 from test_torch_cuda import fma32
 
+import jax.numpy as jnp
+
 import pointcloud_obstacle_processing_tpu.ops.outliers as ref_outliers
 from pointcloud_obstacle_processing_tpu import Cloud as RefCloud
 
@@ -122,7 +124,7 @@ def test_knn_select_plain_is_the_exact_sorted_16():
     pch = [torch.where(v, p[:, c], 0.0) for c in range(3)]
     p_sq = pch[0] * pch[0] + pch[1] * pch[1] + pch[2] * pch[2]
     starts = outliers.band_starts(n, rt, band, tiles, "cpu")
-    got = outliers.knn_select(pch, p_sq, v, starts, rt, width).numpy()
+    got = outliers.knn_select_plain(pch, p_sq, v, starts, rt, width).numpy()
     x, y, z, sq = (t.numpy() for t in (*pch, p_sq))
     big = np.float32(outliers.BIG)
     for q in (0, 5, 300, 699, 700, 1023):
@@ -143,3 +145,186 @@ def test_knn_refuses_unported_widths():
         outliers.knn_mean_distances(Cloud.from_points(pts, valid), 15, row_tile=128, band=128)
     with pytest.raises(ValueError):  # k > 16
         outliers.knn_mean_distances(Cloud.from_points(pts, valid), 20, row_tile=32, band=32)
+
+
+# --- kernel K3's selection schedule, modelled in numpy ----------------------
+
+
+def _window_d2(pch, p_sq, valid, starts, rt, width):
+    """[n_q, W] squared distances of every query to its tile's window
+    columns (the plain version's float32 tree), +inf for invalid columns,
+    and the [n_q, W] self-column mask."""
+    x, y, z, sq = (t.numpy() for t in (*pch, p_sq))
+    n = len(sq)
+    tiles = len(starts)
+    n_q = tiles * rt
+    pad = lambda a: np.pad(a, (0, n_q - n))  # noqa: E731
+    qx, qy, qz, qsq = (pad(a)[:, None] for a in (x, y, z, sq))
+    cols = (starts.numpy().astype(np.int64)[:, None] + np.arange(width)).repeat(rt, 0)
+    cross = fma32(qz, z[cols], fma32(qx, x[cols], qy * y[cols]))
+    d2 = np.maximum((qsq + sq[cols]) - np.float32(2.0) * cross, np.float32(0))
+    d2 = np.where(valid.numpy()[cols], d2, np.float32(np.inf)).astype(np.float32)
+    return d2, cols == np.arange(n_q)[:, None]
+
+
+def _insert(top, rows, v, limit):
+    """Insert v[i] into the sorted list top[rows[i]] where v[i] < limit[i]."""
+    hit = v < limit
+    r = rows[hit]
+    top[r] = np.sort(np.concatenate([top[r, :15], v[hit, None]], 1), 1)
+
+
+def _kernel_order_select(d2, is_self, starts, rt, width, chunk, local, skip=True, groups=1):
+    """The 16 smallest of each row of ``d2`` as kernel K3 selects them: the
+    ``local`` rank-neighbour columns first, then each chunk of the window,
+    centre-out; column j of either goes to group j mod ``groups``, whose
+    list takes a value only below its own 16th and below the bound the
+    kernel derives (the largest of the groups' 4th values, published after
+    the rank neighbours and at each chunk); the groups' lists merge at the
+    end (vectorized over queries).  ``skip``:
+    invalid and self columns are never inserted (the kernel); otherwise
+    they enter as ``BIG`` (the plain version's values)."""
+    big = np.float32(outliers.BIG)
+    n_q = d2.shape[0]
+    d2 = d2.copy()
+    if not skip:
+        d2[~np.isfinite(d2) | is_self] = big
+    else:
+        d2[is_self] = np.inf
+    own_col = np.arange(n_q) - starts.numpy().repeat(rt)
+    lo = np.clip(own_col - local // 2, 0, width - local)
+    top = np.full((groups, n_q, 16), big, np.float32)
+    seen = np.zeros_like(d2, dtype=bool)
+    every = np.arange(n_q)
+    for j in range(local):
+        seen[every, lo + j] = True
+        _insert(top[j % groups], every, d2[every, lo + j], top[j % groups][:, 15])
+    up = lambda b: np.nextafter(b, np.float32(np.inf))  # noqa: E731
+    cap = np.full((groups, n_q), np.inf, np.float32)
+    if groups > 1:
+        cap[:] = up(top[:, :, 3].max(axis=0))
+    for t in range(len(starts)):
+        rows = np.arange(t * rt, (t + 1) * rt)
+        for c, (b, e) in enumerate(outliers.centre_out_chunks(t * rt - int(starts[t]), width, rt, chunk)):
+            if c and groups > 1:
+                cap[:, rows] = np.minimum(cap[:, rows], up(top[:, rows, 3].max(axis=0)))
+            for g in range(groups):
+                for j in range(b + g, e, groups):
+                    v = np.where(seen[rows, j], np.inf, d2[rows, j])
+                    _insert(top[g], rows, v, np.minimum(top[g][rows, 15], cap[g, rows]))
+    return np.sort(top.transpose(1, 0, 2).reshape(n_q, -1), 1)[:, :16].T
+
+
+def _tie_cloud(seed, n_valid, n):
+    """Lattice-ordered points on a coarse grid with every point doubled:
+    many equal distances, and an exact duplicate (d2 = 0) for each."""
+    rng = np.random.default_rng(seed)
+    base = (rng.integers(0, 6, (n_valid // 2, 3)) * np.float32(0.25)).astype(np.float32)
+    pts = np.repeat(base, 2, axis=0)
+    pts = pts[np.lexsort((pts[:, 2], pts[:, 1], pts[:, 0]))]
+    buf = np.zeros((n, 3), np.float32)
+    buf[:len(pts)] = pts
+    return buf, np.arange(n) < len(pts)
+
+
+def _k3_inputs(kind, seed, n_valid, n, rt, band):
+    pts, valid = (_tie_cloud if kind == "ties" else _lattice_cloud)(seed, n_valid, n)
+    if kind == "sparse":  # few valid columns: fewer than k neighbours, BIG left over
+        valid = valid & (np.random.default_rng(seed).random(n) < 0.02)
+    v = torch.tensor(valid)
+    p = torch.tensor(pts)
+    pch = [torch.where(v, p[:, c], 0.0) for c in range(3)]
+    p_sq = pch[0] * pch[0] + pch[1] * pch[1] + pch[2] * pch[2]
+    tiles = -(-n // rt)
+    width = rt + 2 * band
+    return pch, p_sq, v, outliers.band_starts(n, rt, band, tiles, "cpu"), width
+
+
+K3_ORDER_CASES = [
+    ("random", 21, 900, 1024, 128, 64, 32, 32, 1),
+    ("random", 21, 900, 1024, 128, 64, 32, 32, 4),
+    ("ties", 22, 600, 1024, 128, 96, 32, 16, 4),
+    ("sparse", 23, 1024, 1024, 128, 64, 64, 32, 1),
+    ("sparse", 23, 1024, 1024, 128, 64, 64, 32, 4),
+    ("random", 24, 700, 1000, 96, 80, 48, 8, 4),  # a padded query tail; ragged chunks
+]
+
+
+@pytest.mark.parametrize("kind,seed,n_valid,n,rt,band,chunk,local,groups", K3_ORDER_CASES)
+def test_kernel_order_selection_is_the_plain_sorted_16(kind, seed, n_valid, n, rt, band, chunk,
+                                                       local, groups):
+    """Selecting in kernel K3's order and with its bounds (rank neighbours
+    first, then the window centre-out over one or four column groups,
+    inserting only below the 16th and the bounds, the groups' lists merged
+    at the end) gives the plain version's sorted 16, with ties, fewer than
+    k valid columns and BIG left over; the tiles with no valid query aside
+    (the kernel skips them)."""
+    pch, p_sq, v, starts, width = _k3_inputs(kind, seed, n_valid, n, rt, band)
+    want = outliers.knn_select_plain(pch, p_sq, v, starts, rt, width).numpy()
+    d2, is_self = _window_d2(pch, p_sq, v, starts, rt, width)
+    got = _kernel_order_select(d2, is_self, starts, rt, width, chunk, local, groups=groups)
+    live = np.repeat(outliers._tile_live(v, len(starts), rt).numpy(), rt)
+    np.testing.assert_array_equal(got[:, live], want[:, live])
+    big = np.float32(outliers.BIG)
+    assert (want[:, ~live] == big).all()
+    if kind == "sparse":
+        assert ((want[14] == big) & live).any()  # fewer than 15 valid neighbours
+    if kind == "ties":
+        assert ((np.diff(want[:, :600], axis=0) == 0) & (want[1:, :600] < big)).sum() > 1000
+
+
+@pytest.mark.parametrize("kind,seed,n_valid,n,rt,band,chunk,local,groups", K3_ORDER_CASES)
+def test_skipping_invalid_and_self_columns_changes_nothing(kind, seed, n_valid, n, rt, band,
+                                                           chunk, local, groups):
+    """Never inserting invalid and self columns (the kernel) gives the same
+    sorted 16 and the same mean as entering them as BIG (the plain version):
+    BIG is never below the 16th value, which starts at BIG."""
+    pch, p_sq, v, starts, width = _k3_inputs(kind, seed, n_valid, n, rt, band)
+    d2, is_self = _window_d2(pch, p_sq, v, starts, rt, width)
+    skipped = _kernel_order_select(d2, is_self, starts, rt, width, chunk, local, True, groups)
+    as_big = _kernel_order_select(d2, is_self, starts, rt, width, chunk, local, False, groups)
+    np.testing.assert_array_equal(skipped, as_big)
+    for k in (15, 8):
+        np.testing.assert_array_equal(
+            outliers.mean_from_sorted(torch.tensor(skipped), k).numpy(),
+            outliers.mean_from_sorted(torch.tensor(as_big), k).numpy())
+
+
+def _fused_mean(vals, k):
+    """Kernel K3's fused mean in numpy: the roots of the rows below half,
+    ascending, summed one at a time in float32; the count as float32; one
+    division by max(count, 1)."""
+    half = np.float32(outliers.BIG * 0.5)
+    s = np.zeros(vals.shape[1], np.float32)
+    cnt = np.zeros_like(s)
+    for i in range(min(k, 16)):
+        take = vals[i] < half
+        root = np.sqrt(vals[i].astype(np.float64)).astype(np.float32)
+        s = np.where(take, s + root, s).astype(np.float32)
+        cnt = np.where(take, cnt + np.float32(1), cnt).astype(np.float32)
+    return s / np.maximum(cnt, np.float32(1))
+
+
+@pytest.mark.parametrize(
+    "n_valid,n,row_tile,band,k",
+    [(3000, 4096, 512, 512, 15), (6000, 8192, 384, 512, 15), (2500, 4096, 256, 256, 8),
+     (1000, 2048, 384, 256, 15), (700, 1024, 128, 192, 15)],
+)
+def test_fused_plain_mean_is_the_reference_mean(n_valid, n, row_tile, band, k):
+    """The plain mean (``knn_mean_plain``) and the kernel's fused form of
+    it are bitwise the reference's ``_sortnet_mean_from_sorted`` on the
+    same sorted 16, on the clouds of the cases above."""
+    pts, valid = _lattice_cloud(n_valid, n_valid, n)
+    v = torch.tensor(valid)
+    p = torch.tensor(pts)
+    pch = [torch.where(v, p[:, c], 0.0) for c in range(3)]
+    p_sq = pch[0] * pch[0] + pch[1] * pch[1] + pch[2] * pch[2]
+    tiles = -(-n // row_tile)
+    starts = outliers.band_starts(n, row_tile, band, tiles, "cpu")
+    width = row_tile + 2 * band
+    vals = outliers.knn_select_plain(pch, p_sq, v, starts, row_tile, width)
+    got = outliers.knn_mean_plain(pch, p_sq, v, starts, row_tile, width, k).numpy()
+    want = np.asarray(jax.jit(lambda a: ref_outliers._sortnet_mean_from_sorted(
+        a, k, float(np.float32(outliers.BIG))))(jnp.asarray(vals.numpy())))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_fused_mean(vals.numpy(), k), want)
