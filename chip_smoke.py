@@ -14,29 +14,41 @@ Phases (any failure raises and exits non-zero before the last line):
    with CUDA events, and the wrapper and the library call also by device
    time alone (``torch.profiler``) and by host time alone (200 calls issued
    back to back on the host's clock): K1 run-reduce, K2 compaction, K3
-   banded kNN mean (on x-sorted random points) and K4 cluster sweep at the
-   flagship shapes; K1, K2 and K3 at the fullscale shapes; K5 banded
-   cluster sweep at the fullscale shape, once with every tile live and once
-   with a seeded random ``tile_live``.  K4 and K5 take the points as the clustering lays them
-   out once for all its sweeps (``point_channels``, ``pack_points``).
+   banded kNN mean (on x-sorted random points) and the cluster loop (K4's
+   loop kernel: labels, ``unconverged`` and the sweeps run) at the flagship
+   shapes; K1 (once more on runs that span windows), K2 and K3 at the
+   fullscale shapes; K5 banded cluster sweep at the fullscale shape, once
+   with every tile live and once with a seeded random ``tile_live``.  The
+   cluster kernels take the points as the clustering lays them out once
+   for all its sweeps (``pack_points``, ``point_channels``).
 3. Flagship path: counts from 0, ``ObstacleDetectionModel(FLAGSHIP_CONFIG)``
-   on the card over three seeded scenes; checks that K1-K4 were launched,
-   that no overflow flag is set and that each rock of the scene is matched
-   by a cluster, and compares each scan with the same scan through the
-   plain versions on the CPU (same RANSAC draws): grid, stage counts and
-   flags exact, centroids within 1e-5.  Times ``process_scan`` per scan
-   (p50), counts its host syncs, which must all be the cluster loop's, and
-   its device operations (kernels, memsets, copies; ``torch.profiler``).
-   Then K3 again, checked and timed as in phase 2, on the inputs the scan
-   of scene 0 gives it (its lattice-ordered voxel cloud).
+   on the card over three seeded scenes; checks that K1-K3 and the loop
+   kernel were launched, that no overflow flag is set and that each rock
+   of the scene is matched by a cluster, and compares each scan with the
+   same scan through the plain versions on the CPU (same RANSAC draws):
+   grid, stage counts and flags exact, centroids within 1e-5.  Times
+   ``process_scan`` per scan (p50), counts its host syncs, which must be
+   none (the loop kernel reads nothing back), and its device operations
+   (kernels, memsets, copies; ``torch.profiler``).  Then K3 and the loop
+   kernel again, checked and timed as in phase 2, on the inputs the scan of
+   scene 0 gives them (its lattice-ordered voxel cloud, its non-plane
+   cloud).
 4. Fullscale path: counts from 0, one scan of the canonical fullscale
    window (``make_fullscale_window(2_097_152)``) through
    ``ObstacleDetectionModel(REFERENCE_FULLSCALE_CONFIG)`` on the card;
    checks that K1, K2, K3 and K5 were launched and that no overflow flag is
    set, and compares it with the same window through the plain versions on
    the CPU by the same bar.  Times a few scans (p50) and counts host syncs
-   and device operations; then K3 on the scan's own inputs, as in phase 3.
-5. The two entry points off the pipeline, each driven with the counts from
+   (all the banded loop's reads) and device operations; then K3 on the
+   scan's own inputs, as in phase 3.
+5. The full sweep above the loop kernel's capacity: counts from 0, one
+   ``euclidean_cluster`` of a 10,240-point buffer with the band off on the
+   card (per-sweep K4 launches) against the same call on the CPU, then K4
+   checked and timed at that capacity.  Then both forms of the loop (the
+   loop kernel and the per-sweep path) on the same buffers at 4,096, 6,144,
+   8,192 and 10,240 points and the largest capacity the loop kernel fits,
+   checked against each other and timed (``loop_crossover``).
+6. The two entry points off the pipeline, each driven with the counts from
    0: ``segmented_inclusive_scan`` (K6) at [4, 131,072] (the reference's
    Pallas shape) and [4, 2,097,152] (the fullscale buffer) with heads from a
    sorted key buffer, held against the plain version in bit patterns; and
@@ -74,6 +86,8 @@ FULLSCALE_POINTS = 2_097_152
 FULLSCALE_TIMED_SCANS = 5
 SEGSCAN_N = 131_072  # the reference's Pallas shape for the segmented scan
 BINNING_N, BINNING_K = 131_072, 214_000  # the binning kernel's documented shape
+CLUSTER_WIDE = 10240  # a full-sweep capacity above the loop kernel's (ops.cluster.LOOP_MAX_CAPACITY)
+LOOP_CROSSOVER = (4096, 6144, 8192, 10240)  # capacities at which both forms of the loop are timed
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes per second and float32 operations per second outside the tensor
@@ -192,15 +206,23 @@ def _row(name, path, shape, source, replaces, err, fn, plain_fn, bound, library_
     )
 
 
-def check_k1(dev, rng, path, n, cap, n_valid, n_keys, sentinel, leaf):
-    """K1 on a key-sorted point buffer with 16-bit packed payloads."""
+def check_k1(dev, rng, path, n, cap, n_valid, n_keys, sentinel, leaf, run_len=None):
+    """K1 on a key-sorted point buffer with 16-bit packed payloads: keys
+    drawn from ``n_keys`` lattice cells, or with ``run_len`` runs of about
+    that many rows each (runs that span windows)."""
     import torch
 
     from pointcloud_obstacle_processing_tpu_torch.ops import runreduce
 
-    keys = np.sort(rng.choice(sentinel, n_keys, replace=False))
     skey = np.full(n, sentinel, np.int32)
-    skey[:n_valid] = np.sort(rng.choice(keys, n_valid))
+    if run_len is None:
+        keys = np.sort(rng.choice(sentinel, n_keys, replace=False))
+        skey[:n_valid] = np.sort(rng.choice(keys, n_valid))
+        what = f"{n_keys} lattice cells"
+    else:
+        cuts = np.sort(rng.choice(np.arange(1, n_valid), n_valid // run_len, replace=False))
+        skey[:n_valid] = np.searchsorted(cuts, np.arange(n_valid), side="right")
+        what = f"runs of ~{run_len} rows spanning windows"
     pxy = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)
     pz = rng.integers(0, 65536, n).astype(np.int32)
     quantum = leaf / 65536.0
@@ -210,12 +232,13 @@ def check_k1(dev, rng, path, n, cap, n_valid, n_keys, sentinel, leaf):
     if int(nk) != int(np_):
         raise AssertionError(f"K1 {path}: run count {int(nk)} != plain {int(np_)}")
     k = min(int(nk), cap)
-    err = _assert_equal(f"K1 runreduce {path}", vk[:k], vp[:k])
+    err = _assert_equal(f"K1 runreduce {path} ({what})", vk[:k], vp[:k])
     w = runreduce.default_group(n) * 128
-    # keys + two payloads in, [cap, 5] out; 4 channels x log2(w) Hillis-Steele adds a row
-    bound = _bound(n * 12 + cap * 20, 4 * n * int(np.log2(w)))
+    # keys + two payloads in, the filled slots and num out; 4 channels x
+    # log2(w) Hillis-Steele adds a row
+    bound = _bound(n * 12 + k * 20 + 4, 4 * n * int(np.log2(w)))
     return _row(
-        "runreduce", path, f"{n} rows, {w}-row windows, {int(nk)} runs, cap {cap}",
+        "runreduce", path, f"{n} rows, {what}, {w}-row windows, {int(nk)} runs, cap {cap}",
         "runreduce.cu", "pallas_runreduce.py:462", err,
         lambda: runreduce.sorted_run_reduce(*args, sentinel, cap, quantum=quantum),
         lambda: runreduce.sorted_run_reduce_plain(*args, sentinel, cap, quantum=quantum),
@@ -344,8 +367,58 @@ def check_k4(dev, rng, path, c, n_valid, tol2):
         "cluster_sweep.cu", "cluster.py:86", err,
         lambda: cluster.sweep_jump(chans, valid, labels, tol2),
         lambda: cluster.sweep_jump_plain(chans, valid, labels, tol2),
-        _bound(c * 21 + c * 4, n_valid * c * D2_OPS),
+        _bound(c * 21 + c * 4, n_valid * n_valid * D2_OPS),  # pairs of valid points
     )
+
+
+def _loop_row(path, what, args):
+    """The loop kernel's line: labels, unconverged and sweeps against the
+    plain loop's on the same inputs, exact."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+
+    pk, valid, labels, tol2, max_iters = args
+    got = cluster.cluster_loop(*args)
+    want = cluster.cluster_loop_plain(*args)
+    err = _assert_equal(f"K4 cluster_loop {path} labels ({what})", got.labels, want.labels)
+    if bool(got.unconverged) != bool(want.unconverged) or int(got.sweeps) != int(want.sweeps):
+        raise AssertionError(f"K4 cluster_loop {path}: unconverged/sweeps "
+                             f"{bool(got.unconverged)}/{int(got.sweeps)} != plain "
+                             f"{bool(want.unconverged)}/{int(want.sweeps)}")
+    c, n_valid, sweeps = labels.shape[0], int(valid.sum()), int(want.sweeps)
+    return _row(
+        "cluster_loop", path, f"{what}: C {c}, {n_valid} valid, {sweeps} sweeps",
+        "cluster_loop.cu", "cluster.py:86", err,
+        lambda: cluster.cluster_loop(*args),
+        lambda: cluster.cluster_loop_plain(*args),
+        # packed points, valid and labels in; labels, the flag and the count out;
+        # each sweep scores the pairs of valid points
+        _bound(c * 21 + c * 4 + 5, sweeps * n_valid * n_valid * D2_OPS),
+        plain_reps=5,
+    )
+
+
+def check_loop(dev, rng, path, c, n_valid, tol2, max_iters):
+    """The loop kernel on a centered cluster buffer with chained labels."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+
+    p, valid, labels = _cluster_buffer(dev, rng, c, n_valid, 3.0)
+    return _loop_row(path, "x-sorted random points, random chained labels",
+                     (cluster.pack_points(p), valid, labels, tol2, max_iters))
+
+
+def capture_loop_args(model, cloud, draw) -> tuple:
+    """The arguments of the one ``ops.cluster.cluster_loop`` call a scan
+    makes (``euclidean_cluster`` looks it up at call time)."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+
+    seen, loop = [], cluster.cluster_loop
+    cluster.cluster_loop = lambda *a: seen.append(a) or loop(*a)
+    try:
+        model(cloud, draw=draw)
+    finally:
+        cluster.cluster_loop = loop
+    (args,) = seen
+    return args
 
 
 def check_k5(dev, rng, path, c, n_valid, window, tolerance):
@@ -435,7 +508,7 @@ def check_k7(dev, ids, weights, valid, k, binned=None) -> dict:
 
 
 def run_segscan_binning(dev, card: str) -> tuple[list[dict], dict]:
-    """Phase 5: K6 and K7 through their entry points.  Returns the kernel
+    """Phase 6: K6 and K7 through their entry points.  Returns the kernel
     rows and the launches of each path."""
     import torch
 
@@ -501,11 +574,14 @@ def check_kernels(dev, card: str) -> list[dict]:
         check_k2(dev, rng, "flagship", fl.max_voxels, fl.cluster_capacity, 0.025),
         check_k3(dev, rng, "flagship", fl.max_voxels, 21_500, fl.knn_row_tile, fl.knn_band,
                  fl.statistical_outlier_mean_k),
-        check_k4(dev, rng, "flagship", fl.cluster_capacity, 600, fl.euc_cluster_tolerance ** 2),
+        check_loop(dev, rng, "flagship", fl.cluster_capacity, 600, fl.euc_cluster_tolerance ** 2,
+                   fl.cluster_max_iters),
         # the fullscale window: ~2.0 M points, ~166 k voxels of a 302 x 254 x
         # 52 lattice, ~7 k non-plane points
         check_k1(dev, rng, "fullscale", fs.max_points, fs.max_voxels, 2_000_000, 166_000,
                  3_988_816, fs.downsample_leaf_size),
+        check_k1(dev, rng, "fullscale", fs.max_points, fs.max_voxels, 2_000_000, None,
+                 3_988_816, fs.downsample_leaf_size, run_len=6_000),
         check_k2(dev, rng, "fullscale", fs.max_voxels, fs.cluster_capacity, 7_000 / fs.max_voxels),
         check_k3(dev, rng, "fullscale", fs.max_voxels, 166_000, fs.knn_row_tile, fs.knn_band,
                  fs.statistical_outlier_mean_k),
@@ -645,10 +721,13 @@ def _count_syncs(model, cloud, draw) -> tuple[int, object]:
     return sum("called a synchronizing" in str(w.message) for w in caught), res
 
 
-def _check_syncs(label: str, n_sync: int, res) -> None:
-    """Every host sync of the scan is one of the cluster loop's reads."""
+def _check_syncs(label: str, n_sync: int, res, expected: int | None = None) -> None:
+    """Every host sync of the scan is one of the cluster loop's reads, and
+    there are ``expected`` of them where that is given."""
     if n_sync != res.host_syncs:
         raise AssertionError(f"{label}: {n_sync} host syncs, the cluster loop makes {res.host_syncs}")
+    if expected is not None and n_sync != expected:
+        raise AssertionError(f"{label}: {n_sync} host syncs a scan, expected {expected}")
 
 
 def _draws(cfg, dev):
@@ -674,7 +753,7 @@ def run_flagship(dev, card: str) -> tuple[dict, list[dict]]:
     gpu_clouds = [clouds[s].to(dev) for s in SCENE_SEEDS]
 
     # main path: counts from 0, one scan of each scene on the card
-    path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep"]
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop"]
     launches = dict.fromkeys(_build.LAUNCHES, 0)
     results = {}
     for s, gc in zip(SCENE_SEEDS, gpu_clouds):
@@ -692,14 +771,16 @@ def run_flagship(dev, card: str) -> tuple[dict, list[dict]]:
 
     times = _time_scans(model, gpu_clouds, draw_cuda, TIMED_SCANS)
     n_sync, res = _count_syncs(model, gpu_clouds[0], draw_cuda)
-    _check_syncs("flagship", n_sync, res)
+    _check_syncs("flagship", n_sync, res, expected=0)
     n_ops, dev_ms = scan_device_ops(model, gpu_clouds[0], draw_cuda)
     print(f"flagship process_scan p50 {statistics.median(times):.3f} ms per scan over "
           f"{len(times)} scans (min {min(times):.3f}, max {max(times):.3f}); host syncs per scan "
           f"{n_sync} (sync debug mode; cluster loop counts {res.host_syncs}); device operations "
           f"per scan {n_ops} ({dev_ms:.3f} ms of device time, scene {SCENE_SEEDS[0]}); kernel "
           f"launches over the {len(SCENE_SEEDS)} main-path scans {launches} [{card}]")
-    return launches, [check_k3_scan("flagship", model, gpu_clouds[0], draw_cuda)]
+    loop_args = capture_loop_args(model, gpu_clouds[0], draw_cuda)
+    return launches, [check_k3_scan("flagship", model, gpu_clouds[0], draw_cuda),
+                      _loop_row("flagship", "the scan's non-plane cloud", loop_args)]
 
 
 def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
@@ -745,6 +826,100 @@ def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
     return launches, [check_k3_scan("fullscale", model, gpu_cloud, draw_cuda)]
 
 
+def run_cluster_wide(dev, card: str) -> tuple[list[dict], dict]:
+    """The full sweep above the loop kernel's capacity: counts from 0, one
+    ``euclidean_cluster`` of a CLUSTER_WIDE-point buffer with the band off
+    on the card (one per-sweep K4 launch a sweep), against the same call on
+    the CPU (labels, slots and flags exact); then K4 checked and timed at
+    that capacity.  Returns the kernel rows and the path's launches."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import _build
+    from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as fl
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+
+    rng = np.random.default_rng(4)
+    c, n_valid = CLUSTER_WIDE, CLUSTER_WIDE * 5 // 8
+    cloud = _blob_cloud(rng, c, n_valid)
+    args = (fl.euc_cluster_tolerance, fl.euc_min_cluster_size, fl.euc_max_cluster_size,
+            fl.max_clusters, fl.cluster_max_iters)
+    _build.reset_launch_counts()
+    got = cluster.euclidean_cluster(cloud.to(dev), *args)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if launches["cluster_sweep"] <= 0 or launches["cluster_loop"]:
+        raise AssertionError(f"cluster_wide: expected per-sweep K4 launches, got {launches}")
+    want = cluster.euclidean_cluster(cloud, *args)
+    for f in ("labels", "root_slot", "unconverged", "overflow"):
+        _assert_equal(f"cluster_wide {f}", getattr(got, f), getattr(want, f))
+    for f in ("point_cluster", "sizes", "valid", "num_clusters"):
+        _assert_equal(f"cluster_wide {f}", getattr(got.clusters, f), getattr(want.clusters, f))
+    print(f"cluster_wide: euclidean_cluster at C {c} ({n_valid} valid): cuda == cpu plain "
+          f"(labels, slots, flags exact); {int(got.clusters.num_clusters)} clusters; "
+          f"{launches['cluster_sweep']} K4 sweeps; host syncs {got.host_syncs} [{card}]")
+    row = check_k4(dev, rng, "cluster_wide", c, n_valid, fl.euc_cluster_tolerance ** 2)
+    print(f"kernel {row['name']} [{row['path']}: {row['shape']}]: equal to plain; {_times(row)} "
+          f"[{card}]")
+    loop_crossover(dev, card)
+    return [row], launches
+
+
+def _blob_cloud(rng, c: int, n_valid: int):
+    """A front-compacted cluster buffer of ``n_valid`` points in 24 seeded
+    blobs (sigma 0.1 m) over the arena's 4.5 x 3.78 m, x-sorted as a
+    lattice-ordered cloud arrives, on the CPU."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import Cloud
+
+    centers = rng.uniform([0.0, 0.0, -0.2], [4.5, 3.78, 0.2], (24, 3))
+    pts = np.zeros((c, 3), np.float32)
+    pts[:n_valid] = rng.normal(centers[rng.integers(0, 24, n_valid)], 0.1)
+    pts[:n_valid] = pts[:n_valid][np.argsort(pts[:n_valid, 0], kind="stable")]
+    return Cloud(points=torch.tensor(pts), valid=torch.tensor(np.arange(c) < n_valid))
+
+
+def loop_fit(lib) -> int:
+    """The largest capacity (a multiple of 128, up to 16,384) at which the
+    loop kernel's thread-block cluster, every block holding all points,
+    fits this card."""
+    return max((c for c in range(128, 16_385, 128) if lib.pcp_cluster_loop_blocks(c) > 0),
+               default=0)
+
+
+def loop_crossover(dev, card: str) -> None:
+    """The two forms of the full-sweep loop, the loop kernel (one launch)
+    and the per-sweep path (one K4 launch, the hook in PyTorch and a host
+    read a sweep), on the same seeded buffers at LOOP_CROSSOVER capacities
+    and the largest the loop kernel fits, 5/8 and all of the rows valid:
+    labels, ``unconverged`` and sweeps must agree exactly; each is timed
+    with CUDA events over 10 calls.  The dispatch limit
+    ``ops.cluster.LOOP_MAX_CAPACITY`` is read off these lines."""
+    from pointcloud_obstacle_processing_tpu_torch import _build
+    from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as fl
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+
+    lib = _build.kernels()
+    fit = loop_fit(lib)
+    tol, iters = fl.euc_cluster_tolerance, fl.cluster_max_iters
+    rng = np.random.default_rng(8)
+    for c in sorted({*(x for x in LOOP_CROSSOVER if x <= fit), fit}):
+        for n_valid in (c * 5 // 8, c):
+            cloud = _blob_cloud(rng, c, n_valid).to(dev)
+            p, p_sq, labels = cluster._seed_labels(cloud.points, cloud.valid, tol)
+            args = (cluster.pack_points(p, p_sq), cloud.valid, labels, tol ** 2, iters)
+            a, b = cluster.loop_kernel(*args), cluster.per_sweep_loop(*args)
+            _assert_equal(f"loop crossover C {c} labels", a.labels, b.labels)
+            if (bool(a.unconverged), int(a.sweeps)) != (bool(b.unconverged), int(b.sweeps)):
+                raise AssertionError(f"loop crossover C {c}: unconverged/sweeps differ")
+            ms_k = _time_ms(lambda: cluster.loop_kernel(*args), 10)
+            ms_s = _time_ms(lambda: cluster.per_sweep_loop(*args), 10)
+            print(f"loop crossover: C {c} ({n_valid} valid, {int(b.sweeps)} sweeps, "
+                  f"{lib.pcp_cluster_loop_blocks(c)} blocks; limit "
+                  f"{cluster.LOOP_MAX_CAPACITY}, fit {fit}): loop kernel {ms_k:.4f} ms, "
+                  f"per-sweep K4 {ms_s:.4f} ms [{card}]")
+
+
 def main() -> None:
     import torch
 
@@ -776,6 +951,8 @@ def main() -> None:
             print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: equal to plain; {_times(r)} "
                   f"[{card}]")
         rows += scan_rows
+    wide_rows, launches["cluster_wide"] = run_cluster_wide(dev, card)
+    rows += wide_rows
     more_rows, more_launches = run_segscan_binning(dev, card)
     rows += more_rows
     launches.update(more_launches)

@@ -44,23 +44,27 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches since the last reset
-LAUNCHES = {"runreduce": 0, "compact_gather": 0, "knn_mean": 0, "cluster_sweep": 0,
-            "cluster_sweep_banded": 0, "segscan": 0, "binned_sum": 0}
+LAUNCHES = {"runreduce": 0, "compact_gather": 0, "knn_mean": 0, "cluster_loop": 0,
+            "cluster_sweep": 0, "cluster_sweep_banded": 0, "segscan": 0, "binned_sum": 0}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # C entry points: argument types in order (all return cudaError_t as int)
 _SIGNATURES = {
-    # skey, pay_a, pay_b, pay_c, packed, quantum, n, w, sentinel, excl,
-    # capacity, local, lastcol, first_head, carry, out, stream
-    "pcp_runreduce": [_VP, _VP, _VP, _VP, _I, _F, _I, _I, _I, _VP,
-                      _I, _VP, _VP, _VP, _VP, _VP, _VP],
+    # skey, pay_a, pay_b, pay_c, packed, quantum, n, w, sentinel, capacity,
+    # workspace, out, num, stream
+    "pcp_runreduce": [_VP, _VP, _VP, _VP, _I, _F, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
     # bins, occ, c, k, capacity, loc, vals, scratch (num, block counts), stream
     "pcp_compact_gather": [_VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP],
     # px, py, pz, psq, valid, starts, n, tiles, row_tile, width, k, big,
     # half, out, stream
     "pcp_knn_mean": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F,
                      _F, _VP, _VP],
+    # pts (packed [C, 4]), valid, labels, c, tol2, max_iters, blocks,
+    # labels out, unconverged, sweeps, stream
+    "pcp_cluster_loop": [_VP, _VP, _VP, _I, _F, _I, _I, _VP, _VP, _VP, _VP],
+    # c -> blocks of the loop kernel's cluster (0: none fits)
+    "pcp_cluster_loop_blocks": [_I],
     # px, py, pz, psq, valid, labels, c, tol2, out, stream
     "pcp_cluster_sweep": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _F, _VP, _VP],
     # pts (packed [C, 4]), valid, labels, starts, tile_live, c, window,

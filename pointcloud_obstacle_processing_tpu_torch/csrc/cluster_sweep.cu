@@ -22,9 +22,10 @@
 // adjacency test reads it, and the output is an integer, so the result is
 // exact once that tree is kept.
 //
-// Bound on the H100: C^2 = 1 M pairs per sweep at the flagship capacity of
-// 1024, ~10 flops each: the sweep is latency-bound (4 blocks on 132 SMs);
-// the cluster loop runs one launch per sweep.
+// Bound on the H100: C^2 pairs per sweep, ~9 operations each.  The cluster
+// loop takes this kernel, one launch a sweep, only above the loop kernel's
+// capacity (ops/cluster.py LOOP_MAX_CAPACITY, 8192 points), where it has
+// C / 256 > 32 blocks.
 
 #include <cuda_runtime.h>
 

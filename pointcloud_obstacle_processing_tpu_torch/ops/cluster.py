@@ -6,12 +6,17 @@ propagation over the compacted non-plane buffer.
 
 * the cloud is centered; consecutive-rank points within a margin of the
   tolerance seed each run with its head index;
-* each sweep computes ``min(label[i], label[label[i]], neighbour labels)``
-  (kernel K4, ``csrc/cluster_sweep.cu``; ``sweep_jump_plain`` for CPU
-  tensors), then hooks each point's minimum onto its root;
+* each sweep computes ``min(label[i], label[label[i]], neighbour labels)``,
+  then hooks each point's minimum onto its root;
+* the full sweep's loop runs on the card as one launch of kernel K4's loop
+  form (``cluster_loop``, ``csrc/cluster_loop.cu``) up to
+  ``LOOP_MAX_CAPACITY`` points; above it, one launch of the per-sweep
+  kernel K4 (``sweep_jump``, ``csrc/cluster_sweep.cu``) a sweep with the
+  hook in PyTorch; CPU tensors take ``cluster_loop_plain``;
 * the points and |p|^2 do not change within a clustering: they are laid
-  out once for the sweeps, as the [4, C] channel rows K4 reads
-  (``point_channels``) or the [C, 4] rows K5 reads (``pack_points``);
+  out once for the sweeps, as the [C, 4] rows the loop kernel and K5 read
+  (``pack_points``), or the [4, C] channel rows the per-sweep K4 reads
+  (``point_channels``);
 * with ``band_window`` the sweep is banded: query tile t (128 rows) scores
   only the ``band_window`` columns at ``starts[t]`` (``band_starts``, from
   the x envelopes of the lattice-ordered cloud), tiles whose window saw no
@@ -20,8 +25,9 @@ propagation over the compacted non-plane buffer.
   ``csrc/cluster_sweep_banded.cu``; ``sweep_jump_banded_plain`` for CPU
   tensors);
 * sweeps repeat until no label changes, at most ``max_iters`` times.  The
-  loop reads ``changed.any()`` back to the host once per sweep after the
-  first; ``ClusterOutput.host_syncs`` counts those reads.
+  loop kernel tests that on the card; the other loops read
+  ``changed.any()`` back to the host once per sweep after the first, and
+  ``ClusterOutput.host_syncs`` counts those reads.
 
 The reference tracks the frontier only on its TPU path; the port tracks it
 on every device, which is output-identical (see ``sweep_jump_banded``).
@@ -33,12 +39,13 @@ comes from a stable sort.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from . import add_sq3, dot3, f32, fma, sum_sq3
+from . import add_sq3, dot3, f32, fma, sqrt32, sum_sq3
 from .. import _build
 from ..types import Cloud, ClusterSet, PointIndicesArray, PointWithRad
 
@@ -52,10 +59,25 @@ __all__ = [
     "band_starts",
     "sweep_jump_banded",
     "sweep_jump_banded_plain",
+    "cluster_loop",
+    "cluster_loop_plain",
+    "loop_kernel",
+    "per_sweep_loop",
     "ClusterOutput",
+    "LoopOutput",
+    "LOOP_MAX_CAPACITY",
 ]
 
 BAND_TILE = 128  # query rows per tile of the banded sweep
+# The loop kernel keeps every point in each block's shared memory and
+# splits the rows over one thread-block cluster of 16 blocks (8 where 16
+# does not fit); it fits up to 11,136 points on an H100.  Timed against the
+# per-sweep path on the same buffers (chip_smoke.py's loop_crossover, H100
+# 80GB HBM3, 700 W), it was faster at 4,096, 6,144 and 8,192 points with 5/8
+# or all of the rows valid, and at 11,136 with 5/8 valid, but not with all
+# of them valid (2.83 against 1.91 ms): the per-sweep kernel spreads over
+# C / 256 SMs, the loop kernel stays on 16.
+LOOP_MAX_CAPACITY = 8192
 
 
 def _norms(p, p_sq):
@@ -229,6 +251,106 @@ def sweep_jump_banded(pk, valid, labels, tol2: float, tile: int, window: int, st
     return out
 
 
+def _hook(labels, nbr_min):
+    """Each point's neighbourhood minimum onto its root (scatter-min; the
+    same int32 minima as the reference's one-hot form), then the new
+    labels ``min(labels, upd, nbr_min)``."""
+    n = labels.shape[0]
+    upd = torch.full((n,), n, dtype=torch.int32, device=labels.device)
+    upd.scatter_reduce_(0, labels.long(), nbr_min, reduce="amin", include_self=True)
+    return torch.minimum(torch.minimum(labels, upd), nbr_min)
+
+
+class LoopOutput(NamedTuple):
+    labels: torch.Tensor  # [C] int32 after the last sweep
+    unconverged: torch.Tensor  # [] bool: the last sweep changed a label
+    sweeps: int | torch.Tensor  # sweeps run (a 0-d int32 tensor from the kernel)
+    host_syncs: int  # device-to-host reads the loop made
+
+
+def _sweep_loop(sweep, labels, max_iters: int) -> LoopOutput:
+    """Sweep and hook until no label changes, at most ``max_iters`` times;
+    the change test is read on the host after each sweep but the last (the
+    first sweep always runs: the reference's loop state starts with every
+    point "changed")."""
+    host_syncs = 0
+    changed = torch.ones(labels.shape[0], dtype=torch.bool, device=labels.device)
+    sweeps = 0
+    for it in range(max_iters):
+        new = _hook(labels, sweep(labels))
+        changed = new != labels
+        labels = new
+        sweeps += 1
+        if it + 1 < max_iters:
+            host_syncs += 1
+            if not bool(changed.any()):
+                break
+    return LoopOutput(labels, changed.any(), sweeps, host_syncs)
+
+
+def cluster_loop_plain(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
+    """Plain PyTorch version of the loop kernel: ``sweep_jump_plain`` and
+    the hook, sweep after sweep.  ``pk``: ``pack_points``' [C, 4] rows."""
+    pch = pk.T
+    return _sweep_loop(lambda lab: sweep_jump_plain(pch, valid, lab, tol2), labels, max_iters)
+
+
+@functools.cache
+def _loop_blocks(n: int) -> int:
+    """Blocks of the loop kernel's thread-block cluster at capacity ``n``
+    (16 or 8), or 0 where no such cluster fits this card."""
+    return max(0, _build.kernels().pcp_cluster_loop_blocks(n))
+
+
+def cluster_loop(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
+    """The full-sweep cluster loop from the seeded ``labels``: the loop
+    kernel (one launch, no host read) for CUDA tensors up to
+    ``LOOP_MAX_CAPACITY`` points; above it the per-sweep kernel K4 with the
+    hook in PyTorch and one host read a sweep; the plain version for CPU
+    tensors.  ``pk``: ``pack_points``' [C, 4] rows."""
+    if pk.device.type == "cpu":
+        return cluster_loop_plain(pk, valid, labels, tol2, max_iters)
+    n = pk.shape[0]
+    if pk.shape != (n, 4) or valid.shape != (n,) or labels.shape != (n,):
+        raise ValueError("cluster_loop: packed points [C, 4], valid [C] and labels [C]")
+    if n > LOOP_MAX_CAPACITY or not _loop_blocks(n):
+        return per_sweep_loop(pk, valid, labels, tol2, max_iters)
+    return loop_kernel(pk, valid, labels, tol2, max_iters)
+
+
+def per_sweep_loop(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
+    """The loop as one K4 launch a sweep, the hook in PyTorch and a host
+    read of the change test after each sweep but the last (CUDA tensors)."""
+    pch = pk.T.contiguous()
+    return _sweep_loop(lambda lab: sweep_jump(pch, valid, lab, tol2), labels, max_iters)
+
+
+def loop_kernel(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
+    """The whole loop in one launch of the loop kernel (CUDA tensors, at any
+    capacity whose points fit a block's shared memory)."""
+    n = pk.shape[0]
+    _build.require_cuda("cluster_loop", pk, valid, labels,
+                        dtypes=[torch.float32, torch.bool, torch.int32])
+    if pk.data_ptr() % 16:
+        raise ValueError("cluster_loop: the packed points must be 16-byte aligned")
+    blocks = _loop_blocks(n)
+    if not blocks:
+        raise RuntimeError(f"cluster_loop: no thread-block cluster of 8 or 16 blocks with "
+                           f"{n} points in shared memory fits this card")
+    lib = _build.kernels()
+    out = torch.empty(n, dtype=torch.int32, device=pk.device)
+    unconverged = torch.empty((), dtype=torch.bool, device=pk.device)
+    sweeps = torch.empty((), dtype=torch.int32, device=pk.device)
+    err = lib.pcp_cluster_loop(
+        pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), n, float(np.float32(tol2)),
+        int(max_iters), blocks, out.data_ptr(), unconverged.data_ptr(),
+        sweeps.data_ptr(), _build.stream_handle(),
+    )
+    _build.check(err, "cluster_loop")
+    _build.LAUNCHES["cluster_loop"] += 1
+    return LoopOutput(out, unconverged, sweeps, 0)
+
+
 class ClusterOutput(NamedTuple):
     clusters: ClusterSet
     labels: torch.Tensor  # [C] int32 component roots (min index), self for invalid
@@ -239,21 +361,41 @@ class ClusterOutput(NamedTuple):
     host_syncs: int = 0  # device-to-host reads made by the sweep loop
 
 
-def euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: int,
-                      max_clusters: int, max_iters: int = 64,
-                      band_window: int = 0) -> ClusterOutput:
-    """Connected components + size gate + size-descending slot assignment.
+def _banded_loop(pk, valid, labels, tol2: float, band_window: int, starts, max_iters: int):
+    """The banded sweep's loop: frontier-gated K5 sweeps, the hook and one
+    full-array pointer jump a sweep; one host read a sweep after the first.
+    Returns (labels, unconverged, host_syncs)."""
+    n = labels.shape[0]
+    win_hi = (starts + (band_window - 1)).long()
+    win_lo = (starts - 1).clamp_min(0).long()
+    host_syncs = 0
+    changed = torch.ones(n, dtype=torch.bool, device=labels.device)
+    for it in range(max_iters):
+        # frontier: a tile is live when a label in its window changed in
+        # the previous sweep (a prefix-sum difference per window)
+        cs = torch.cumsum(changed, dim=0, dtype=torch.int32)
+        tile_live = (cs[win_hi] - torch.where(starts > 0, cs[win_lo], 0)) > 0
+        nbr_min = sweep_jump_banded(pk, valid, labels, tol2, BAND_TILE, band_window, starts,
+                                    tile_live)
+        new = _hook(labels, nbr_min)
+        # window-unlimited pointer jump: a root outside a tile's window is
+        # out of the sweep's reach; one full-array jump per sweep keeps the
+        # doubling (labels[i] names an in-component point <= i)
+        new = torch.minimum(new, new[new.long()])
+        changed = new != labels
+        labels = new
+        if it + 1 < max_iters:
+            host_syncs += 1
+            if not bool(changed.any()):
+                break
+    return labels, changed.any(), host_syncs
 
-    ``band_window`` takes the banded sweep where the reference does: a
-    window of 128 columns or more, below the capacity, and a capacity
-    divisible by 128; otherwise the full sweep runs."""
-    pts = cloud.points
-    valid = cloud.valid.contiguous()
-    n = cloud.capacity
+
+def _seed_labels(pts, valid, tolerance: float):
+    """The loop's start: the centered points, their |p|^2 (``sum_sq3``,
+    fixed for the whole loop) and the chain-seeded labels."""
+    n = pts.shape[0]
     dev = pts.device
-    if max_clusters > n:
-        raise ValueError(f"max_clusters={max_clusters} exceeds the cluster capacity {n}")
-
     denom = torch.clamp_min(valid.sum(dtype=torch.float32), 1.0)
     center = torch.where(valid[:, None], pts, 0.0).sum(dim=0) / denom
     p = torch.where(valid[:, None], pts - center, 0.0)
@@ -274,48 +416,38 @@ def euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: i
     head = valid & ~chain
     run_head = torch.cummax(torch.where(head, idx, -1), dim=0).values
     labels = torch.where(valid, run_head, idx).to(torch.int32)
+    return p, p_sq, labels
+
+
+def euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: int,
+                      max_clusters: int, max_iters: int = 64,
+                      band_window: int = 0) -> ClusterOutput:
+    """Connected components + size gate + size-descending slot assignment.
+
+    ``band_window`` takes the banded sweep where the reference does: a
+    window of 128 columns or more, below the capacity, and a capacity
+    divisible by 128; otherwise the full sweep runs."""
+    pts = cloud.points
+    valid = cloud.valid.contiguous()
+    n = cloud.capacity
+    dev = pts.device
+    if max_clusters > n:
+        raise ValueError(f"max_clusters={max_clusters} exceeds the cluster capacity {n}")
+
+    p, p_sq, labels = _seed_labels(pts, valid, tolerance)
+    tol2 = float(tolerance) ** 2
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
 
     banded = bool(band_window) and BAND_TILE <= band_window < n and n % BAND_TILE == 0
-    # the sweeps' operand, laid out once for the whole loop
-    sweep_pts = pack_points(p, p_sq) if banded else point_channels(p, p_sq)
+    sweep_pts = pack_points(p, p_sq)  # the sweeps' operand, laid out once for the whole loop
     if banded:
         starts, band_overflow = band_starts(p, valid, BAND_TILE, band_window, tolerance)
-        win_hi = (starts + (band_window - 1)).long()
-        win_lo = (starts - 1).clamp_min(0).long()
+        labels, unconverged, host_syncs = _banded_loop(sweep_pts, valid, labels, tol2,
+                                                       band_window, starts, max_iters)
     else:
         band_overflow = torch.zeros((), dtype=torch.bool, device=dev)
-
-    # sweep loop: the first sweep always runs (the reference's loop state
-    # starts with every point "changed"); later ones check on the host
-    host_syncs = 0
-    changed = torch.ones(n, dtype=torch.bool, device=dev)
-    for it in range(max_iters):
-        if banded:
-            # frontier: a tile is live when a label in its window changed
-            # in the previous sweep (a prefix-sum difference per window)
-            cs = torch.cumsum(changed, dim=0, dtype=torch.int32)
-            tile_live = (cs[win_hi] - torch.where(starts > 0, cs[win_lo], 0)) > 0
-            nbr_min = sweep_jump_banded(sweep_pts, valid, labels, tol2, BAND_TILE, band_window,
-                                        starts, tile_live)
-        else:
-            nbr_min = sweep_jump(sweep_pts, valid, labels, tol2)
-        # hook: each point's neighbourhood minimum onto its root (scatter-
-        # min; the same int32 minima as the reference's one-hot form)
-        upd = torch.full((n,), n, dtype=torch.int32, device=dev)
-        upd.scatter_reduce_(0, labels.long(), nbr_min, reduce="amin", include_self=True)
-        new = torch.minimum(torch.minimum(labels, upd), nbr_min)
-        if banded:
-            # window-unlimited pointer jump: a root outside a tile's window
-            # is out of the sweep's reach; one full-array jump per sweep
-            # keeps the doubling (labels[i] names an in-component point <= i)
-            new = torch.minimum(new, new[new.long()])
-        changed = new != labels
-        labels = new
-        if it + 1 < max_iters:
-            host_syncs += 1
-            if not bool(changed.any()):
-                break
-    unconverged = changed.any()
+        labels, unconverged, _, host_syncs = cluster_loop(sweep_pts, valid, labels, tol2,
+                                                          max_iters)
 
     # sizes and the size gate
     sizes_by_root = torch.zeros(n + 1, dtype=torch.int32, device=dev)
@@ -369,7 +501,7 @@ def cluster_centroids(cloud: Cloud, clusters: ClusterSet) -> PointIndicesArray:
     # the reference fuses the centroid's product into the offset,
     # x - sum * inv with one rounding, and the squares as a written-out sum
     dx, dy, dz = (fma(-s[None, :], inv[None, :], c[:, None]) for s, c in zip(sums, (x, y, z)))
-    d_all = torch.sqrt(add_sq3(dx, dy, dz))
+    d_all = sqrt32(add_sq3(dx, dy, dz))
     radii = torch.where(member, d_all, 0.0).max(dim=0).values
     xyzr = torch.stack([cx, cy, cz, radii], dim=-1)
     xyzr = torch.where(clusters.valid[:, None], xyzr, 0.0)

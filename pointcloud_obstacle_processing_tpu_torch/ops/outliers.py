@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import add_sq3, dot3, f32, sqrt32
+from . import add_sq3, dot3, f32, fma, sqrt32
 from .. import _build
 from ..types import Cloud
 
@@ -33,6 +33,7 @@ __all__ = [
     "mean_from_sorted",
     "band_starts",
     "centre_out_chunks",
+    "gate_threshold",
     "OutlierResult",
     "BIG",
 ]
@@ -180,6 +181,16 @@ def knn_mean_distances(cloud: Cloud, k: int, row_tile: int = 512, band: int = 10
     return torch.where(valid, out, 0.0)
 
 
+def gate_threshold(n, s2, mu, std_dev_mult: float) -> torch.Tensor:
+    """PCL's gate ``mu + mult * sigma`` from the count ``n``, the sum of
+    squares ``s2`` and the mean ``mu``, with the n-1 estimator: the
+    reference's ``max((s2 - n*mu*mu) / (n-1), 0)`` and ``mu + mult *
+    sqrt(var)`` as XLA:CPU fuses them, ``fma(-(n*mu), mu, s2)`` and
+    ``fma(mult, sqrt(var), mu)``, with the correctly rounded root."""
+    var = torch.clamp_min(fma(-(n * mu), mu, s2) / (n - 1.0), 0.0)
+    return fma(f32(std_dev_mult), sqrt32(var), mu)
+
+
 class OutlierResult(NamedTuple):
     cloud: Cloud  # same buffer, mask restricted to inliers
     mean_distances: torch.Tensor  # [N] float32
@@ -194,9 +205,7 @@ def remove_statistical_outliers(cloud: Cloud, mean_k: int, std_dev_mult: float,
     n = torch.clamp_min(valid_f.sum(), 2.0)
     s1 = (d * valid_f).sum()
     s2 = (d * d * valid_f).sum()
-    mu = s1 / n
-    var = torch.clamp_min((s2 - n * mu * mu) / (n - 1.0), 0.0)
-    threshold = mu + f32(std_dev_mult) * torch.sqrt(var)
+    threshold = gate_threshold(n, s2, s1 / n, std_dev_mult)
     keep = cloud.valid & (d <= threshold)
     return OutlierResult(
         cloud=Cloud(points=cloud.points, valid=keep), mean_distances=d, threshold=threshold

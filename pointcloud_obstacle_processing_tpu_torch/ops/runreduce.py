@@ -140,26 +140,18 @@ def sorted_run_reduce(skey, offs, sentinel: int, capacity: int, group: int | Non
     if w > 4096:
         raise ValueError(f"sorted_run_reduce: window {w} exceeds the kernel's 4096 rows")
     lib = _build.kernels()
-    steps = n // w
     dev = skey.device
-    _, _, is_end = _flags(skey, sentinel)
-    per_block = is_end.reshape(n // 128, 128).sum(dim=1, dtype=torch.int32)
-    offsets = torch.cumsum(per_block, dim=0, dtype=torch.int32)
-    num = offsets[-1]
-    excl = (offsets - per_block).contiguous()
-    local = torch.empty(4, n, dtype=torch.float32, device=dev)
-    lastcol = torch.empty(steps, 4, dtype=torch.float32, device=dev)
-    first_head = torch.empty(steps, dtype=torch.int32, device=dev)
-    carry = torch.empty(steps, 4, dtype=torch.float32, device=dev)
-    vals = torch.zeros(capacity, 5, dtype=torch.float32, device=dev)
+    vals = torch.empty(capacity, 5, dtype=torch.float32, device=dev)
+    num = torch.empty(1, dtype=torch.int32, device=dev)
+    # the kernel's look-back workspace (csrc/runreduce.cu), cleared by the call
+    workspace = torch.empty((n // w) * 44 + 16, dtype=torch.uint8, device=dev)
     packed = quantum is not None
     err = lib.pcp_runreduce(
         skey.data_ptr(), offs[0].data_ptr(), offs[1].data_ptr(),
         None if packed else offs[2].data_ptr(), int(packed),
-        float(np.float32(quantum)) if packed else 0.0, n, w, sentinel, excl.data_ptr(),
-        capacity, local.data_ptr(), lastcol.data_ptr(), first_head.data_ptr(),
-        carry.data_ptr(), vals.data_ptr(), _build.stream_handle(),
+        float(np.float32(quantum)) if packed else 0.0, n, w, sentinel, capacity,
+        workspace.data_ptr(), vals.data_ptr(), num.data_ptr(), _build.stream_handle(),
     )
     _build.check(err, "runreduce")
     _build.LAUNCHES["runreduce"] += 1
-    return vals, num
+    return vals, num[0]

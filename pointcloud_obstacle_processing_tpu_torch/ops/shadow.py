@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import f32
+from . import f32, fma, sqrt32, sum_sq3
 from ..config import PipelineConfig
 from ..types import Cloud, ClusterSet
 from .occupancy import grid_cell_xy
@@ -31,6 +31,16 @@ class ShadowResult(NamedTuple):
 def _cell(world: torch.Tensor, config: PipelineConfig):
     pts = torch.stack([world[..., 0], world[..., 1], torch.zeros_like(world[..., 0])], dim=-1)
     return grid_cell_xy(pts, config)
+
+
+def _lengths(vmin: torch.Tensor):
+    """The shadow's two lengths from each slot's nearest point ``vmin``
+    [M, 3]: ``c = sqrt(z*z + x*x)`` and ``|vmin|``, as XLA:CPU evaluates
+    the reference's ``jnp.sqrt(a*a + bb*bb)`` (the first product fused into
+    the add) and ``jnp.linalg.norm`` (the reduction's fused chain), with
+    correctly rounded roots."""
+    a, bb = vmin[:, 2], torch.abs(vmin[:, 0])
+    return sqrt32(fma(a, a, bb * bb)), sqrt32(sum_sq3(vmin[:, 0], vmin[:, 1], vmin[:, 2]))
 
 
 def cast_shadows(grid: torch.Tensor, cloud: Cloud, clusters: ClusterSet,
@@ -54,15 +64,14 @@ def cast_shadows(grid: torch.Tensor, cloud: Cloud, clusters: ClusterSet,
     width = torch.abs(hmax - hmin)
 
     a = vmin[:, 2]
-    bb = torch.abs(vmin[:, 0])
-    c = torch.sqrt(a * a + bb * bb)
+    c, v_len = _lengths(vmin)
     e = torch.abs(vmax) - torch.abs(vmin[:, 0]) + f32(0.04)
+    # XLA:CPU's float32 asin and tan are its own approximations: these two
+    # steps are not bitwise the reference's (ROADMAP C)
     D = torch.arcsin(a / torch.clamp_min(c, 1e-20))
     d = torch.tan(D) * e + f32(0.25)
-    v_len = torch.clamp_min(torch.linalg.vector_norm(vmin, dim=-1), 1e-20)
-    end_sensor = vmin + vmin / v_len[:, None] * d[:, None]
-    end_world = world_from_sensor.apply(end_sensor)
-    start_world = world_from_sensor.apply(vmin)
+    end_sensor = vmin + vmin / torch.clamp_min(v_len, 1e-20)[:, None] * d[:, None]
+    end_world, start_world = world_from_sensor.apply(torch.cat([end_sensor, vmin])).split(M)
     e_col, e_row = _cell(end_world, config)
     s_col, s_row = _cell(start_world, config)
 

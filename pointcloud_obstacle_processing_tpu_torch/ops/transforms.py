@@ -11,22 +11,30 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import fma
+
 __all__ = ["RigidTransform", "quat_rotate"]
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Cross product over the last axis, written per component."""
-    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
-    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
-    return torch.stack([ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1)
+    """Cross product over the last axis (operands broadcast) as XLA:CPU
+    evaluates the reference's ``jnp.cross``: each component's second
+    product rounded, its first fused into the subtraction, ``(fma(ay, bz, -(az*by)), fma(az, bx, -(ax*bz)),
+    fma(ax, by, -(ay*bx)))``, the three components at once (the rolled
+    operands put each component's factors in its place)."""
+    a1, a2 = a.roll(-1, -1), a.roll(-2, -1)
+    b1, b2 = b.roll(-1, -1), b.roll(-2, -1)
+    return fma(a1, b2, -(a2 * b1))
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Rotate vectors v[..., 3] by the xyzw quaternion q[4]."""
+    """Rotate vectors v[..., 3] by the xyzw quaternion q[4]: the reference's
+    ``v + w*t + cross(u, t)`` as XLA:CPU evaluates it, ``w*t`` fused into
+    the first add."""
     u = q[..., :3]
     w = q[..., 3:]
-    t = 2.0 * _cross(u.expand_as(v), v)
-    return v + w * t + _cross(u.expand_as(t), t)
+    t = 2.0 * _cross(u, v)
+    return fma(w, t, v) + _cross(u, t)
 
 
 @dataclasses.dataclass

@@ -9,8 +9,9 @@ commit's, from ``git archive``).  The script runs the parent, this checkout,
 this checkout and the parent, each in a process of its own that imports the
 package from its checkout and builds that checkout's kernels.  Each run
 takes ``chip_smoke.py``'s kernel checks from this checkout and applies them
-to its own package: K2, K3 and K4 at the flagship shapes, K2, K3 and K5 at
-the fullscale shapes, K7 at its documented shape, each held against that
+to its own package: K1, K2, K3 and the cluster loop (K4) at the flagship
+shapes, K1, K2, K3 and K5 at the fullscale shapes, K7 at its documented
+shape, each held against that
 package's plain version and timed (CUDA events around 20 calls, and device
 time alone from ``torch.profiler`` and host time alone, beside the library
 call where there is one); then the ``process_scan`` p50 of the flagship scenes (20 scans) and of
@@ -19,8 +20,10 @@ and K3 once more on the inputs each scan gives it (its voxel cloud).
 A checkout from before the kNN mean was fused into K3 and before the
 clustering packed its sweep points is driven through the same calls by
 ``_adapt``: its K3 row times the selection and ``mean_from_sorted``, the
-function the fused kernel computes, and its K4 and K5 rows take the points
-and |p|^2 apart, as that checkout's cluster loop does.  It prints one line per kernel and run,
+function the fused kernel computes, its K4 and K5 rows take the points
+and |p|^2 apart, as that checkout's cluster loop does, and its cluster
+loop row is this checkout's per-sweep loop over that checkout's K4 (one
+launch, the hook and a host read a sweep).  It prints one line per kernel and run,
 and with ``--out FILE`` writes every number to FILE as JSON.  Every line
 names the card and its power limit.  It needs a CUDA card.
 
@@ -54,12 +57,23 @@ def _chip_smoke():
     return mod
 
 
+def _this_cluster(ops):
+    """This checkout's ``ops/cluster.py``, loaded as a module of the
+    ``ops`` package being timed (its relative imports resolve there)."""
+    spec = importlib.util.spec_from_file_location(
+        f"{ops.__name__}._cluster_ab", ROOT / "pointcloud_obstacle_processing_tpu_torch" / "ops"
+        / "cluster.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _adapt(ops):
     """Give an older checkout's ``ops.outliers`` and ``ops.cluster`` the
     calls this checkout's kernel checks make (``knn_mean``,
-    ``pack_points``, ``point_channels``), as stand-ins on the ``ops``
-    package that the modules' own code never sees; returns the function
-    that puts the modules back."""
+    ``pack_points``, ``point_channels``, ``cluster_loop``), as stand-ins on
+    the ``ops`` package that the modules' own code never sees; returns the
+    function that puts the modules back."""
     saved = {name: getattr(ops, name) for name in ("outliers", "cluster")}
     outliers, cluster = saved["outliers"], saved["cluster"]
     if not hasattr(outliers, "knn_mean"):
@@ -70,6 +84,22 @@ def _adapt(ops):
         ops.outliers = types.SimpleNamespace(
             **vars(outliers), knn_mean=mean(outliers.knn_select),
             knn_mean_plain=mean(outliers.knn_select_plain))
+    if not hasattr(cluster, "cluster_loop"):
+        # the loop as such a checkout runs it: this checkout's per-sweep loop
+        # (one K4 launch a sweep, the hook in PyTorch, a host read of the
+        # change test after each sweep) over that checkout's sweeps
+        here = _this_cluster(ops)
+
+        def loop(sweep):
+            def run_loop(pk, valid, labels, tol2, max_iters):
+                pch = cluster.point_channels(pk[:, :3], pk[:, 3])
+                return here._sweep_loop(lambda lab: sweep(pch, valid, lab, tol2), labels,
+                                        max_iters)
+            return run_loop
+
+        cluster = types.SimpleNamespace(**vars(cluster), cluster_loop=loop(cluster.sweep_jump),
+                                        cluster_loop_plain=loop(cluster.sweep_jump_plain))
+        ops.cluster = cluster
     if not hasattr(cluster, "pack_points"):
         def split(fn):
             return lambda pk, *a: fn(pk[0], *a, p_sq=pk[1])
@@ -119,10 +149,15 @@ def run(root: str, label: str) -> dict:
     restore = _adapt(ops_pkg)
     rng = np.random.default_rng(0)
     rows = [
+        cs.check_k1(dev, rng, "flagship", fl.max_points, fl.max_voxels, 90_000, 21_500, 230_000,
+                    fl.downsample_leaf_size),
         cs.check_k2(dev, rng, "flagship", fl.max_voxels, fl.cluster_capacity, 0.025),
         cs.check_k3(dev, rng, "flagship", fl.max_voxels, 21_500, fl.knn_row_tile, fl.knn_band,
                     fl.statistical_outlier_mean_k),
-        cs.check_k4(dev, rng, "flagship", fl.cluster_capacity, 600, fl.euc_cluster_tolerance ** 2),
+        cs.check_loop(dev, rng, "flagship", fl.cluster_capacity, 600,
+                      fl.euc_cluster_tolerance ** 2, fl.cluster_max_iters),
+        cs.check_k1(dev, rng, "fullscale", fs.max_points, fs.max_voxels, 2_000_000, 166_000,
+                    3_988_816, fs.downsample_leaf_size),
         cs.check_k2(dev, rng, "fullscale", fs.max_voxels, fs.cluster_capacity,
                     7_000 / fs.max_voxels),
         cs.check_k3(dev, rng, "fullscale", fs.max_voxels, 166_000, fs.knn_row_tile, fs.knn_band,

@@ -123,3 +123,45 @@ def test_squared_norms_equal_reference_bitwise(form):
         want = jax.jit(lambda a: a[:, 0] * a[:, 0] + a[:, 1] * a[:, 1] + a[:, 2] * a[:, 2])(p)
         got = add_sq3(*torch.tensor(p).T)
     np.testing.assert_array_equal(np.asarray(want).view(np.int32), got.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize(
+    "seed,capacity,shuffle,max_iters,unconverged",
+    [
+        (0, 512, True, 64, False),
+        (1, 1024, False, 64, False),  # the flagship cluster capacity, lattice order
+        (3, 1024, True, 2, True),  # the iteration cap binds
+        (3, 1024, True, 1, True),
+        (5, 1000, True, 64, False),  # not a multiple of the loop kernel's block rows
+    ],
+)
+def test_cluster_loop_plain_matches_reference(seed, capacity, shuffle, max_iters, unconverged):
+    """The loop kernel's plain version from the port's seeding, against the
+    reference's ``euclidean_cluster``: labels and ``unconverged`` exact; it
+    stops after the first sweep that changes nothing, and reads the change
+    test once a sweep but the last."""
+    pts, valid = _dyadic_blobs(seed, CENTERS, 90, 0.08, 60, capacity, shuffle)
+    r = jax.jit(lambda c: ref_cluster.euclidean_cluster(c, 0.4, 5, 20000, 16, max_iters))(
+        RefCloud.from_points(pts, valid))
+    v = torch.tensor(valid)
+    p, p_sq, labels = cluster._seed_labels(torch.tensor(pts), v, 0.4)
+    out = cluster.cluster_loop_plain(cluster.pack_points(p, p_sq), v, labels, 0.4 ** 2, max_iters)
+    np.testing.assert_array_equal(np.asarray(r.labels), out.labels.numpy())
+    assert bool(out.unconverged) == bool(r.unconverged) == unconverged
+    assert 1 <= out.sweeps <= max_iters
+    assert out.sweeps == max_iters or not unconverged
+    assert out.host_syncs == min(out.sweeps, max_iters - 1)
+
+
+def test_cluster_loop_takes_plain_version_on_cpu():
+    """CPU tensors take the plain loop: no kernel build, no launch count."""
+    from pointcloud_obstacle_processing_tpu_torch import _build
+
+    pts, valid = _dyadic_blobs(2, CENTERS, 40, 0.08, 20, 256, True)
+    v = torch.tensor(valid)
+    p, p_sq, labels = cluster._seed_labels(torch.tensor(pts), v, 0.4)
+    before = dict(_build.LAUNCHES)
+    out = cluster.cluster_loop(cluster.pack_points(p, p_sq), v, labels, 0.16, 64)
+    assert _build.LAUNCHES == before
+    ref = cluster.cluster_loop_plain(cluster.pack_points(p, p_sq), v, labels, 0.16, 64)
+    assert torch.equal(out.labels, ref.labels) and out.sweeps == ref.sweeps

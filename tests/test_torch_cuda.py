@@ -133,6 +133,32 @@ def near_threshold_pairs(tol2: float, capacity: int = 256, bases: int = 6, seed:
     return np.stack(bufs), valid, np.arange(capacity, dtype=np.int32), np.array(offsets)
 
 
+def look_back_keys(kind: str, n: int, sentinel: int, rng) -> np.ndarray:
+    """Key buffers that stress kernel K1's look-back over windows (shared
+    with the card tests): runs longer than a window and several windows in
+    a row without a head, one key over the whole buffer, no valid row, more
+    runs than slots, and a last run that ends inside a window followed by
+    sentinel windows."""
+    skey = np.full(n, sentinel, np.int32)
+    if kind == "long_runs":
+        bounds = np.sort(rng.choice(np.arange(1, n - n // 8), 3, replace=False))
+        bounds[0] = max(bounds[0], 1)
+        skey[: n - n // 8] = np.searchsorted(bounds, np.arange(n - n // 8), side="right")
+    elif kind == "one_key":
+        skey[:] = 5
+    elif kind == "many_runs":
+        skey[:] = np.sort(rng.integers(0, sentinel, n))
+    elif kind == "sentinel_tail":
+        m = n // 3 + 77
+        skey[:m] = np.sort(rng.integers(0, 40, m))
+    elif kind != "all_sentinel":
+        raise ValueError(kind)
+    return skey
+
+
+LOOK_BACK_CASES = ["long_runs", "one_key", "all_sentinel", "many_runs", "sentinel_tail"]
+
+
 @pytest.mark.parametrize(
     "n,n_runs,n_valid,cap,packed,group",
     [
@@ -140,6 +166,8 @@ def near_threshold_pairs(tol2: float, capacity: int = 256, bases: int = 6, seed:
         (8192, 5000, 8192, 1024, False, None),  # more runs than slots
         (3072, 1, 3000, 16, False, None),  # one run over every window
         (8192, 700, 6000, 1024, True, 32),  # a 4096-row window
+        (100_352, 21_500, 90_000, 24_576, True, None),  # the flagship shape
+        (2_097_152, 166_000, 2_000_000, 262_144, True, None),  # the fullscale shape
     ],
 )
 def test_runreduce_kernel_equals_plain(dev, n, n_runs, n_valid, cap, packed, group):
@@ -159,6 +187,25 @@ def test_runreduce_kernel_equals_plain(dev, n, n_runs, n_valid, cap, packed, gro
     vk, nk = runreduce.sorted_run_reduce(k, o, sentinel, cap, group=group, quantum=q)
     assert _build.LAUNCHES["runreduce"] == before + 1
     vp, np_ = runreduce.sorted_run_reduce_plain(k, o, sentinel, cap, group=group, quantum=q)
+    assert int(nk) == int(np_)
+    m = min(int(nk), cap)
+    _eq(vk[:m], vp[:m])
+
+
+@pytest.mark.parametrize("kind", LOOK_BACK_CASES)
+@pytest.mark.parametrize("n,group", [(8192, None), (16384, 32), (4096, 2), (1024, 1)])
+def test_runreduce_kernel_look_back_cases(dev, kind, n, group):
+    """K1's look-back over windows on the card: runs longer than a window,
+    windows without a head in a row, one key, no valid row, more runs than
+    slots, a sentinel tail; 1,024-, 4,096- and 128-row windows.  Bitwise
+    the plain version on the slots below num; num exact."""
+    rng = np.random.default_rng(n + len(kind))
+    sentinel, cap = 1 << 20, 64
+    skey = torch.tensor(look_back_keys(kind, n, sentinel, rng), device=dev)
+    offs = tuple(torch.tensor(rng.standard_normal(n).astype(np.float32), device=dev)
+                 for _ in range(3))
+    vk, nk = runreduce.sorted_run_reduce(skey, offs, sentinel, cap, group=group)
+    vp, np_ = runreduce.sorted_run_reduce_plain(skey, offs, sentinel, cap, group=group)
     assert int(nk) == int(np_)
     m = min(int(nk), cap)
     _eq(vk[:m], vp[:m])
@@ -269,6 +316,50 @@ def test_cluster_sweep_kernel_equals_plain(dev, c, n_valid):
     pch = cluster.point_channels(p)
     _eq(cluster.sweep_jump(pch, valid, labels, 0.16),
         cluster.sweep_jump_plain(pch, valid, labels, 0.16))
+
+
+def _loop_case(dev, c, n_valid, seed):
+    """A cluster buffer as the clustering starts its loop: eight blobs and
+    some clutter in random order, centered and chain-seeded
+    (``ops.cluster._seed_labels``), packed once."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform([-2.0, -1.8, -0.2], [2.0, 1.8, 0.2], (8, 3))
+    pts = np.concatenate([rng.normal(centers[rng.integers(0, 8, n_valid - n_valid // 8)], 0.15),
+                          rng.uniform([-2.2, -1.9, -0.3], [2.2, 1.9, 0.3], (n_valid // 8, 3))])
+    buf = np.zeros((c, 3), np.float32)
+    buf[:n_valid] = pts[rng.permutation(n_valid)]
+    valid = torch.tensor(np.arange(c) < n_valid, device=dev)
+    p, p_sq, labels = cluster._seed_labels(torch.tensor(buf, device=dev), valid, 0.4)
+    return cluster.pack_points(p, p_sq), valid, labels
+
+
+@pytest.mark.parametrize("c,n_valid,max_iters,kernel", [
+    (1024, 600, 64, "cluster_loop"),  # the flagship capacity
+    (4096, 3500, 64, "cluster_loop"),  # the default capacity
+    (1000, 700, 64, "cluster_loop"),  # rows not a multiple of the cluster's blocks
+    (200, 150, 64, "cluster_loop"),  # fewer rows than blocks x 32
+    (1024, 600, 2, "cluster_loop"),  # the iteration cap binds
+    (cluster.LOOP_MAX_CAPACITY, cluster.LOOP_MAX_CAPACITY * 5 // 8, 64, "cluster_loop"),  # the limit
+    (cluster.LOOP_MAX_CAPACITY + 2048, 5000, 64, "cluster_sweep"),  # above: one K4 launch a sweep
+])
+def test_cluster_loop_kernel_equals_plain(dev, c, n_valid, max_iters, kernel):
+    """The cluster loop on the card against its plain version on the same
+    inputs: labels, ``unconverged`` and the sweeps run, exact; the loop
+    kernel makes one launch and no host read, the per-sweep path one K4
+    launch and (but for the last) one host read a sweep."""
+    pk, valid, labels = _loop_case(dev, c, n_valid, c + max_iters)
+    _build.reset_launch_counts()
+    got = cluster.cluster_loop(pk, valid, labels, 0.16, max_iters)
+    launches = dict(_build.LAUNCHES)
+    want = cluster.cluster_loop_plain(pk, valid, labels, 0.16, max_iters)
+    _eq(got.labels, want.labels)
+    assert bool(got.unconverged) == bool(want.unconverged)
+    assert int(got.sweeps) == int(want.sweeps) >= 2
+    if kernel == "cluster_loop":
+        assert launches["cluster_loop"] == 1 and got.host_syncs == 0
+    else:
+        assert launches["cluster_sweep"] == int(got.sweeps) and launches["cluster_loop"] == 0
+    assert bool(want.unconverged) == (max_iters == 2)
 
 
 @pytest.mark.parametrize(
@@ -478,6 +569,12 @@ def test_wrappers_refuse_bad_operands(dev):
     with pytest.raises(ValueError):  # labels of the wrong length
         cluster.sweep_jump(cluster.point_channels(p), v,
                            torch.zeros(256, dtype=torch.int32, device=dev), 0.16)
+    with pytest.raises(ValueError):  # labels of the wrong length
+        cluster.cluster_loop(cluster.pack_points(p), v,
+                             torch.zeros(256, dtype=torch.int32, device=dev), 0.16, 64)
+    with pytest.raises(TypeError):  # int64 labels
+        cluster.cluster_loop(cluster.pack_points(p), v,
+                             torch.zeros(512, dtype=torch.int64, device=dev), 0.16, 64)
     ch = [torch.zeros(512, device=dev) for _ in range(3)]
     starts = torch.zeros(4, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):  # validity mask of the wrong length
@@ -513,9 +610,10 @@ def test_slice_on_the_card_equals_cpu(dev, band_window):
     u = np.random.default_rng(0).random((cfg.max_planes, cfg.ransac_hypotheses, 3)).astype(np.float32)
     _build.reset_launch_counts()
     a = process_scan(cloud.to(dev), cfg, draw=draw_from_uniform(torch.tensor(u, device=dev)))
-    sweep = "cluster_sweep_banded" if band_window else "cluster_sweep"
+    sweep = "cluster_sweep_banded" if band_window else "cluster_loop"
     path = ("runreduce", "compact_gather", "knn_mean", sweep)
     assert all(_build.LAUNCHES[k] > 0 for k in path), _build.LAUNCHES
+    assert band_window or a.host_syncs == 0  # the loop kernel reads nothing back
     b = process_scan(cloud, cfg, draw=draw_from_uniform(torch.tensor(u)))
     _eq(a.grid.data, b.grid.data)
     for f in ("voxel_points", "inlier_points", "nonplane_points", "num_planes", "num_clusters",

@@ -106,17 +106,167 @@ def test_cast_shadows_matches_reference(quat, trans):
     np.testing.assert_array_equal(np.asarray(r), p.numpy())
 
 
+def _bits_apart(a, b) -> int:
+    """Rows (or elements, for 1-D arrays) of two float32 arrays whose bits
+    differ."""
+    bad = np.asarray(a, np.float32).view(np.int32) != np.asarray(b, np.float32).view(np.int32)
+    return int(bad.any(axis=-1).sum() if bad.ndim > 1 else bad.sum())
+
+
+def _unfused_rotate(q, v):
+    """The rotation with every product rounded, as the port wrote it before
+    it took XLA:CPU's fused chain."""
+    def cross(a, b):
+        return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+    u, w = q[:3].expand_as(v), q[3:]
+    t = 2.0 * cross(u, v)
+    return v + w * t + cross(u, t)
+
+
 def test_transform_apply_and_inverse_match_reference():
+    """``apply``, ``inverse().apply`` and the inverse's translation are
+    bitwise the reference's jitted functions (pose passed as an argument,
+    as the pipeline passes it) over 40 random poses of 5,000 points each:
+    the port writes the rotation as XLA:CPU fuses it; the unfused rotation
+    differs on most points (counts printed under ``-s``).  The round trip
+    returns the points within 1e-5."""
     rng = np.random.default_rng(6)
-    q = rng.standard_normal(4).astype(np.float32)
-    q /= np.linalg.norm(q)
-    t = rng.standard_normal(3).astype(np.float32)
-    pts = rng.standard_normal((100, 3)).astype(np.float32)
-    ref_tf = RefTF.from_quat_trans(q, t)
-    tf = RigidTransform.from_quat_trans(q, t)
-    np.testing.assert_allclose(tf.apply(torch.tensor(pts)).numpy(),
-                               np.asarray(ref_tf.apply(jnp.asarray(pts))), atol=1e-6)
-    inv = tf.inverse()
-    np.testing.assert_allclose(inv.apply(tf.apply(torch.tensor(pts))).numpy(), pts, atol=1e-5)
-    np.testing.assert_allclose(inv.translation.numpy(), np.asarray(ref_tf.inverse().translation),
-                               atol=1e-6)
+    unfused = [0, 0]
+    ref_apply = jax.jit(lambda q, t, p: RefTF(quat_xyzw=q, translation=t).apply(p))
+    ref_inv = jax.jit(lambda q, t, p: RefTF(quat_xyzw=q, translation=t).inverse().apply(p))
+    ref_inv_t = jax.jit(lambda q, t: RefTF(quat_xyzw=q, translation=t).inverse().translation)
+    for _ in range(40):
+        q = rng.standard_normal(4).astype(np.float32)
+        q /= np.linalg.norm(q)
+        t = (rng.standard_normal(3) * 3.0).astype(np.float32)
+        pts = rng.uniform(-5.0, 5.0, (5000, 3)).astype(np.float32)
+        tf = RigidTransform.from_quat_trans(q, t)
+        inv = tf.inverse()
+        for got, want in ((tf.apply(torch.tensor(pts)), ref_apply(q, t, pts)),
+                          (inv.apply(torch.tensor(pts)), ref_inv(q, t, pts)),
+                          (inv.translation, ref_inv_t(q, t))):
+            np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                          np.asarray(want).view(np.int32))
+        np.testing.assert_allclose(inv.apply(tf.apply(torch.tensor(pts))).numpy(), pts, atol=1e-5)
+        qt, tt, pt = torch.tensor(q), torch.tensor(t), torch.tensor(pts)
+        qinv = torch.cat([-qt[:3], qt[3:]])
+        unfused[0] += _bits_apart(_unfused_rotate(qt, pt) + tt, ref_apply(q, t, pts))
+        unfused[1] += _bits_apart(_unfused_rotate(qinv, pt) - _unfused_rotate(qinv, tt[None])[0],
+                                  ref_inv(q, t, pts))
+    print(f"unfused rotation: apply differs on {unfused[0]}, inverse().apply on {unfused[1]} "
+          f"of 200,000 points")
+    assert min(unfused) > 50_000
+
+
+def test_shadow_lengths_are_bitwise_the_reference():
+    """The shadow's ``c = sqrt(a*a + bb*bb)`` and ``|vmin|`` on 200,000
+    seeded points of widely varying magnitude, against the reference's
+    expressions (``ops/shadow.py`` ``per_cluster``) jitted over the points
+    as the reference vmaps them: bitwise.  The unfused sum with torch's
+    root differs on thousands of them (counts printed under ``-s``, with
+    ``torch.linalg.vector_norm``'s for ``|vmin|``)."""
+    from pointcloud_obstacle_processing_tpu_torch.ops.shadow import _lengths
+
+    rng = np.random.default_rng(12)
+    n = 200_000
+    v = rng.uniform(-3.0, 3.0, (n, 3)) * 2.0 ** rng.integers(-4, 4, (n, 3))
+    v = v.astype(np.float32)
+
+    def ref(vmin):
+        a, bb = vmin[2], jnp.abs(vmin[0])
+        return jnp.sqrt(a * a + bb * bb), jnp.linalg.norm(vmin)
+
+    want_c, want_len = jax.jit(jax.vmap(ref))(v)
+    got_c, got_len = _lengths(torch.tensor(v))
+    for got, want in ((got_c, want_c), (got_len, want_len)):
+        np.testing.assert_array_equal(got.numpy().view(np.int32), np.asarray(want).view(np.int32))
+    a, bb = torch.tensor(v[:, 2]), torch.tensor(np.abs(v[:, 0]))
+    unfused = _bits_apart(torch.sqrt(a * a + bb * bb), want_c)
+    norm = _bits_apart(torch.linalg.vector_norm(torch.tensor(v), dim=-1), want_len)
+    print(f"shadow lengths of {n}: unfused c differs on {unfused}, "
+          f"torch.linalg.vector_norm on {norm}")
+    assert unfused > 1000
+
+
+def test_shadow_asin_tan_stay_within_ulps_of_the_reference():
+    """The shadow's ``tan(asin(x))`` is the one step of its geometry that is
+    not bitwise: XLA:CPU's float32 ``asin`` and ``tan`` are approximations
+    of its own.  On 200,000 seeded x in [-1, 1), torch's ``arcsin`` is
+    within 2 ulps of the reference's jitted ``jnp.arcsin`` and ``tan``, on
+    the reference's angles, within 1 ulp of ``jnp.tan``; the count of
+    ``tan(asin(x))`` results whose bits differ is printed under ``-s``."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1.0, 1.0, 200_000).astype(np.float32)
+
+    def ulps(a, b):
+        a, b = (np.asarray(v, np.float32).view(np.int32).astype(np.int64) for v in (a, b))
+        a, b = (np.where(v < 0, -(v & 0x7FFFFFFF), v) for v in (a, b))
+        return np.abs(a - b)
+
+    want_asin = np.asarray(jax.jit(jnp.arcsin)(x))
+    assert ulps(torch.arcsin(torch.tensor(x)), want_asin).max() <= 2
+    assert ulps(torch.tan(torch.tensor(want_asin)), jax.jit(jnp.tan)(want_asin)).max() <= 1
+    apart = _bits_apart(torch.tan(torch.arcsin(torch.tensor(x))),
+                        jax.jit(lambda v: jnp.tan(jnp.arcsin(v)))(x))
+    print(f"tan(asin(x)) differs from the reference's on {apart} of 200,000")
+
+
+def test_shadow_lengths_match_the_reference_in_place(monkeypatch):
+    """The same two lengths read out of the reference's own jitted
+    ``cast_shadows``: its ``jnp.maximum(c, 1e-20)`` and ``jnp.maximum(|vmin|,
+    1e-20)`` report their first operand through a host callback (in no
+    fixed order), over 20 random poses of 8 clusters.  Every ``c`` and
+    ``|vmin|`` of the port, from its own ``vmin`` (its transform is bitwise
+    the reference's), is among them; the unfused ``c`` misses some."""
+    import pointcloud_obstacle_processing_tpu.ops.shadow as ref_shadow
+
+    from pointcloud_obstacle_processing_tpu_torch.ops.shadow import _lengths
+
+    seen = []
+
+    class _Tap:
+        def __getattr__(self, name):
+            return getattr(jnp, name)
+
+        def maximum(self, x, y):
+            if isinstance(y, float) and y == 1e-20:
+                jax.debug.callback(lambda v: seen.append(np.float32(v)), x)
+            return jnp.maximum(x, y)
+
+    monkeypatch.setattr(ref_shadow, "jnp", _Tap())
+    run = jax.jit(lambda g, c, cl, tf: ref_shadow.cast_shadows(g, c, cl, tf, REF_CFG).grid)
+    rng = np.random.default_rng(9)
+    n, m = 512, 8
+    unfused_misses = 0
+    for _ in range(20):
+        centers = rng.uniform([0.5, 0.5, 0.0], [4.0, 3.3, 0.2], (m, 3))
+        pts = np.zeros((n, 3), np.float32)
+        pc = np.full(n, -1, np.int32)
+        for j, c in enumerate(centers):
+            pts[j * 60:(j + 1) * 60] = rng.normal(c, 0.1, (60, 3))
+            pc[j * 60:(j + 1) * 60] = j
+        valid = pc >= 0
+        q = rng.standard_normal(4).astype(np.float32)
+        q /= np.linalg.norm(q)
+        t = rng.uniform(-2.0, 2.0, 3).astype(np.float32)
+        seen.clear()
+        clusters = RefClusterSet(point_cluster=jnp.asarray(pc), sizes=jnp.full(m, 60, jnp.int32),
+                                 valid=jnp.ones(m, bool), num_clusters=jnp.int32(m))
+        jax.block_until_ready(run(jnp.zeros((REF_CFG.grid_height, REF_CFG.grid_width), jnp.int8),
+                                  RefCloud.from_points(pts, valid), clusters,
+                                  RefTF.from_quat_trans(q, t)))
+        jax.effects_barrier()
+        bits = set(np.array(seen, np.float32).view(np.int32).tolist())
+        spts = RigidTransform.from_quat_trans(q, t).inverse().apply(torch.tensor(pts))
+        vmin = torch.stack([spts[int(torch.argmin(torch.where(torch.tensor(pc == j), spts[:, 0],
+                                                              float("inf"))))]
+                            for j in range(m)])
+        for got in _lengths(vmin):
+            assert set(got.numpy().view(np.int32).tolist()) <= bits
+        a, bb = vmin[:, 2], vmin[:, 0].abs()
+        unfused = torch.sqrt(a * a + bb * bb).numpy().view(np.int32).tolist()
+        unfused_misses += sum(b not in bits for b in unfused)
+    assert unfused_misses > 0

@@ -27,7 +27,7 @@ import pointcloud_obstacle_processing_tpu.ops.outliers as ref_outliers
 from pointcloud_obstacle_processing_tpu import Cloud as RefCloud
 
 from pointcloud_obstacle_processing_tpu_torch import Cloud
-from pointcloud_obstacle_processing_tpu_torch.ops import outliers
+from pointcloud_obstacle_processing_tpu_torch.ops import f32, outliers
 
 RTOL = 5e-5
 
@@ -328,3 +328,93 @@ def test_fused_plain_mean_is_the_reference_mean(n_valid, n, row_tile, band, k):
         a, k, float(np.float32(outliers.BIG))))(jnp.asarray(vals.numpy())))
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(_fused_mean(vals.numpy(), k), want)
+
+
+def _distances_as_x(monkeypatch, module):
+    """Make ``module.remove_statistical_outliers`` read its kNN mean
+    distances from the cloud's x column, so a test feeds the gate its
+    distances directly."""
+    monkeypatch.setattr(module, "knn_mean_distances", lambda cloud, *a, **kw: cloud.points[:, 0])
+
+
+@jax.jit
+def _ref_gate_inputs(d, valid):
+    """The reference gate's n, s2 and mu (``ops/outliers.py``
+    ``remove_statistical_outliers``), jitted apart from its tail."""
+    valid_f = valid.astype(jnp.float32)
+    n = jnp.maximum(jnp.sum(valid_f), 2.0)
+    return n, jnp.sum(d * d * valid_f), jnp.sum(d * valid_f) / n
+
+
+# offsets of the probe distances from the threshold, in float32 ulps
+GATE_PROBE_OFFSETS = (-8, -2, -1, 0, 1, 2, 8)
+
+
+def test_gate_threshold_tail_is_bitwise_the_reference(monkeypatch):
+    """The gate's tail on the reference's own n, s2 and mu, over 48 clouds of
+    24,576 gamma-distributed distances (90% valid; the flagship's voxel
+    slots) and four multipliers: ``gate_threshold`` equals the threshold
+    of the reference's jitted ``remove_statistical_outliers`` bit for bit,
+    so distances at the threshold and 1, 2 and 8 ulps either side are kept
+    exactly where the reference keeps them.  The unfused tail (each product
+    rounded, torch's root) gives another threshold in some clouds and
+    decides some of those probes the other way."""
+    _distances_as_x(monkeypatch, ref_outliers)
+    rng = np.random.default_rng(31)
+    n_pts = 24_576
+    unfused_apart = unfused_miss = 0
+    for i in range(48):
+        mult = (1.0, 4.0, 1.7, 2.3)[i % 4]
+        d = rng.gamma(2.0, 0.01, n_pts).astype(np.float32)
+        valid = rng.random(n_pts) < 0.9
+        pts = np.zeros((n_pts, 3), np.float32)
+        pts[:, 0] = d
+        ref = jax.jit(lambda c, m=mult: ref_outliers.remove_statistical_outliers(c, 15, m))(
+            RefCloud.from_points(pts, valid))
+        n, s2, mu = (torch.tensor(np.asarray(x)) for x in _ref_gate_inputs(d, valid))
+        got = outliers.gate_threshold(n, s2, mu, mult)
+        want = np.asarray(ref.threshold)
+        assert got.numpy().view(np.int32) == want.view(np.int32)
+        probes = (want.view(np.int32) + np.array(GATE_PROBE_OFFSETS, np.int32)).view(np.float32)
+        np.testing.assert_array_equal((torch.tensor(probes) <= got).numpy(),
+                                      np.asarray(jnp.asarray(probes) <= ref.threshold))
+        var = torch.clamp_min((s2 - n * mu * mu) / (n - 1.0), 0.0)
+        unfused = mu + f32(mult) * torch.sqrt(var)
+        unfused_apart += int(((torch.tensor(probes) <= unfused).numpy() != (probes <= want)).any())
+        unfused_miss += int(unfused.numpy().view(np.int32) != want.view(np.int32))
+    print(f"unfused gate tail: another threshold in {unfused_miss} of 48 clouds, "
+          f"a probe decided the other way in {unfused_apart}")
+    assert unfused_apart > 0
+
+
+@pytest.mark.parametrize("mult", [1.0, 4.0, 1.7, 2.3])
+def test_outlier_gate_is_bitwise_the_reference_on_exact_sums(monkeypatch, mult):
+    """The whole gate, both packages' ``remove_statistical_outliers`` fed
+    the same distances: multiples of 1/64 below 1 on 1,024 slots (95%
+    valid), whose sums are exact in any order, so the threshold depends on
+    the tail alone.  Thresholds and keep masks are bitwise equal on 50
+    clouds; the unfused tail misses the threshold on some."""
+    _distances_as_x(monkeypatch, ref_outliers)
+    _distances_as_x(monkeypatch, outliers)
+    ref_gate = jax.jit(lambda c: ref_outliers.remove_statistical_outliers(c, 15, mult))
+    rng = np.random.default_rng(int(mult * 10))
+    n_pts = 1024
+    unfused_apart = 0
+    for _ in range(50):
+        d = (np.minimum(rng.gamma(2.0, 6.0, n_pts), 63).astype(np.int32) / 64).astype(np.float32)
+        valid = rng.random(n_pts) < 0.95
+        pts = np.zeros((n_pts, 3), np.float32)
+        pts[:, 0] = d
+        r = ref_gate(RefCloud.from_points(pts, valid))
+        p = outliers.remove_statistical_outliers(Cloud.from_points(pts, valid), 15, mult)
+        want = np.asarray(r.threshold)
+        assert p.threshold.numpy().view(np.int32) == want.view(np.int32)
+        np.testing.assert_array_equal(p.cloud.valid.numpy(), np.asarray(r.cloud.valid))
+        vf, dt = torch.tensor(valid, dtype=torch.float32), torch.tensor(d)
+        n = torch.clamp_min(vf.sum(), 2.0)
+        s2, mu = (dt * dt * vf).sum(), (dt * vf).sum() / n
+        var = torch.clamp_min((s2 - n * mu * mu) / (n - 1.0), 0.0)
+        unfused = mu + f32(mult) * torch.sqrt(var)
+        unfused_apart += int(unfused.numpy().view(np.int32) != want.view(np.int32))
+    print(f"unfused gate tail, multiplier {mult}: another threshold in {unfused_apart} of 50")
+    assert unfused_apart > 0
