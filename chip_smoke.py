@@ -58,6 +58,23 @@ Phases (any failure raises and exits non-zero before the last line):
    Times each with CUDA events beside its bound and, for K7, the library's
    ``index_add_``.
 
+7. Batched flagship: counts from 0, one call of
+   ``parallel.sharding.batched_pipeline(FLAGSHIP_CONFIG)`` on 32 scans (8
+   scenes, seeds 0-7, tiled as ``bench.py`` tiles them) with a RANSAC draw
+   of its own for each scan; checks that K1, K2, K3 and the loop kernel
+   were each launched once for the batch, that no overflow flag is set,
+   that each scan's rocks are matched and that each scan equals the
+   single-scan card run of its scene with its draws (the crosscheck bar,
+   and the cluster of every point exact); counts host syncs (none).  Times
+   the batch call (p50, min and max over 10 batches after one warm-up;
+   scans per second = 32 / p50) and prints its device operations, device
+   time and busy share (``torch.profiler``) and peak device memory.  Then
+   K1, K2, K3 and the loop kernel at B = 32 on the inputs the batch gives
+   them, checked and timed as in phase 2 (path ``flagship_batch``), and
+   the loop kernel with 1, 2, 4, 8 and 16 blocks a scan (``loop blocks:``
+   lines).
+
+Each phase prints its seconds.
 Its last line is ``{"ok": true, "device": {...}}``; the line before it is
 the JSON list of kernels, one entry per kernel and path, with launches on
 that path, errors, times and the bound.  There is no CPU fallback: without
@@ -88,6 +105,10 @@ SEGSCAN_N = 131_072  # the reference's Pallas shape for the segmented scan
 BINNING_N, BINNING_K = 131_072, 214_000  # the binning kernel's documented shape
 CLUSTER_WIDE = 10240  # a full-sweep capacity above the loop kernel's (ops.cluster.LOOP_MAX_CAPACITY)
 LOOP_CROSSOVER = (4096, 6144, 8192, 10240)  # capacities at which both forms of the loop are timed
+BATCH = 32  # the flagship batch: bench.py's B, 8 distinct scenes tiled
+BATCH_SCENES = 8
+BATCH_TIMED = 10
+LOOP_BLOCKS = (1, 2, 4, 8, 16)  # blocks a scan of the loop kernel timed on the batch
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes per second and float32 operations per second outside the tensor
@@ -120,28 +141,50 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _device_ms(fn, reps: int = 20) -> float:
-    """Device time per call: ``torch.profiler`` over ``reps`` calls after a
-    warm-up, the summed durations of the device's kernels, memsets and
-    copies over ``reps``.  Unlike ``_time_ms`` it leaves out the host's
-    gaps between launches.  A profiling session now and then returns no
-    device events at all; such a session is taken again, up to 3 times."""
+PROFILER_SESSIONS = 5  # torch.profiler sessions tried before a device time is "not measured"
+
+
+def _profiled_device_events(fn) -> list:
+    """The device's kernels, memsets and copies (``torch.profiler``) while
+    ``fn`` runs, ending in a synchronize.  A profiling session now and then
+    records no device event at all; such a session is taken again, up to
+    PROFILER_SESSIONS times, and then the list is empty."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return events
+    print(f"torch.profiler recorded no device event in {PROFILER_SESSIONS} sessions: "
+          "device time not measured")
+    return []
+
+
+def _device_ms(fn, reps: int = 20) -> float | None:
+    """Device time per call: ``torch.profiler`` over ``reps`` calls after a
+    warm-up, the summed durations of the device's kernels, memsets and
+    copies over ``reps`` (None where the profiler recorded nothing).
+    Unlike ``_time_ms`` it leaves out the host's gaps between launches."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / reps
-    raise AssertionError("torch.profiler recorded no device time in 3 sessions")
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    events = _profiled_device_events(run)
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps if events else None
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def _host_ms(fn, reps: int = 200) -> float:
@@ -163,9 +206,9 @@ def _host_ms(fn, reps: int = 200) -> float:
 
 def _times(r: dict) -> str:
     lib = "none" if r["library_ms"] is None else \
-        f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f} ms, " \
+        f"{r['library_ms']:.4f} ms (device {_ms(r['library_device_ms'])}, " \
         f"host {r['library_host_ms']:.4f} ms)"
-    return (f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms, host {r['host_ms']:.4f} ms) "
+    return (f"{r['ms']:.4f} ms (device {_ms(r['device_ms'])}, host {r['host_ms']:.4f} ms) "
             f"vs plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib}")
 
@@ -303,11 +346,12 @@ def check_k3(dev, rng, path, nv, n_valid, rt, band, k):
 
 
 def _k3_row(path, what, args):
-    """K3's line: the kernel's mean against the plain version's, bitwise."""
+    """K3's line: the kernel's mean against the plain version's, bitwise
+    (one cloud's channels [N], or a batch's [B, N])."""
     from pointcloud_obstacle_processing_tpu_torch.ops import outliers
 
     pch, p_sq, valid, starts, rt, width, k = args
-    nv, tiles = p_sq.shape[0], starts.shape[0]
+    nv, tiles, scans = p_sq.shape[-1], starts.shape[0], p_sq[..., 0].numel()
     err = _assert_equal(f"K3 knn_mean {path} ({what})", outliers.knn_mean(*args),
                         outliers.knn_mean_plain(*args))
     live_tiles = int(outliers._tile_live(valid, tiles, rt).sum())
@@ -316,10 +360,23 @@ def _k3_row(path, what, args):
         "knn_select.cu", "outliers.py:142", err,
         lambda: outliers.knn_mean(*args),
         lambda: outliers.knn_mean_plain(*args),
-        # channels, |p|^2 and the mask read once, the starts, the [n_q] mean written
-        _bound(nv * 17 + tiles * 4 + tiles * rt * 4, live_tiles * rt * width * D2_OPS),
+        # channels, |p|^2 and the mask read once, the starts, the [n_q] means written
+        _bound(scans * nv * 17 + tiles * 4 + scans * tiles * rt * 4,
+               live_tiles * rt * width * D2_OPS),
         plain_reps=3,
     )
+
+
+def _capture(module, name: str, call) -> list:
+    """The arguments of every call ``call()`` makes to ``module.<name>``
+    (looked up at call time by its caller)."""
+    seen, fn = [], getattr(module, name)
+    setattr(module, name, lambda *a, **kw: seen.append((a, kw)) or fn(*a, **kw))
+    try:
+        call()
+    finally:
+        setattr(module, name, fn)
+    return seen
 
 
 def capture_k3_args(model, cloud, draw, name: str = "knn_mean") -> tuple:
@@ -327,13 +384,7 @@ def capture_k3_args(model, cloud, draw, name: str = "knn_mean") -> tuple:
     (K3's wrapper, which ``knn_mean_distances`` looks up at call time)."""
     from pointcloud_obstacle_processing_tpu_torch.ops import outliers
 
-    seen, kernel = [], getattr(outliers, name)
-    setattr(outliers, name, lambda *a: seen.append(a) or kernel(*a))
-    try:
-        model(cloud, draw=draw)
-    finally:
-        setattr(outliers, name, kernel)
-    (args,) = seen
+    ((args, _),) = _capture(outliers, name, lambda: model(cloud, draw=draw))
     return args
 
 
@@ -342,7 +393,7 @@ def check_k3_scan(path, model, cloud, draw):
     lattice-ordered voxel cloud, taken from the scan's own call."""
     args = capture_k3_args(model, cloud, draw)
     nv = int(args[2].sum())
-    return _k3_row(path, f"the scan's voxel cloud ({nv} valid of {args[1].shape[0]})", args)
+    return _k3_row(path, f"the scan's voxel cloud ({nv} valid of {args[1].shape[-1]})", args)
 
 
 def _cluster_buffer(dev, rng, c, n_valid, spread):
@@ -371,28 +422,34 @@ def check_k4(dev, rng, path, c, n_valid, tol2):
     )
 
 
-def _loop_row(path, what, args):
+def _loop_row(path, what, args, timed=True):
     """The loop kernel's line: labels, unconverged and sweeps against the
-    plain loop's on the same inputs, exact."""
+    plain loop's on the same inputs, exact (one buffer, or a batch)."""
+    import torch
+
     from pointcloud_obstacle_processing_tpu_torch.ops import cluster
 
     pk, valid, labels, tol2, max_iters = args
     got = cluster.cluster_loop(*args)
     want = cluster.cluster_loop_plain(*args)
     err = _assert_equal(f"K4 cluster_loop {path} labels ({what})", got.labels, want.labels)
-    if bool(got.unconverged) != bool(want.unconverged) or int(got.sweeps) != int(want.sweeps):
-        raise AssertionError(f"K4 cluster_loop {path}: unconverged/sweeps "
-                             f"{bool(got.unconverged)}/{int(got.sweeps)} != plain "
-                             f"{bool(want.unconverged)}/{int(want.sweeps)}")
-    c, n_valid, sweeps = labels.shape[0], int(valid.sum()), int(want.sweeps)
+    for f in ("unconverged", "sweeps"):
+        a, b = (torch.as_tensor(getattr(o, f)).cpu().to(torch.int32) for o in (got, want))
+        if not torch.equal(a, b):
+            raise AssertionError(f"K4 cluster_loop {path}: {f} {a.tolist()} != plain {b.tolist()}")
+    c = labels.shape[-1]
+    scans = labels[..., 0].numel()
+    n_valid = valid.reshape(scans, c).sum(dim=1).cpu().double()
+    sweeps = torch.as_tensor(want.sweeps).reshape(scans).double()
+    shape = (f"{what}: C {c}, {int(n_valid.sum())} valid, {int(sweeps.sum())} sweeps"
+             + (f", {scans} scans" if scans > 1 else ""))
     return _row(
-        "cluster_loop", path, f"{what}: C {c}, {n_valid} valid, {sweeps} sweeps",
-        "cluster_loop.cu", "cluster.py:86", err,
+        "cluster_loop", path, shape, "cluster_loop.cu", "cluster.py:86", err,
         lambda: cluster.cluster_loop(*args),
         lambda: cluster.cluster_loop_plain(*args),
         # packed points, valid and labels in; labels, the flag and the count out;
         # each sweep scores the pairs of valid points
-        _bound(c * 21 + c * 4 + 5, sweeps * n_valid * n_valid * D2_OPS),
+        _bound(scans * (c * 21 + c * 4 + 5), float((sweeps * n_valid ** 2).sum()) * D2_OPS),
         plain_reps=5,
     )
 
@@ -411,13 +468,7 @@ def capture_loop_args(model, cloud, draw) -> tuple:
     makes (``euclidean_cluster`` looks it up at call time)."""
     from pointcloud_obstacle_processing_tpu_torch.ops import cluster
 
-    seen, loop = [], cluster.cluster_loop
-    cluster.cluster_loop = lambda *a: seen.append(a) or loop(*a)
-    try:
-        model(cloud, draw=draw)
-    finally:
-        cluster.cluster_loop = loop
-    (args,) = seen
+    ((args, _),) = _capture(cluster, "cluster_loop", lambda: model(cloud, draw=draw))
     return args
 
 
@@ -687,24 +738,18 @@ def _time_scans(model, clouds, draw, n: int) -> list[float]:
     return times
 
 
-def scan_device_ops(model, cloud, draw) -> tuple[int, float]:
+def scan_device_ops(model, cloud, draw) -> tuple[int, float] | tuple[None, None]:
     """Device operations (kernels, memsets, copies) of one scan and their
-    summed device time in ms, from ``torch.profiler``, after a warm-up scan.
-    A session that records no device events is taken again, up to 3 times."""
+    summed device time in ms, from ``torch.profiler``, after a warm-up scan
+    (None, None where the profiler recorded nothing)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     model(cloud, draw=draw)
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model(cloud, draw=draw)
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if us:
-            return len(us), sum(us) / 1e3
-    raise AssertionError("torch.profiler recorded no device operation in 3 sessions")
+    events = _profiled_device_events(lambda: model(cloud, draw=draw))
+    if not events:
+        return None, None
+    return len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3
 
 
 def _count_syncs(model, cloud, draw) -> tuple[int, object]:
@@ -776,7 +821,7 @@ def run_flagship(dev, card: str) -> tuple[dict, list[dict]]:
     print(f"flagship process_scan p50 {statistics.median(times):.3f} ms per scan over "
           f"{len(times)} scans (min {min(times):.3f}, max {max(times):.3f}); host syncs per scan "
           f"{n_sync} (sync debug mode; cluster loop counts {res.host_syncs}); device operations "
-          f"per scan {n_ops} ({dev_ms:.3f} ms of device time, scene {SCENE_SEEDS[0]}); kernel "
+          f"per scan {n_ops} ({_ms(dev_ms)} of device time, scene {SCENE_SEEDS[0]}); kernel "
           f"launches over the {len(SCENE_SEEDS)} main-path scans {launches} [{card}]")
     loop_args = capture_loop_args(model, gpu_clouds[0], draw_cuda)
     return launches, [check_k3_scan("flagship", model, gpu_clouds[0], draw_cuda),
@@ -821,7 +866,7 @@ def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
     print(f"fullscale process_scan p50 {statistics.median(times):.3f} ms per scan over "
           f"{len(times)} scans (min {min(times):.3f}, max {max(times):.3f}); host syncs per scan "
           f"{n_sync} (sync debug mode; cluster loop counts {res.host_syncs}); device operations "
-          f"per scan {n_ops} ({dev_ms:.3f} ms of device time); kernel launches on the main-path "
+          f"per scan {n_ops} ({_ms(dev_ms)} of device time); kernel launches on the main-path "
           f"scan {launches} [{card}]")
     return launches, [check_k3_scan("fullscale", model, gpu_cloud, draw_cuda)]
 
@@ -883,7 +928,7 @@ def loop_fit(lib) -> int:
     """The largest capacity (a multiple of 128, up to 16,384) at which the
     loop kernel's thread-block cluster, every block holding all points,
     fits this card."""
-    return max((c for c in range(128, 16_385, 128) if lib.pcp_cluster_loop_blocks(c) > 0),
+    return max((c for c in range(128, 16_385, 128) if lib.pcp_cluster_loop_blocks(c, 0) > 0),
                default=0)
 
 
@@ -915,9 +960,183 @@ def loop_crossover(dev, card: str) -> None:
             ms_k = _time_ms(lambda: cluster.loop_kernel(*args), 10)
             ms_s = _time_ms(lambda: cluster.per_sweep_loop(*args), 10)
             print(f"loop crossover: C {c} ({n_valid} valid, {int(b.sweeps)} sweeps, "
-                  f"{lib.pcp_cluster_loop_blocks(c)} blocks; limit "
+                  f"{lib.pcp_cluster_loop_blocks(c, 0)} blocks; limit "
                   f"{cluster.LOOP_MAX_CAPACITY}, fit {fit}): loop kernel {ms_k:.4f} ms, "
                   f"per-sweep K4 {ms_s:.4f} ms [{card}]")
+
+
+def _k1_batch_row(path, a, kw):
+    """K1 on the batch's own sorted keys and packed payloads."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import runreduce
+
+    skey, offs, sentinel, cap = a
+    vk, nk = runreduce.sorted_run_reduce(*a, **kw)
+    vp, np_ = runreduce.sorted_run_reduce_plain(*a, **kw)
+    _assert_equal(f"K1 runreduce {path} run counts", nk, np_)
+    err, kept = 0.0, 0
+    for b, n_runs in enumerate(np_.tolist()):
+        k = min(n_runs, cap)
+        kept += k
+        err = max(err, _assert_equal(f"K1 runreduce {path} scan {b}", vk[b, :k], vp[b, :k]))
+    scans, n = skey.shape
+    w = runreduce.default_group(n) * 128
+    return _row(
+        "runreduce", path, f"{scans} x {n} rows, {w}-row windows, {kept} runs, cap {cap}",
+        "runreduce.cu", "pallas_runreduce.py:301", err,
+        lambda: runreduce.sorted_run_reduce(*a, **kw),
+        lambda: runreduce.sorted_run_reduce_plain(*a, **kw),
+        # keys + two payloads in, the filled slots and num out; 4 channels x
+        # log2(w) Hillis-Steele adds a row
+        _bound(scans * n * 12 + kept * 20 + scans * 4, 4 * scans * n * int(np.log2(w))),
+        plain_reps=3,
+    )
+
+
+def _k2_batch_row(path, a):
+    """K2 on the batch's own non-plane clouds."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import compaction
+
+    bins, occ2d, cap = a
+    lk, nk, vk = compaction.compact_and_gather_exact(*a)
+    lp, np_, vp = compaction.compact_and_gather_plain(*a)
+    _assert_equal(f"K2 compaction {path} counts", nk, np_)
+    err, kept = 0.0, 0
+    for b, num in enumerate(np_.tolist()):
+        k = min(num, cap)
+        kept += k
+        _assert_equal(f"K2 compaction loc {path} scan {b}", lk[b, :k], lp[b, :k])
+        err = max(err, _assert_equal(f"K2 compaction vals {path} scan {b}", vk[b, :k], vp[b, :k]))
+    scans, c, nv = bins.shape
+    occ = occ2d.reshape(scans, nv)
+    return _row(
+        "compact_gather", path, f"{scans} x {nv} -> {cap} slots, {kept} occupied",
+        "compaction.cu", "pallas_compaction.py:185", err,
+        lambda: compaction.compact_and_gather_exact(*a),
+        lambda: compaction.compact_and_gather_plain(*a),
+        # the masks once; each filled slot's channels read, loc and vals written; num
+        _bound(scans * nv + kept * (4 * c + 4 + 4 * c) + scans * 4, 0),
+        library_fn=lambda: bins.transpose(1, 2)[occ],  # boolean-mask gather
+    )
+
+
+def loop_blocks(args, card: str) -> None:
+    """The loop kernel on the batch's own cluster buffers, and on its first
+    scan alone, with 1, 2, 4, 8 and 16 blocks a scan (each equal to the
+    plain loop): call time over 10 calls and device time.  The blocks a
+    scan the loop kernel launches (``ops.cluster.loop_kernel``) are read
+    off these lines."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+
+    c = args[0].shape[-2]
+    first = tuple(a[:1] if isinstance(a, torch.Tensor) else a for a in args)
+    for what, a in ((f"{args[0].shape[0]} scans", args), ("its first scan", first)):
+        want = cluster.cluster_loop_plain(*a)
+        for nb in LOOP_BLOCKS:
+            if not cluster._loop_blocks(c, nb):
+                print(f"loop blocks: {nb} a scan does not fit at C {c} [{card}]")
+                continue
+            got = cluster.loop_kernel(*a, blocks=nb)
+            _assert_equal(f"loop blocks {nb} labels ({what})", got.labels, want.labels)
+            if not torch.equal(got.sweeps.cpu(), want.sweeps):
+                raise AssertionError(f"loop blocks {nb} ({what}): sweeps differ")
+            ms = _time_ms(lambda: cluster.loop_kernel(*a, blocks=nb), 10)
+            dev_ms = _device_ms(lambda: cluster.loop_kernel(*a, blocks=nb), 10)
+            print(f"loop blocks: {nb} a scan, the batch's non-plane clouds, {what}, C {c}: "
+                  f"call {ms:.4f} ms, device {_ms(dev_ms)} [{card}]")
+
+
+def run_batch(dev, card: str) -> tuple[dict, list[dict]]:
+    """Phase 7: the batched flagship.  Returns the path's launches and the
+    kernel rows at B = 32."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import Cloud, _build
+    from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as cfg
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster, compaction, outliers, voxel
+    from pointcloud_obstacle_processing_tpu_torch.ops.ransac import draw_from_uniform
+    from pointcloud_obstacle_processing_tpu_torch.parallel.sharding import batched_pipeline
+    from pointcloud_obstacle_processing_tpu_torch.pipeline import process_scan
+    from pointcloud_obstacle_processing_tpu_torch.types import scan_of
+
+    n = cfg.max_points
+    scenes = [_scene(s) for s in range(BATCH_SCENES)]
+    pts = np.zeros((BATCH, n, 3), np.float32)
+    valid = np.zeros((BATCH, n), bool)
+    for b in range(BATCH):
+        p = scenes[b % BATCH_SCENES].points[:n]
+        pts[b, : len(p)] = p
+        valid[b, : len(p)] = True
+    clouds = Cloud(points=torch.tensor(pts, device=dev), valid=torch.tensor(valid, device=dev))
+    u = np.random.default_rng(RANSAC_SEED).random(
+        (BATCH, cfg.max_planes, cfg.ransac_hypotheses, 3)).astype(np.float32)
+    u = torch.tensor(u, device=dev)
+    draw = draw_from_uniform(u)
+    pipe = batched_pipeline(cfg)
+
+    def run(c, draw):
+        return pipe(c, draw=draw)
+
+    # main path: counts from 0, one batch
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop"]
+    _build.reset_launch_counts()
+    res = run(clouds, draw)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if any(launches[k] != 1 for k in path):
+        raise AssertionError(f"batched flagship: each of {path} must launch once a batch, "
+                             f"got {launches}")
+    worst = 0.0
+    for b in range(BATCH):
+        rb = scan_of(res, b)
+        _check_overflows(f"batch scan {b}", rb)
+        _check_rocks(scenes[b % BATCH_SCENES], rb)
+        one = process_scan(scan_of(clouds, b), cfg, draw=draw_from_uniform(u[b]))
+        worst = max(worst, _compare(f"batch scan {b}", rb, one))
+        _assert_equal(f"batch scan {b} point_cluster", rb.clusters.point_cluster,
+                      one.clusters.point_cluster)
+    counts = {k: getattr(res.stats, k).sum().item() for k in _COUNTS}
+    print(f"flagship batch of {BATCH}: each scan == its single-scan card run (grid, counts, "
+          f"flags, point clusters exact; centroid max |d| {worst:.2e}); summed counts {counts}; "
+          f"launches {launches} [{card}]")
+
+    n_sync, res = _count_syncs(run, clouds, draw)
+    _check_syncs("flagship batch", n_sync, res, expected=0)
+    times = _time_scans(run, [clouds], draw, BATCH_TIMED)
+    p50 = statistics.median(times)
+    n_ops, dev_ms = scan_device_ops(run, clouds, draw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run(clouds, draw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"flagship batch p50 {p50:.3f} ms per batch of {BATCH} over {len(times)} batches "
+          f"(min {min(times):.3f}, max {max(times):.3f}); {BATCH / p50 * 1e3:.1f} scans per "
+          f"second; host syncs per batch {n_sync}; device operations per batch {n_ops} "
+          f"({_ms(dev_ms)} of device time, busy "
+          f"{'not measured' if dev_ms is None else f'{100 * dev_ms / p50:.1f}%'} of the p50); peak "
+          f"device memory {peak / 2**20:.1f} MiB [{card}]")
+
+    # the four kernels at B = 32 on the inputs the batch gives them
+    def once():
+        run(clouds, draw)
+
+    (k1,) = _capture(voxel, "sorted_run_reduce", once)
+    (k2,) = _capture(compaction, "compact_and_gather_exact", once)
+    (k3,) = _capture(outliers, "knn_mean", once)
+    (lp,) = _capture(cluster, "cluster_loop", once)
+    rows = [
+        _k1_batch_row("flagship_batch", *k1),
+        _k2_batch_row("flagship_batch", k2[0]),
+        _k3_row("flagship_batch", f"the batch's voxel clouds ({BATCH} scans)", k3[0]),
+        _loop_row("flagship_batch", "the batch's non-plane clouds", lp[0]),
+    ]
+    for r in rows:
+        print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: equal to plain; {_times(r)} "
+              f"[{card}]")
+    loop_blocks(lp[0], card)
+    return launches, rows
 
 
 def main() -> None:
@@ -943,19 +1162,31 @@ def main() -> None:
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {sum(_build.BUILD_SECONDS):.1f} s)")
 
+    t = time.perf_counter()
     rows = check_kernels(dev, card)
+    print(f"phase 2 (kernel checks): {time.perf_counter() - t:.1f} s")
     launches = {}
-    for path, run in (("flagship", run_flagship), ("fullscale", run_fullscale)):
+    for phase, path, run in ((3, "flagship", run_flagship), (4, "fullscale", run_fullscale)):
+        t = time.perf_counter()
         launches[path], scan_rows = run(dev, card)
         for r in scan_rows:
             print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: equal to plain; {_times(r)} "
                   f"[{card}]")
         rows += scan_rows
+        print(f"phase {phase} ({path}): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     wide_rows, launches["cluster_wide"] = run_cluster_wide(dev, card)
     rows += wide_rows
+    print(f"phase 5 (cluster_wide): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     more_rows, more_launches = run_segscan_binning(dev, card)
     rows += more_rows
     launches.update(more_launches)
+    print(f"phase 6 (segscan, binning): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches["flagship_batch"], batch_rows = run_batch(dev, card)
+    rows += batch_rows
+    print(f"phase 7 (flagship batch): {time.perf_counter() - t:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["path"]][r["name"]]

@@ -51,20 +51,22 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # C entry points: argument types in order (all return cudaError_t as int)
 _SIGNATURES = {
-    # skey, pay_a, pay_b, pay_c, packed, quantum, n, w, sentinel, capacity,
-    # workspace, out, num, stream
-    "pcp_runreduce": [_VP, _VP, _VP, _VP, _I, _F, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
-    # bins, occ, c, k, capacity, loc, vals, scratch (num, block counts), stream
-    "pcp_compact_gather": [_VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP],
-    # px, py, pz, psq, valid, starts, n, tiles, row_tile, width, k, big,
-    # half, out, stream
-    "pcp_knn_mean": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F,
+    # skey, pay_a, pay_b, pay_c, packed, quantum, batch, n, w, sentinel,
+    # capacity, workspace, out, num, stream
+    "pcp_runreduce": [_VP, _VP, _VP, _VP, _I, _F, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
+    # bins, occ, batch, c, k, capacity, loc, vals, scratch (num, block
+    # counts), stream
+    "pcp_compact_gather": [_VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
+    # px, py, pz, psq, valid, starts, batch, n, tiles, row_tile, width, k,
+    # big, half, out, stream
+    "pcp_knn_mean": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F,
                      _F, _VP, _VP],
-    # pts (packed [C, 4]), valid, labels, c, tol2, max_iters, blocks,
-    # labels out, unconverged, sweeps, stream
-    "pcp_cluster_loop": [_VP, _VP, _VP, _I, _F, _I, _I, _VP, _VP, _VP, _VP],
-    # c -> blocks of the loop kernel's cluster (0: none fits)
-    "pcp_cluster_loop_blocks": [_I],
+    # pts (packed [B, C, 4]), valid, labels, batch, c, tol2, max_iters,
+    # blocks a scan, labels out, unconverged, sweeps, stream
+    "pcp_cluster_loop": [_VP, _VP, _VP, _I, _I, _F, _I, _I, _VP, _VP, _VP, _VP],
+    # c, nb -> blocks of the loop kernel's cluster (nb 0: the one-scan
+    # choice; 0: none fits)
+    "pcp_cluster_loop_blocks": [_I, _I],
     # px, py, pz, psq, valid, labels, c, tol2, out, stream
     "pcp_cluster_sweep": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _F, _VP, _VP],
     # pts (packed [C, 4]), valid, labels, starts, tile_live, c, window,

@@ -15,8 +15,14 @@
 // in any order; d2 is the reference's tree as XLA:CPU evaluates it, cross =
 // fma(qz, cz, fma(qx, cx, qy*cy)), d2 = (q_sq + c_sq) - 2*cross.
 //
-// Design: one thread-block cluster of kBlocks blocks (16, the non-portable
-// size, where the card schedules it; else 8).  Every block holds all C
+// A batch of B buffers (one a scan) runs as B thread-block clusters in one
+// launch, cluster b on scan b (blockIdx.x / kBlocks); each stops at its own
+// convergence, and nothing crosses from one cluster to another.
+//
+// Design: one thread-block cluster of kBlocks blocks a scan (for one scan
+// 16, the non-portable size, where the card schedules it, else 8; for a
+// batch the size chosen from chip_smoke.py's table of 1-16 blocks at B =
+// 32, ops/cluster.py's LOOP_BATCH_BLOCKS).  Every block holds all C
 // points (float4 x, y, z, |p|^2) and a copy of lc in shared memory, and
 // owns C / kBlocks rows (their labels and upd).  The sweep's query rows,
 // [0, last valid row], are split evenly over the blocks apart from that
@@ -44,7 +50,10 @@
 // on kBlocks SMs, so a sweep takes about V^2 * 9 / (kBlocks * 128 lanes)
 // cycles, plus two cluster barriers and C * kBlocks label stores across
 // the cluster.  It replaces one launch, five PyTorch operations and one
-// host sync a sweep.
+// host sync a sweep.  In a batch, clusters of 16 fit about 8 scans on the
+// card at once; the flagship batch of 32 (136 sweeps) took 0.047 ms of
+// device time at 4 blocks a scan and 0.075-0.107 at 16 on an H100 80GB
+// HBM3 at 700 W (chip_smoke.py's "loop blocks" lines).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -63,6 +72,15 @@ cluster_loop(const float4* __restrict__ pts, const unsigned char* __restrict__ v
   cg::cluster_group cluster = cg::this_cluster();
   const int nb = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
+  {  // this cluster's scan
+    const size_t scan = blockIdx.x / nb;
+    pts += scan * c;
+    valid += scan * c;
+    labels_in += scan * c;
+    labels_out += scan * c;
+    unconverged += scan;
+    sweeps += scan;
+  }
   const int rows_per = (c + nb - 1) / nb;
   const int row0 = rank * rows_per;
   const int rows = max(0, min(c, row0 + rows_per) - row0);
@@ -181,55 +199,58 @@ size_t smem_bytes(int c, int nb) {
   return static_cast<size_t>(c) * (sizeof(float4) + sizeof(int)) + 3 * sizeof(int) * rows_per;
 }
 
-// cluster size to launch at capacity c: 16 where the card can schedule such
-// a cluster with this shared memory, else 8 (0 if neither fits, or a block
-// would sweep more rows than it has threads)
-int blocks_for(int c) {
-  const int options[2] = {16, 8};
-  for (int nb : options) {
-    if ((c + nb - 1) / nb > kThreads) continue;
-    const size_t smem = smem_bytes(c, nb);
-    if (cudaFuncSetAttribute(cluster_loop, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem)) != cudaSuccess) {
-      cudaGetLastError();
-      continue;
-    }
-    if (nb > 8 && cudaFuncSetAttribute(cluster_loop,
-                                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1) !=
-                      cudaSuccess) {
-      cudaGetLastError();
-      continue;
-    }
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = nb;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(nb);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, cluster_loop, &cfg) == cudaSuccess &&
-        clusters > 0) {
-      return nb;
-    }
+// whether a cluster of nb blocks, each holding c points, can be scheduled on
+// this card with this shared memory (and no block sweeps more rows than it
+// has threads)
+bool fits(int c, int nb) {
+  if (nb < 1 || nb > 16 || (c + nb - 1) / nb > kThreads) return false;
+  const size_t smem = smem_bytes(c, nb);
+  if (cudaFuncSetAttribute(cluster_loop, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess) {
     cudaGetLastError();
+    return false;
   }
-  return 0;
+  if (nb > 8 && cudaFuncSetAttribute(cluster_loop, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                     1) != cudaSuccess) {
+    cudaGetLastError();
+    return false;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nb;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(nb);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, cluster_loop, &cfg) == cudaSuccess &&
+      clusters > 0) {
+    return true;
+  }
+  cudaGetLastError();
+  return false;
 }
 
 }  // namespace
 
-// Blocks of the launch at capacity c: 16 or 8, or 0 where no such cluster
-// fits the card.
-extern "C" int pcp_cluster_loop_blocks(int c) { return blocks_for(c); }
+// Blocks a scan at capacity c: with nb = 0 the one-scan choice, 16 where
+// such a cluster fits the card, else 8; with nb > 0, nb where it fits.  0
+// where none fits.
+extern "C" int pcp_cluster_loop_blocks(int c, int nb) {
+  if (nb > 0) return fits(c, nb) ? nb : 0;
+  return fits(c, 16) ? 16 : (fits(c, 8) ? 8 : 0);
+}
 
+// pts [batch, c, 4], valid, labels and labels_out [batch, c]; unconverged
+// and sweeps [batch]; `blocks` a scan
 extern "C" int pcp_cluster_loop(const float* pts, const unsigned char* valid, const int* labels,
-                                int c, float tol2, int max_iters, int blocks, int* labels_out,
-                                unsigned char* unconverged, int* sweeps, void* stream) {
+                                int batch, int c, float tol2, int max_iters, int blocks,
+                                int* labels_out, unsigned char* unconverged, int* sweeps,
+                                void* stream) {
   const size_t smem = smem_bytes(c, blocks);
   cudaError_t err = cudaFuncSetAttribute(cluster_loop, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -244,7 +265,7 @@ extern "C" int pcp_cluster_loop(const float* pts, const unsigned char* valid, co
   attr[0].val.clusterDim.x = blocks;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(blocks);
+  cfg.gridDim = dim3(batch * blocks);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);

@@ -9,7 +9,8 @@
 // order (r < capacity), loc[r] = the column's index and vals[r, :] = its C
 // channels, and num = the occupied count (all of it, past capacity too).
 // Data movement only, so the result is exact.  Slots at or past num are not
-// written.
+// written.  A batch of B tables (one a scan, each compacted on its own)
+// takes the scan as the grid's y dimension in both launches.
 //
 // The TPU kernel staged each window of blocks in VMEM and relied on the
 // sequential grid so that each later DMA overwrote the previous window's
@@ -37,7 +38,8 @@
 // latency sets the time instead: 3.6-4.0 us of device time on an H100 80GB
 // HBM3 at 700 W (chip_smoke.py, scripts/torch_kernel_ab.py), 26x the
 // fullscale bound (chip_smoke.py's bound_ms), against 12-14 us for
-// bins.T[occ].
+// bins.T[occ].  The flagship batch of 32 scans (one launch pair) took
+// 4.8 us, against 20 us for bins.transpose(1, 2)[occ].
 
 #include <cuda_runtime.h>
 
@@ -68,6 +70,8 @@ __device__ __forceinline__ unsigned mask_word(const unsigned char* __restrict__ 
 template <bool kAligned>
 __global__ void count_blocks(const unsigned char* __restrict__ occ, int k4, int* __restrict__ counts) {
   __shared__ int warp_sum[kWarps];
+  occ += static_cast<size_t>(blockIdx.y) * 4 * k4;  // this block's scan
+  counts += static_cast<size_t>(blockIdx.y) * gridDim.x;
   const int wi = blockIdx.x * kThreads + threadIdx.x;
   const int n = __reduce_add_sync(kFull, __popc(byte_flags(mask_word<kAligned>(occ, wi, k4))));
   if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = n;
@@ -84,6 +88,15 @@ template <bool kAligned>
 __global__ void scatter(const float* __restrict__ bins, const unsigned char* __restrict__ occ,
                         const int* __restrict__ counts, int c, int k, int k4, int capacity,
                         int* __restrict__ loc, float* __restrict__ vals, int* __restrict__ num) {
+  {  // this block's scan
+    const size_t scan = blockIdx.y;
+    bins += scan * c * k;
+    occ += scan * k;
+    counts += scan * gridDim.x;
+    loc += scan * capacity;
+    vals += scan * capacity * c;
+    num += scan;
+  }
   __shared__ int before[kWarps];     // partial sums of the earlier blocks' counts
   __shared__ int warp_count[kWarps];  // occupied columns of each warp
   const int lane = threadIdx.x & 31;
@@ -138,24 +151,28 @@ __global__ void scatter(const float* __restrict__ bins, const unsigned char* __r
 
 }  // namespace
 
-// bins [c, k] float32, occ [k] bytes (k a multiple of 128, any start);
-// loc [capacity] int32, vals [capacity, c] float32, scratch [1 + blocks]
-// int32: scratch[0] receives num, the rest the block counts.  Both launches
-// on `stream`.
-extern "C" int pcp_compact_gather(const float* bins, const unsigned char* occ, int c, int k,
-                                  int capacity, int* loc, float* vals, int* scratch,
+// bins [batch, c, k] float32, occ [batch, k] bytes (k a multiple of 128,
+// any start); loc [batch, capacity] int32, vals [batch, capacity, c]
+// float32, scratch [batch * (1 + blocks)] int32: scratch[b] receives scan
+// b's num, the rest the block counts.  Both launches on `stream`.
+extern "C" int pcp_compact_gather(const float* bins, const unsigned char* occ, int batch, int c,
+                                  int k, int capacity, int* loc, float* vals, int* scratch,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int k4 = k / 4;
   const int blocks = (k4 + kThreads - 1) / kThreads;
+  const dim3 grid(blocks, batch);
+  int* counts = scratch + batch;
+  // a scan's mask starts k bytes after the one before, k a multiple of 128:
+  // the first scan's alignment is every scan's
   if ((reinterpret_cast<std::uintptr_t>(occ) & 3) == 0) {
-    count_blocks<true><<<blocks, kThreads, 0, s>>>(occ, k4, scratch + 1);
-    scatter<true><<<blocks, kThreads, 0, s>>>(bins, occ, scratch + 1, c, k, k4, capacity, loc,
-                                              vals, scratch);
+    count_blocks<true><<<grid, kThreads, 0, s>>>(occ, k4, counts);
+    scatter<true><<<grid, kThreads, 0, s>>>(bins, occ, counts, c, k, k4, capacity, loc, vals,
+                                            scratch);
   } else {
-    count_blocks<false><<<blocks, kThreads, 0, s>>>(occ, k4, scratch + 1);
-    scatter<false><<<blocks, kThreads, 0, s>>>(bins, occ, scratch + 1, c, k, k4, capacity, loc,
-                                               vals, scratch);
+    count_blocks<false><<<grid, kThreads, 0, s>>>(occ, k4, counts);
+    scatter<false><<<grid, kThreads, 0, s>>>(bins, occ, counts, c, k, k4, capacity, loc, vals,
+                                             scratch);
   }
   return static_cast<int>(cudaGetLastError());
 }

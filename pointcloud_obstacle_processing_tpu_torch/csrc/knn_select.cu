@@ -5,7 +5,9 @@
 // including the mean it ends in (_sortnet_mean_from_sorted).
 //
 // For query tile t (row_tile queries) the candidates are the `width`
-// columns starting at starts[t] of the lattice-ordered cloud.  For every
+// columns starting at starts[t] of the lattice-ordered cloud.  A batch of
+// B clouds (one a scan, each [n] channels, the same starts) takes the scan
+// as the grid's z dimension; nothing crosses from one scan to another.  For every
 // query the kernel selects the 16 smallest squared distances and writes
 // the mean of the square roots of the k smallest of them that lie below
 // `half` (out[q], a [n_q] vector).  The mean is the plain version's to the
@@ -67,6 +69,8 @@
 // tiles x 1,024 rows x 3,584 columns) of ~9 operations each, 0.08 ms at
 // the fp32 rate; it reads ~4.5 MB and writes 1 MB.  The loop issues about
 // 8-10 instructions a pair, so instruction issue, not memory, bounds it.
+// The flagship batch of 32 scans ~1 G pairs, 0.13 ms at the fp32 rate; it
+// took 0.73 ms of device time on an H100 80GB HBM3 at 700 W (chip_smoke.py).
 
 #include <cuda_runtime.h>
 
@@ -153,6 +157,15 @@ __global__ void __launch_bounds__(kGroups * kRowThreads)
              const float* __restrict__ pz, const float* __restrict__ psq,
              const unsigned char* __restrict__ valid, const int* __restrict__ starts, int n,
              int row_tile, int width, int k, float big, float half, float* __restrict__ out) {
+  {  // this block's scan
+    const size_t scan = blockIdx.z;
+    px += scan * n;
+    py += scan * n;
+    pz += scan * n;
+    psq += scan * n;
+    valid += scan * n;
+    out += scan * gridDim.x * row_tile;
+  }
   constexpr int kThreads = kGroups * kRowThreads;
   constexpr int kRows = kQ * kRowThreads;
   constexpr int kColsPerThread = (kChunk + kThreads - 1) / kThreads;
@@ -378,12 +391,17 @@ __global__ void __launch_bounds__(kGroups * kRowThreads)
 // (the fullscale's 262,144).
 constexpr int kManyRows = 65536;
 
-// At most kResident one-group blocks an SM.  The block dispatcher fills an
-// SM up to what its registers allow (six blocks at 80 registers) and spreads
-// a call's live slices unevenly over the SMs, and the call lasts as long as
-// its busiest SM.  Five blocks keep an SM as busy as six, so the launch asks
-// for the dynamic shared memory that leaves room for five and no more: the
-// fullscale window's live slices then fit the 132 SMs in one even wave.
+// At most kResident one-group blocks an SM, for one scan.  The block
+// dispatcher fills an SM up to what its registers allow (six blocks at 80
+// registers) and spreads a call's live slices unevenly over the SMs, and
+// the call lasts as long as its busiest SM.  Five blocks keep an SM as busy
+// as six, so the launch asks for the dynamic shared memory that leaves room
+// for five and no more: the fullscale window's live slices then fit the 132
+// SMs in one even wave.  That argument holds for one wave only: a batch of
+// B > 1 such clouds launches B times the blocks, many waves whose balance
+// the cap does not set, so a batch launches without the pad (six an SM).
+// The instantiation is chosen by the queries of one scan, so a scan's
+// blocks are the same alone and in a batch.
 constexpr int kResident = 5;
 
 static int residency_pad(int* pad) {
@@ -401,10 +419,11 @@ static int residency_pad(int* pad) {
   return 0;
 }
 
+// channels, psq and valid [batch, n]; out [batch, tiles * row_tile]
 extern "C" int pcp_knn_mean(const float* px, const float* py, const float* pz, const float* psq,
-                            const unsigned char* valid, const int* starts, int n, int tiles,
-                            int row_tile, int width, int k, float big, float half, float* out,
-                            void* stream) {
+                            const unsigned char* valid, const int* starts, int batch, int n,
+                            int tiles, int row_tile, int width, int k, float big, float half,
+                            float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tiles * row_tile >= kManyRows) {
     static int pad = -1;  // set at the first launch
@@ -412,11 +431,11 @@ extern "C" int pcp_knn_mean(const float* px, const float* py, const float* pz, c
       const int err = residency_pad(&pad);
       if (err) return err;
     }
-    dim3 grid(tiles, (row_tile + kQ * 128 - 1) / (kQ * 128));
-    knn_mean<1, 128><<<grid, 128, pad, s>>>(px, py, pz, psq, valid, starts, n, row_tile, width,
-                                            k, big, half, out);
+    dim3 grid(tiles, (row_tile + kQ * 128 - 1) / (kQ * 128), batch);
+    knn_mean<1, 128><<<grid, 128, batch == 1 ? pad : 0, s>>>(px, py, pz, psq, valid, starts, n,
+                                                             row_tile, width, k, big, half, out);
   } else {
-    dim3 grid(tiles, (row_tile + kQ * 32 - 1) / (kQ * 32));
+    dim3 grid(tiles, (row_tile + kQ * 32 - 1) / (kQ * 32), batch);
     knn_mean<4, 32><<<grid, 128, 0, s>>>(px, py, pz, psq, valid, starts, n, row_tile, width, k,
                                          big, half, out);
   }

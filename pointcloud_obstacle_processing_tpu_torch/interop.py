@@ -40,7 +40,9 @@ def from_reference(
 
     Any part may be omitted (it comes back as None).  ``valid`` defaults to
     all-True for the given points; a pose needs both its quaternion and its
-    translation.  Tensors go to the card unless ``device`` says otherwise;
+    translation.  A batch of scans comes as ``points`` [B, N, 3], ``valid``
+    [B, N] and, for a pose a scan, ``quat_xyzw`` [B, 4] and ``translation``
+    [B, 3] (the reference's vmapped inputs).  Tensors go to the card unless ``device`` says otherwise;
     without a card this raises.
     """
     device = _build.resolve_device(device)

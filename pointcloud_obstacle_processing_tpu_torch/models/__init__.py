@@ -71,6 +71,9 @@ class ObstacleDetectionModel(torch.nn.Module):
         self.generator.manual_seed(seed)
 
     def forward(self, cloud, world_from_sensor=None, draw=None):
+        """One cloud ``[N]`` or a batch ``[B, N]``; without ``draw`` the
+        RANSAC draws ([B, rounds, K, 3] uniforms for a batch) come from the
+        module's generator."""
         return process_scan(
             cloud.to(self.device), self.config,
             None if world_from_sensor is None else world_from_sensor.to(self.device),

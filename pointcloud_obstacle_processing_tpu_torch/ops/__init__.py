@@ -63,3 +63,31 @@ def add_sq3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """The written-out ``x*x + y*y + z*z`` as XLA:CPU evaluates it,
     ``fma(z, z, fma(x, x, y * y))``."""
     return dot3(x, y, z, x, y, z)
+
+
+XLA_REDUCE_WINDOW = 32  # XLA:CPU's TreeReductionRewriter window
+
+
+def sum_like_xla(x: torch.Tensor) -> torch.Tensor:
+    """Float32 sum over the last axis in XLA:CPU's order for ``jnp.sum``.
+
+    XLA:CPU's tree-reduction rewrite turns a reduction longer than 32 into
+    a reduce-window of 32 (stride 32, the input padded with zeros, half
+    the padding in front: ``pad // 2`` low, the rest high), repeated until
+    32 or fewer values remain, then a plain reduce; each window and the
+    last reduce add their values one after another from 0.  This replays
+    that order (``tests/test_torch_outliers.py`` holds it bitwise to
+    ``jnp.sum``), with one PyTorch add a step on every device."""
+    w = XLA_REDUCE_WINDOW
+    while x.shape[-1] > w:
+        pad = -x.shape[-1] % w
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = x.reshape(*x.shape[:-1], -1, w)
+        acc = torch.zeros_like(x[..., 0])
+        for k in range(w):
+            acc = acc + x[..., k]
+        x = acc
+    acc = torch.zeros_like(x[..., 0])
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc

@@ -32,6 +32,12 @@ propagation over the compacted non-plane buffer.
 The reference tracks the frontier only on its TPU path; the port tracks it
 on every device, which is output-identical (see ``sweep_jump_banded``).
 
+A batch of clouds (``[B, C]``) clusters each scan on its own: the loop
+kernel runs one thread-block cluster a scan in one launch, each stopping at
+its own convergence, and every other step takes the scan axis as it comes.
+The per-sweep K4 and the banded K5 take one scan at a time and refuse a
+batch of more than one.
+
 Slots are assigned by size descending, ties by smaller root.  The reference
 relies on ``lax.top_k`` being stable; ``torch.topk`` is not, so the order
 comes from a stable sort.
@@ -45,9 +51,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import add_sq3, dot3, f32, fma, sqrt32, sum_sq3
+from . import add_sq3, dot3, f32, fma, sqrt32, sum_like_xla, sum_sq3
 from .. import _build
-from ..types import Cloud, ClusterSet, PointIndicesArray, PointWithRad
+from ..types import Cloud, ClusterSet, PointIndicesArray, PointWithRad, batch_of, scan_of
 
 __all__ = [
     "euclidean_cluster",
@@ -66,6 +72,7 @@ __all__ = [
     "ClusterOutput",
     "LoopOutput",
     "LOOP_MAX_CAPACITY",
+    "LOOP_BATCH_BLOCKS",
 ]
 
 BAND_TILE = 128  # query rows per tile of the banded sweep
@@ -78,12 +85,17 @@ BAND_TILE = 128  # query rows per tile of the banded sweep
 # of them valid (2.83 against 1.91 ms): the per-sweep kernel spreads over
 # C / 256 SMs, the loop kernel stays on 16.
 LOOP_MAX_CAPACITY = 8192
+# Blocks a scan of the loop kernel's launch for a batch (a cluster of 16
+# blocks a scan fits about 8 scans on the card at once; fewer blocks a scan
+# run more scans at once, each slower).  Timed at 1-16 blocks on the
+# flagship batch of 32 (chip_smoke.py's "loop blocks" lines).
+LOOP_BATCH_BLOCKS = 4
 
 
 def _norms(p, p_sq):
     """|p|^2 as the reference's sweeps compute it, unless given (it does
     not change across the sweeps of one clustering)."""
-    return sum_sq3(p[:, 0], p[:, 1], p[:, 2]) if p_sq is None else p_sq
+    return sum_sq3(p[..., 0], p[..., 1], p[..., 2]) if p_sq is None else p_sq
 
 
 def point_channels(p, p_sq=None) -> torch.Tensor:
@@ -94,8 +106,9 @@ def point_channels(p, p_sq=None) -> torch.Tensor:
 
 def pack_points(p, p_sq=None) -> torch.Tensor:
     """[C, 4] float32 rows (x, y, z, |p|^2) (``sum_sq3`` unless given): the
-    sweep points as kernel K5 reads them, laid out once per clustering."""
-    return torch.cat([p, _norms(p, p_sq)[:, None]], dim=1)
+    sweep points as the loop kernel and K5 read them, laid out once per
+    clustering ([B, C, 4] for a batch)."""
+    return torch.cat([p, _norms(p, p_sq)[..., None]], dim=-1)
 
 
 def sweep_jump_plain(pch, valid, labels, tol2: float) -> torch.Tensor:
@@ -261,7 +274,7 @@ def _hook(labels, nbr_min):
     return torch.minimum(torch.minimum(labels, upd), nbr_min)
 
 
-class LoopOutput(NamedTuple):
+class LoopOutput(NamedTuple):  # a leading [B] on the tensors for a batch
     labels: torch.Tensor  # [C] int32 after the last sweep
     unconverged: torch.Tensor  # [] bool: the last sweep changed a label
     sweeps: int | torch.Tensor  # sweeps run (a 0-d int32 tensor from the kernel)
@@ -272,7 +285,7 @@ def _sweep_loop(sweep, labels, max_iters: int) -> LoopOutput:
     """Sweep and hook until no label changes, at most ``max_iters`` times;
     the change test is read on the host after each sweep but the last (the
     first sweep always runs: the reference's loop state starts with every
-    point "changed")."""
+    point "changed").  One scan."""
     host_syncs = 0
     changed = torch.ones(labels.shape[0], dtype=torch.bool, device=labels.device)
     sweeps = 0
@@ -288,61 +301,92 @@ def _sweep_loop(sweep, labels, max_iters: int) -> LoopOutput:
     return LoopOutput(labels, changed.any(), sweeps, host_syncs)
 
 
+def _stack(outs: list[LoopOutput]) -> LoopOutput:
+    """The loops of a batch's scans as one batched output."""
+    return LoopOutput(
+        torch.stack([o.labels for o in outs]), torch.stack([o.unconverged for o in outs]),
+        torch.tensor([int(o.sweeps) for o in outs], dtype=torch.int32),
+        sum(o.host_syncs for o in outs),
+    )
+
+
 def cluster_loop_plain(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
     """Plain PyTorch version of the loop kernel: ``sweep_jump_plain`` and
-    the hook, sweep after sweep.  ``pk``: ``pack_points``' [C, 4] rows."""
+    the hook, sweep after sweep, scan by scan for a batch.  ``pk``:
+    ``pack_points``' [C, 4] rows ([B, C, 4] for a batch)."""
+    if pk.dim() > 2:
+        return _stack([cluster_loop_plain(pk[b], valid[b], labels[b], tol2, max_iters)
+                       for b in range(pk.shape[0])])
     pch = pk.T
     return _sweep_loop(lambda lab: sweep_jump_plain(pch, valid, lab, tol2), labels, max_iters)
 
 
 @functools.cache
-def _loop_blocks(n: int) -> int:
-    """Blocks of the loop kernel's thread-block cluster at capacity ``n``
-    (16 or 8), or 0 where no such cluster fits this card."""
-    return max(0, _build.kernels().pcp_cluster_loop_blocks(n))
+def _loop_blocks(n: int, nb: int = 0) -> int:
+    """Blocks a scan of the loop kernel's thread-block cluster at capacity
+    ``n``: with ``nb`` 0 the one-scan choice (16 or 8), else ``nb``; 0
+    where no such cluster fits this card."""
+    return max(0, _build.kernels().pcp_cluster_loop_blocks(n, nb))
 
 
 def cluster_loop(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
     """The full-sweep cluster loop from the seeded ``labels``: the loop
-    kernel (one launch, no host read) for CUDA tensors up to
-    ``LOOP_MAX_CAPACITY`` points; above it the per-sweep kernel K4 with the
-    hook in PyTorch and one host read a sweep; the plain version for CPU
-    tensors.  ``pk``: ``pack_points``' [C, 4] rows."""
+    kernel (one launch, no host read, a batch included) for CUDA tensors
+    up to ``LOOP_MAX_CAPACITY`` points; above it the per-sweep kernel K4
+    with the hook in PyTorch and one host read a sweep (one scan only);
+    the plain version for CPU tensors.  ``pk``: ``pack_points``' [C, 4]
+    rows, or [B, C, 4] for a batch."""
     if pk.device.type == "cpu":
         return cluster_loop_plain(pk, valid, labels, tol2, max_iters)
-    n = pk.shape[0]
-    if pk.shape != (n, 4) or valid.shape != (n,) or labels.shape != (n,):
-        raise ValueError("cluster_loop: packed points [C, 4], valid [C] and labels [C]")
+    n = pk.shape[-2]
+    if pk.shape[-1] != 4 or pk.dim() > 3 or valid.shape != pk.shape[:-1] or \
+            labels.shape != valid.shape:
+        raise ValueError("cluster_loop: packed points [C, 4], valid [C] and labels [C] "
+                         "(a leading [B] on each for a batch)")
     if n > LOOP_MAX_CAPACITY or not _loop_blocks(n):
-        return per_sweep_loop(pk, valid, labels, tol2, max_iters)
+        if pk.dim() == 2:
+            return per_sweep_loop(pk, valid, labels, tol2, max_iters)
+        if pk.shape[0] != 1:
+            raise ValueError(f"cluster_loop: a batch of {pk.shape[0]} clouds of {n} points; "
+                             f"the per-sweep path above {LOOP_MAX_CAPACITY} points takes one")
+        return _stack([per_sweep_loop(pk[0], valid[0], labels[0], tol2, max_iters)])
     return loop_kernel(pk, valid, labels, tol2, max_iters)
 
 
 def per_sweep_loop(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
     """The loop as one K4 launch a sweep, the hook in PyTorch and a host
-    read of the change test after each sweep but the last (CUDA tensors)."""
+    read of the change test after each sweep but the last (CUDA tensors,
+    one scan)."""
     pch = pk.T.contiguous()
     return _sweep_loop(lambda lab: sweep_jump(pch, valid, lab, tol2), labels, max_iters)
 
 
-def loop_kernel(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
+def loop_kernel(pk, valid, labels, tol2: float, max_iters: int,
+                blocks: int | None = None) -> LoopOutput:
     """The whole loop in one launch of the loop kernel (CUDA tensors, at any
-    capacity whose points fit a block's shared memory)."""
-    n = pk.shape[0]
+    capacity whose points fit a block's shared memory): one thread-block
+    cluster of ``blocks`` blocks a scan (by default 16 or 8 for one scan,
+    ``LOOP_BATCH_BLOCKS`` for a batch where it fits)."""
+    n = pk.shape[-2]
+    lead = pk.shape[:-2]
+    batch = pk[..., 0, 0].numel()
     _build.require_cuda("cluster_loop", pk, valid, labels,
                         dtypes=[torch.float32, torch.bool, torch.int32])
     if pk.data_ptr() % 16:
         raise ValueError("cluster_loop: the packed points must be 16-byte aligned")
-    blocks = _loop_blocks(n)
+    if blocks is None:
+        blocks = (batch > 1 and _loop_blocks(n, LOOP_BATCH_BLOCKS)) or _loop_blocks(n)
+    elif blocks not in (1, 2, 4, 8, 16) or not _loop_blocks(n, blocks):
+        blocks = 0
     if not blocks:
-        raise RuntimeError(f"cluster_loop: no thread-block cluster of 8 or 16 blocks with "
-                           f"{n} points in shared memory fits this card")
+        raise RuntimeError(f"cluster_loop: no thread-block cluster of the requested blocks "
+                           f"with {n} points in shared memory fits this card")
     lib = _build.kernels()
-    out = torch.empty(n, dtype=torch.int32, device=pk.device)
-    unconverged = torch.empty((), dtype=torch.bool, device=pk.device)
-    sweeps = torch.empty((), dtype=torch.int32, device=pk.device)
+    out = torch.empty(*lead, n, dtype=torch.int32, device=pk.device)
+    unconverged = torch.empty(lead, dtype=torch.bool, device=pk.device)
+    sweeps = torch.empty(lead, dtype=torch.int32, device=pk.device)
     err = lib.pcp_cluster_loop(
-        pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), n, float(np.float32(tol2)),
+        pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), batch, n, float(np.float32(tol2)),
         int(max_iters), blocks, out.data_ptr(), unconverged.data_ptr(),
         sweeps.data_ptr(), _build.stream_handle(),
     )
@@ -351,7 +395,7 @@ def loop_kernel(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
     return LoopOutput(out, unconverged, sweeps, 0)
 
 
-class ClusterOutput(NamedTuple):
+class ClusterOutput(NamedTuple):  # a leading [B] on the tensors for a batch
     clusters: ClusterSet
     labels: torch.Tensor  # [C] int32 component roots (min index), self for invalid
     root_slot: torch.Tensor  # [C] int32 root index -> slot id or -1
@@ -393,28 +437,31 @@ def _banded_loop(pk, valid, labels, tol2: float, band_window: int, starts, max_i
 
 def _seed_labels(pts, valid, tolerance: float):
     """The loop's start: the centered points, their |p|^2 (``sum_sq3``,
-    fixed for the whole loop) and the chain-seeded labels."""
-    n = pts.shape[0]
+    fixed for the whole loop) and the chain-seeded labels (one cloud
+    [C, 3], or each scan of a batch [B, C, 3])."""
+    n = pts.shape[-2]
     dev = pts.device
-    denom = torch.clamp_min(valid.sum(dtype=torch.float32), 1.0)
-    center = torch.where(valid[:, None], pts, 0.0).sum(dim=0) / denom
-    p = torch.where(valid[:, None], pts - center, 0.0)
+    denom = torch.clamp_min(valid.sum(dim=-1, dtype=torch.float32), 1.0)[..., None]
+    # the centre's sums in XLA:CPU's order (bitwise the reference's)
+    sums = sum_like_xla(torch.where(valid[..., None], pts, 0.0).transpose(-1, -2))
+    center = sums / denom  # [..., 3]
+    p = torch.where(valid[..., None], pts - center[..., None, :], 0.0)
     tol2 = float(tolerance) ** 2
     idx = torch.arange(n, dtype=torch.int32, device=dev)
 
     # chain seeding: consecutive-rank points within tolerance (with an
     # absolute margin for the expanded-form error of the sweep's d2) are
     # real edges; seed each run with its head index
-    prev = torch.cat([p[:1], p[:-1]])
+    prev = torch.cat([p[..., :1, :], p[..., :-1, :]], dim=-2)
     dp = p - prev
-    gap2 = sum_sq3(dp[:, 0], dp[:, 1], dp[:, 2])
-    prev_valid = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), valid[:-1]])
-    p_sq = sum_sq3(p[:, 0], p[:, 1], p[:, 2])  # the sweeps' |p|^2, fixed for the whole loop
-    maxsq = torch.where(valid, p_sq, 0.0).max()
+    gap2 = sum_sq3(dp[..., 0], dp[..., 1], dp[..., 2])
+    prev_valid = torch.nn.functional.pad(valid[..., :-1], (1, 0), value=False)
+    p_sq = sum_sq3(p[..., 0], p[..., 1], p[..., 2])  # the sweeps' |p|^2, fixed for the loop
+    maxsq = torch.where(valid, p_sq, 0.0).max(dim=-1).values
     seed_thresh = f32(tol2 * (1.0 - 1e-6)) - maxsq * (2.0**-20)
-    chain = valid & prev_valid & (gap2 <= seed_thresh)
+    chain = valid & prev_valid & (gap2 <= seed_thresh[..., None])
     head = valid & ~chain
-    run_head = torch.cummax(torch.where(head, idx, -1), dim=0).values
+    run_head = torch.cummax(torch.where(head, idx, -1), dim=-1).values
     labels = torch.where(valid, run_head, idx).to(torch.int32)
     return p, p_sq, labels
 
@@ -422,14 +469,23 @@ def _seed_labels(pts, valid, tolerance: float):
 def euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: int,
                       max_clusters: int, max_iters: int = 64,
                       band_window: int = 0) -> ClusterOutput:
-    """Connected components + size gate + size-descending slot assignment.
+    """Connected components + size gate + size-descending slot assignment,
+    of one cloud or of each scan of a batch.
 
     ``band_window`` takes the banded sweep where the reference does: a
     window of 128 columns or more, below the capacity, and a capacity
     divisible by 128; otherwise the full sweep runs."""
+    cloud, single = batch_of(cloud)
+    res = _euclidean_cluster(cloud, tolerance, min_size, max_size, max_clusters, max_iters,
+                             band_window)
+    return scan_of(res) if single else res
+
+
+def _euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: int,
+                       max_clusters: int, max_iters: int, band_window: int) -> ClusterOutput:
     pts = cloud.points
     valid = cloud.valid.contiguous()
-    n = cloud.capacity
+    b, n = valid.shape
     dev = pts.device
     if max_clusters > n:
         raise ValueError(f"max_clusters={max_clusters} exceeds the cluster capacity {n}")
@@ -441,35 +497,39 @@ def euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: i
     banded = bool(band_window) and BAND_TILE <= band_window < n and n % BAND_TILE == 0
     sweep_pts = pack_points(p, p_sq)  # the sweeps' operand, laid out once for the whole loop
     if banded:
-        starts, band_overflow = band_starts(p, valid, BAND_TILE, band_window, tolerance)
-        labels, unconverged, host_syncs = _banded_loop(sweep_pts, valid, labels, tol2,
-                                                       band_window, starts, max_iters)
+        if b != 1:
+            raise ValueError(f"euclidean_cluster: the banded sweep takes one scan at a time "
+                             f"(got a batch of {b})")
+        starts, band_overflow = band_starts(p[0], valid[0], BAND_TILE, band_window, tolerance)
+        lab, unconverged, host_syncs = _banded_loop(sweep_pts[0], valid[0], labels[0], tol2,
+                                                    band_window, starts, max_iters)
+        labels, unconverged, band_overflow = lab[None], unconverged[None], band_overflow[None]
     else:
-        band_overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        band_overflow = torch.zeros(b, dtype=torch.bool, device=dev)
         labels, unconverged, _, host_syncs = cluster_loop(sweep_pts, valid, labels, tol2,
                                                           max_iters)
 
     # sizes and the size gate
-    sizes_by_root = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    sizes_by_root = torch.zeros(b, n + 1, dtype=torch.int32, device=dev)
     sizes_by_root.scatter_add_(
-        0, torch.where(valid, labels, n).long(), torch.ones(n, dtype=torch.int32, device=dev)
+        -1, torch.where(valid, labels, n).long(), torch.ones(b, n, dtype=torch.int32, device=dev)
     )
-    sizes_by_root = sizes_by_root[:n]
+    sizes_by_root = sizes_by_root[:, :n]
     is_root = valid & (labels == idx)
     gate = is_root & (sizes_by_root >= min_size) & (sizes_by_root <= max_size)
-    num_total = gate.sum(dtype=torch.int32)
+    num_total = gate.sum(dim=-1, dtype=torch.int32)
 
     # slots: size descending, root ascending (stable sort on -size)
     gated_size = torch.where(gate, sizes_by_root, -1)
-    top_roots = torch.sort(-gated_size, stable=True).indices[:max_clusters]
+    top_roots = torch.sort(-gated_size, dim=-1, stable=True).indices[:, :max_clusters]
     slot_ids = torch.arange(max_clusters, dtype=torch.int32, device=dev)
-    slot_valid = slot_ids < torch.clamp_max(num_total, max_clusters)
-    root_slot = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
-    root_slot.scatter_(0, torch.where(slot_valid, top_roots, n), slot_ids)
-    root_slot = root_slot[:n]
+    slot_valid = slot_ids < torch.clamp_max(num_total, max_clusters)[:, None]
+    root_slot = torch.full((b, n + 1), -1, dtype=torch.int32, device=dev)
+    root_slot.scatter_(-1, torch.where(slot_valid, top_roots, n), slot_ids.expand(b, -1))
+    root_slot = root_slot[:, :n]
 
-    point_cluster = torch.where(valid, root_slot[labels.long()], -1)
-    slot_sizes = torch.where(slot_valid, sizes_by_root[top_roots], 0)
+    point_cluster = torch.where(valid, root_slot.gather(-1, labels.long()), -1)
+    slot_sizes = torch.where(slot_valid, sizes_by_root.gather(-1, top_roots), 0)
     clusters = ClusterSet(
         point_cluster=point_cluster,
         sizes=slot_sizes,
@@ -488,21 +548,24 @@ def euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: i
 
 
 def cluster_centroids(cloud: Cloud, clusters: ClusterSet) -> PointIndicesArray:
-    """Per-cluster centroid + bounding radius as PointWithRad rows."""
-    m = clusters.sizes.shape[0]
+    """Per-cluster centroid + bounding radius as PointWithRad rows (one
+    cloud, or each scan of a batch)."""
+    m = clusters.sizes.shape[-1]
     pc = clusters.point_cluster
     slot = torch.arange(m, device=pc.device)
-    member = (pc[:, None] == slot[None, :]) & (pc >= 0)[:, None]  # [n, m]
+    member = (pc[..., :, None] == slot) & (pc >= 0)[..., None]  # [..., n, m]
     wm = member.to(torch.float32)
-    x, y, z = cloud.points[:, 0], cloud.points[:, 1], cloud.points[:, 2]
-    inv = 1.0 / torch.clamp_min(clusters.sizes.to(torch.float32), 1.0)
-    sums = [(wm * c[:, None]).sum(dim=0) for c in (x, y, z)]
+    pts = cloud.points
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    inv = 1.0 / torch.clamp_min(clusters.sizes.to(torch.float32), 1.0)  # [..., m]
+    sums = [(wm * c[..., None]).sum(dim=-2) for c in (x, y, z)]
     cx, cy, cz = (s * inv for s in sums)
     # the reference fuses the centroid's product into the offset,
     # x - sum * inv with one rounding, and the squares as a written-out sum
-    dx, dy, dz = (fma(-s[None, :], inv[None, :], c[:, None]) for s, c in zip(sums, (x, y, z)))
+    dx, dy, dz = (fma(-s[..., None, :], inv[..., None, :], c[..., None])
+                  for s, c in zip(sums, (x, y, z)))
     d_all = sqrt32(add_sq3(dx, dy, dz))
-    radii = torch.where(member, d_all, 0.0).max(dim=0).values
+    radii = torch.where(member, d_all, 0.0).max(dim=-2).values
     xyzr = torch.stack([cx, cy, cz, radii], dim=-1)
-    xyzr = torch.where(clusters.valid[:, None], xyzr, 0.0)
+    xyzr = torch.where(clusters.valid[..., None], xyzr, 0.0)
     return PointIndicesArray(points=PointWithRad(xyzr=xyzr), valid=clusters.valid)

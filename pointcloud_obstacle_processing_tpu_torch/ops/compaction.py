@@ -5,7 +5,9 @@ Counterpart of ``pointcloud_obstacle_processing_tpu/ops/compaction.py`` and
 to the front in input order (PCL's index-order extraction) and shrinks the
 buffer to ``capacity_out``; ``compact_and_gather_exact`` is the primitive
 under it, which launches the CUDA kernel (``csrc/compaction.cu``) for CUDA
-tensors and takes ``compact_and_gather_plain`` only for CPU tensors.
+tensors and takes ``compact_and_gather_plain`` only for CPU tensors.  Both
+take one cloud or a batch (``[B, ...]``, each scan compacted on its own;
+the kernel takes the scan as a grid dimension).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ __all__ = [
 _DTYPES = (torch.float32, torch.bool)  # bins, occupancy for kernel K2
 
 
-class CompactResult(NamedTuple):
+class CompactResult(NamedTuple):  # a leading [B] on every field for a batch
     cloud: Cloud  # [capacity_out] valid-first compaction
     count: torch.Tensor  # [] int32 number of valid points moved
     source_index: torch.Tensor  # [capacity_out] int32 index into the input buffer
@@ -38,10 +40,13 @@ class CompactResult(NamedTuple):
 
 
 def compact_and_gather_plain(bins: torch.Tensor, occ2d: torch.Tensor, capacity: int):
-    """Plain PyTorch version of kernel K2: (loc [capacity] int32, num [] int32,
-    vals [capacity, C] f32) with ``vals == bins.T[loc]`` for slots < num."""
-    loc, num = compact_occupied_blocks(occ2d, capacity)
-    vals = bins.T[loc.long()]
+    """Plain PyTorch version of kernel K2: (loc [..., capacity] int32, num
+    [...] int32, vals [..., capacity, C] f32) with ``vals == bins.T[loc]``
+    for slots < num, each scan of a batch on its own."""
+    scans = bins.dim() - 2
+    loc, num = compact_occupied_blocks(occ2d, capacity, scan_dims=scans)
+    idx = loc.long()[..., None].expand(*loc.shape, bins.shape[-2])
+    vals = bins.transpose(-1, -2).gather(-2, idx)
     return loc, num, vals
 
 
@@ -50,34 +55,39 @@ def compact_and_gather_exact(bins: torch.Tensor, occ2d: torch.Tensor, capacity: 
 
     ``bins``: [C, A*128] float32 channel-leading table; ``occ2d``: its
     [A, 128] occupancy, at any start (a view such as ``valid[1:]`` of a
-    padded buffer too).  Returns (loc, num, vals) as the plain version;
-    slots at or past ``num`` are unspecified.  On the card: three
-    allocations and one C call (kernel K2's two launches); ``num`` stays on
-    the device.
+    padded buffer too).  A batch stacks both: [B, C, A*128] and [B, A,
+    128].  Returns (loc, num, vals) as the plain version; slots at or past
+    ``num`` are unspecified.  On the card: three allocations and one C call
+    (kernel K2's two launches, the batch included); ``num`` stays on the
+    device.
     """
-    c, k = bins.shape
-    a, b = occ2d.shape
-    if b != 128 or a * b != k:
-        raise ValueError("compact_and_gather_exact: occ2d must be the [K/128, 128] view of bins")
+    c, k = bins.shape[-2:]
+    a, b = occ2d.shape[-2:]
+    lead = bins.shape[:-2]
+    if b != 128 or a * b != k or occ2d.shape[:-2] != lead or len(lead) > 1:
+        raise ValueError("compact_and_gather_exact: occ2d must be the [K/128, 128] view of bins "
+                         "(both with the same leading scan axis, if any)")
     if bins.device.type == "cpu":
         return compact_and_gather_plain(bins, occ2d, capacity)
     _build.require_cuda("compact_and_gather_exact", bins, occ2d, dtypes=_DTYPES)
     dev = bins.device
-    loc = torch.empty(capacity, dtype=torch.int32, device=dev)
-    vals = torch.empty(capacity, c, dtype=torch.float32, device=dev)
-    # num, then the kernel's per-1,024-column block counts
-    scratch = torch.empty(1 + -(-k // 1024), dtype=torch.int32, device=dev)
+    batch = bins[..., 0, 0].numel()
+    loc = torch.empty(*lead, capacity, dtype=torch.int32, device=dev)
+    vals = torch.empty(*lead, capacity, c, dtype=torch.float32, device=dev)
+    # num of each scan, then the kernel's per-1,024-column block counts
+    scratch = torch.empty(batch * (1 + -(-k // 1024)), dtype=torch.int32, device=dev)
     err = _build.kernels().pcp_compact_gather(
-        bins.data_ptr(), occ2d.data_ptr(), c, k, capacity, loc.data_ptr(), vals.data_ptr(),
-        scratch.data_ptr(), _build.stream_handle(),
+        bins.data_ptr(), occ2d.data_ptr(), batch, c, k, capacity, loc.data_ptr(),
+        vals.data_ptr(), scratch.data_ptr(), _build.stream_handle(),
     )
     _build.check(err, "compact_gather")
     _build.LAUNCHES["compact_gather"] += 1
-    return loc, scratch[0], vals
+    return loc, scratch[:batch].reshape(lead), vals
 
 
 def compact(cloud: Cloud, capacity_out: int | None = None) -> CompactResult:
-    """Move valid points to the front, stably; shrink to ``capacity_out``."""
+    """Move valid points to the front, stably; shrink to ``capacity_out``
+    (one cloud, or each scan of a batch)."""
     n = cloud.capacity
     capacity_out = capacity_out or n
     if n % 128:
@@ -85,17 +95,17 @@ def compact(cloud: Cloud, capacity_out: int | None = None) -> CompactResult:
             f"compact needs a cloud capacity that is a multiple of 128 (got {n}); "
             "the reference's rank-scatter form for other capacities is not ported"
         )
+    pts = cloud.points
     bins = torch.stack(
-        [cloud.points[:, 0], cloud.points[:, 1], cloud.points[:, 2],
-         cloud.valid.to(torch.float32)]
+        [pts[..., 0], pts[..., 1], pts[..., 2], cloud.valid.to(torch.float32)], dim=-2
     )
     loc, count, vals = compact_and_gather_exact(
-        bins, cloud.valid.reshape(n // 128, 128), capacity_out
+        bins, cloud.valid.reshape(*cloud.valid.shape[:-1], n // 128, 128), capacity_out
     )
     out_valid = torch.arange(capacity_out, device=cloud.device) < torch.clamp_max(
         count, capacity_out
-    )
-    cols = [torch.where(out_valid, vals[:, c], 0.0) for c in range(3)]
+    )[..., None]
+    cols = [torch.where(out_valid, vals[..., c], 0.0) for c in range(3)]
     return CompactResult(
         cloud=Cloud(points=torch.stack(cols, dim=-1), valid=out_valid),
         count=torch.clamp_max(count, capacity_out),

@@ -57,9 +57,9 @@ def grid_cell_index(points: torch.Tensor, config: PipelineConfig) -> torch.Tenso
 
 class CropSeedResult(NamedTuple):
     cloud: Cloud  # same buffer, mask restricted to in-crop finite points
-    counts: torch.Tensor  # [H, W] int32 per-cell point histogram
-    row_averages: torch.Tensor  # [H] int32
-    hole_grid: torch.Tensor  # [H, W] int8: 100 where a crater is detected
+    counts: torch.Tensor  # [..., H, W] int32 per-cell point histogram
+    row_averages: torch.Tensor  # [..., H] int32
+    hole_grid: torch.Tensor  # [..., H, W] int8: 100 where a crater is detected
 
 
 def crop_and_seed(cloud: Cloud, config: PipelineConfig) -> CropSeedResult:
@@ -68,9 +68,9 @@ def crop_and_seed(cloud: Cloud, config: PipelineConfig) -> CropSeedResult:
     in_box = cloud.valid & crop_box_mask(cloud.points, config)
     col, row = grid_cell_xy(cloud.points, config)
     counts = histogram2d(row, col, in_box, H, W)
-    row_averages = torch.div(counts.sum(dim=1), W, rounding_mode="floor").to(torch.int32)
+    row_averages = torch.div(counts.sum(dim=-1), W, rounding_mode="floor").to(torch.int32)
     threshold = row_averages.to(torch.float32) * f32(1.0 - config.dev_percent)
-    hole = counts.to(torch.float32) < threshold[:, None]
+    hole = counts.to(torch.float32) < threshold[..., None]
     hole_grid = torch.where(hole, 100, 0).to(torch.int8)
     return CropSeedResult(
         cloud=Cloud(points=cloud.points, valid=in_box),

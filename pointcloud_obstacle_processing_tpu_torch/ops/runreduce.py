@@ -8,6 +8,8 @@ windows of ``group * 128`` rows (``group`` depends on N only), a
 Hillis-Steele shift+add scan in each window, then one carry add for each
 row before the window's first head, the carries chained window after window.
 
+Both take one buffer ``[N]`` or a batch ``[B, N]`` of them, each reduced on
+its own (the kernel takes the scan as a grid dimension).
 ``sorted_run_reduce`` launches the CUDA kernel (``csrc/runreduce.cu``) for
 CUDA tensors and takes ``sorted_run_reduce_plain`` only for CPU tensors.
 """
@@ -59,8 +61,8 @@ def _scan_channels(vals: torch.Tensor, flags: torch.Tensor, w: int) -> torch.Ten
 
 def _flags(skey: torch.Tensor, sentinel: int):
     valid = skey < sentinel
-    prev = torch.nn.functional.pad(skey[:-1], (1, 0), value=-1)
-    nxt = torch.nn.functional.pad(skey[1:], (0, 1), value=-2)
+    prev = torch.nn.functional.pad(skey[..., :-1], (1, 0), value=-1)
+    nxt = torch.nn.functional.pad(skey[..., 1:], (0, 1), value=-2)
     return valid, valid & (skey != prev), valid & (skey != nxt)
 
 
@@ -77,37 +79,36 @@ def _decode(offs, quantum):
 def sorted_run_reduce_plain(skey, offs, sentinel: int, capacity: int, group: int | None = None,
                             quantum: float | None = None):
     """Plain PyTorch version of kernel K1, bitwise equal to the reference's
-    ``_xla_fallback``."""
-    n = skey.shape[0]
+    ``_xla_fallback``, each scan of a batch on its own."""
+    n = skey.shape[-1]
+    lead = skey.shape[:-1]
     group = group or default_group(n)
     w = group * 128
     steps = n // w
     ox, oy, oz = _decode(offs, quantum)
     valid, heads, is_end = _flags(skey, sentinel)
-    hw = heads.to(torch.int32).reshape(steps, w)
+    hw = heads.to(torch.int32).reshape(*lead, steps, w)
     ch = torch.stack(
-        [ox.reshape(steps, w), oy.reshape(steps, w), oz.reshape(steps, w),
-         valid.to(torch.float32).reshape(steps, w)]
-    )  # [4, steps, w]
+        [c.reshape(*lead, steps, w) for c in (ox, oy, oz, valid.to(torch.float32))]
+    )  # [4, *lead, steps, w]
     local = _scan_channels(ch, hw, w)
-    no_head_yet = torch.cumsum(hw, dim=1) == 0  # [steps, w]
+    no_head_yet = torch.cumsum(hw, dim=-1) == 0  # [*lead, steps, w]
 
-    lastcol = local[:, :, -1]  # [4, steps]
-    gate = no_head_yet[:, -1]
-    carries = torch.empty(4, steps, dtype=torch.float32, device=skey.device)
-    c = torch.zeros(4, dtype=torch.float32, device=skey.device)
+    lastcol = local[..., -1]  # [4, *lead, steps]
+    gate = no_head_yet[..., -1]
+    carries = torch.empty_like(lastcol)
+    c = torch.zeros_like(lastcol[..., 0])
     for t in range(steps):  # the sequential carry chain
-        carries[:, t] = c
-        c = lastcol[:, t] + torch.where(gate[t], c, torch.zeros_like(c))
-    adj = (local + torch.where(no_head_yet, carries[:, :, None], torch.zeros_like(local)))
-    adj = adj.reshape(4, n)
+        carries[..., t] = c
+        c = lastcol[..., t] + torch.where(gate[..., t], c, torch.zeros_like(c))
+    adj = (local + torch.where(no_head_yet, carries[..., None], torch.zeros_like(local)))
+    adj = adj.reshape(4, *lead, n)
 
-    loc, num = compact_occupied_blocks(is_end, capacity)
+    loc, num = compact_occupied_blocks(is_end, capacity, scan_dims=len(lead))
     loc = loc.long()
     cnt_end = torch.where(is_end, adj[3], torch.zeros_like(adj[3]))
-    vals = torch.stack(
-        [skey.to(torch.float32)[loc], adj[0][loc], adj[1][loc], adj[2][loc], cnt_end[loc]], dim=-1
-    )
+    cols = (skey.to(torch.float32), adj[0], adj[1], adj[2], cnt_end)
+    vals = torch.stack([c.gather(-1, loc) for c in cols], dim=-1)
     return vals, num
 
 
@@ -116,12 +117,15 @@ def sorted_run_reduce(skey, offs, sentinel: int, capacity: int, group: int | Non
     """Per-run (key, sum_x, sum_y, sum_z, count) of a key-sorted buffer,
     compacted to the first ``capacity`` runs in ascending key order.
 
-    ``skey``: [N] int32 ascending, ``sentinel`` for invalid rows.  ``offs``:
-    three [N] float32 offsets, or with ``quantum`` the (pxy, pz) int32 pair
-    of 16-bit fixed-point offsets.  Returns (vals [capacity, 5] f32, num []
-    int32); slots at or past ``num`` are unspecified.
+    ``skey``: [N] (or [B, N], one buffer a scan) int32 ascending,
+    ``sentinel`` for invalid rows.  ``offs``: three float32 offset buffers
+    of ``skey``'s shape, or with ``quantum`` the (pxy, pz) int32 pair of
+    16-bit fixed-point offsets.  Returns (vals [..., capacity, 5] f32, num
+    [...] int32); slots at or past ``num`` are unspecified.  One launch a
+    call, the batch included.
     """
-    n = skey.shape[0]
+    n = skey.shape[-1]
+    lead = skey.shape[:-1]
     group = group or default_group(n)
     w = group * 128
     if n % w:
@@ -141,17 +145,18 @@ def sorted_run_reduce(skey, offs, sentinel: int, capacity: int, group: int | Non
         raise ValueError(f"sorted_run_reduce: window {w} exceeds the kernel's 4096 rows")
     lib = _build.kernels()
     dev = skey.device
-    vals = torch.empty(capacity, 5, dtype=torch.float32, device=dev)
-    num = torch.empty(1, dtype=torch.int32, device=dev)
+    batch = skey[..., 0].numel()
+    vals = torch.empty(*lead, capacity, 5, dtype=torch.float32, device=dev)
+    num = torch.empty(lead, dtype=torch.int32, device=dev)
     # the kernel's look-back workspace (csrc/runreduce.cu), cleared by the call
-    workspace = torch.empty((n // w) * 44 + 16, dtype=torch.uint8, device=dev)
+    workspace = torch.empty(batch * (n // w) * 44 + 16, dtype=torch.uint8, device=dev)
     packed = quantum is not None
     err = lib.pcp_runreduce(
         skey.data_ptr(), offs[0].data_ptr(), offs[1].data_ptr(),
         None if packed else offs[2].data_ptr(), int(packed),
-        float(np.float32(quantum)) if packed else 0.0, n, w, sentinel, capacity,
+        float(np.float32(quantum)) if packed else 0.0, batch, n, w, sentinel, capacity,
         workspace.data_ptr(), vals.data_ptr(), num.data_ptr(), _build.stream_handle(),
     )
     _build.check(err, "runreduce")
     _build.LAUNCHES["runreduce"] += 1
-    return vals, num[0]
+    return vals, num

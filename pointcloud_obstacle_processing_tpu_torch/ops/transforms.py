@@ -1,7 +1,9 @@
 """Rigid transforms (tf2 / pcl_ros::transformPointCloud equivalent).
 
 Counterpart of ``pointcloud_obstacle_processing_tpu/ops/transforms.py``: an
-xyzw quaternion plus a translation, applied as one rotate + add.
+xyzw quaternion plus a translation, applied as one rotate + add.  A
+transform may hold one pose (``[4]``, ``[3]``) or one per scan (``[B, 4]``,
+``[B, 3]``); ``apply`` broadcasts it over each scan's points.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Rotate vectors v[..., 3] by the xyzw quaternion q[4]: the reference's
+    """Rotate vectors v[..., 3] by the xyzw quaternion q[..., 4] (the two
+    broadcast over their leading axes): the reference's
     ``v + w*t + cross(u, t)`` as XLA:CPU evaluates it, ``w*t`` fused into
     the first add."""
     u = q[..., :3]
@@ -41,8 +44,8 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 class RigidTransform:
     """SE(3) transform p' = R(q) p + t."""
 
-    quat_xyzw: torch.Tensor  # [4] float32
-    translation: torch.Tensor  # [3] float32
+    quat_xyzw: torch.Tensor  # [4] or [B, 4] float32
+    translation: torch.Tensor  # [3] or [B, 3] float32
 
     @classmethod
     def identity(cls, device=None) -> "RigidTransform":
@@ -62,8 +65,13 @@ class RigidTransform:
         return RigidTransform(self.quat_xyzw.to(device), self.translation.to(device))
 
     def apply(self, points: torch.Tensor) -> torch.Tensor:
-        return quat_rotate(self.quat_xyzw, points) + self.translation
+        """``points`` [N, 3], or [B, N, 3] with one pose or one per scan."""
+        q, t = self.quat_xyzw, self.translation
+        if q.dim() > 1:  # a pose per scan: broadcast over the scan's points
+            q, t = q[..., None, :], t[..., None, :]
+        return quat_rotate(q, points) + t
 
     def inverse(self) -> "RigidTransform":
-        qinv = torch.cat([-self.quat_xyzw[:3], self.quat_xyzw[3:]])
+        q = self.quat_xyzw
+        qinv = torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
         return RigidTransform(quat_xyzw=qinv, translation=-quat_rotate(qinv, self.translation))

@@ -8,7 +8,8 @@ keys.  The output is one centroid per occupied voxel, in ascending
 (ix, iy, iz) order, for the first ``max_voxels`` voxels.  Lattice order and
 both payload modes (three float32 offsets, or 16-bit fixed point packed in
 two int32 columns) are ported; the dense-bin engines and the Morton order
-are not (``PipelineConfig.validate`` refuses them).
+are not (``PipelineConfig.validate`` refuses them).  Every function takes
+one cloud or a batch of them (``[B, N]``, each scan on its own).
 """
 
 from __future__ import annotations
@@ -27,13 +28,13 @@ __all__ = ["voxel_downsample", "voxel_partials", "finalize_voxels", "VoxelResult
 _I32_MAX = 2**31 - 1
 
 
-class VoxelResult(NamedTuple):
+class VoxelResult(NamedTuple):  # a leading [B] on every field for a batch
     cloud: Cloud  # [max_voxels] centroids, key-sorted
     num_voxels: torch.Tensor  # [] int32: true number of occupied voxels
     overflow: torch.Tensor  # [] bool: num_voxels > max_voxels
 
 
-class VoxelPartials(NamedTuple):
+class VoxelPartials(NamedTuple):  # a leading [B] on every field for a batch
     keys: torch.Tensor  # [cap, 3] int32 voxel coords (INT32_MAX = empty slot)
     sums: torch.Tensor  # [cap, 3] float32 coordinate sums
     counts: torch.Tensor  # [cap] float32 member counts (0 = empty)
@@ -68,57 +69,57 @@ def _unpack_keys(packed: torch.Tensor, spec):
 def _sort_segment_partials(pts, valid, ijk, imin, dims, leaf_size: float, capacity: int,
                            payload_packing: bool = False) -> VoxelPartials:
     """Stable sort on the packed key + the run-reduce kernel (the reference's
-    ``_sort_segment_partials`` with lattice order)."""
-    n = pts.shape[0]
+    ``_sort_segment_partials`` with lattice order), each scan of a batch on
+    its own: the sort runs along the last axis, so a scan's rows keep the
+    order they have alone, and K1 takes the batch in one launch."""
+    n = pts.shape[-2]
     if n % 128:
         raise ValueError(
             f"the sort engine needs the point buffer length to be a multiple of 128 (got {n})"
         )
     K = dims[0] * dims[1] * dims[2]
-    ix = torch.clamp(ijk[:, 0] - imin[0], 0, dims[0] - 1)
-    iy = torch.clamp(ijk[:, 1] - imin[1], 0, dims[1] - 1)
-    iz = torch.clamp(ijk[:, 2] - imin[2], 0, dims[2] - 1)
+    ix = torch.clamp(ijk[..., 0] - imin[0], 0, dims[0] - 1)
+    iy = torch.clamp(ijk[..., 1] - imin[1], 0, dims[1] - 1)
+    iz = torch.clamp(ijk[..., 2] - imin[2], 0, dims[2] - 1)
     sentinel = K
     packed = torch.where(valid, (ix * dims[1] + iy) * dims[2] + iz, K).to(torch.int32)
 
     # corner-relative offsets before the sort: a point's offset in its
     # voxel does not depend on its sorted position
     lf = f32(leaf_size)
-    lattice = torch.stack([ix + imin[0], iy + imin[1], iz + imin[2]]).to(torch.float32)
+    lattice = torch.stack([ix + imin[0], iy + imin[1], iz + imin[2]], dim=-1).to(torch.float32)
     # the reference contracts both multiply-adds of this stage; for these
     # operands (a lattice coordinate times the leaf, times a point count;
     # an offset next to its corner) the float64 sum inside ``fma`` is exact
-    off0 = fma(-lattice, lf, pts.T)  # pts - lattice * leaf
-    off0 = torch.where(valid[None, :], off0, torch.zeros_like(off0))
+    off0 = fma(-lattice, lf, pts)  # pts - lattice * leaf, [..., N, 3]
+    off0 = torch.where(valid[..., None], off0, torch.zeros_like(off0))
 
-    skey, order = torch.sort(packed, stable=True)
+    skey, order = torch.sort(packed, dim=-1, stable=True)
     if payload_packing:
         quantum = leaf_size / 65536.0
         q = f32(65536.0 / leaf_size)
-        qx = torch.clamp((off0[0] * q).to(torch.int32), 0, 65535)
-        qy = torch.clamp((off0[1] * q).to(torch.int32), 0, 65535)
-        qz = torch.clamp((off0[2] * q).to(torch.int32), 0, 65535)
+        qx, qy, qz = (torch.clamp((off0[..., c] * q).to(torch.int32), 0, 65535)
+                      for c in range(3))
         pxy = (qx << 16) | qy
         slot_vals, num = sorted_run_reduce(
-            skey, (pxy[order], qz[order]), sentinel, capacity, quantum=quantum
+            skey, (pxy.gather(-1, order), qz.gather(-1, order)), sentinel, capacity,
+            quantum=quantum,
         )
     else:
         slot_vals, num = sorted_run_reduce(
-            skey, (off0[0][order], off0[1][order], off0[2][order]), sentinel, capacity
+            skey, tuple(off0[..., c].gather(-1, order) for c in range(3)), sentinel, capacity
         )
 
-    sv = slot_vals.T  # [5, capacity]
     target = torch.arange(capacity, device=pts.device)
-    out_valid = target < torch.clamp_max(num, capacity)
-    slot_key = torch.clamp(sv[0].to(torch.int32), 0, sentinel - 1)
+    out_valid = target < torch.clamp_max(num, capacity)[..., None]
+    slot_key = torch.clamp(slot_vals[..., 0].to(torch.int32), 0, sentinel - 1)
     lx, ly, lz = _unpack_keys(slot_key, (imin, dims))
-    slot_counts = sv[4]
+    slot_counts = slot_vals[..., 4]
     key_cols, sum_cols = [], []
     for ch, l in ((1, lx), (2, ly), (3, lz)):
         key_cols.append(torch.where(out_valid, l, _I32_MAX))
-        sum_cols.append(
-            torch.where(out_valid, fma(l.to(torch.float32) * lf, slot_counts, sv[ch]), 0.0)
-        )
+        sum_cols.append(torch.where(
+            out_valid, fma(l.to(torch.float32) * lf, slot_counts, slot_vals[..., ch]), 0.0))
     return VoxelPartials(
         keys=torch.stack(key_cols, dim=-1).to(torch.int32),
         sums=torch.stack(sum_cols, dim=-1),
@@ -155,11 +156,11 @@ def voxel_partials(cloud: Cloud, leaf_size: float, capacity: int, bounds=None,
 def finalize_voxels(partials: VoxelPartials) -> VoxelResult:
     """Partials -> centroid cloud: one reciprocal per voxel, three multiplies
     (the reference's exact operation order)."""
-    cap = partials.counts.shape[0]
+    cap = partials.counts.shape[-1]
     slot = torch.arange(cap, device=partials.counts.device)
-    valid = slot < torch.clamp_max(partials.num_voxels, cap)
+    valid = slot < torch.clamp_max(partials.num_voxels, cap)[..., None]
     inv = 1.0 / torch.clamp_min(partials.counts, 1.0)
-    centroids = torch.stack([partials.sums[:, c] * inv for c in range(3)], dim=-1)
+    centroids = torch.stack([partials.sums[..., c] * inv for c in range(3)], dim=-1)
     return VoxelResult(
         cloud=Cloud(points=centroids, valid=valid),
         num_voxels=partials.num_voxels,

@@ -15,6 +15,11 @@ Counterpart of ``pointcloud_obstacle_processing_tpu/pipeline.py``
 Every stage runs on the device of the input cloud.  The only host reads are
 the cluster loop's per-sweep convergence checks (``PipelineResult.
 host_syncs``).
+
+``process_scan`` takes one cloud ``[N]`` or a batch ``[B, N]`` (the
+reference's ``jax.vmap``, written out): every stage runs on the batch, each
+kernel once a call with the scan as a grid dimension, and one scan runs as
+a batch of one.
 """
 
 from __future__ import annotations
@@ -30,16 +35,19 @@ from .ops.ransac import Draw, draw_from_uniform, segment_planes
 from .ops.shadow import cast_shadows
 from .ops.transforms import RigidTransform
 from .ops.voxel import voxel_downsample
-from .types import Cloud, OccupancyGrid, PipelineResult, StageStats
+from .types import Cloud, OccupancyGrid, PipelineResult, StageStats, batch_of, scan_of
 
 __all__ = ["process_scan", "default_draw"]
 
 
-def default_draw(config: PipelineConfig, generator: torch.Generator, device) -> Draw:
-    """RANSAC draws from ``generator``: uniform numbers for every round made
-    up front, so the plane loop needs no host sync."""
-    u = torch.rand(config.max_planes, config.ransac_hypotheses, 3,
-                   generator=generator, device=device)
+def default_draw(config: PipelineConfig, generator: torch.Generator, device,
+                 batch: int | None = None) -> Draw:
+    """RANSAC draws from ``generator``: uniform numbers for every round (of
+    each of ``batch`` scans) made up front, so the plane loop needs no host
+    sync."""
+    shape = (config.max_planes, config.ransac_hypotheses, 3)
+    u = torch.rand(shape if batch is None else (batch, *shape), generator=generator,
+                   device=device)
     return draw_from_uniform(u)
 
 
@@ -47,18 +55,24 @@ def process_scan(cloud: Cloud, config: PipelineConfig,
                  world_from_sensor: RigidTransform | None = None,
                  draw: Draw | None = None,
                  generator: torch.Generator | None = None) -> PipelineResult:
-    """Full pipeline over one accumulated, world-frame cloud.
+    """Full pipeline over one accumulated, world-frame cloud, or over each
+    scan of a batch (every result field then has a leading ``B``).
 
-    ``draw`` supplies the RANSAC hypotheses (see ``ops.ransac``); without it
-    they come from ``generator`` (or torch's default generator).
+    ``draw`` supplies the RANSAC hypotheses (see ``ops.ransac``: [K, 3]
+    indices a round for one cloud, [B, K, 3] for a batch); without it they
+    come from ``generator`` (or torch's default generator).
     ``world_from_sensor`` is the sensor pose for the shadow geometry,
-    identity by default.
+    identity by default; a batch takes one pose for all or one a scan.
     """
     dev = cloud.device
+    cloud, single = batch_of(cloud)
     if world_from_sensor is None:
         world_from_sensor = RigidTransform.identity(dev)
     if draw is None:
-        draw = default_draw(config, generator, dev)
+        draw = default_draw(config, generator, dev, None if single else cloud.valid.shape[0])
+    if single:
+        one_draw = draw
+        draw = lambda r, n_valid: one_draw(r, n_valid[0])[None]  # noqa: E731
 
     n_in = cloud.count()
     seed = crop_and_seed(cloud, config)
@@ -71,17 +85,18 @@ def process_scan(cloud: Cloud, config: PipelineConfig,
         cropped, config.downsample_leaf_size, config.max_voxels, bounds,
         config.voxel_payload_packing,
     )
-    return _post_voxel(
+    res = _post_voxel(
         vox.cloud, vox.num_voxels, seed.hole_grid, n_in, cropped.count(), config,
         world_from_sensor, draw, vox.overflow,
     )
+    return scan_of(res) if single else res
 
 
 def _post_voxel(voxel_cloud: Cloud, n_voxels: torch.Tensor, hole_grid: torch.Tensor,
                 n_in: torch.Tensor, n_cropped: torch.Tensor, config: PipelineConfig,
                 world_from_sensor: RigidTransform, draw: Draw,
                 voxel_overflow: torch.Tensor) -> PipelineResult:
-    """Stages 3-8."""
+    """Stages 3-8, on a batch."""
     # knn_skip_dead_tiles needs no code here: K3 and its plain version
     # always give query tiles with no valid point the mean of `big` rows,
     # 0, the output the reference's per-tile skip gives (those rows are

@@ -3,7 +3,9 @@
 Counterpart of ``pointcloud_obstacle_processing_tpu/types.py``.  Every
 container keeps the reference's fixed-capacity layout (padded buffers plus a
 validity mask or count) and its field names, so results compare field by
-field.
+field.  Every tensor field may carry a leading scan axis ``[B, ...]``: a
+batch of scans is the same containers with that axis written out, as the
+reference's ``jax.vmap`` leaves them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ __all__ = [
     "PlaneModel",
     "StageStats",
     "PipelineResult",
+    "batch_of",
+    "scan_of",
 ]
 
 
@@ -29,8 +33,8 @@ __all__ = [
 class Cloud:
     """Fixed-capacity point cloud: padded points + validity mask."""
 
-    points: torch.Tensor  # [N, 3] float32
-    valid: torch.Tensor  # [N] bool
+    points: torch.Tensor  # [N, 3] or [B, N, 3] float32
+    valid: torch.Tensor  # [N] or [B, N] bool
 
     @property
     def capacity(self) -> int:
@@ -41,7 +45,8 @@ class Cloud:
         return self.points.device
 
     def count(self) -> torch.Tensor:
-        """Number of valid points (0-d int32 tensor, no host sync)."""
+        """Number of valid points of each scan (int32, ``[]`` or ``[B]``, no
+        host sync)."""
         return self.valid.sum(dim=-1, dtype=torch.int32)
 
     def to(self, device) -> "Cloud":
@@ -58,14 +63,16 @@ class Cloud:
 
     @classmethod
     def pad_to(cls, points, capacity: int, device=None) -> "Cloud":
-        """Pad a concrete [n, 3] array with zeros up to ``capacity``."""
+        """Pad a concrete [n, 3] array, or a [B, n, 3] batch of them, with
+        zeros up to ``capacity``."""
         points = np.asarray(points, np.float32)
-        n = points.shape[0]
+        n = points.shape[-2]
         if n > capacity:
             raise ValueError(f"cloud of {n} points exceeds capacity {capacity}")
-        buf = np.zeros((capacity, 3), np.float32)
-        buf[:n] = points
-        return cls.from_points(buf, np.arange(capacity) < n, device=device)
+        buf = np.zeros((*points.shape[:-2], capacity, 3), np.float32)
+        buf[..., :n, :] = points
+        valid = np.broadcast_to(np.arange(capacity) < n, buf.shape[:-1])
+        return cls.from_points(buf, valid, device=device)
 
 
 @dataclasses.dataclass
@@ -175,3 +182,29 @@ class PipelineResult:
     last_plane_cloud: Cloud | None = None
     nonplane_cloud: Cloud | None = None
     host_syncs: int = 0
+
+
+def batch_of(cloud: Cloud) -> tuple[Cloud, bool]:
+    """``cloud`` with a leading scan axis, and whether it came without one
+    (a single scan runs as a batch of one)."""
+    if cloud.points.dim() == 2:
+        return Cloud(points=cloud.points[None], valid=cloud.valid[None]), True
+    return cloud, False
+
+
+def scan_of(obj, b: int = 0):
+    """Scan ``b`` of a batched result: every tensor in ``obj`` (nested
+    NamedTuples, dataclasses, tuples, lists and dicts) indexed at ``b`` on
+    its leading axis; other values as they are."""
+    if isinstance(obj, torch.Tensor):
+        return obj[b]
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(scan_of(v, b) for v in obj))
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(
+            obj, **{f.name: scan_of(getattr(obj, f.name), b) for f in dataclasses.fields(obj)})
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(scan_of(v, b) for v in obj)
+    if isinstance(obj, dict):
+        return {k: scan_of(v, b) for k, v in obj.items()}
+    return obj

@@ -22,8 +22,8 @@ clustering packed its sweep points is driven through the same calls by
 ``_adapt``: its K3 row times the selection and ``mean_from_sorted``, the
 function the fused kernel computes, its K4 and K5 rows take the points
 and |p|^2 apart, as that checkout's cluster loop does, and its cluster
-loop row is this checkout's per-sweep loop over that checkout's K4 (one
-launch, the hook and a host read a sweep).  It prints one line per kernel and run,
+loop row is this checkout's per-sweep loop (``ops.cluster._sweep_loop``)
+over that checkout's K4 (one launch, the hook and a host read a sweep).  It prints one line per kernel and run,
 and with ``--out FILE`` writes every number to FILE as JSON.  Every line
 names the card and its power limit.  It needs a CUDA card.
 
@@ -57,15 +57,19 @@ def _chip_smoke():
     return mod
 
 
-def _this_cluster(ops):
-    """This checkout's ``ops/cluster.py``, loaded as a module of the
-    ``ops`` package being timed (its relative imports resolve there)."""
-    spec = importlib.util.spec_from_file_location(
-        f"{ops.__name__}._cluster_ab", ROOT / "pointcloud_obstacle_processing_tpu_torch" / "ops"
-        / "cluster.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def _this_cluster():
+    """This checkout's ``ops.cluster``, from this checkout's package loaded
+    under another name (``_pcp_torch_ab``), so that its imports resolve in
+    this checkout whatever package the run times."""
+    name = "_pcp_torch_ab"
+    if name not in sys.modules:
+        pkg = ROOT / "pointcloud_obstacle_processing_tpu_torch"
+        spec = importlib.util.spec_from_file_location(
+            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.ops.cluster")
 
 
 def _adapt(ops):
@@ -88,7 +92,7 @@ def _adapt(ops):
         # the loop as such a checkout runs it: this checkout's per-sweep loop
         # (one K4 launch a sweep, the hook in PyTorch, a host read of the
         # change test after each sweep) over that checkout's sweeps
-        here = _this_cluster(ops)
+        here = _this_cluster()
 
         def loop(sweep):
             def run_loop(pk, valid, labels, tol2, max_iters):
@@ -216,19 +220,20 @@ def main() -> None:
             sys.stderr.write(out.stdout[-4000:] + out.stderr[-8000:])
             raise SystemExit(f"torch_kernel_ab: the {label} run failed ({out.returncode})")
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    ms = _chip_smoke()._ms  # "not measured" where the profiler recorded nothing
     for i, r in enumerate(runs):
         p50, ops = r["scan_p50_ms"], r["scan_device_ops"]
         print(f"run {i} {r['label']}: process_scan p50 flagship {p50['flagship']:.3f} ms, "
               f"fullscale {p50['fullscale']:.3f} ms; device operations per scan flagship "
-              f"{ops['flagship'][0]} ({ops['flagship'][1]:.3f} ms), fullscale "
-              f"{ops['fullscale'][0]} ({ops['fullscale'][1]:.3f} ms) [{r['card']}]")
+              f"{ops['flagship'][0]} ({ms(ops['flagship'][1])}), fullscale "
+              f"{ops['fullscale'][0]} ({ms(ops['fullscale'][1])}) [{r['card']}]")
         for row in r["rows"]:
             lib = row["library_ms"]
             print(f"  {row['name']:20s} {row['path']:9s} call {row['ms']:.4f} ms, device "
-                  f"{row['device_ms']:.4f} ms, host {row['host_ms']:.4f} ms, plain "
+                  f"{ms(row['device_ms'])}, host {row['host_ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms"
                   + ("" if lib is None else
-                     f", library {lib:.4f} ms (device {row['library_device_ms']:.4f} ms, "
+                     f", library {lib:.4f} ms (device {ms(row['library_device_ms'])}, "
                      f"host {row['library_host_ms']:.4f} ms)")
                   + f"  [{row['shape']}]")
     if args.out:

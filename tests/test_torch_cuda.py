@@ -622,3 +622,83 @@ def test_slice_on_the_card_equals_cpu(dev, band_window):
         assert getattr(a.stats, f).item() == getattr(b.stats, f).item(), f
     np.testing.assert_allclose(a.centroids.points.xyzr.cpu().numpy(),
                                b.centroids.points.xyzr.numpy(), atol=1e-5)
+
+
+def test_batched_kernels_equal_plain(dev):
+    """K1, K2, K3 and the loop kernel on a batch of three differing scans,
+    the scan a grid dimension: each scan's output equals the plain version
+    (the loop kernel with 1, 2, 4, 8 and 16 blocks a scan)."""
+    rng = np.random.default_rng(5)
+    b, n = 3, 8192
+    skey = np.full((b, n), 9000, np.int32)
+    for i in range(b):
+        skey[i, : 5000 + 1000 * i] = np.sort(rng.integers(0, 3000 + 1000 * i, 5000 + 1000 * i))
+    pxy = rng.integers(0, 2**32, (b, n), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    pz = rng.integers(0, 65536, (b, n)).astype(np.int32)
+    args = [torch.tensor(skey, device=dev), (torch.tensor(pxy, device=dev),
+                                             torch.tensor(pz, device=dev)), 9000, 2048]
+    vk, nk = runreduce.sorted_run_reduce(*args, quantum=0.04 / 65536)
+    vp, np_ = runreduce.sorted_run_reduce_plain(*args, quantum=0.04 / 65536)
+    _eq(nk, np_)
+    for i, m in enumerate(np_.tolist()):
+        _eq(vk[i, : min(m, 2048)], vp[i, : min(m, 2048)])
+
+    occ = torch.tensor(rng.random((b, 64, 128)) < np.array([0.02, 0.3, 0.9])[:, None, None],
+                       device=dev)
+    bins = torch.tensor(rng.standard_normal((b, 4, 8192)).astype(np.float32), device=dev)
+    lk, nk, vk = compaction.compact_and_gather_exact(bins, occ, 1024)
+    lp, np_, vp = compaction.compact_and_gather_plain(bins, occ, 1024)
+    _eq(nk, np_)
+    for i, m in enumerate(np_.tolist()):
+        _eq(lk[i, : min(m, 1024)], lp[i, : min(m, 1024)])
+        _eq(vk[i, : min(m, 1024)], vp[i, : min(m, 1024)])
+
+    rt, band = 384, 512
+    p = torch.sort(torch.tensor(rng.uniform(-1, 1, (b, n, 3)).astype(np.float32), device=dev),
+                   dim=1).values
+    valid = torch.tensor(np.arange(n) < np.array([3000, 6000, 8192])[:, None], device=dev)
+    pch = [p[..., c].contiguous() for c in range(3)]
+    p_sq = pch[0] * pch[0] + pch[1] * pch[1] + pch[2] * pch[2]
+    tiles = -(-n // rt)
+    starts = outliers.band_starts(n, rt, band, tiles, dev)
+    knn = (pch, p_sq, valid, starts, rt, rt + 2 * band, 15)
+    _eq(outliers.knn_mean(*knn), outliers.knn_mean_plain(*knn))
+
+    c = 1024
+    pts = torch.tensor(rng.uniform(0, 3.0, (b, c, 3)).astype(np.float32), device=dev)
+    cvalid = torch.tensor(np.arange(c) < np.array([400, 800, 1024])[:, None], device=dev)
+    q, q_sq, labels = cluster._seed_labels(pts, cvalid, 0.08)
+    loop = (cluster.pack_points(q, q_sq), cvalid, labels, 0.08 ** 2, 64)
+    want = cluster.cluster_loop_plain(*loop)
+    for nb in (1, 2, 4, 8, 16):
+        got = cluster.loop_kernel(*loop, blocks=nb)
+        _eq(got.labels, want.labels)
+        _eq(got.sweeps, want.sweeps)
+        _eq(got.unconverged, want.unconverged)
+
+
+def test_batched_slice_on_the_card_equals_cpu(dev):
+    """A batch of three scans of the small config on the card, one launch of
+    each kernel, against the same batch through the plain versions."""
+    cfg = REFERENCE_YAML_CONFIG.replace(
+        max_points=32768, max_voxels=8192, cluster_capacity=2048, max_clusters=16,
+        downsample_leaf_size=0.06, voxel_payload_packing=True,
+    )
+    spec = SceneSpec(n_ground=24000, n_rocks=3, points_per_rock=1500, n_noise=150)
+    pts = np.stack([make_scene(seed=s, spec=spec).points[:27000] for s in (11, 12, 13)])
+    cloud = Cloud.pad_to(pts, cfg.max_points)
+    u = np.random.default_rng(0).random((3, cfg.max_planes, cfg.ransac_hypotheses, 3))
+    u = u.astype(np.float32)
+    _build.reset_launch_counts()
+    a = process_scan(cloud.to(dev), cfg, draw=draw_from_uniform(torch.tensor(u, device=dev)))
+    for k in ("runreduce", "compact_gather", "knn_mean", "cluster_loop"):
+        assert _build.LAUNCHES[k] == 1, _build.LAUNCHES
+    assert a.host_syncs == 0
+    b = process_scan(cloud, cfg, draw=draw_from_uniform(torch.tensor(u)))
+    _eq(a.grid.data, b.grid.data)
+    _eq(a.clusters.point_cluster, b.clusters.point_cluster)
+    for f in ("voxel_points", "inlier_points", "nonplane_points", "num_planes", "num_clusters",
+              "voxel_overflow", "cluster_overflow", "planes_truncated", "cluster_unconverged"):
+        _eq(getattr(a.stats, f), getattr(b.stats, f))
+    np.testing.assert_allclose(a.centroids.points.xyzr.cpu().numpy(),
+                               b.centroids.points.xyzr.numpy(), atol=1e-5)

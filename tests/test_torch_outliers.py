@@ -6,11 +6,12 @@ random clouds.  The port evaluates the distance as XLA:CPU evaluates the
 reference's (|p|^2 and the cross term as its fused multiply-add chains, the
 mean in its order with correctly rounded roots), so on a cloud whose
 centering sums are exact in any order the mean distances are bitwise the
-reference's (``test_knn_probe_is_bitwise_the_reference``).  On random
-clouds the centering sums reduce in another order in torch, and the
+reference's (``test_knn_probe_is_bitwise_the_reference``).  The bar dates
+from when the centering sums reduced in another order in torch (the
 expanded d2 turns one ulp of the center into up to about |p|^2 * 2^-23 of
-absolute error: 4.13e-5 relative at most over the cases below, hence the
-bar (it was 1e-4 while the cross term was unfused).
+absolute error: 4.13e-5 relative at most over the cases below); the
+centering and the gate's sums now run in XLA:CPU's order
+(``ops.sum_like_xla``, held to ``jnp.sum`` below).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import pointcloud_obstacle_processing_tpu.ops.outliers as ref_outliers
 from pointcloud_obstacle_processing_tpu import Cloud as RefCloud
 
 from pointcloud_obstacle_processing_tpu_torch import Cloud
-from pointcloud_obstacle_processing_tpu_torch.ops import f32, outliers
+from pointcloud_obstacle_processing_tpu_torch.ops import f32, outliers, sum_like_xla
 
 RTOL = 5e-5
 
@@ -418,3 +419,102 @@ def test_outlier_gate_is_bitwise_the_reference_on_exact_sums(monkeypatch, mult):
         unfused_apart += int(unfused.numpy().view(np.int32) != want.view(np.int32))
     print(f"unfused gate tail, multiplier {mult}: another threshold in {unfused_apart} of 50")
     assert unfused_apart > 0
+
+
+@pytest.mark.parametrize("shape", [(5,), (32,), (33,), (1000,), (24_576,), (100_352,),
+                                   (262_144,), (3, 8192)])
+def test_sum_like_xla_is_jnp_sum(shape):
+    """``ops.sum_like_xla`` against XLA:CPU's jitted ``jnp.sum`` over the
+    last axis, bitwise, on 10 seeded vectors a shape at three scales
+    (lengths around and far from multiples of the 32-wide window; a batch
+    of rows as ``jax.vmap`` reduces them); torch's own ``sum`` takes
+    another order and misses on some (printed under ``-s``)."""
+    rng = np.random.default_rng(len(shape) * 7 + shape[-1] % 97)
+    ref_sum = jax.jit(lambda x: jnp.sum(x, axis=-1))
+    torch_miss = 0
+    for i in range(10):
+        x = (rng.random(shape) * (1.0, 100.0, 1e-3)[i % 3]).astype(np.float32)
+        want = np.asarray(ref_sum(x))
+        got = sum_like_xla(torch.tensor(x)).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+        torch_miss += int((torch.tensor(x).sum(-1).numpy() != want).any())
+    print(f"torch sum over {shape}: another value in {torch_miss} of 10")
+
+
+def test_gate_sums_are_bitwise_the_reference(monkeypatch):
+    """The whole gate on the reference's flagship-sized input: 48 clouds of
+    24,576 gamma-distributed distances (90% valid), both packages'
+    ``remove_statistical_outliers`` fed the same distances.  ``s1``,
+    ``s2``, the threshold and the kept mask are bitwise the reference's
+    jitted function's (C4: the sums in XLA:CPU's order); torch's own
+    ``sum`` gives another ``s1`` or ``s2`` in some clouds (printed)."""
+    _distances_as_x(monkeypatch, ref_outliers)
+    _distances_as_x(monkeypatch, outliers)
+    rng = np.random.default_rng(47)
+    n_pts = 24_576
+    ref_sums = jax.jit(lambda d, v: (jnp.sum(d * v.astype(jnp.float32)),
+                                     jnp.sum(d * d * v.astype(jnp.float32))))
+    torch_miss = 0
+    for i in range(48):
+        mult = (1.0, 4.0, 1.7, 2.3)[i % 4]
+        d = rng.gamma(2.0, 0.01, n_pts).astype(np.float32)
+        valid = rng.random(n_pts) < 0.9
+        pts = np.zeros((n_pts, 3), np.float32)
+        pts[:, 0] = d
+        ref = jax.jit(lambda c, m=mult: ref_outliers.remove_statistical_outliers(c, 15, m))(
+            RefCloud.from_points(pts, valid))
+        got = outliers.remove_statistical_outliers(Cloud.from_points(pts, valid), 15, mult)
+        _, s1, s2 = outliers.gate_sums(torch.tensor(d), torch.tensor(valid))
+        w1, w2 = (np.asarray(x) for x in ref_sums(d, valid))
+        assert s1.numpy().view(np.int32) == w1.view(np.int32)
+        assert s2.numpy().view(np.int32) == w2.view(np.int32)
+        assert got.threshold.numpy().view(np.int32) == np.asarray(ref.threshold).view(np.int32)
+        np.testing.assert_array_equal(got.cloud.valid.numpy(), np.asarray(ref.cloud.valid))
+        vf, dt = torch.tensor(valid, dtype=torch.float32), torch.tensor(d)
+        torch_miss += int((dt * vf).sum().item() != w1 or (dt * dt * vf).sum().item() != w2)
+    print(f"torch sum: another s1 or s2 in {torch_miss} of 48 clouds")
+
+
+def test_gate_and_ransac_decisions_match_the_reference_on_20_scenes():
+    """C4's decision count: 20 seeded flagship-shaped scenes (the crosscheck
+    scene of ``tests/test_torch_pipeline.py`` at its small config, scene
+    and key seeds 0-19) through both packages' whole pipeline, the
+    reference's RANSAC key chain replayed.  The scans whose outlier gate
+    keeps another set, or whose RANSAC rounds take other inliers (every
+    plane, the last plane, what remains), are counted: none.  The plane
+    coefficients are not bitwise (the refinement's sums take another
+    order than XLA:CPU's; their count is printed under ``-s``)."""
+    import dataclasses
+
+    from test_torch_pipeline import CFG, SPEC
+    from test_torch_ransac import jax_key_chain_draw
+
+    import pointcloud_obstacle_processing_tpu as ref
+    from pointcloud_obstacle_processing_tpu.pipeline import jit_pipeline
+    from pointcloud_obstacle_processing_tpu.utils.scene import make_scene
+
+    import pointcloud_obstacle_processing_tpu_torch as port
+    from pointcloud_obstacle_processing_tpu_torch.pipeline import process_scan
+
+    run_ref = jit_pipeline(CFG)
+    sets = {"outlier_filtered_cloud": 0, "plane_cloud": 0, "last_plane_cloud": 0,
+            "nonplane_cloud": 0}
+    other_coeffs = 0
+    n = CFG.max_points
+    for seed in range(20):
+        pts = make_scene(seed=seed, spec=SPEC, nan_frac=0.01).points[:n]
+        buf = np.zeros((n, 3), np.float32)
+        buf[: len(pts)] = pts
+        valid = np.arange(n) < len(pts)
+        key = jax.random.PRNGKey(seed)
+        r = run_ref(ref.Cloud.from_points(buf, valid), key)
+        st = port.from_reference(dataclasses.asdict(CFG), buf, valid, device="cpu")
+        p = process_scan(st.cloud, st.config,
+                         draw=jax_key_chain_draw(key, CFG.ransac_hypotheses))
+        for name in sets:
+            sets[name] += int((np.asarray(getattr(r, name).valid)
+                               != getattr(p, name).valid.numpy()).any())
+        other_coeffs += int((np.asarray(r.planes.coeffs) != p.planes.coeffs.numpy()).any())
+    print(f"scans of 20 with another kept or inlier set: {sets}; with other plane "
+          f"coefficients: {other_coeffs}")
+    assert sets == dict.fromkeys(sets, 0)
