@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the flagship scan, the
-fullscale 2M-point window, and the segmented scan and weighted binning
-entry points.
+fullscale 2M-point window (banded, and with the band off), the flagship
+batch of 32, and the segmented scan and weighted binning entry points.
 
     python3 chip_smoke.py
 
@@ -20,45 +20,57 @@ Phases (any failure raises and exits non-zero before the last line):
    fullscale shapes; K5 banded cluster sweep at the fullscale shape, once
    with every tile live and once with a seeded random ``tile_live``.  The
    cluster kernels take the points as the clustering lays them out once
-   for all its sweeps (``pack_points``, ``point_channels``).
+   for all its sweeps (``pack_points``).
 3. Flagship path: counts from 0, ``ObstacleDetectionModel(FLAGSHIP_CONFIG)``
-   on the card over three seeded scenes; checks that K1-K3 and the loop
-   kernel were launched, that no overflow flag is set and that each rock
-   of the scene is matched by a cluster, and compares each scan with the
-   same scan through the plain versions on the CPU (same RANSAC draws):
-   grid, stage counts and flags exact, centroids within 1e-5.  Times
-   ``process_scan`` per scan (p50), counts its host syncs, which must be
-   none (the loop kernel reads nothing back), and its device operations
-   (kernels, memsets, copies; ``torch.profiler``).  Then K3 and the loop
-   kernel again, checked and timed as in phase 2, on the inputs the scan of
-   scene 0 gives them (its lattice-ordered voxel cloud, its non-plane
-   cloud).
+   on the card over three seeded scenes; checks that K1-K3, the loop
+   kernel, the sum kernel and RANSAC's 3x3 tail kernel were launched, that
+   no overflow flag is set and that each rock of the scene is matched by a
+   cluster, and compares each scan with the same scan through the plain
+   versions on the CPU (same RANSAC draws): grid, stage counts and flags
+   exact, centroids within 1e-5.  Times ``process_scan`` per scan (p50),
+   counts its host syncs, which must be none, and its device operations
+   (kernels, memsets, copies; ``torch.profiler``).  Then K3, the loop
+   kernel, the sum kernel (every call of a scan) and the 3x3 tail (every
+   call) again, checked and timed as in phase 2, on the inputs the scan of
+   scene 0 gives them.
 4. Fullscale path: counts from 0, one scan of the canonical fullscale
    window (``make_fullscale_window(2_097_152)``) through
    ``ObstacleDetectionModel(REFERENCE_FULLSCALE_CONFIG)`` on the card;
-   checks that K1, K2, K3 and K5 were launched and that no overflow flag is
-   set, and compares it with the same window through the plain versions on
-   the CPU by the same bar.  Times a few scans (p50) and counts host syncs
-   (all the banded loop's reads) and device operations; then K3 on the
-   scan's own inputs, as in phase 3.
-5. The full sweep above the loop kernel's capacity: counts from 0, one
+   checks that K1, K2, K3, K5 and the two refinement kernels were launched
+   and that no overflow flag is set, and compares it with the same window
+   through the plain versions on the CPU by the same bar.  Times a few
+   scans (p50) and counts host syncs (all the banded loop's reads) and
+   device operations; then K3 and the refinement kernels on the scan's
+   own inputs, as in phase 3.
+5. Fullscale with the band off (``cluster_band_window=0``): counts from 0,
+   one scan of the same window; its 16,384-point cluster buffer takes the
+   grid-wide loop kernel (one launch); it must equal phase 4's banded card
+   run (whose band does not overflow): grid, counts, flags, centroids and
+   every point's cluster; 0 host syncs for the whole scan; p50 over 5
+   scans and device operations; then the grid-wide loop kernel on the
+   scan's own clustering inputs against ``cluster_loop_plain``, its device
+   time a sweep beside the bound, and its launch at 2-4 blocks a
+   multiprocessor and 64-256 columns a work item (``loop grid blocks:``
+   lines).
+6. The full sweep above the loop kernel's capacity: counts from 0, one
    ``euclidean_cluster`` of a 10,240-point buffer with the band off on the
-   card (per-sweep K4 launches) against the same call on the CPU, then K4
-   checked and timed at that capacity.  Then both forms of the loop (the
-   loop kernel and the per-sweep path) on the same buffers at 4,096, 6,144,
-   8,192 and 10,240 points and the largest capacity the loop kernel fits,
-   checked against each other and timed (``loop_crossover``).
-6. The two entry points off the pipeline, each driven with the counts from
+   card (one grid-wide loop launch) against the same call on the CPU, then
+   the grid-wide loop kernel checked and timed at that capacity.  Then the
+   forms of the loop (the grid-wide loop kernel, the loop kernel where it
+   fits, the per-sweep path above ``LOOP_MAX_CAPACITY``) on the same
+   buffers from 1,024 to 16,384 points, checked against each other and
+   timed (``loop crossover:`` lines).
+7. The two entry points off the pipeline, each driven with the counts from
    0: ``segmented_inclusive_scan`` (K6) at [4, 131,072] (the reference's
    Pallas shape) and [4, 2,097,152] (the fullscale buffer) with heads from a
-   sorted key buffer, held against the plain version in bit patterns; and
-   ``binned_weighted_sum`` (K7) at N = 131,072, k = 214,000, C = 4 (x, y, z
-   weights and a unit count channel), 90% valid, held against the plain
-   version with counts exact and sums within the float32 reordering bound.
-   Times each with CUDA events beside its bound and, for K7, the library's
-   ``index_add_``.
-
-7. Batched flagship: counts from 0, one call of
+   sorted key buffer, and at [4, 2,097,152] with no head (one segment, the
+   worst case), held against the plain version in bit patterns, with the
+   launches a call; and ``binned_weighted_sum`` (K7) at N =
+   131,072, k = 214,000, C = 4 (x, y, z weights and a unit count channel),
+   90% valid, held against the plain version with counts exact and sums
+   within the float32 reordering bound.  Times each with CUDA events beside
+   its bound and, for K7, the library's ``index_add_``.
+8. Batched flagship: counts from 0, one call of
    ``parallel.sharding.batched_pipeline(FLAGSHIP_CONFIG)`` on 32 scans (8
    scenes, seeds 0-7, tiled as ``bench.py`` tiles them) with a RANSAC draw
    of its own for each scan; checks that K1, K2, K3 and the loop kernel
@@ -69,10 +81,10 @@ Phases (any failure raises and exits non-zero before the last line):
    the batch call (p50, min and max over 10 batches after one warm-up;
    scans per second = 32 / p50) and prints its device operations, device
    time and busy share (``torch.profiler``) and peak device memory.  Then
-   K1, K2, K3 and the loop kernel at B = 32 on the inputs the batch gives
-   them, checked and timed as in phase 2 (path ``flagship_batch``), and
-   the loop kernel with 1, 2, 4, 8 and 16 blocks a scan (``loop blocks:``
-   lines).
+   K1, K2, K3, the loop kernel and the two refinement kernels at B = 32 on
+   the inputs the batch gives them, checked and timed as in phase 2 (path
+   ``flagship_batch``), and the loop kernel with 1, 2, 4, 8 and 16 blocks
+   a scan (``loop blocks:`` lines).
 
 Each phase prints its seconds.
 Its last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -104,7 +116,10 @@ FULLSCALE_TIMED_SCANS = 5
 SEGSCAN_N = 131_072  # the reference's Pallas shape for the segmented scan
 BINNING_N, BINNING_K = 131_072, 214_000  # the binning kernel's documented shape
 CLUSTER_WIDE = 10240  # a full-sweep capacity above the loop kernel's (ops.cluster.LOOP_MAX_CAPACITY)
-LOOP_CROSSOVER = (4096, 6144, 8192, 10240)  # capacities at which both forms of the loop are timed
+# capacities at which the forms of the loop are timed (with the largest the loop kernel fits)
+LOOP_CROSSOVER = (1024, 2048, 3072, 4096, 6144, 8192, 10240, 16384)
+GRID_BLOCKS_PER_SM = (2, 3, 4)  # the grid-wide loop's blocks a multiprocessor, timed
+GRID_CHUNKS = (64, 128, 256)  # and its columns a work item, on the band-off scan
 BATCH = 32  # the flagship batch: bench.py's B, 8 distinct scenes tiled
 BATCH_SCENES = 8
 BATCH_TIMED = 10
@@ -181,6 +196,31 @@ def _device_ms(fn, reps: int = 20) -> float | None:
 
     events = _profiled_device_events(run)
     return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps if events else None
+
+
+def _kernel_us(fn, reps: int = 20) -> dict:
+    """Launches and device time (us) a call of each kernel ``fn`` launches,
+    from ``torch.profiler`` over ``reps`` calls (empty where it recorded
+    nothing)."""
+    import re
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    out: dict = {}
+    for e in _profiled_device_events(run):
+        names = re.findall(r"::(\w+)", e.name)
+        key = names[0] if names else e.name[:40]
+        n, us = out.get(key, (0.0, 0.0))
+        out[key] = (n + 1 / reps, us + e.time_range.elapsed_us() / reps)
+    # a session now and then drops one event: launches a call are whole
+    return {k: (round(n), round(us, 2)) for k, (n, us) in out.items()}
 
 
 def _ms(x) -> str:
@@ -405,23 +445,6 @@ def _cluster_buffer(dev, rng, c, n_valid, spread):
     return p, valid, torch.tensor(lab, device=dev)
 
 
-def check_k4(dev, rng, path, c, n_valid, tol2):
-    """K4 on a centered cluster buffer with chained labels."""
-    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
-
-    p, valid, labels = _cluster_buffer(dev, rng, c, n_valid, 3.0)
-    chans = cluster.point_channels(p)  # as the cluster loop lays them out, once
-    err = _assert_equal(f"K4 cluster_sweep {path}", cluster.sweep_jump(chans, valid, labels, tol2),
-                        cluster.sweep_jump_plain(chans, valid, labels, tol2))
-    return _row(
-        "cluster_sweep", path, f"C {c}, {n_valid} valid",
-        "cluster_sweep.cu", "cluster.py:86", err,
-        lambda: cluster.sweep_jump(chans, valid, labels, tol2),
-        lambda: cluster.sweep_jump_plain(chans, valid, labels, tol2),
-        _bound(c * 21 + c * 4, n_valid * n_valid * D2_OPS),  # pairs of valid points
-    )
-
-
 def _loop_row(path, what, args, timed=True):
     """The loop kernel's line: labels, unconverged and sweeps against the
     plain loop's on the same inputs, exact (one buffer, or a batch)."""
@@ -452,6 +475,102 @@ def _loop_row(path, what, args, timed=True):
         _bound(scans * (c * 21 + c * 4 + 5), float((sweeps * n_valid ** 2).sum()) * D2_OPS),
         plain_reps=5,
     )
+
+
+def _grid_row(path, what, args):
+    """The grid-wide loop kernel's line: labels, unconverged and sweeps
+    against the plain loop's on the same inputs, exact."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+
+    pk, valid, labels, tol2, max_iters = args
+    got = cluster.grid_loop(*args)
+    want = cluster.cluster_loop_plain(*args)
+    err = _assert_equal(f"K4 cluster_grid_loop {path} labels ({what})", got.labels, want.labels)
+    for f in ("unconverged", "sweeps"):
+        a, b = (torch.as_tensor(getattr(o, f)).cpu().to(torch.int32) for o in (got, want))
+        if not torch.equal(a, b):
+            raise AssertionError(f"K4 cluster_grid_loop {path}: {f} {a.tolist()} != plain "
+                                 f"{b.tolist()}")
+    c = labels.shape[-1]
+    scans = labels[..., 0].numel()
+    n_valid = valid.reshape(scans, c).sum(dim=1).cpu().double()
+    sweeps = torch.as_tensor(want.sweeps).reshape(scans).double()
+    row = _row(
+        "cluster_grid_loop", path,
+        f"{what}: C {c}, {int(n_valid.sum())} valid, {int(sweeps.sum())} sweeps"
+        + (f", {scans} scans" if scans > 1 else ""),
+        "cluster_grid_loop.cu", "cluster.py:86", err,
+        lambda: cluster.grid_loop(*args),
+        lambda: cluster.cluster_loop_plain(*args),
+        # packed points, valid and labels in; labels, the flag and the count out;
+        # each sweep scores the pairs of valid points
+        _bound(scans * (c * 21 + c * 4 + 5), float((sweeps * n_valid ** 2).sum()) * D2_OPS),
+        plain_reps=2,
+    )
+    row["sweeps"] = int(sweeps.sum())
+    return row
+
+
+def _sum_row(path, calls):
+    """The sum kernel on every call a scan (or batch) made to it, each held
+    bitwise against the plain version; timed on the refinement's covariance
+    call (the two-operand form; its launches are the most of a scan)."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import ops
+
+    err = 0.0
+    for i, ((a, b), _) in enumerate(calls):
+        err = max(err, _assert_equal(f"sum kernel {path} call {i} ({tuple(a.shape)})",
+                                     ops._xla_sum_kernel(a, b).view(torch.int32),
+                                     ops.sum_like_xla_plain(a, b).view(torch.int32)))
+    (a, b), _ = next(c for c in calls if c[0][1] is not None)
+    lead, sa, n = a[..., 0, 0].numel(), a.shape[-2], a.shape[-1]
+    sb = b.shape[-2]
+    return _row(
+        "xla_sum", path, f"{len(calls)} calls a run, all equal; timed: covariance "
+        f"{tuple(a.shape)} x {tuple(b.shape)}", "xla_sum.cu", "ransac.py:174 (plain XLA, no TPU kernel)", err,
+        lambda: ops._xla_sum_kernel(a, b), lambda: ops.sum_like_xla_plain(a, b),
+        # both operands read once, the sums written; a product and an add a term
+        _bound(lead * (sa + sb) * n * 4 + lead * sa * sb * 4, 2 * lead * sa * sb * n),
+        library_fn=lambda: (a[..., :, None, :] * b[..., None, :, :]).sum(-1), plain_reps=3,
+    )
+
+
+def _tail_row(path, calls):
+    """The refinement's 3x3 tail on every call a run made to it, each held
+    bitwise against the plain version; one timed."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    err = 0.0
+    for i, (args, _) in enumerate(calls):
+        for g, w in zip(ransac.plane_tail(*args), ransac.plane_tail_plain(*args)):
+            err = max(err, _assert_equal(f"plane_refine {path} call {i}", g.view(torch.int32),
+                                         w.view(torch.int32)))
+    args = calls[0][0]
+    b = args[0].shape[0]
+    return _row(
+        "plane_refine", path, f"{len(calls)} calls a run, all equal; {b} scans a call",
+        "plane_refine.cu", "ransac.py:70 (plain XLA, no TPU kernel)", err,
+        lambda: ransac.plane_tail(*args), lambda: ransac.plane_tail_plain(*args),
+        # 17 floats in and 4 out a scan; 24 steps of 9 fma, 3 mul, the norm,
+        # 3 divides a scan (~50 operations a step)
+        _bound(b * 21 * 4, b * 24 * 50), plain_reps=3,
+    )
+
+
+def capture_refine(run) -> tuple[list, list]:
+    """The calls one run makes to the sum kernel and to the 3x3 tail."""
+    from pointcloud_obstacle_processing_tpu_torch import ops
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    sums = []
+    tails = _capture(ransac, "plane_tail", lambda: sums.extend(_capture(ops, "_xla_sum_kernel", run)))
+    return sums, tails
 
 
 def check_loop(dev, rng, path, c, n_valid, tol2, max_iters):
@@ -568,10 +687,12 @@ def run_segscan_binning(dev, card: str) -> tuple[list[dict], dict]:
 
     rng = np.random.default_rng(3)
     scans = []
-    for n in (SEGSCAN_N, FULLSCALE_POINTS):
+    for n, no_heads in ((SEGSCAN_N, False), (FULLSCALE_POINTS, False), (FULLSCALE_POINTS, True)):
         v = rng.standard_normal((4, n)).astype(np.float32)
         v[:, rng.random(n) < 0.01] = -0.0
-        heads = _sorted_key_heads(rng, n, n // 12)
+        # run heads of a sorted key buffer (mean run 12), or none: one
+        # segment over the row, every element live past the local steps
+        heads = np.zeros(n, bool) if no_heads else _sorted_key_heads(rng, n, n // 12)
         scans.append((torch.tensor(v, device=dev), torch.tensor(heads, device=dev)))
     ids, weights, valid, k = binning_inputs(dev, rng)
 
@@ -598,19 +719,24 @@ def run_segscan_binning(dev, card: str) -> tuple[list[dict], dict]:
         err = _assert_equal(f"K6 segscan [{c_}, {n_}] (bit patterns)",
                             out.view(torch.int32), plain.view(torch.int32))
         steps = len(segscan.scan_steps(n_))
+        by_kernel = _kernel_us(lambda: segscan.segmented_inclusive_scan(v, h))
+        ops = sum(n for n, _ in by_kernel.values()) if by_kernel else None
         rows.append(_row(
             "segscan", "segscan", f"[{c_}, {n_}] float32, {steps} steps, "
-            f"{int(h.sum())} segments", "segscan.cu", "segscan.py:59", err,
+            f"{int(h.sum())} segments ({'no head' if not bool(h.any()) else 'run heads'}), "
+            f"{'not measured' if ops is None else f'{ops:g}'} launches a call",
+            "segscan.cu", "segscan.py:59", err,
             lambda: segscan.segmented_inclusive_scan(v, h),
             lambda: segscan.segmented_inclusive_scan_plain(v, h),
             _bound(c_ * n_ * 8 + n_, steps * c_ * n_),
         ))
+        rows[-1]["by_kernel"] = f"; launches and device us a call by kernel {by_kernel}"
     rows.append(check_k7(dev, ids, weights, valid, k, binned))
     for r in rows:
         print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: "
               f"{'bit patterns equal' if r['name'] == 'segscan' else 'counts exact, sums within bound'}"
               f" to plain (max |d| {r['max_abs_err']:.3g}); {_times(r)}; launches on the path "
-              f"{launches[r['path']][r['name']]} [{card}]")
+              f"{launches[r['path']][r['name']]}{r.get('by_kernel', '')} [{card}]")
     return rows, launches
 
 
@@ -798,7 +924,7 @@ def run_flagship(dev, card: str) -> tuple[dict, list[dict]]:
     gpu_clouds = [clouds[s].to(dev) for s in SCENE_SEEDS]
 
     # main path: counts from 0, one scan of each scene on the card
-    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop"]
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop", "xla_sum", "plane_refine"]
     launches = dict.fromkeys(_build.LAUNCHES, 0)
     results = {}
     for s, gc in zip(SCENE_SEEDS, gpu_clouds):
@@ -824,8 +950,10 @@ def run_flagship(dev, card: str) -> tuple[dict, list[dict]]:
           f"per scan {n_ops} ({_ms(dev_ms)} of device time, scene {SCENE_SEEDS[0]}); kernel "
           f"launches over the {len(SCENE_SEEDS)} main-path scans {launches} [{card}]")
     loop_args = capture_loop_args(model, gpu_clouds[0], draw_cuda)
+    sums, tails = capture_refine(lambda: model(gpu_clouds[0], draw=draw_cuda))
     return launches, [check_k3_scan("flagship", model, gpu_clouds[0], draw_cuda),
-                      _loop_row("flagship", "the scan's non-plane cloud", loop_args)]
+                      _loop_row("flagship", "the scan's non-plane cloud", loop_args),
+                      _sum_row("flagship", sums), _tail_row("flagship", tails)]
 
 
 def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
@@ -846,7 +974,8 @@ def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
     cloud = Cloud(points=torch.tensor(pts), valid=torch.tensor(valid))
     gpu_cloud = cloud.to(dev)
 
-    path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded"]
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded", "xla_sum",
+            "plane_refine"]
     res, launches = _drive(model, gpu_cloud, draw_cuda, path)
     _check_overflows("fullscale", res)
     if int(res.stats.num_clusters) < 1:
@@ -868,15 +997,108 @@ def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
           f"{n_sync} (sync debug mode; cluster loop counts {res.host_syncs}); device operations "
           f"per scan {n_ops} ({_ms(dev_ms)} of device time); kernel launches on the main-path "
           f"scan {launches} [{card}]")
-    return launches, [check_k3_scan("fullscale", model, gpu_cloud, draw_cuda)]
+    sums, tails = capture_refine(lambda: model(gpu_cloud, draw=draw_cuda))
+    return launches, [check_k3_scan("fullscale", model, gpu_cloud, draw_cuda),
+                      _sum_row("fullscale", sums), _tail_row("fullscale", tails)], res
+
+
+def run_fullscale_bandoff(dev, card: str, banded) -> tuple[dict, list[dict]]:
+    """The fullscale window with the band off (``REFERENCE_FULLSCALE_CONFIG
+    .replace(cluster_band_window=0)``, the configuration a deployment takes
+    when its windows outgrow the band): counts from 0, one scan on the card
+    whose 16,384-point cluster buffer takes the grid-wide loop kernel
+    (above the loop kernel's capacity), held to ``banded``, the banded card
+    run of the same window with the same draws (the band does not overflow
+    on this window, so the two agree: grid, counts, flags, centroids and
+    every point's cluster); 0 host syncs for the whole scan; p50 over 5
+    scans and device operations; then the grid-wide loop kernel on the
+    scan's own clustering inputs against ``cluster_loop_plain``."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.models import (
+        REFERENCE_FULLSCALE_CONFIG,
+        ObstacleDetectionModel,
+    )
+    from pointcloud_obstacle_processing_tpu_torch.types import Cloud
+    from pointcloud_obstacle_processing_tpu_torch.utils.scene import make_fullscale_window
+
+    cfg = REFERENCE_FULLSCALE_CONFIG.replace(cluster_band_window=0)
+    model = ObstacleDetectionModel(cfg, device=dev)
+    draw_cuda, _ = _draws(cfg, dev)
+    pts, valid = make_fullscale_window(FULLSCALE_POINTS)
+    gpu_cloud = Cloud(points=torch.tensor(pts), valid=torch.tensor(valid)).to(dev)
+
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_grid_loop", "xla_sum",
+            "plane_refine"]
+    res, launches = _drive(model, gpu_cloud, draw_cuda, path)
+    others = {k: launches[k] for k in ("cluster_loop", "cluster_sweep", "cluster_sweep_banded")}
+    if launches["cluster_grid_loop"] != 1 or any(others.values()):
+        raise AssertionError(f"fullscale band off: one grid-wide loop launch and no other "
+                             f"cluster kernel expected, got {launches}")
+    _check_overflows("fullscale band off", res)
+    if bool(banded.stats.cluster_band_overflow.item()):
+        raise AssertionError("fullscale: the banded run's band overflowed; the band-off run "
+                             "need not agree with it")
+    err = _compare("fullscale band off vs banded", res, banded)
+    _assert_equal("fullscale band off point_cluster", res.clusters.point_cluster,
+                  banded.clusters.point_cluster)
+    times = _time_scans(model, [gpu_cloud], draw_cuda, FULLSCALE_TIMED_SCANS)
+    n_sync, res = _count_syncs(model, gpu_cloud, draw_cuda)
+    _check_syncs("fullscale band off", n_sync, res, expected=0)
+    n_ops, dev_ms = scan_device_ops(model, gpu_cloud, draw_cuda)
+    counts = {k: getattr(res.stats, k).item() for k in _COUNTS}
+    print(f"fullscale band off: cuda == banded cuda run (grid, counts, flags, point clusters "
+          f"exact; centroid max |d| {err:.2e}); {counts}; process_scan p50 "
+          f"{statistics.median(times):.3f} ms per scan over {len(times)} scans (min "
+          f"{min(times):.3f}, max {max(times):.3f}); host syncs per scan {n_sync} (sync debug "
+          f"mode); device operations per scan {n_ops} ({_ms(dev_ms)} of device time); kernel "
+          f"launches on the main-path scan {launches} [{card}]")
+    args = capture_loop_args(model, gpu_cloud, draw_cuda)
+    row = _grid_row("fullscale_bandoff", "the scan's non-plane cloud", args)
+    grid_tuning(args, card)
+    sweeps = row["sweeps"]
+    per_sweep = None if row["device_ms"] is None else row["device_ms"] / sweeps
+    print(f"grid-wide loop a sweep (fullscale band off): device {_ms(per_sweep)}, bound "
+          f"{row['bound_ms'] / sweeps:.4f} ms ({sweeps} sweeps) [{card}]")
+    return launches, [row]
+
+
+def grid_tuning(args, card: str) -> None:
+    """The grid-wide loop on the band-off scan's own clustering inputs with
+    GRID_BLOCKS_PER_SM blocks a multiprocessor and GRID_CHUNKS columns a
+    work item, each equal to the default launch (``loop grid blocks:``
+    lines, from which ``ops.cluster.GRID_BLOCKS_PER_SM`` and
+    ``GRID_CHUNK`` are read)."""
+    from pointcloud_obstacle_processing_tpu_torch import _build
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+
+    lib = _build.kernels()
+    want = cluster.grid_loop(*args)
+    launches = [(nb, chunk) for nb in GRID_BLOCKS_PER_SM for chunk in GRID_CHUNKS]
+    times = {k: [] for k in launches}
+    for _ in range(2):  # two rounds in turn, each launch timed once a round
+        for nb, chunk in launches:
+            def run(nb=nb, chunk=chunk):
+                return cluster.grid_loop(*args, blocks_per_sm=nb, chunk=chunk)
+
+            _assert_equal(f"loop grid blocks {nb}, chunk {chunk}", run().labels, want.labels)
+            times[nb, chunk].append(f"call {_time_ms(run, 10):.4f} ms, device "
+                                    f"{_ms(_device_ms(run, 10))}")
+    for (nb, chunk), t in times.items():
+        print(f"loop grid blocks: {nb} a multiprocessor ({lib.pcp_cluster_grid_blocks(nb)} "
+              f"blocks), {chunk}-column chunks, the band-off scan's non-plane cloud "
+              f"({int(args[1].sum())} valid of {args[1].shape[-1]}, {int(want.sweeps)} sweeps): "
+              f"{'; '.join(t)} [{card}]")
 
 
 def run_cluster_wide(dev, card: str) -> tuple[list[dict], dict]:
     """The full sweep above the loop kernel's capacity: counts from 0, one
     ``euclidean_cluster`` of a CLUSTER_WIDE-point buffer with the band off
-    on the card (one per-sweep K4 launch a sweep), against the same call on
-    the CPU (labels, slots and flags exact); then K4 checked and timed at
-    that capacity.  Returns the kernel rows and the path's launches."""
+    on the card (one launch of the grid-wide loop kernel), against the same
+    call on the CPU (labels, slots and flags exact); then the grid-wide
+    loop kernel checked and timed at that capacity, and the forms of the
+    loop side by side (``loop_crossover``).  Returns the kernel rows and
+    the path's launches."""
     import torch
 
     from pointcloud_obstacle_processing_tpu_torch import _build
@@ -892,8 +1114,8 @@ def run_cluster_wide(dev, card: str) -> tuple[list[dict], dict]:
     got = cluster.euclidean_cluster(cloud.to(dev), *args)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    if launches["cluster_sweep"] <= 0 or launches["cluster_loop"]:
-        raise AssertionError(f"cluster_wide: expected per-sweep K4 launches, got {launches}")
+    if launches["cluster_grid_loop"] != 1 or launches["cluster_sweep"] or launches["cluster_loop"]:
+        raise AssertionError(f"cluster_wide: expected one grid-wide loop launch, got {launches}")
     want = cluster.euclidean_cluster(cloud, *args)
     for f in ("labels", "root_slot", "unconverged", "overflow"):
         _assert_equal(f"cluster_wide {f}", getattr(got, f), getattr(want, f))
@@ -901,8 +1123,12 @@ def run_cluster_wide(dev, card: str) -> tuple[list[dict], dict]:
         _assert_equal(f"cluster_wide {f}", getattr(got.clusters, f), getattr(want.clusters, f))
     print(f"cluster_wide: euclidean_cluster at C {c} ({n_valid} valid): cuda == cpu plain "
           f"(labels, slots, flags exact); {int(got.clusters.num_clusters)} clusters; "
-          f"{launches['cluster_sweep']} K4 sweeps; host syncs {got.host_syncs} [{card}]")
-    row = check_k4(dev, rng, "cluster_wide", c, n_valid, fl.euc_cluster_tolerance ** 2)
+          f"host syncs {got.host_syncs} [{card}]")
+    d = cloud.to(dev)
+    p, p_sq, labels = cluster._seed_labels(d.points, d.valid, fl.euc_cluster_tolerance)
+    row = _grid_row("cluster_wide", "24 seeded blobs",
+                    (cluster.pack_points(p, p_sq), d.valid, labels,
+                     fl.euc_cluster_tolerance ** 2, fl.cluster_max_iters))
     print(f"kernel {row['name']} [{row['path']}: {row['shape']}]: equal to plain; {_times(row)} "
           f"[{card}]")
     loop_crossover(dev, card)
@@ -933,13 +1159,14 @@ def loop_fit(lib) -> int:
 
 
 def loop_crossover(dev, card: str) -> None:
-    """The two forms of the full-sweep loop, the loop kernel (one launch)
-    and the per-sweep path (one K4 launch, the hook in PyTorch and a host
-    read a sweep), on the same seeded buffers at LOOP_CROSSOVER capacities
-    and the largest the loop kernel fits, 5/8 and all of the rows valid:
-    labels, ``unconverged`` and sweeps must agree exactly; each is timed
-    with CUDA events over 10 calls.  The dispatch limit
-    ``ops.cluster.LOOP_MAX_CAPACITY`` is read off these lines."""
+    """The forms of the full-sweep loop on the same seeded buffers at the
+    LOOP_CROSSOVER capacities and the largest the loop kernel fits, 5/8 and
+    all of the rows valid: the grid-wide loop kernel everywhere, the loop
+    kernel (one thread-block cluster) where it fits, and the per-sweep path
+    (one K4 launch, the hook in PyTorch and a host read a sweep) above
+    ``ops.cluster.LOOP_MAX_CAPACITY``.  Labels, ``unconverged`` and sweeps
+    must agree exactly; each is timed with CUDA events over 10 calls
+    (``loop crossover:`` lines, from which ``LOOP_MAX_CAPACITY`` is read)."""
     from pointcloud_obstacle_processing_tpu_torch import _build
     from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as fl
     from pointcloud_obstacle_processing_tpu_torch.ops import cluster
@@ -948,21 +1175,28 @@ def loop_crossover(dev, card: str) -> None:
     fit = loop_fit(lib)
     tol, iters = fl.euc_cluster_tolerance, fl.cluster_max_iters
     rng = np.random.default_rng(8)
-    for c in sorted({*(x for x in LOOP_CROSSOVER if x <= fit), fit}):
+    for c in sorted({*LOOP_CROSSOVER, fit}):
         for n_valid in (c * 5 // 8, c):
             cloud = _blob_cloud(rng, c, n_valid).to(dev)
             p, p_sq, labels = cluster._seed_labels(cloud.points, cloud.valid, tol)
             args = (cluster.pack_points(p, p_sq), cloud.valid, labels, tol ** 2, iters)
-            a, b = cluster.loop_kernel(*args), cluster.per_sweep_loop(*args)
-            _assert_equal(f"loop crossover C {c} labels", a.labels, b.labels)
-            if (bool(a.unconverged), int(a.sweeps)) != (bool(b.unconverged), int(b.sweeps)):
-                raise AssertionError(f"loop crossover C {c}: unconverged/sweeps differ")
-            ms_k = _time_ms(lambda: cluster.loop_kernel(*args), 10)
-            ms_s = _time_ms(lambda: cluster.per_sweep_loop(*args), 10)
-            print(f"loop crossover: C {c} ({n_valid} valid, {int(b.sweeps)} sweeps, "
-                  f"{lib.pcp_cluster_loop_blocks(c, 0)} blocks; limit "
-                  f"{cluster.LOOP_MAX_CAPACITY}, fit {fit}): loop kernel {ms_k:.4f} ms, "
-                  f"per-sweep K4 {ms_s:.4f} ms [{card}]")
+            forms = {"grid-wide loop": cluster.grid_loop}
+            if c <= fit:
+                forms["loop kernel"] = cluster.loop_kernel
+            if c > cluster.LOOP_MAX_CAPACITY:
+                forms["per-sweep K4"] = cluster.per_sweep_loop
+            outs = {k: f(*args) for k, f in forms.items()}
+            g = outs["grid-wide loop"]
+            for k, o in outs.items():
+                _assert_equal(f"loop crossover C {c} {k} labels", o.labels, g.labels)
+                if (bool(o.unconverged), int(o.sweeps)) != (bool(g.unconverged), int(g.sweeps)):
+                    raise AssertionError(f"loop crossover C {c} {k}: unconverged/sweeps differ")
+            times = ", ".join(f"{k} {_time_ms(lambda f=f: f(*args), 10):.4f} ms"
+                              for k, f in forms.items())
+            print(f"loop crossover: C {c} ({n_valid} valid, {int(g.sweeps)} sweeps, loop "
+                  f"kernel blocks {lib.pcp_cluster_loop_blocks(c, 0)}; limit "
+                  f"{cluster.LOOP_MAX_CAPACITY}, fit {fit}): {times} [{card}]")
+
 
 
 def _k1_batch_row(path, a, kw):
@@ -1084,9 +1318,10 @@ def run_batch(dev, card: str) -> tuple[dict, list[dict]]:
     res = run(clouds, draw)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    if any(launches[k] != 1 for k in path):
+    if any(launches[k] != 1 for k in path) or not launches["xla_sum"] or \
+            not launches["plane_refine"]:
         raise AssertionError(f"batched flagship: each of {path} must launch once a batch, "
-                             f"got {launches}")
+                             f"the sum kernel and the 3x3 tail at least once, got {launches}")
     worst = 0.0
     for b in range(BATCH):
         rb = scan_of(res, b)
@@ -1126,11 +1361,14 @@ def run_batch(dev, card: str) -> tuple[dict, list[dict]]:
     (k2,) = _capture(compaction, "compact_and_gather_exact", once)
     (k3,) = _capture(outliers, "knn_mean", once)
     (lp,) = _capture(cluster, "cluster_loop", once)
+    sums, tails = capture_refine(once)
     rows = [
         _k1_batch_row("flagship_batch", *k1),
         _k2_batch_row("flagship_batch", k2[0]),
         _k3_row("flagship_batch", f"the batch's voxel clouds ({BATCH} scans)", k3[0]),
         _loop_row("flagship_batch", "the batch's non-plane clouds", lp[0]),
+        _sum_row("flagship_batch", sums),
+        _tail_row("flagship_batch", tails),
     ]
     for r in rows:
         print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: equal to plain; {_times(r)} "
@@ -1166,7 +1404,16 @@ def main() -> None:
     rows = check_kernels(dev, card)
     print(f"phase 2 (kernel checks): {time.perf_counter() - t:.1f} s")
     launches = {}
-    for phase, path, run in ((3, "flagship", run_flagship), (4, "fullscale", run_fullscale)):
+    banded = None
+
+    def fullscale(dev, card):
+        nonlocal banded
+        out, scan_rows, banded = run_fullscale(dev, card)
+        return out, scan_rows
+
+    for phase, path, run in ((3, "flagship", run_flagship), (4, "fullscale", fullscale),
+                             (5, "fullscale_bandoff",
+                              lambda dev, card: run_fullscale_bandoff(dev, card, banded))):
         t = time.perf_counter()
         launches[path], scan_rows = run(dev, card)
         for r in scan_rows:
@@ -1174,19 +1421,20 @@ def main() -> None:
                   f"[{card}]")
         rows += scan_rows
         print(f"phase {phase} ({path}): {time.perf_counter() - t:.1f} s")
+    banded = None
     t = time.perf_counter()
     wide_rows, launches["cluster_wide"] = run_cluster_wide(dev, card)
     rows += wide_rows
-    print(f"phase 5 (cluster_wide): {time.perf_counter() - t:.1f} s")
+    print(f"phase 6 (cluster_wide): {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     more_rows, more_launches = run_segscan_binning(dev, card)
     rows += more_rows
     launches.update(more_launches)
-    print(f"phase 6 (segscan, binning): {time.perf_counter() - t:.1f} s")
+    print(f"phase 7 (segscan, binning): {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     launches["flagship_batch"], batch_rows = run_batch(dev, card)
     rows += batch_rows
-    print(f"phase 7 (flagship batch): {time.perf_counter() - t:.1f} s")
+    print(f"phase 8 (flagship batch): {time.perf_counter() - t:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["path"]][r["name"]]

@@ -45,9 +45,10 @@ NVCC_FLAGS = [
 
 # kernel name -> launches since the last reset
 LAUNCHES = {"runreduce": 0, "compact_gather": 0, "knn_mean": 0, "cluster_loop": 0,
-            "cluster_sweep": 0, "cluster_sweep_banded": 0, "segscan": 0, "binned_sum": 0}
+            "cluster_grid_loop": 0, "cluster_sweep": 0, "cluster_sweep_banded": 0,
+            "segscan": 0, "binned_sum": 0, "xla_sum": 0, "plane_refine": 0}
 
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 # C entry points: argument types in order (all return cudaError_t as int)
 _SIGNATURES = {
@@ -64,6 +65,12 @@ _SIGNATURES = {
     # pts (packed [B, C, 4]), valid, labels, batch, c, tol2, max_iters,
     # blocks a scan, labels out, unconverged, sweeps, stream
     "pcp_cluster_loop": [_VP, _VP, _VP, _I, _I, _F, _I, _I, _VP, _VP, _VP, _VP],
+    # pts (packed [B, C, 4]), valid, labels, batch, c, tol2, max_iters,
+    # blocks a multiprocessor, columns a work item, labels out,
+    # unconverged, sweeps, scratch, stream
+    "pcp_cluster_grid_loop": [_VP, _VP, _VP, _I, _I, _F, _I, _I, _I, _VP, _VP, _VP, _VP, _VP],
+    # blocks a multiprocessor -> blocks of the grid-wide loop's grid (0: none fits)
+    "pcp_cluster_grid_blocks": [_I],
     # c, nb -> blocks of the loop kernel's cluster (nb 0: the one-scan
     # choice; 0: none fits)
     "pcp_cluster_loop_blocks": [_I, _I],
@@ -72,10 +79,22 @@ _SIGNATURES = {
     # pts (packed [C, 4]), valid, labels, starts, tile_live, c, window,
     # tol2, out, stream
     "pcp_cluster_sweep_banded": [_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _VP, _VP],
-    # values, heads, c, n, out, scratch, flags, stream
-    "pcp_segscan": [_VP, _VP, _I, _I, _VP, _VP, _VP, _VP],
+    # values, heads, c, n, out, scratch, flags, ints (tile flags, -0.0
+    # bits), stream
+    "pcp_segscan": [_VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],
+    # n -> steps past the local kernel's reach
+    "pcp_segscan_global_steps": [_I],
+    # -> the longest row the segmented scan takes
+    "pcp_segscan_max_n": [],
     # ids, weights, valid, n, c, k, exact, out (zeroed by the call), stream
     "pcp_binned_sum": [_VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP],
+    # a and its lead, row and value strides; b (or null) and its strides;
+    # lead, rows of a, rows of b, n, out, scratch, stream
+    "pcp_xla_sum": [_VP, _LL, _LL, _LL, _VP, _LL, _LL, _LL, _I, _I, _I, _I, _VP, _VP, _VP],
+    # n -> second-level window sums a row needs in scratch
+    "pcp_xla_sum_scratch": [_I],
+    # cov, cen, n_inl, normal, d, batch, vmapped, normal out, d out, stream
+    "pcp_plane_refine": [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP],
 }
 
 BUILD_SECONDS: list[float] = []  # wall time of each build this process ran

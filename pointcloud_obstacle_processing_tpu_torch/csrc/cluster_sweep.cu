@@ -22,10 +22,11 @@
 // adjacency test reads it, and the output is an integer, so the result is
 // exact once that tree is kept.
 //
-// Bound on the H100: C^2 pairs per sweep, ~9 operations each.  The cluster
-// loop takes this kernel, one launch a sweep, only above the loop kernel's
-// capacity (ops/cluster.py LOOP_MAX_CAPACITY, 8192 points), where it has
-// C / 256 > 32 blocks.
+// Bound on the H100: C^2 pairs per sweep, ~9 operations each.  Off every
+// path: the cluster loop runs in one launch of a loop kernel at every
+// capacity (cluster_loop.cu, cluster_grid_loop.cu), and this kernel, one
+// launch a sweep with the hook in PyTorch (ops/cluster.py per_sweep_loop),
+// is the yardstick chip_smoke.py's "loop crossover:" lines time beside them.
 
 #include <cuda_runtime.h>
 

@@ -16,130 +16,285 @@
 // add in another order and is not this function.
 //
 // The TPU kernel held one [1, N] channel in VMEM and ran every step there.
-// A block here holds far less, so the steps split in two:
-// * segscan_local runs the steps d < kTile inside one block per kTile
-//   outputs and up to kGroup channels.  The block loads its tile and the
-//   kTile values before it (the halo): after m steps a window position j
-//   is exact once j >= 2^m - 1, so after the 10 steps d = 1 ... 512 the
-//   tile's half of the window is exact.  Each step computes into registers,
-//   syncs, then writes back, so no step reads a value it has updated.  The
-//   flags depend only on the column and are computed once for the group.
-// * segscan_step runs one step d >= kTile over the whole row per launch,
-//   ping-ponging between two buffers: 7 launches at N = 131,072 and 11 at
-//   2,097,152.  One thread per column updates its flag once and then every
-//   channel.
+// A block here holds far less, so the steps split in two, and the second
+// part runs only where a segment reaches far back:
+// * segscan_local runs the steps d < kHalo for one kTile-value tile of one
+//   channel a block, from the tile and the kHalo values before it: after
+//   the steps d = 1 ... kHalo / 2 a window position p is exact once p >=
+//   kHalo - 1, so the whole tile is.  Values stay in registers; each step
+//   stores them to one of two shared buffers in turn, syncs once, and reads
+//   its source.  The flags need no step of their own: before the step of
+//   shift d an element's flag is set exactly when the window's last head
+//   at or before it (positions before the row count as heads) lies less
+//   than d back, so one prefix max of head positions gives them all.  Once
+//   no position an output depends on reads a source (runs shorter than d
+//   everywhere in the window), the later local steps only add +0.0, and one
+//   add stands for them all: runs of a dozen values take 5-6 of the 10.
+//   After these steps an element whose flag is set (a head within the last
+//   kHalo values) has its final value: every later step adds +0.0, so it is
+//   written out as v + 0.0, with one bit for those that were -0.0 before
+//   (the later steps read them as they were).  The others are "live": their
+//   segment reaches further back.  A tile with a live element writes all
+//   its values as they stand, and its flags; each tile writes whether it
+//   has one.
+// * segscan_global runs the steps d = kHalo * 2^s only where some tile is
+//   live (it returns at once otherwise, the case of every scan of
+//   voxel-like runs).  Those steps join only the elements of one residue
+//   modulo kHalo: on the coarse sequence m -> m * kHalo + r they are the
+//   Hillis-Steele steps of shift 2^s.  So a block takes a few residues of
+//   one channel, their whole coarse sequences (every value once), runs all
+//   the later steps in shared memory, and writes every value out.  With no
+//   head at all that is one more read and write of the buffer, where one
+//   launch a later step (11 at N = 2^21) read and wrote all of it each.
 //
 // Bound on the H100: one read and one write of [C, N] float32 plus the
-// heads, so memory; at [4, 2^21] that is ~69 MB, ~0.02 ms at 3.35 TB/s.
-// The halo doubles the local kernel's reads and each global step reads and
-// writes the whole buffer again; fusing those steps is later work.
+// heads, so memory: at [4, 2^21] ~69 MB, ~0.02 ms at 3.35 TB/s.  The local
+// kernel reads (kTile + kHalo) / kTile = 1.25 times the values it writes
+// (a 1,024-value tile, twice, measured slower at both of chip_smoke.py's
+// shapes).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 1024;         // outputs per block of segscan_local
-constexpr int kWindow = 2 * kTile;  // the tile and its halo
-constexpr int kGroup = 4;           // channels per block of segscan_local
+constexpr int kHalo = 1024;              // values before a tile; local steps d < kHalo
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxResidues = 32;         // residues a block of segscan_global
 
-__global__ void __launch_bounds__(kTile)
-segscan_local(const float* __restrict__ values, const unsigned char* __restrict__ heads,
-              int c, int n, float* __restrict__ dst, unsigned char* __restrict__ flags_out) {
-  __shared__ float sv[kGroup][kWindow];
-  __shared__ unsigned char sf[kWindow];
+constexpr int kTile = 4096;              // outputs a block of segscan_local
+
+__global__ void __launch_bounds__(kThreads)
+segscan_local(const float* __restrict__ values, const unsigned char* __restrict__ heads, int n,
+              int global_steps, float* __restrict__ out, float* __restrict__ live_out,
+              unsigned char* __restrict__ flags, int* __restrict__ tile_live,
+              unsigned* __restrict__ neg0) {
+  constexpr int kWindow = kTile + kHalo;
+  constexpr int kPer = kWindow / kThreads;  // window positions a thread
+  __shared__ float sv[2][kWindow];
+  __shared__ int s_tot[kPer * kWarps];  // prefix max of head positions, a warp's span
   const int tile0 = blockIdx.x * kTile;
-  const int ws = tile0 - kTile;  // row index of window position 0
-  const int c0 = blockIdx.y * kGroup;
-  const int nc = min(kGroup, c - c0);
+  const int ws = tile0 - kHalo;  // row index of window position 0
+  const int ch = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float* row = values + static_cast<size_t>(ch) * n;
 
-  for (int r = 0; r < 2; ++r) {
-    const int j = threadIdx.x + r * kTile;
-    const int g = ws + j;
+  // values, and the last head at or before each position (a warp's span by
+  // shuffles, the spans' prefix in shared memory)
+  float v[kPer];
+  int dist[kPer];
+  for (int r = 0; r < kPer; ++r) {
+    const int p = tid + r * kThreads;
+    const int g = ws + p;
     const bool in = g >= 0 && g < n;
-    sf[j] = in ? static_cast<unsigned char>(heads[g] != 0) : 1;
-    for (int k = 0; k < kGroup; ++k) {
-      if (k < nc) sv[k][j] = in ? values[static_cast<size_t>(c0 + k) * n + g] : 0.0f;
+    v[r] = in ? row[g] : 0.0f;
+    int h = (!in || heads[g]) ? p : -1;
+    for (int o = 1; o < 32; o *= 2) {
+      const int up = __shfl_up_sync(0xffffffffu, h, o);
+      if (lane >= o) h = max(h, up);
     }
+    dist[r] = h;
+    if (lane == 31) s_tot[r * kWarps + warp] = h;
   }
   __syncthreads();
+  if (warp == 0) {  // exclusive prefix max over the kPer * kWarps spans, in position order
+    constexpr int kSpan = kPer * kWarps / 32;
+    int m[kSpan];
+    int run = -1;
+    for (int k = 0; k < kSpan; ++k) {
+      m[k] = run;
+      run = max(run, s_tot[lane * kSpan + k]);
+    }
+    int before = run;
+    for (int o = 1; o < 32; o *= 2) {
+      const int up = __shfl_up_sync(0xffffffffu, before, o);
+      if (lane >= o) before = max(before, up);
+    }
+    before = __shfl_up_sync(0xffffffffu, before, 1);
+    if (lane == 0) before = -1;
+    for (int k = 0; k < kSpan; ++k) s_tot[lane * kSpan + k] = max(before, m[k]);
+  }
+  __syncthreads();
+  for (int r = 0; r < kPer; ++r) {
+    const int p = tid + r * kThreads;
+    dist[r] = p - max(dist[r], s_tot[r * kWarps + warp]);  // p + 1 where none: far enough
+  }
 
-  for (int d = 1; d < n && d < kTile; d *= 2) {
-    float nv[2][kGroup];
-    unsigned char nf[2];
-    for (int r = 0; r < 2; ++r) {
-      const int j = threadIdx.x + r * kTile;
-      // j < d happens only in the halo's first 2^m - 1 positions, which no
-      // output depends on; the row's own start is g - d < 0
-      const bool src = ws + j - d >= 0 && j >= d;
-      const unsigned char f = sf[j];
-      nf[r] = f | (src ? sf[j - d] : static_cast<unsigned char>(1));
-      for (int k = 0; k < kGroup; ++k) {
-        if (k < nc) {
-          const float add = f ? 0.0f : (src ? sv[k][j - d] : 0.0f);
-          nv[r][k] = sv[k][j] + add;
+  int buf = 0;
+  for (int d = 1; d < n && d < kHalo; d *= 2, buf ^= 1) {
+    bool reads = false;  // some position at or past d (all an output depends on) reads a source
+    for (int r = 0; r < kPer; ++r) {
+      const int p = tid + r * kThreads;
+      sv[buf][p] = v[r];
+      reads |= p >= d && dist[r] >= d;
+    }
+    if (!__syncthreads_or(reads)) {
+      // every such position is flagged, at this step and every later one:
+      // each adds +0.0, and one add does what they all do
+      for (int r = 0; r < kPer; ++r) v[r] = v[r] + 0.0f;
+      break;
+    }
+    for (int r = 0; r < kPer; ++r) {
+      const int p = tid + r * kThreads;
+      // p < d happens only in the halo's first positions, which no output
+      // depends on
+      const float src = p >= d ? sv[buf][p - d] : 0.0f;
+      v[r] = v[r] + (dist[r] < d ? 0.0f : src);
+    }
+  }
+
+  // the tile: final values of the flagged, or, in a tile with a live
+  // element, every value as it stands
+  const bool later = global_steps > 0;
+  bool mine = false;
+  for (int r = kHalo / kThreads; r < kPer; ++r) {
+    mine |= later && ws + tid + r * kThreads < n && dist[r] >= kHalo;
+  }
+  const bool live = __syncthreads_or(mine) != 0;
+  if (later && ch == 0 && tid == 0) tile_live[blockIdx.x] = live;
+  for (int r = kHalo / kThreads; r < kPer; ++r) {
+    const int g = ws + tid + r * kThreads;
+    const size_t at = static_cast<size_t>(ch) * n + g;
+    if (live) {
+      if (g < n) {
+        live_out[at] = v[r];
+        if (ch == 0) flags[g] = dist[r] < kHalo;
+      }
+      continue;
+    }
+    const unsigned neg = __ballot_sync(0xffffffffu, later && v[r] == 0.0f && signbit(v[r]));
+    if (later && lane == 0 && g < n) neg0[static_cast<size_t>(ch) * ((n + 31) / 32) + g / 32] = neg;
+    if (g < n) out[at] = later ? v[r] + 0.0f : v[r];
+  }
+}
+
+// The steps d = kHalo * 2^s < n, where some tile is live: a block takes
+// `residues` residues modulo kHalo of one channel and their whole coarse
+// sequences, kPerThread values a thread.
+template <int kPerThread>
+__global__ void __launch_bounds__(kThreads)
+segscan_global(int c, int n, int residues, const float* __restrict__ live_in,
+               const unsigned char* __restrict__ flags, const int* __restrict__ tile_live,
+               const unsigned* __restrict__ neg0, float* __restrict__ out) {
+  extern __shared__ float sg[];  // [coarse * residues] values, then as many flag bytes
+  const int tiles = (n + kTile - 1) / kTile;
+  int any = 0;
+  for (int t = threadIdx.x; t < tiles; t += kThreads) any |= tile_live[t];
+  if (!__syncthreads_or(any)) return;  // no tile live: every value is final
+
+  const int coarse = (n + kHalo - 1) / kHalo;
+  const int count = coarse * residues;
+  unsigned char* sf = reinterpret_cast<unsigned char*>(sg + count);
+  const size_t words = (n + 31) / 32;
+  const int groups = kHalo / residues;  // residue groups a channel
+  for (int item = blockIdx.x; item < groups * c; item += gridDim.x) {
+    __syncthreads();  // the previous item's reads of shared memory are done
+    const int r0 = (item % groups) * residues;
+    const int ch = item / groups;
+    const size_t rowc = static_cast<size_t>(ch) * n;
+    float v[kPerThread];
+    unsigned char f[kPerThread];
+    for (int q = 0; q < kPerThread; ++q) {
+      const int e = threadIdx.x + q * kThreads;
+      const int j = (e / residues) * kHalo + r0 + e % residues;
+      v[q] = 0.0f;
+      f[q] = 1;
+      if (e < count && j < n) {
+        if (tile_live[j / kTile]) {
+          v[q] = live_in[rowc + j];
+          f[q] = flags[j];
+        } else {  // flagged: its value before the +0.0 segscan_local added
+          v[q] = ((neg0[ch * words + j / 32] >> (j % 32)) & 1u) ? -0.0f : out[rowc + j];
         }
       }
     }
-    __syncthreads();
-    for (int r = 0; r < 2; ++r) {
-      const int j = threadIdx.x + r * kTile;
-      sf[j] = nf[r];
-      for (int k = 0; k < kGroup; ++k) {
-        if (k < nc) sv[k][j] = nv[r][k];
+    for (int s = 1; s < coarse; s *= 2) {
+      __syncthreads();
+      for (int q = 0; q < kPerThread; ++q) {
+        const int e = threadIdx.x + q * kThreads;
+        if (e < count) {
+          sg[e] = v[q];
+          sf[e] = f[q];
+        }
+      }
+      __syncthreads();
+      const int shift = s * residues;
+      for (int q = 0; q < kPerThread; ++q) {
+        const int e = threadIdx.x + q * kThreads;
+        const bool src = e >= shift && e < count;
+        v[q] = v[q] + (f[q] ? 0.0f : (src ? sg[e - shift] : 0.0f));
+        f[q] |= src ? sf[e - shift] : static_cast<unsigned char>(1);
       }
     }
-    __syncthreads();
+    for (int q = 0; q < kPerThread; ++q) {
+      const int e = threadIdx.x + q * kThreads;
+      const int j = (e / residues) * kHalo + r0 + e % residues;
+      if (e < count && j < n) out[rowc + j] = v[q];
+    }
   }
-
-  const int g = tile0 + threadIdx.x;
-  if (g >= n) return;
-  const int j = kTile + threadIdx.x;
-  for (int k = 0; k < kGroup; ++k) {
-    if (k < nc) dst[static_cast<size_t>(c0 + k) * n + g] = sv[k][j];
-  }
-  if (blockIdx.y == 0) flags_out[g] = sf[j];
 }
 
-__global__ void segscan_step(const float* __restrict__ src, const unsigned char* __restrict__ fsrc,
-                             int c, int n, int d, float* __restrict__ dst,
-                             unsigned char* __restrict__ fdst) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const bool in = i >= d;
-  const unsigned char f = fsrc[i];
-  fdst[i] = f | (in ? fsrc[i - d] : static_cast<unsigned char>(1));
-  for (int k = 0; k < c; ++k) {
-    const size_t row = static_cast<size_t>(k) * n;
-    const float add = f ? 0.0f : (in ? src[row + i - d] : 0.0f);
-    dst[row + i] = src[row + i] + add;
+template <int kPerThread>
+int launch_global(int c, int n, int residues, const float* live_in, const unsigned char* flags,
+                  const int* tile_live, const unsigned* neg0, float* out, cudaStream_t s) {
+  const int coarse = (n + kHalo - 1) / kHalo;
+  const size_t smem = static_cast<size_t>(coarse) * residues * (sizeof(float) + 1);
+  cudaError_t err = cudaFuncSetAttribute(segscan_global<kPerThread>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one wave of blocks, each looping over residue groups: the launch that
+  // returns at once (no tile live) costs one block an SM
+  int dev = 0, sms = 0, occ = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, segscan_global<kPerThread>,
+                                                           kThreads, smem)) != cudaSuccess) {
+    return static_cast<int>(err);
   }
+  const int blocks = min((kHalo / residues) * c, sms * max(occ, 1));
+  segscan_global<kPerThread><<<blocks, kThreads, smem, s>>>(c, n, residues, live_in, flags,
+                                                            tile_live, neg0, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// values [c, n] and heads [n] in; out [c, n]; scratch [c, n] (may be out
-// when n <= kTile); flags [2, n] bytes of scratch.  Launches on `stream`.
+// Steps past segscan_local's reach for a row of n values.
+extern "C" int pcp_segscan_global_steps(int n) {
+  int steps = 0;
+  for (long long d = kHalo; d < n; d *= 2) ++steps;
+  return steps;
+}
+
+// The longest row the kernel takes (the later steps' coarse sequence of one
+// residue in a block's shared memory, 32 values a thread).
+extern "C" int pcp_segscan_max_n() { return kHalo * 32 * kThreads; }
+
+// values [c, n] and heads [n] in; out [c, n]; scratch [c, n] (unused when
+// n <= kHalo); flags [n] bytes; ints: ceil(n / kTile) tile flags, then
+// c * ceil(n / 32) words of -0.0 bits.  One launch, or two where steps past
+// the local kernel's reach remain.
 extern "C" int pcp_segscan(const float* values, const unsigned char* heads, int c, int n,
-                           float* out, float* scratch, unsigned char* flags, void* stream) {
+                           float* out, float* scratch, unsigned char* flags, int* ints,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int global_steps = 0;
-  for (long long d = kTile; d < n; d *= 2) ++global_steps;
-  // the local steps write the buffer from which an even number of
-  // ping-pongs ends in out
-  float* a = (global_steps % 2 == 0) ? out : scratch;
-  float* b = (a == out) ? scratch : out;
-  unsigned char* fa = flags;
-  unsigned char* fb = flags + n;
-  const dim3 grid((n + kTile - 1) / kTile, (c + kGroup - 1) / kGroup);
-  segscan_local<<<grid, kTile, 0, s>>>(values, heads, c, n, a, fa);
+  if (n > pcp_segscan_max_n()) return static_cast<int>(cudaErrorInvalidValue);
+  const int global_steps = pcp_segscan_global_steps(n);
+  const int tiles = (n + kTile - 1) / kTile;
+  int* tile_live = ints;
+  unsigned* neg0 = reinterpret_cast<unsigned*>(ints + tiles);
+  segscan_local<<<dim3(tiles, c), kThreads, 0, s>>>(values, heads, n, global_steps, out, scratch,
+                                                   flags, tile_live, neg0);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  for (long long d = kTile; d < n; d *= 2) {
-    segscan_step<<<(n + 255) / 256, 256, 0, s>>>(a, fa, c, n, static_cast<int>(d), b, fb);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    float* t = a; a = b; b = t;
-    unsigned char* u = fa; fa = fb; fb = u;
+  if (err != cudaSuccess || global_steps == 0) return static_cast<int>(err);
+  const int coarse = (n + kHalo - 1) / kHalo;
+  int residues = kMaxResidues;  // as many as 16 values a thread hold
+  while (residues > 1 && coarse * residues > 16 * kThreads) residues /= 2;
+  if (coarse * residues <= 16 * kThreads) {
+    return launch_global<16>(c, n, residues, scratch, flags, tile_live, neg0, out, s);
   }
-  return 0;
+  return launch_global<32>(c, n, 1, scratch, flags, tile_live, neg0, out, s);
 }

@@ -8,13 +8,16 @@ propagation over the compacted non-plane buffer.
   tolerance seed each run with its head index;
 * each sweep computes ``min(label[i], label[label[i]], neighbour labels)``,
   then hooks each point's minimum onto its root;
-* the full sweep's loop runs on the card as one launch of kernel K4's loop
-  form (``cluster_loop``, ``csrc/cluster_loop.cu``) up to
-  ``LOOP_MAX_CAPACITY`` points; above it, one launch of the per-sweep
-  kernel K4 (``sweep_jump``, ``csrc/cluster_sweep.cu``) a sweep with the
-  hook in PyTorch; CPU tensors take ``cluster_loop_plain``;
+* the full sweep's loop runs on the card as one launch: K4's loop kernel
+  (``loop_kernel``, ``csrc/cluster_loop.cu``, one thread-block cluster a
+  scan) up to ``LOOP_MAX_CAPACITY`` points, the grid-wide loop kernel
+  (``grid_loop``, ``csrc/cluster_grid_loop.cu``, one cooperative grid over
+  every SM) above it; CPU tensors take ``cluster_loop_plain``.  The
+  per-sweep form (``per_sweep_loop``: one launch of ``sweep_jump``,
+  ``csrc/cluster_sweep.cu``, a sweep, the hook in PyTorch) is off every
+  path, kept as the yardstick ``chip_smoke.py`` times beside them;
 * the points and |p|^2 do not change within a clustering: they are laid
-  out once for the sweeps, as the [C, 4] rows the loop kernel and K5 read
+  out once for the sweeps, as the [C, 4] rows the loop kernels and K5 read
   (``pack_points``), or the [4, C] channel rows the per-sweep K4 reads
   (``point_channels``);
 * with ``band_window`` the sweep is banded: query tile t (128 rows) scores
@@ -25,18 +28,18 @@ propagation over the compacted non-plane buffer.
   ``csrc/cluster_sweep_banded.cu``; ``sweep_jump_banded_plain`` for CPU
   tensors);
 * sweeps repeat until no label changes, at most ``max_iters`` times.  The
-  loop kernel tests that on the card; the other loops read
-  ``changed.any()`` back to the host once per sweep after the first, and
-  ``ClusterOutput.host_syncs`` counts those reads.
+  loop kernels test that on the card; the banded loop (and the per-sweep
+  form) read ``changed.any()`` back to the host once per sweep after the
+  first, and ``ClusterOutput.host_syncs`` counts those reads.
 
 The reference tracks the frontier only on its TPU path; the port tracks it
 on every device, which is output-identical (see ``sweep_jump_banded``).
 
 A batch of clouds (``[B, C]``) clusters each scan on its own: the loop
-kernel runs one thread-block cluster a scan in one launch, each stopping at
-its own convergence, and every other step takes the scan axis as it comes.
-The per-sweep K4 and the banded K5 take one scan at a time and refuse a
-batch of more than one.
+kernels take the scan as a grid coordinate in one launch, each scan
+stopping at its own convergence, and every other step takes the scan axis
+as it comes.  The per-sweep K4 and the banded K5 take one scan at a time;
+the banded loop refuses a batch of more than one.
 
 Slots are assigned by size descending, ties by smaller root.  The reference
 relies on ``lax.top_k`` being stable; ``torch.topk`` is not, so the order
@@ -69,6 +72,7 @@ __all__ = [
     "cluster_loop_plain",
     "loop_kernel",
     "per_sweep_loop",
+    "grid_loop",
     "ClusterOutput",
     "LoopOutput",
     "LOOP_MAX_CAPACITY",
@@ -78,13 +82,14 @@ __all__ = [
 BAND_TILE = 128  # query rows per tile of the banded sweep
 # The loop kernel keeps every point in each block's shared memory and
 # splits the rows over one thread-block cluster of 16 blocks (8 where 16
-# does not fit); it fits up to 11,136 points on an H100.  Timed against the
-# per-sweep path on the same buffers (chip_smoke.py's loop_crossover, H100
-# 80GB HBM3, 700 W), it was faster at 4,096, 6,144 and 8,192 points with 5/8
-# or all of the rows valid, and at 11,136 with 5/8 valid, but not with all
-# of them valid (2.83 against 1.91 ms): the per-sweep kernel spreads over
-# C / 256 SMs, the loop kernel stays on 16.
-LOOP_MAX_CAPACITY = 8192
+# does not fit); it fits up to 11,136 points on an H100.  Above this
+# capacity the grid-wide loop kernel takes the loop.  Timed on the same
+# buffers (chip_smoke.py's "loop crossover:" lines, H100 80GB HBM3, 700 W),
+# the loop kernel was faster at 1,024 and 2,048 points with 5/8 or all of
+# the rows valid, at 3,072 only with 5/8 (0.128 against 0.149 ms; all
+# valid 0.275 against 0.150), and slower from 4,096 up: one thread-block
+# cluster stays on 16 SMs, the grid-wide loop spreads over all of them.
+LOOP_MAX_CAPACITY = 2048
 # Blocks a scan of the loop kernel's launch for a batch (a cluster of 16
 # blocks a scan fits about 8 scans on the card at once; fewer blocks a scan
 # run more scans at once, each slower).  Timed at 1-16 blocks on the
@@ -119,16 +124,17 @@ def sweep_jump_plain(pch, valid, labels, tol2: float) -> torch.Tensor:
     x, y, z, p_sq = pch
     t2 = f32(tol2)
     labels_col = torch.where(valid, labels, n)
-    col_ids = torch.arange(n, device=pch.device)
-    out = torch.empty(n, dtype=torch.int32, device=pch.device)
-    for r0 in range(0, n, 256):  # 256-row tiles bound the [T, C] temporaries
-        r = slice(r0, min(r0 + 256, n))
-        cross = dot3(x[r, None], y[r, None], z[r, None], x[None, :], y[None, :], z[None, :])
-        d2 = (p_sq[r, None] + p_sq[None, :]) - 2.0 * cross
-        adj = (d2 <= t2) & valid[None, :] & valid[r, None]
-        hit = adj | (labels[r, None] == col_ids[None, :])
-        cand = torch.where(hit, labels_col[None, :], n)
-        out[r] = torch.minimum(cand.min(dim=1).values, labels[r])
+    # the pointer jump (column labels[i]) and the own label, then the
+    # neighbours; rows and columns past the last valid one have none
+    out = torch.minimum(labels_col[labels.long()], labels)
+    hi = int(valid.nonzero().max()) + 1 if bool(valid.any()) else 0
+    for r0 in range(0, hi, 256):  # 256-row tiles bound the [T, C] temporaries
+        r = slice(r0, min(r0 + 256, hi))
+        cross = dot3(x[r, None], y[r, None], z[r, None], x[None, :hi], y[None, :hi], z[None, :hi])
+        d2 = (p_sq[r, None] + p_sq[None, :hi]) - 2.0 * cross
+        adj = (d2 <= t2) & valid[None, :hi] & valid[r, None]
+        cand = torch.where(adj, labels_col[None, :hi], n)
+        out[r] = torch.minimum(cand.min(dim=1).values, out[r])
     return out
 
 
@@ -330,35 +336,66 @@ def _loop_blocks(n: int, nb: int = 0) -> int:
 
 
 def cluster_loop(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
-    """The full-sweep cluster loop from the seeded ``labels``: the loop
-    kernel (one launch, no host read, a batch included) for CUDA tensors
-    up to ``LOOP_MAX_CAPACITY`` points; above it the per-sweep kernel K4
-    with the hook in PyTorch and one host read a sweep (one scan only);
+    """The full-sweep cluster loop from the seeded ``labels``, in one launch
+    with no host read (a batch included): for CUDA tensors the loop kernel
+    up to ``LOOP_MAX_CAPACITY`` points, the grid-wide loop kernel above it;
     the plain version for CPU tensors.  ``pk``: ``pack_points``' [C, 4]
     rows, or [B, C, 4] for a batch."""
     if pk.device.type == "cpu":
         return cluster_loop_plain(pk, valid, labels, tol2, max_iters)
-    n = pk.shape[-2]
     if pk.shape[-1] != 4 or pk.dim() > 3 or valid.shape != pk.shape[:-1] or \
             labels.shape != valid.shape:
         raise ValueError("cluster_loop: packed points [C, 4], valid [C] and labels [C] "
                          "(a leading [B] on each for a batch)")
-    if n > LOOP_MAX_CAPACITY or not _loop_blocks(n):
-        if pk.dim() == 2:
-            return per_sweep_loop(pk, valid, labels, tol2, max_iters)
-        if pk.shape[0] != 1:
-            raise ValueError(f"cluster_loop: a batch of {pk.shape[0]} clouds of {n} points; "
-                             f"the per-sweep path above {LOOP_MAX_CAPACITY} points takes one")
-        return _stack([per_sweep_loop(pk[0], valid[0], labels[0], tol2, max_iters)])
+    if pk.shape[-2] > LOOP_MAX_CAPACITY:
+        return grid_loop(pk, valid, labels, tol2, max_iters)
     return loop_kernel(pk, valid, labels, tol2, max_iters)
 
 
 def per_sweep_loop(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
     """The loop as one K4 launch a sweep, the hook in PyTorch and a host
     read of the change test after each sweep but the last (CUDA tensors,
-    one scan)."""
+    one scan).  Off every path: ``chip_smoke.py`` times it beside the two
+    loop kernels."""
     pch = pk.T.contiguous()
     return _sweep_loop(lambda lab: sweep_jump(pch, valid, lab, tol2), labels, max_iters)
+
+
+# The grid-wide loop's launch: blocks a multiprocessor and columns a work
+# item, timed on the band-off fullscale scan's clustering (chip_smoke.py's
+# "loop grid blocks:" lines).
+GRID_BLOCKS_PER_SM = 3
+GRID_CHUNK = 256
+
+
+def grid_loop(pk, valid, labels, tol2: float, max_iters: int,
+              blocks_per_sm: int = GRID_BLOCKS_PER_SM, chunk: int = GRID_CHUNK) -> LoopOutput:
+    """The whole loop in one cooperative launch of the grid-wide loop kernel
+    (``csrc/cluster_grid_loop.cu``; CUDA tensors, any capacity, a batch
+    included): the points stay in global memory, the sweep is split over
+    (scan, query tile, column chunk) work items on every SM, and two
+    grid-wide barriers a sweep end the sweep and the hook (with the change
+    test).  Raises if the card cannot hold the grid co-resident."""
+    n = pk.shape[-2]
+    lead = pk.shape[:-2]
+    batch = pk[..., 0, 0].numel()
+    _build.require_cuda("cluster_grid_loop", pk, valid, labels,
+                        dtypes=[torch.float32, torch.bool, torch.int32])
+    if pk.data_ptr() % 16:
+        raise ValueError("cluster_grid_loop: the packed points must be 16-byte aligned")
+    lib = _build.kernels()
+    out = torch.empty(*lead, n, dtype=torch.int32, device=pk.device)
+    unconverged = torch.empty(lead, dtype=torch.bool, device=pk.device)
+    sweeps = torch.empty(lead, dtype=torch.int32, device=pk.device)
+    scratch = torch.empty(5 * batch * n + 4 * batch, dtype=torch.int32, device=pk.device)
+    err = lib.pcp_cluster_grid_loop(
+        pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), batch, n, float(np.float32(tol2)),
+        int(max_iters), int(blocks_per_sm), int(chunk), out.data_ptr(), unconverged.data_ptr(),
+        sweeps.data_ptr(), scratch.data_ptr(), _build.stream_handle(),
+    )
+    _build.check(err, "cluster_grid_loop")
+    _build.LAUNCHES["cluster_grid_loop"] += 1
+    return LoopOutput(out, unconverged, sweeps, 0)
 
 
 def loop_kernel(pk, valid, labels, tol2: float, max_iters: int,

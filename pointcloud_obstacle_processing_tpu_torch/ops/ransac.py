@@ -24,7 +24,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import add_sq3, dot3, f32, fma, sqrt32
+from . import add_sq3, dot3, f32, fma, sqrt32, sum_like_xla
+from .. import _build
 from ..config import PipelineConfig
 from ..types import Cloud, PlaneModel, batch_of, scan_of
 
@@ -54,17 +55,73 @@ def draw_from_uniform(u: torch.Tensor) -> Draw:
     return draw
 
 
-def _smallest_eigvec_3x3(cov: torch.Tensor, init: torch.Tensor, iters: int = 24) -> torch.Tensor:
+def _sum3(a, b, vmapped: bool) -> torch.Tensor:
+    """``jnp.sum`` of a three-vector ``a * b`` (last axis) as XLA:CPU
+    evaluates it inside the refinement's loops: one scan contracts the
+    products as a written-out sum, ``fma(a2, b2, fma(a0, b0, a1 * b1))``;
+    under ``jax.vmap`` the reduce's chain, ``fma(a2, b2, fma(a1, b1, a0 *
+    b0))``."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    if vmapped:
+        return fma(a2, b2, fma(a1, b1, a0 * b0))
+    return fma(a2, b2, fma(a0, b0, a1 * b1))
+
+
+def _smallest_eigvec_3x3(cov: torch.Tensor, init: torch.Tensor, iters: int = 24,
+                         vmapped: bool = False) -> torch.Tensor:
     """Smallest eigenvector of each symmetric 3x3 ``cov`` [..., 3, 3] by
-    power iteration on ``trace(cov) I - cov``, seeded with ``init`` [..., 3]."""
-    trace = cov.diagonal(dim1=-2, dim2=-1).sum(dim=-1)
-    m = trace[..., None, None] * torch.eye(3, dtype=cov.dtype, device=cov.device) - cov
+    power iteration on ``trace(cov) I - cov``, seeded with ``init`` [..., 3],
+    bitwise as XLA:CPU evaluates the reference's (``jnp.trace`` adds the
+    diagonal in order; the matrix-vector product is the chain
+    ``fma(m_i2, v2, fma(m_i1, v1, m_i0 * v0))`` for every row; the norm
+    ``sqrt32(_sum3(w, w))``; ``vmapped`` takes the form of the reference's
+    ``jax.vmap``)."""
+    trace = (cov[..., 0, 0] + cov[..., 1, 1]) + cov[..., 2, 2]
+    eye = torch.eye(3, dtype=torch.bool, device=cov.device)
+    m = torch.where(eye, trace[..., None, None], 0.0) - cov
     v = init
     for _ in range(iters):
-        w = (m @ v[..., None])[..., 0]
-        nrm = torch.linalg.vector_norm(w, dim=-1, keepdim=True)
+        w = fma(m[..., 2], v[..., 2:3], fma(m[..., 1], v[..., 1:2], m[..., 0] * v[..., 0:1]))
+        nrm = sqrt32(_sum3(w, w, vmapped))[..., None]
         v = torch.where(nrm > 1e-20, w / torch.clamp_min(nrm, 1e-20), v)
     return v
+
+
+def plane_tail_plain(cov, cen, n_inl, normal, d, vmapped: bool):
+    """Plain PyTorch version of the refinement's per-scan tail (kernel
+    ``plane_refine``): the smallest eigenvector of ``cov`` [B, 3, 3] seeded
+    with ``normal`` [B, 3], turned to ``normal``'s side, and its offset
+    through the centroid ``cen`` [B, 3]; where fewer than 3 inliers were
+    summed (``n_inl`` [B]) the plane (``normal``, ``d`` [B]) stays.
+    Returns (normal [B, 3], d [B])."""
+    nrm = _smallest_eigvec_3x3(cov, normal, vmapped=vmapped)
+    nrm = nrm * torch.sign(_sum3(nrm, normal, vmapped) + f32(1e-30))[..., None]
+    nd = -dot3(nrm[:, 0], nrm[:, 1], nrm[:, 2], cen[:, 0], cen[:, 1], cen[:, 2])
+    ok = n_inl >= 3.0
+    return torch.where(ok[:, None], nrm, normal), torch.where(ok, nd, d)
+
+
+def plane_tail(cov, cen, n_inl, normal, d, vmapped: bool):
+    """The refinement's per-scan tail (``plane_tail_plain``): one launch of
+    kernel ``plane_refine`` (``csrc/plane_refine.cu``, a thread a scan)
+    for CUDA tensors, the plain version for CPU tensors."""
+    if cov.device.type == "cpu":
+        return plane_tail_plain(cov, cen, n_inl, normal, d, vmapped)
+    b = cov.shape[0]
+    if cov.shape != (b, 3, 3) or cen.shape != (b, 3) or n_inl.shape != (b,) or \
+            normal.shape != (b, 3) or d.shape != (b,):
+        raise ValueError("plane_tail: cov [B, 3, 3], cen [B, 3], n_inl [B], normal [B, 3], d [B]")
+    ops = [t.contiguous() for t in (cov, cen, n_inl, normal, d)]
+    _build.require_cuda("plane_tail", *ops, dtypes=[torch.float32] * 5)
+    out_n = torch.empty_like(ops[3])
+    out_d = torch.empty_like(ops[4])
+    err = _build.kernels().pcp_plane_refine(
+        *(t.data_ptr() for t in ops), b, int(vmapped), out_n.data_ptr(), out_d.data_ptr(),
+        _build.stream_handle())
+    _build.check(err, "plane_refine")
+    _build.LAUNCHES["plane_refine"] += 1
+    return out_n, out_d
 
 
 def _plane_dist(x, y, z, nx, ny, nz, d) -> torch.Tensor:
@@ -85,13 +142,23 @@ class PlaneOnceResult(NamedTuple):  # a leading [B] on every field for a batch
 
 
 def ransac_plane_once(cloud: Cloud, u: torch.Tensor, config: PipelineConfig,
-                      axis=(0.0, 0.0, 1.0)) -> PlaneOnceResult:
+                      axis=(0.0, 0.0, 1.0), vmapped: bool | None = None) -> PlaneOnceResult:
     """One plane extraction from the draws ``u`` ([K, 3] indices into the
     valid points, in input order), or one a scan from [B, K, 3] draws over
-    a batch of clouds."""
+    a batch of clouds.  ``vmapped`` (by default: whether a batch was given)
+    takes the refinement's arithmetic as the reference's ``jax.vmap``
+    evaluates it, else as its single scan does (``_sum3``)."""
     cloud, single = batch_of(cloud)
-    res = _plane_once(cloud, u[None] if single else u, config, axis)
+    vmapped = not single if vmapped is None else vmapped
+    res = _plane_once(cloud, u[None] if single else u, config, axis, vmapped,
+                      _with_ones(cloud.points))
     return scan_of(res) if single else res
+
+
+def _with_ones(pts: torch.Tensor) -> torch.Tensor:
+    """[B, 4, N] rows x, y, z, 1 of points [B, N, 3]: the refinement's
+    masked sums (the centroid's and the inlier count) as one call."""
+    return torch.cat([pts.transpose(1, 2), torch.ones_like(pts[:, None, :, 0])], dim=1)
 
 
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -99,8 +166,10 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(-1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
 
 
-def _plane_once(cloud: Cloud, u: torch.Tensor, config: PipelineConfig, axis) -> PlaneOnceResult:
-    """``ransac_plane_once`` over a batch: cloud [B, N], draws [B, K, 3]."""
+def _plane_once(cloud: Cloud, u: torch.Tensor, config: PipelineConfig, axis, vmapped: bool,
+                pts1: torch.Tensor) -> PlaneOnceResult:
+    """``ransac_plane_once`` over a batch: cloud [B, N], draws [B, K, 3];
+    ``pts1``: ``_with_ones(cloud.points)``."""
     pts = cloud.points
     valid = cloud.valid
     thresh = f32(config.plane_segment_dist_thresh)
@@ -149,31 +218,22 @@ def _plane_once(cloud: Cloud, u: torch.Tensor, config: PipelineConfig, axis) -> 
     inliers = inl.gather(-1, best[:, None, :].expand(-1, inl.shape[1], 1))[..., 0]
 
     # refinement (setOptimizeCoefficients); the reference's lax.cond on
-    # ``found`` becomes a select over an unconditional computation
+    # ``found`` becomes a select over an unconditional computation.  Its
+    # sums in XLA:CPU's order (``sum_like_xla``): the inlier count and the
+    # centroid's sums in one call, the covariance's nine in another
+    # (products rounded, then summed); the per-scan 3x3 tail in one more
     r_normal, r_d, r_in = normal, d, inliers
     for _ in range(config.ransac_refine_iters):
-        w = r_in.to(torch.float32)
-        n_inl = w.sum(dim=-1)
-        cnt = torch.clamp_min(n_inl, 3.0)
-        cx = (x * w).sum(dim=-1) / cnt
-        cy = (y * w).sum(dim=-1) / cnt
-        cz = (z * w).sum(dim=-1) / cnt
-        dx, dy, dz = x - cx[:, None], y - cy[:, None], z - cz[:, None]
-        qx, qy, qz = dx * w, dy * w, dz * w
-        cov = torch.stack([
-            torch.stack([(qx * dx).sum(-1), (qx * dy).sum(-1), (qx * dz).sum(-1)], dim=-1),
-            torch.stack([(qy * dx).sum(-1), (qy * dy).sum(-1), (qy * dz).sum(-1)], dim=-1),
-            torch.stack([(qz * dx).sum(-1), (qz * dy).sum(-1), (qz * dz).sum(-1)], dim=-1),
-        ], dim=-2)  # [B, 3, 3]
-        nrm = _smallest_eigvec_3x3(cov, r_normal)
-        nrm = nrm * torch.sign((nrm * r_normal).sum(dim=-1, keepdim=True) + 1e-30)
-        nd = -(nrm[:, 0] * cx + nrm[:, 1] * cy + nrm[:, 2] * cz)
+        s4 = sum_like_xla(torch.where(r_in[:, None, :], pts1, 0.0))  # [B, 4]: sx, sy, sz, n
+        n_inl = s4[:, 3]
+        cen = s4[:, :3] / torch.clamp_min(n_inl, 3.0)[:, None]
+        off = pts1[:, :3] - cen[..., None]  # [B, 3, N]
+        cov = sum_like_xla(torch.where(r_in[:, None, :], off, 0.0), off)  # [B, 3, 3]
+        nrm, nd = plane_tail(cov, cen, n_inl, r_normal, r_d, vmapped)
         new_in = (torch.abs(_plane_dist(x, y, z, nrm[:, 0, None], nrm[:, 1, None],
                                         nrm[:, 2, None], nd[:, None])) < thresh) & valid
-        ok = n_inl >= 3.0
-        r_normal = torch.where(ok[:, None], nrm, r_normal)
-        r_d = torch.where(ok, nd, r_d)
-        r_in = torch.where(ok[:, None], new_in, r_in)
+        r_normal, r_d = nrm, nd
+        r_in = torch.where((n_inl >= 3.0)[:, None], new_in, r_in)
     normal = torch.where(found[:, None], r_normal, normal)
     d = torch.where(found, r_d, d)
     inliers = torch.where(found[:, None], r_in, inliers) & found[:, None]
@@ -189,23 +249,27 @@ class SegmentPlanesResult(NamedTuple):  # a leading [B] on every field for a bat
 
 
 def segment_planes(cloud: Cloud, config: PipelineConfig, draw: Draw,
-                   axis=(0.0, 0.0, 1.0)) -> SegmentPlanesResult:
+                   axis=(0.0, 0.0, 1.0), vmapped: bool | None = None) -> SegmentPlanesResult:
     """Iterative multi-plane removal (cpp:376-399) as ``max_planes`` masked
     rounds.  Round r runs, in each scan, where the reference's loop
     condition holds there: more than ``plane_min_remaining_frac`` of the
     points remain, the last round found a plane, and fewer than
     ``max_planes`` were extracted.  ``draw(r, n_valid)`` gets each scan's
     remaining count (``[]`` for one cloud, ``[B]`` for a batch) and returns
-    [K, 3] or [B, K, 3] indices."""
+    [K, 3] or [B, K, 3] indices.  ``vmapped`` as for ``ransac_plane_once``
+    (a batch through ``process_scan`` is the reference's vmapped
+    ``batched_pipeline``)."""
     cloud, single = batch_of(cloud)
+    vmapped = not single if vmapped is None else vmapped
     if single:
         one_draw = draw
         draw = lambda r, n_valid: one_draw(r, n_valid[0])[None]  # noqa: E731
-    res = _segment_planes(cloud, config, draw, axis)
+    res = _segment_planes(cloud, config, draw, axis, vmapped)
     return scan_of(res) if single else res
 
 
-def _segment_planes(cloud: Cloud, config: PipelineConfig, draw: Draw, axis) -> SegmentPlanesResult:
+def _segment_planes(cloud: Cloud, config: PipelineConfig, draw: Draw, axis,
+                    vmapped: bool) -> SegmentPlanesResult:
     b, n = cloud.valid.shape
     dev = cloud.device
     max_planes = config.max_planes
@@ -220,11 +284,12 @@ def _segment_planes(cloud: Cloud, config: PipelineConfig, draw: Draw, axis) -> S
     found = torch.ones(b, dtype=torch.bool, device=dev)
     union = torch.zeros(b, n, dtype=torch.bool, device=dev)
     last = torch.zeros(b, n, dtype=torch.bool, device=dev)
+    pts1 = _with_ones(cloud.points)  # fixed over the rounds
     for r in range(max_planes):
         remaining = valid.sum(dim=-1, dtype=torch.int32)
         active = (remaining.to(torch.float32) > frac * n0.to(torch.float32)) & found & (i < max_planes)
         res = _plane_once(Cloud(points=cloud.points, valid=valid), draw(r, remaining),
-                          config, axis)
+                          config, axis, vmapped, pts1)
         at_i = slots == i[:, None]  # [B, max_planes]
         row = torch.cat([res.normal, res.d[:, None]], dim=-1)  # [B, 4]
         coeffs = torch.where((active & res.found)[:, None, None] & at_i[..., None],

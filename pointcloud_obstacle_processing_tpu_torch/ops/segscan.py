@@ -14,9 +14,14 @@ selects: nothing to contract.  Where the flag is set the step still adds
 
 ``segmented_inclusive_scan`` launches kernel K6 (``csrc/segscan.cu``) for
 CUDA tensors and takes ``segmented_inclusive_scan_plain`` only for CPU
-tensors.  The reference's kernel runs only on the TPU, for N % 128 == 0 and
-a block that fits its VMEM; those are limits of the TPU, and this function
-takes any N >= 1 on both devices.
+tensors.  K6 runs the steps d < ``HALO`` in one launch, a block per
+``TILE`` outputs of a channel, and the later steps, which join only
+elements of one residue modulo ``HALO``, in a second launch that returns at
+once where no segment reaches further back than ``HALO``.  The reference's
+kernel runs only on the TPU, for N % 128 == 0 and a block that fits its
+VMEM; those are limits of the TPU.  This function takes any N >= 1 on the
+CPU and up to 2^24 values a row on the card (a residue's whole sequence in
+one block's shared memory).
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from .. import _build
 
 __all__ = ["segmented_inclusive_scan", "segmented_inclusive_scan_plain", "scan_steps"]
 
-TILE = 1024  # outputs per block of K6's in-block steps (kTile in csrc/segscan.cu)
+HALO = 1024  # K6's in-block steps are d < HALO (kHalo in csrc/segscan.cu)
+TILE = 4096  # outputs a block of K6's in-block steps (kTile)
 
 
 def scan_steps(n: int) -> list[int]:
@@ -78,11 +84,18 @@ def segmented_inclusive_scan(values: torch.Tensor, heads: torch.Tensor) -> torch
     if v.numel() == 0:
         return values.clone()
     lib = _build.kernels()
+    if n > lib.pcp_segscan_max_n():
+        raise ValueError(f"segmented_inclusive_scan: rows of {n} values; the kernel takes up to "
+                         f"{lib.pcp_segscan_max_n()}")
     out = torch.empty_like(v)
-    scratch = torch.empty_like(v) if n > TILE else out  # ping-pong of the steps past the tile
-    flags = torch.empty(2, n, dtype=torch.uint8, device=v.device)
+    # the values and flags of tiles with a live element, the tiles' live
+    # flags and the -0.0 bits of the flagged values
+    scratch = torch.empty_like(v) if n > HALO else out
+    flags = torch.empty(n, dtype=torch.uint8, device=v.device)
+    ints = torch.empty(-(-n // TILE) + c * -(-n // 32), dtype=torch.int32, device=v.device)
     err = lib.pcp_segscan(v.data_ptr(), heads.data_ptr(), c, n, out.data_ptr(),
-                          scratch.data_ptr(), flags.data_ptr(), _build.stream_handle())
+                          scratch.data_ptr(), flags.data_ptr(), ints.data_ptr(),
+                          _build.stream_handle())
     _build.check(err, "segscan")
     _build.LAUNCHES["segscan"] += 1
     return out.reshape(values.shape)

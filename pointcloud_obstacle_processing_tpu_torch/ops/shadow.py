@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import f32, fma, sqrt32, sum_sq3
+from . import f32, fma, recip32, sqrt32, sum_sq3
 from ..config import PipelineConfig
 from ..types import Cloud, ClusterSet
 from .occupancy import grid_cell_xy
@@ -42,6 +42,16 @@ def _lengths(vmin: torch.Tensor):
     chain), with correctly rounded roots."""
     a, bb = vmin[..., 2], torch.abs(vmin[..., 0])
     return sqrt32(fma(a, a, bb * bb)), sqrt32(sum_sq3(vmin[..., 0], vmin[..., 1], vmin[..., 2]))
+
+
+def sweep_lines(width: torch.Tensor, block_size: float):
+    """The shadow sweep's shift ``ceil((width / block) / 2)`` and line count
+    ``ceil(width / block) + 3`` (cpp:586-600) as XLA:CPU evaluates the
+    reference's: the division by the constant block as a product with its
+    float32 reciprocal (``ops.recip32``), the halving exact.  Returns int32
+    (shift, n_lines)."""
+    per_block = width * recip32(block_size)
+    return torch.ceil(per_block * 0.5).to(torch.int32), torch.ceil(per_block).to(torch.int32) + 3
 
 
 def cast_shadows(grid: torch.Tensor, cloud: Cloud, clusters: ClusterSet,
@@ -81,9 +91,7 @@ def cast_shadows(grid: torch.Tensor, cloud: Cloud, clusters: ClusterSet,
     e_col, e_row = _cell(end_world, config)
     s_col, s_row = _cell(start_world, config)
 
-    b = f32(config.block_size)
-    shift = torch.ceil((width / b) / 2.0).to(torch.int32)
-    n_lines = torch.ceil(width / b).to(torch.int32) + 3
+    shift, n_lines = sweep_lines(width, config.block_size)
     active = clusters.valid & (mask.sum(dim=-1) >= 2)
 
     # traceShadow sweep union, closed form per cluster

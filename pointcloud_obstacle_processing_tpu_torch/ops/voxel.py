@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import f32, fma
+from . import f32, fma, recip32
 from ..types import Cloud
 from .runreduce import sorted_run_reduce
 
@@ -139,9 +139,10 @@ def voxel_partials(cloud: Cloud, leaf_size: float, capacity: int, bounds=None,
     """
     pts = cloud.points
     valid = cloud.valid & torch.isfinite(pts).all(dim=-1)
-    lf = f32(leaf_size)
-    # clamp before the int cast (a huge coordinate must not wrap)
-    ijk = torch.clamp(torch.floor(pts / lf), -(2.0**30), 2.0**30).to(torch.int32)
+    # the reference's floor(pts / leaf) as XLA:CPU evaluates it, a product
+    # with the reciprocal; clamp before the int cast (a huge coordinate must
+    # not wrap)
+    ijk = torch.clamp(torch.floor(pts * recip32(leaf_size)), -(2.0**30), 2.0**30).to(torch.int32)
     spec = _pack_spec(bounds, leaf_size)
     if spec is None or spec[1][0] * spec[1][1] * spec[1][2] > (1 << 23):
         raise ValueError(

@@ -87,7 +87,7 @@ def process_scan(cloud: Cloud, config: PipelineConfig,
     )
     res = _post_voxel(
         vox.cloud, vox.num_voxels, seed.hole_grid, n_in, cropped.count(), config,
-        world_from_sensor, draw, vox.overflow,
+        world_from_sensor, draw, vox.overflow, vmapped=not single,
     )
     return scan_of(res) if single else res
 
@@ -95,8 +95,10 @@ def process_scan(cloud: Cloud, config: PipelineConfig,
 def _post_voxel(voxel_cloud: Cloud, n_voxels: torch.Tensor, hole_grid: torch.Tensor,
                 n_in: torch.Tensor, n_cropped: torch.Tensor, config: PipelineConfig,
                 world_from_sensor: RigidTransform, draw: Draw,
-                voxel_overflow: torch.Tensor) -> PipelineResult:
-    """Stages 3-8, on a batch."""
+                voxel_overflow: torch.Tensor, vmapped: bool) -> PipelineResult:
+    """Stages 3-8, on a batch (``vmapped``: RANSAC's refinement as the
+    reference's ``batched_pipeline`` evaluates it, else as its single
+    scan does; see ``ops.ransac._sum3``)."""
     # knn_skip_dead_tiles needs no code here: K3 and its plain version
     # always give query tiles with no valid point the mean of `big` rows,
     # 0, the output the reference's per-tile skip gives (those rows are
@@ -108,7 +110,7 @@ def _post_voxel(voxel_cloud: Cloud, n_voxels: torch.Tensor, hole_grid: torch.Ten
         row_tile=config.knn_row_tile,
         band=config.knn_band,
     )
-    seg = segment_planes(outl.cloud, config, draw)
+    seg = segment_planes(outl.cloud, config, draw, vmapped=vmapped)
     comp = compact(seg.nonplane_cloud, config.cluster_capacity)
     clus = euclidean_cluster(
         comp.cloud,

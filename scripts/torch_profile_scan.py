@@ -4,7 +4,8 @@
     python3 scripts/torch_profile_scan.py --config fullscale --runs 10
     python3 scripts/torch_profile_scan.py --config flagship --batch 32
 
-For the flagship scene (seed 0) or the canonical fullscale window, or with
+For the flagship scene (seed 0) or the canonical fullscale window (banded,
+or with the band off: ``--config fullscale_bandoff``), or with
 ``--batch B`` for a batch of B flagship scans (8 scenes, seeds 0-7, tiled,
 a RANSAC draw of its own for each scan; one ``process_scan`` call a
 batch), it prints:
@@ -76,6 +77,8 @@ def _inputs(name: str, dev, batch: int = 0):
         cloud = Cloud.pad_to(pts[: cfg.max_points], cfg.max_points, device=dev)
     else:
         cfg = REFERENCE_FULLSCALE_CONFIG
+        if name == "fullscale_bandoff":
+            cfg = cfg.replace(cluster_band_window=0)
         pts, valid = make_fullscale_window(cfg.max_points)
         cloud = Cloud(points=torch.tensor(pts, device=dev), valid=torch.tensor(valid, device=dev))
     u = np.random.default_rng(5).random((cfg.max_planes, cfg.ransac_hypotheses, 3))
@@ -86,7 +89,8 @@ def main() -> None:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("flagship", "fullscale"), default="fullscale")
+    ap.add_argument("--config", choices=("flagship", "fullscale", "fullscale_bandoff"),
+                    default="fullscale")
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--profiled", type=int, default=5)
     ap.add_argument("--batch", type=int, default=0,

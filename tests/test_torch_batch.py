@@ -100,6 +100,7 @@ def test_batch_meets_crosscheck_bar_against_reference_batched_pipeline(packing):
         if len(ca):
             assert np.abs(np.sort(ca, axis=0) - np.sort(cb, axis=0)).max() < 1e-5
         np.testing.assert_array_equal(rb.clusters.point_cluster, pb.clusters.point_cluster.numpy())
+        np.testing.assert_array_equal(rb.planes.coeffs, pb.planes.coeffs.numpy())
         k = int(pb.stats.voxel_points)
         np.testing.assert_array_equal(rb.voxel_cloud.valid, pb.voxel_cloud.valid.numpy())
         np.testing.assert_array_equal(rb.voxel_cloud.points[:k], pb.voxel_cloud.points.numpy()[:k])

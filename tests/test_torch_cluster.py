@@ -165,3 +165,37 @@ def test_cluster_loop_takes_plain_version_on_cpu():
     assert _build.LAUNCHES == before
     ref = cluster.cluster_loop_plain(cluster.pack_points(p, p_sq), v, labels, 0.16, 64)
     assert torch.equal(out.labels, ref.labels) and out.sweeps == ref.sweeps
+
+
+def test_full_sweep_above_the_loop_kernel_capacity_matches_reference():
+    """The band-off full sweep at a capacity just above
+    ``LOOP_MAX_CAPACITY`` (the grid-wide loop kernel's range on the card,
+    the plain loop here) with few valid points, against the reference's
+    ``euclidean_cluster``; and a batch of two such clouds (which the
+    per-sweep path refused) equal to their single-cloud runs."""
+    c = cluster.LOOP_MAX_CAPACITY + 128
+    args = (0.4, 5, 20000, 16, 64)
+    clouds = [_dyadic_blobs(seed, CENTERS, 110, 0.08, 90, c, shuffle=False)
+              for seed in (6, 7)]
+    pts, valid = clouds[0]
+    r = jax.jit(lambda cl: ref_cluster.euclidean_cluster(cl, *args))(
+        RefCloud.from_points(pts, valid))
+    p = cluster.euclidean_cluster(Cloud.from_points(pts, valid), *args)
+    np.testing.assert_array_equal(np.asarray(r.labels), p.labels.numpy())
+    np.testing.assert_array_equal(np.asarray(r.root_slot), p.root_slot.numpy())
+    for f in ("point_cluster", "sizes", "valid", "num_clusters"):
+        np.testing.assert_array_equal(np.asarray(getattr(r.clusters, f)),
+                                      getattr(p.clusters, f).numpy())
+    for f in ("overflow", "unconverged"):
+        assert bool(getattr(r, f)) == bool(getattr(p, f)), f
+    assert int(p.clusters.num_clusters) >= 4
+
+    both = cluster.euclidean_cluster(
+        Cloud.from_points(np.stack([x for x, _ in clouds]), np.stack([v for _, v in clouds])),
+        *args)
+    for b, (x, v) in enumerate(clouds):
+        one = p if b == 0 else cluster.euclidean_cluster(Cloud.from_points(x, v), *args)
+        for f in ("labels", "root_slot", "unconverged", "overflow"):
+            assert torch.equal(getattr(both, f)[b], getattr(one, f)), (b, f)
+        for f in ("point_cluster", "sizes", "valid", "num_clusters"):
+            assert torch.equal(getattr(both.clusters, f)[b], getattr(one.clusters, f)), (b, f)

@@ -333,20 +333,26 @@ def _loop_case(dev, c, n_valid, seed):
     return cluster.pack_points(p, p_sq), valid, labels
 
 
-@pytest.mark.parametrize("c,n_valid,max_iters,kernel", [
-    (1024, 600, 64, "cluster_loop"),  # the flagship capacity
-    (4096, 3500, 64, "cluster_loop"),  # the default capacity
-    (1000, 700, 64, "cluster_loop"),  # rows not a multiple of the cluster's blocks
-    (200, 150, 64, "cluster_loop"),  # fewer rows than blocks x 32
-    (1024, 600, 2, "cluster_loop"),  # the iteration cap binds
-    (cluster.LOOP_MAX_CAPACITY, cluster.LOOP_MAX_CAPACITY * 5 // 8, 64, "cluster_loop"),  # the limit
-    (cluster.LOOP_MAX_CAPACITY + 2048, 5000, 64, "cluster_sweep"),  # above: one K4 launch a sweep
+@pytest.mark.parametrize("c,n_valid,max_iters", [
+    (1024, 600, 64),  # the flagship capacity
+    (4096, 3500, 64),  # the default capacity
+    (1000, 700, 64),  # rows not a multiple of the cluster's blocks
+    (200, 150, 64),  # fewer rows than blocks x 32
+    (1024, 600, 2),  # the iteration cap binds
+    (cluster.LOOP_MAX_CAPACITY, cluster.LOOP_MAX_CAPACITY * 5 // 8, 64),  # the limit
+    (cluster.LOOP_MAX_CAPACITY + 2048, (cluster.LOOP_MAX_CAPACITY + 2048) * 5 // 8, 64),  # above
+    (10240, 6400, 64),
+    (10240, 10240, 64),  # every row valid
+    (16384, 10240, 64),  # the fullscale capacity
+    (16384, 16384, 64),
+    (16384, 10240, 2),  # the iteration cap binds
 ])
-def test_cluster_loop_kernel_equals_plain(dev, c, n_valid, max_iters, kernel):
+def test_cluster_loop_kernel_equals_plain(dev, c, n_valid, max_iters):
     """The cluster loop on the card against its plain version on the same
-    inputs: labels, ``unconverged`` and the sweeps run, exact; the loop
-    kernel makes one launch and no host read, the per-sweep path one K4
-    launch and (but for the last) one host read a sweep."""
+    inputs: labels, ``unconverged`` and the sweeps run, exact; each form
+    (the loop kernel up to ``LOOP_MAX_CAPACITY``, the grid-wide loop
+    kernel above it) makes one launch and no host read."""
+    kernel = "cluster_loop" if c <= cluster.LOOP_MAX_CAPACITY else "cluster_grid_loop"
     pk, valid, labels = _loop_case(dev, c, n_valid, c + max_iters)
     _build.reset_launch_counts()
     got = cluster.cluster_loop(pk, valid, labels, 0.16, max_iters)
@@ -355,11 +361,88 @@ def test_cluster_loop_kernel_equals_plain(dev, c, n_valid, max_iters, kernel):
     _eq(got.labels, want.labels)
     assert bool(got.unconverged) == bool(want.unconverged)
     assert int(got.sweeps) == int(want.sweeps) >= 2
-    if kernel == "cluster_loop":
-        assert launches["cluster_loop"] == 1 and got.host_syncs == 0
-    else:
-        assert launches["cluster_sweep"] == int(got.sweeps) and launches["cluster_loop"] == 0
+    assert launches[kernel] == 1 and got.host_syncs == 0
+    assert sum(launches.values()) == 1
     assert bool(want.unconverged) == (max_iters == 2)
+
+
+def test_grid_loop_takes_a_batch(dev):
+    """The grid-wide loop kernel on a batch of two differing scans at 10,240
+    points (one launch; the per-sweep path refused a batch), each scan equal
+    to the plain loop; and the per-sweep path, kept as the crossover's
+    yardstick, equal to it on the first scan."""
+    cases = [_loop_case(dev, 10240, n_valid, seed) for n_valid, seed in ((6400, 1), (9000, 2))]
+    pk, valid, labels = (torch.stack([c[i] for c in cases]) for i in range(3))
+    _build.reset_launch_counts()
+    got = cluster.cluster_loop(pk, valid, labels, 0.16, 64)
+    assert _build.LAUNCHES["cluster_grid_loop"] == 1
+    want = cluster.cluster_loop_plain(pk, valid, labels, 0.16, 64)
+    _eq(got.labels, want.labels)
+    _eq(got.sweeps, want.sweeps)
+    _eq(got.unconverged, want.unconverged)
+    per = cluster.per_sweep_loop(pk[0], valid[0], labels[0], 0.16, 64)
+    _eq(per.labels, want.labels[0])
+    assert int(per.sweeps) == int(want.sweeps[0])
+
+
+@pytest.mark.parametrize("shape,prod", [
+    ((2, 24_576), False),  # the outlier gate's s1 and s2 at the flagship shape
+    ((2, 262_144), False),  # and at fullscale
+    ((3, 4, 100), False),
+    ((1, 7), False),  # a short row: the plain reduce alone
+    ((32, 3, 24_576), True),  # RANSAC's covariance, a batch of 32
+    ((2, 3, 20), True),  # a short product: fused into the plain reduce
+    ((1, 3, 16_384), True),
+    ((1, 3, 262_144), True),  # the covariance at fullscale: two launches
+    ((2, 100_003), False),  # a long row of odd length: both levels padded
+])
+def test_sum_kernel_equals_plain(dev, shape, prod):
+    """The sum kernel (``ops.sum_like_xla``) against its plain version in
+    bit patterns, contiguous and strided (a transposed view, read in place)."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import sum_like_xla, sum_like_xla_plain
+
+    rng = np.random.default_rng(shape[-1])
+    a = torch.tensor((rng.standard_normal(shape) * 10).astype(np.float32), device=dev)
+    a[..., ::97] = -0.0
+    b = torch.tensor(rng.standard_normal(shape).astype(np.float32), device=dev) if prod else None
+    _build.reset_launch_counts()
+    got = sum_like_xla(a, b)
+    assert _build.LAUNCHES["xla_sum"] == 1
+    _eq(got.view(torch.int32), sum_like_xla_plain(a, b).view(torch.int32))
+    at = a.transpose(-1, -2).contiguous().transpose(-1, -2)  # the same values, strided
+    bt = None if b is None else b.transpose(-1, -2).contiguous().transpose(-1, -2)
+    _eq(sum_like_xla(at, bt).view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("vmapped", [False, True])
+def test_plane_tail_kernel_equals_plain(dev, vmapped):
+    """The refinement's 3x3 tail kernel against its plain version in bit
+    patterns, on 512 covariances of plane-like clouds, with some scans of
+    fewer than 3 inliers (the plane stays)."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    rng = np.random.default_rng(int(vmapped))
+    b = 512
+    covs, normals, cens = [], [], []
+    for _ in range(b):
+        m = int(rng.integers(20, 2000))
+        pts = np.stack([rng.uniform(0, 4, m), rng.uniform(0, 3, m),
+                        rng.normal(0, 0.02, m) + rng.normal(0, 0.1) * rng.uniform(0, 4, m)], -1)
+        d = pts - pts.mean(0)
+        covs.append((d.T @ d).astype(np.float32))
+        cens.append(pts.mean(0).astype(np.float32))
+        n0 = rng.normal(0, 0.1, 3) + [0, 0, 1]
+        normals.append((n0 / np.linalg.norm(n0)).astype(np.float32))
+    args = [torch.tensor(np.stack(x), device=dev) for x in (covs, cens)]
+    n_inl = torch.tensor(rng.integers(0, 3000, b).astype(np.float32), device=dev)
+    normal = torch.tensor(np.stack(normals), device=dev)
+    d = torch.tensor(rng.standard_normal(b).astype(np.float32), device=dev)
+    _build.reset_launch_counts()
+    got = ransac.plane_tail(*args, n_inl, normal, d, vmapped)
+    assert _build.LAUNCHES["plane_refine"] == 1
+    want = ransac.plane_tail_plain(*args, n_inl, normal, d, vmapped)
+    for g, w in zip(got, want):
+        _eq(g.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.mark.parametrize(
@@ -444,15 +527,28 @@ def test_distance_kernels_on_cross_term_pairs(dev):
         assert mean[0].item() == float(np.float32(np.sqrt(np.float64(d2))))
 
 
-@pytest.mark.parametrize("c,n", [(4, 131_072), (4, 2_097_152), (3, 1000), (5, 1025), (1, 1)])
-def test_segscan_kernel_equals_plain(dev, c, n):
+@pytest.mark.parametrize("c,n,heads_kind", [
+    (4, 131_072, "runs"), (4, 2_097_152, "runs"), (3, 1000, "runs"), (5, 1025, "runs"),
+    (1, 1, "runs"),
+    (4, 131_072, "none"), (4, 2_097_152, "none"),  # one segment: every element live
+    (4, 131_072, "all"), (2, 20_000, "sparse"),  # every element a head; long segments
+    (2, 20_000, "sparse_zeros"),  # -0.0 everywhere: the signs of zero that live steps read
+])
+def test_segscan_kernel_equals_plain(dev, c, n, heads_kind):
     """K6 against its plain version in bit patterns, with heads from a
-    sorted key buffer, -0.0 values and non-finite values."""
+    sorted key buffer (runs of ~8), none, all, or a few (segments of
+    thousands: live elements past the local steps), -0.0 values and
+    non-finite values."""
     rng = np.random.default_rng(c + n)
-    keys = np.sort(rng.integers(0, max(n // 8, 1), n))
-    heads = np.concatenate([[True], keys[1:] != keys[:-1]])
+    if heads_kind == "runs":
+        keys = np.sort(rng.integers(0, max(n // 8, 1), n))
+        heads = np.concatenate([[True], keys[1:] != keys[:-1]])
+    elif heads_kind.startswith("sparse"):
+        heads = rng.random(n) < 3e-4
+    else:
+        heads = np.full(n, heads_kind == "all")
     v = rng.standard_normal((c, n)).astype(np.float32)
-    v[:, rng.random(n) < 0.05] = -0.0
+    v[:, rng.random(n) < (0.999 if heads_kind == "sparse_zeros" else 0.05)] = -0.0
     if n > 100:
         v[0, 50], v[-1, 70] = np.inf, np.nan
     vt, ht = torch.tensor(v, device=dev), torch.tensor(heads, device=dev)

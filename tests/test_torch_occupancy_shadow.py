@@ -19,7 +19,7 @@ from pointcloud_obstacle_processing_tpu.types import ClusterSet as RefClusterSet
 from pointcloud_obstacle_processing_tpu_torch import REFERENCE_YAML_CONFIG as CFG
 from pointcloud_obstacle_processing_tpu_torch import Cloud, ClusterSet
 from pointcloud_obstacle_processing_tpu_torch.ops import occupancy
-from pointcloud_obstacle_processing_tpu_torch.ops.shadow import cast_shadows
+from pointcloud_obstacle_processing_tpu_torch.ops.shadow import cast_shadows, sweep_lines
 from pointcloud_obstacle_processing_tpu_torch.ops.transforms import RigidTransform
 
 
@@ -270,3 +270,33 @@ def test_shadow_lengths_match_the_reference_in_place(monkeypatch):
         unfused = torch.sqrt(a * a + bb * bb).numpy().view(np.int32).tolist()
         unfused_misses += sum(b not in bits for b in unfused)
     assert unfused_misses > 0
+
+
+@pytest.mark.parametrize("vmapped", [False, True])
+def test_shadow_sweep_lines_are_bitwise_the_reference(vmapped):
+    """The shadow sweep's shift and line count (reference ``ops/shadow.py``
+    ``ceil((width / block) / 2)`` and ``ceil(width / block) + 3``) on
+    20,000 widths within 3 ulps of a multiple of the block, jitted alone and
+    under ``jax.vmap`` as ``cast_shadows`` runs it: XLA:CPU divides by the
+    constant block as a product with its reciprocal, and ``sweep_lines``
+    equals it; the quotient would give another count on some widths."""
+    b = CFG.block_size
+    rng = np.random.default_rng(int(vmapped))
+    base = (rng.integers(1, 120, 20_000) * np.float32(b)).astype(np.float32)
+    width = (base.view(np.int32) + rng.integers(-3, 4, 20_000).astype(np.int32)).view(np.float32)
+
+    def ref(w):
+        shift = jnp.ceil((w / jnp.float32(b)) / 2.0).astype(jnp.int32)
+        return shift, jnp.ceil(w / jnp.float32(b)).astype(jnp.int32) + 3
+
+    if vmapped:
+        want = jax.jit(jax.vmap(ref))(width)
+    else:
+        one = jax.jit(ref)
+        want = [np.array(x) for x in zip(*(one(w) for w in width[:2000]))]
+        width = width[:2000]
+    shift, n_lines = sweep_lines(torch.tensor(width), b)
+    np.testing.assert_array_equal(shift.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(n_lines.numpy(), np.asarray(want[1]))
+    quotient = np.ceil(width / np.float32(b)).astype(np.int32) + 3
+    assert (quotient != np.asarray(want[1])).any()

@@ -441,6 +441,29 @@ def test_sum_like_xla_is_jnp_sum(shape):
     print(f"torch sum over {shape}: another value in {torch_miss} of 10")
 
 
+@pytest.mark.parametrize("shape", [(5,), (32,), (33,), (1000,), (24_576,), (100_352,),
+                                   (262_144,), (3, 8192)])
+def test_sum_like_xla_of_products_is_jnp_sum(shape):
+    """The two-operand form, ``sum_like_xla(a, b)``, against XLA:CPU's
+    jitted ``jnp.sum(a * b)`` over the last axis, bitwise, on 10 seeded
+    pairs a shape (as RANSAC's covariance sums them): above 32 values the
+    product is rounded before the windows add it, up to 32 it is fused into
+    the plain reduce's adds.  The rounded product in the short form misses
+    on some (printed under ``-s``)."""
+    rng = np.random.default_rng(shape[-1] % 89 + 3)
+    ref_sum = jax.jit(lambda a, b: jnp.sum(a * b, axis=-1))
+    short_miss = 0
+    for i in range(10):
+        a = (rng.random(shape) * (1.0, 100.0, 1e-3)[i % 3] - 0.3).astype(np.float32)
+        b = rng.standard_normal(shape).astype(np.float32)
+        want = np.asarray(ref_sum(a, b))
+        got = sum_like_xla(torch.tensor(a)[..., None, :], torch.tensor(b)[..., None, :])
+        np.testing.assert_array_equal(got[..., 0, 0].numpy().view(np.int32), want.view(np.int32))
+        unfused = sum_like_xla(torch.tensor(a * b)).numpy()
+        short_miss += int((unfused != want).any())
+    print(f"rounded products summed over {shape}: another value in {short_miss} of 10")
+
+
 def test_gate_sums_are_bitwise_the_reference(monkeypatch):
     """The whole gate on the reference's flagship-sized input: 48 clouds of
     24,576 gamma-distributed distances (90% valid), both packages'
@@ -482,8 +505,9 @@ def test_gate_and_ransac_decisions_match_the_reference_on_20_scenes():
     reference's RANSAC key chain replayed.  The scans whose outlier gate
     keeps another set, or whose RANSAC rounds take other inliers (every
     plane, the last plane, what remains), are counted: none.  The plane
-    coefficients are not bitwise (the refinement's sums take another
-    order than XLA:CPU's; their count is printed under ``-s``)."""
+    coefficients are bitwise the reference's in every scene (the
+    refinement's sums in XLA:CPU's order, its 3x3 tail as XLA:CPU fuses
+    it, and the voxel keys as XLA:CPU divides by the leaf)."""
     import dataclasses
 
     from test_torch_pipeline import CFG, SPEC
@@ -518,3 +542,4 @@ def test_gate_and_ransac_decisions_match_the_reference_on_20_scenes():
     print(f"scans of 20 with another kept or inlier set: {sets}; with other plane "
           f"coefficients: {other_coeffs}")
     assert sets == dict.fromkeys(sets, 0)
+    assert other_coeffs == 0

@@ -74,7 +74,7 @@ def test_slice_meets_crosscheck_bar(packing):
                                   p.voxel_cloud.points.numpy()[:k])
     np.testing.assert_array_equal(np.asarray(r.clusters.point_cluster),
                                   p.clusters.point_cluster.numpy())
-    np.testing.assert_allclose(p.planes.coeffs.numpy(), np.asarray(r.planes.coeffs), atol=1e-6)
+    np.testing.assert_array_equal(p.planes.coeffs.numpy(), np.asarray(r.planes.coeffs))
 
 
 def test_model_facade_runs_the_slice_with_its_generator():

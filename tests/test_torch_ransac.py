@@ -3,7 +3,8 @@
 The port takes its hypotheses from an injected ``draw``; here the draw
 replays the reference's key chain (``key, sub = split(key)`` then
 ``randint(sub, (K, 3), 0, max(n_valid, 1))`` per round), so both sides score
-the same hypotheses.  Bar: planes and masks exact, coefficients within 1e-6.
+the same hypotheses.  Bar: planes, masks and coefficients exact (the
+refinement's sums and its 3x3 tail follow XLA:CPU's order and fusions).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from pointcloud_obstacle_processing_tpu.ops.ransac import segment_planes as ref_
 from pointcloud_obstacle_processing_tpu_torch import REFERENCE_YAML_CONFIG as CFG
 from pointcloud_obstacle_processing_tpu_torch import Cloud
 from pointcloud_obstacle_processing_tpu_torch.ops.ransac import draw_from_uniform, segment_planes
+from pointcloud_obstacle_processing_tpu_torch.types import scan_of
 
 
 def jax_key_chain_draw(key, hypotheses: int):
@@ -72,11 +74,10 @@ def test_segment_planes_match_reference(seed, n, n_fill, overrides):
     assert int(r.planes.num_planes) == int(p.planes.num_planes)
     np.testing.assert_array_equal(np.asarray(r.planes.valid), p.planes.valid.numpy())
     # the hypotheses are bitwise the reference's (test_hypothesis_arithmetic_
-    # is_bitwise_the_reference); the refinement's centroid and covariance are
-    # sums over every inlier, which torch reduces in another order than
-    # XLA:CPU, and the power iteration carries that rounding into the
-    # coefficients: within 1e-6, not bitwise
-    np.testing.assert_allclose(p.planes.coeffs.numpy(), np.asarray(r.planes.coeffs), atol=1e-6)
+    # is_bitwise_the_reference), and so is the refinement: its sums in
+    # XLA:CPU's order (ops.sum_like_xla), its tail as XLA:CPU fuses it
+    # (test_power_iteration_is_bitwise_the_reference)
+    np.testing.assert_array_equal(p.planes.coeffs.numpy(), np.asarray(r.planes.coeffs))
     np.testing.assert_array_equal(np.asarray(r.nonplane_cloud.valid), p.nonplane_cloud.valid.numpy())
     np.testing.assert_array_equal(np.asarray(r.plane_union), p.plane_union.numpy())
     np.testing.assert_array_equal(np.asarray(r.last_plane), p.last_plane.numpy())
@@ -255,3 +256,86 @@ def test_plane_distance_probe_refinement(monkeypatch):
     x, y, z = torch.tensor(probes).T
     got = torch.abs(ransac._plane_dist(x, y, z, *torch.tensor(rn), torch.tensor(rd))) < 0.04
     np.testing.assert_array_equal(got.numpy(), ref_in)
+
+
+def _plane_covariances(n: int, seed: int = 0):
+    """``n`` covariances of plane-like clouds (50-3,000 points, flat to
+    thick, tilted up to ~0.3 rad; the 3x3 products in float64, rounded to
+    float32) and seeds near the z axis, float32."""
+    rng = np.random.default_rng(seed)
+    covs, seeds = [], []
+    for _ in range(n):
+        m = int(rng.integers(50, 3000))
+        pts = np.stack([rng.uniform(0, 4, m), rng.uniform(0, 3, m),
+                        rng.normal(0, rng.choice([0.005, 0.02, 0.1]), m)], -1)
+        a = rng.normal(0, 0.2, 3)
+        rot = np.linalg.qr(np.eye(3) + np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]],
+                                                 [-a[1], a[0], 0]]))[0]
+        d = pts @ rot.T
+        d = d - d.mean(0)
+        covs.append((d.T @ d).astype(np.float32))
+        n0 = rng.normal(0, 0.05, 3) + [0, 0, 1]
+        seeds.append((n0 / np.linalg.norm(n0)).astype(np.float32))
+    return np.stack(covs), np.stack(seeds)
+
+
+@pytest.mark.parametrize("vmapped", [False, True])
+def test_power_iteration_is_bitwise_the_reference(vmapped):
+    """The refinement's power iteration, ``_smallest_eigvec_3x3``, against
+    the reference's on 200 covariances of plane-like clouds: jitted alone
+    (the form of one scan) and under ``jax.vmap`` (the batch's).  XLA:CPU
+    contracts the norm's three squares in another order in each; the
+    port's form is bitwise its own, and the other form misses on some
+    (printed under ``-s``)."""
+    from pointcloud_obstacle_processing_tpu.ops import ransac as ref_ransac
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    covs, seeds = _plane_covariances(200)
+    if vmapped:
+        want = np.asarray(jax.jit(jax.vmap(ref_ransac._smallest_eigvec_3x3))(covs, seeds))
+    else:
+        one = jax.jit(ref_ransac._smallest_eigvec_3x3)
+        want = np.stack([np.asarray(one(c, v)) for c, v in zip(covs, seeds)])
+    got, other = (ransac._smallest_eigvec_3x3(torch.tensor(covs), torch.tensor(seeds),
+                                              vmapped=form).numpy()
+                  for form in (vmapped, not vmapped))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    print(f"the other form's power iteration (vmapped={not vmapped}): another vector in "
+          f"{int((other != want).any(-1).sum())} of 200")
+
+
+@pytest.mark.parametrize("vmapped", [False, True])
+def test_plane_once_is_bitwise_the_reference(vmapped):
+    """``ransac_plane_once`` with two refinement passes on 6 scenes of
+    planes and clutter, jitted alone or under ``jax.vmap`` over all six:
+    normal, offset and inliers bitwise the reference's."""
+    from pointcloud_obstacle_processing_tpu.ops import ransac as ref_ransac
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    n = 4096
+    bufs, valids, draws = [], [], []
+    keys = jax.random.split(jax.random.PRNGKey(int(vmapped)), 6)
+    for s, key in enumerate(keys):
+        buf, valid = _planes_scene(s + 40, n, 2500 + 120 * s)
+        bufs.append(buf)
+        valids.append(valid)
+        n_valid = jnp.maximum(jnp.sum(jnp.asarray(valid).astype(jnp.int32)), 1)
+        draws.append(np.asarray(jax.random.randint(key, (REF_CFG.ransac_hypotheses, 3), 0,
+                                                   n_valid)))
+    once = lambda c, k: ref_ransac.ransac_plane_once(c, k, REF_CFG)  # noqa: E731
+    if vmapped:
+        r = jax.jit(jax.vmap(once))(RefCloud.from_points(np.stack(bufs), np.stack(valids)), keys)
+        want = [jax.tree_util.tree_map(lambda x, b=b: np.asarray(x)[b], r) for b in range(6)]
+        p = ransac.ransac_plane_once(Cloud.from_points(np.stack(bufs), np.stack(valids)),
+                                     torch.tensor(np.stack(draws)), CFG)
+        got = [scan_of(p, b) for b in range(6)]
+    else:
+        want = [jax.jit(once)(RefCloud.from_points(b, v), k)
+                for b, v, k in zip(bufs, valids, keys)]
+        got = [ransac.ransac_plane_once(Cloud.from_points(b, v), torch.tensor(u), CFG)
+               for b, v, u in zip(bufs, valids, draws)]
+    for w, g in zip(want, got):
+        assert bool(w.found) == bool(g.found)
+        np.testing.assert_array_equal(np.asarray(w.normal), g.normal.numpy())
+        np.testing.assert_array_equal(np.asarray(w.d), g.d.numpy())
+        np.testing.assert_array_equal(np.asarray(w.inliers), g.inliers.numpy())

@@ -115,6 +115,31 @@ def test_voxel_stage_bitwise_equals_reference(packing, leaf):
     np.testing.assert_array_equal(np.asarray(r.cloud.points)[:k], p.cloud.points.numpy()[:k])
 
 
+@pytest.mark.parametrize("leaf", [0.06, 0.04, 0.015])
+def test_voxel_keys_take_the_leaf_as_xla_does(leaf):
+    """Points within 2 ulps of voxel faces (multiples of the leaf in every
+    coordinate): XLA:CPU evaluates the reference's ``floor(p / leaf)`` as
+    ``floor(p * (1 / leaf))``, and the voxel stage equals the reference's
+    bit for bit; the quotient would key some of these points into the
+    neighbouring voxel."""
+    rng = np.random.default_rng(int(leaf * 1000))
+    n, cap = 16384, 16384
+    lf = np.float32(leaf)
+    lo, hi = np.array(BOUNDS[0]), np.array(BOUNDS[1])
+    cells = rng.integers(np.ceil(lo / leaf) + 1, np.floor(hi / leaf) - 1, (n, 3))
+    pts = (cells * lf).astype(np.float32)
+    pts = (pts.view(np.int32) + rng.integers(-2, 3, (n, 3)).astype(np.int32)).view(np.float32)
+    valid = np.ones(n, bool)
+    r = jax.jit(lambda c: ref_voxel.voxel_downsample(
+        c, leaf, cap, BOUNDS, binning="sort", payload_packing=True))(
+        RefCloud.from_points(pts, valid))
+    p = voxel.voxel_downsample(Cloud.from_points(pts, valid), leaf, cap, BOUNDS, True)
+    assert int(r.num_voxels) == int(p.num_voxels)
+    k = min(int(p.num_voxels), cap)
+    np.testing.assert_array_equal(np.asarray(r.cloud.points)[:k], p.cloud.points.numpy()[:k])
+    assert (np.floor(pts / lf) != np.floor(pts * (np.float32(1) / lf))).any()
+
+
 def test_voxel_stage_refuses_unpackable_bounds():
     cloud = Cloud.pad_to(np.zeros((10, 3), np.float32), 128)
     with pytest.raises(ValueError):
