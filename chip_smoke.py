@@ -48,18 +48,17 @@ Phases (any failure raises and exits non-zero before the last line):
    run (whose band does not overflow): grid, counts, flags, centroids and
    every point's cluster; 0 host syncs for the whole scan; p50 over 5
    scans and device operations; then the grid-wide loop kernel on the
-   scan's own clustering inputs against ``cluster_loop_plain``, its device
-   time a sweep beside the bound, and its launch at 2-4 blocks a
-   multiprocessor and 64-256 columns a work item (``loop grid blocks:``
-   lines).
+   scan's own clustering inputs against ``cluster_loop_plain``, and its
+   device time a sweep beside the bound.
 6. The full sweep above the loop kernel's capacity: counts from 0, one
    ``euclidean_cluster`` of a 10,240-point buffer with the band off on the
    card (one grid-wide loop launch) against the same call on the CPU, then
-   the grid-wide loop kernel checked and timed at that capacity.  Then the
-   forms of the loop (the grid-wide loop kernel, the loop kernel where it
-   fits, the per-sweep path above ``LOOP_MAX_CAPACITY``) on the same
-   buffers from 1,024 to 16,384 points, checked against each other and
-   timed (``loop crossover:`` lines).
+   the grid-wide loop kernel checked and timed at that capacity, and K4's
+   per-sweep kernel (off every path) against ``sweep_jump_plain``.  Then
+   the forms of the loop (the grid-wide loop kernel, the loop kernel where
+   it fits, the per-sweep path above ``LOOP_MAX_CAPACITY``) on the same
+   buffers from 1,024 to 16,384 points, each checked against
+   ``cluster_loop_plain`` and timed (``loop crossover:`` lines).
 7. The two entry points off the pipeline, each driven with the counts from
    0: ``segmented_inclusive_scan`` (K6) at [4, 131,072] (the reference's
    Pallas shape) and [4, 2,097,152] (the fullscale buffer) with heads from a
@@ -69,7 +68,8 @@ Phases (any failure raises and exits non-zero before the last line):
    131,072, k = 214,000, C = 4 (x, y, z weights and a unit count channel),
    90% valid, held against the plain version with counts exact and sums
    within the float32 reordering bound.  Times each with CUDA events beside
-   its bound and, for K7, the library's ``index_add_``.
+   its bound and, for K7, the library's ``index_add_``.  K6 also on one
+   row past 2^24 values (its later steps in global memory), bitwise.
 8. Batched flagship: counts from 0, one call of
    ``parallel.sharding.batched_pipeline(FLAGSHIP_CONFIG)`` on 32 scans (8
    scenes, seeds 0-7, tiled as ``bench.py`` tiles them) with a RANSAC draw
@@ -118,8 +118,6 @@ BINNING_N, BINNING_K = 131_072, 214_000  # the binning kernel's documented shape
 CLUSTER_WIDE = 10240  # a full-sweep capacity above the loop kernel's (ops.cluster.LOOP_MAX_CAPACITY)
 # capacities at which the forms of the loop are timed (with the largest the loop kernel fits)
 LOOP_CROSSOVER = (1024, 2048, 3072, 4096, 6144, 8192, 10240, 16384)
-GRID_BLOCKS_PER_SM = (2, 3, 4)  # the grid-wide loop's blocks a multiprocessor, timed
-GRID_CHUNKS = (64, 128, 256)  # and its columns a work item, on the band-off scan
 BATCH = 32  # the flagship batch: bench.py's B, 8 distinct scenes tiled
 BATCH_SCENES = 8
 BATCH_TIMED = 10
@@ -445,6 +443,28 @@ def _cluster_buffer(dev, rng, c, n_valid, spread):
     return p, valid, torch.tensor(lab, device=dev)
 
 
+def check_k4(dev, rng, c, n_valid, tol2, card: str) -> None:
+    """K4's per-sweep kernel (``csrc/cluster_sweep.cu``, off every path: the
+    ``loop crossover:`` yardstick) on a centered cluster buffer with chained
+    labels, held bitwise against ``sweep_jump_plain`` and timed; printed,
+    not listed with the kernels of the paths."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+
+    p, valid, labels = _cluster_buffer(dev, rng, c, n_valid, 3.0)
+    chans = cluster.point_channels(p)  # as the per-sweep loop lays them out, once
+    err = _assert_equal("K4 cluster_sweep", cluster.sweep_jump(chans, valid, labels, tol2),
+                        cluster.sweep_jump_plain(chans, valid, labels, tol2))
+    row = _row(
+        "cluster_sweep", "off every path", f"C {c}, {n_valid} valid",
+        "cluster_sweep.cu", "cluster.py:86", err,
+        lambda: cluster.sweep_jump(chans, valid, labels, tol2),
+        lambda: cluster.sweep_jump_plain(chans, valid, labels, tol2),
+        _bound(c * 21 + c * 4, n_valid * n_valid * D2_OPS),  # pairs of valid points
+    )
+    print(f"kernel {row['name']} [{row['path']}: {row['shape']}]: equal to plain; {_times(row)} "
+          f"[{card}]")
+
+
 def _loop_row(path, what, args, timed=True):
     """The loop kernel's line: labels, unconverged and sweeps against the
     plain loop's on the same inputs, exact (one buffer, or a batch)."""
@@ -731,6 +751,7 @@ def run_segscan_binning(dev, card: str) -> tuple[list[dict], dict]:
             _bound(c_ * n_ * 8 + n_, steps * c_ * n_),
         ))
         rows[-1]["by_kernel"] = f"; launches and device us a call by kernel {by_kernel}"
+    long_row_check(dev, rng, card)
     rows.append(check_k7(dev, ids, weights, valid, k, binned))
     for r in rows:
         print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: "
@@ -738,6 +759,27 @@ def run_segscan_binning(dev, card: str) -> tuple[list[dict], dict]:
               f" to plain (max |d| {r['max_abs_err']:.3g}); {_times(r)}; launches on the path "
               f"{launches[r['path']][r['name']]}{r.get('by_kernel', '')} [{card}]")
     return rows, launches
+
+
+def long_row_check(dev, rng, card: str) -> None:
+    """K6 on one row past 2^24 values (sparse heads, segments of thousands;
+    -0.0 at 1%), where its later steps run one launch each in global
+    memory, held against the plain version in bit patterns (printed: no
+    path gives K6 such rows)."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.ops import segscan
+
+    n = 2**24 + 4096
+    v = rng.standard_normal((1, n)).astype(np.float32)
+    v[:, rng.random(n) < 0.01] = -0.0
+    v, h = torch.tensor(v, device=dev), torch.tensor(rng.random(n) < 3e-4, device=dev)
+    _assert_equal(f"K6 segscan [1, {n}] (bit patterns)",
+                  segscan.segmented_inclusive_scan(v, h).view(torch.int32),
+                  segscan.segmented_inclusive_scan_plain(v, h).view(torch.int32))
+    by_kernel = _kernel_us(lambda: segscan.segmented_inclusive_scan(v, h))
+    print(f"kernel segscan [long row: [1, {n}] float32, {int(h.sum())} heads]: bit patterns "
+          f"equal to plain; launches and device us a call by kernel {by_kernel} [{card}]")
 
 
 def check_kernels(dev, card: str) -> list[dict]:
@@ -1055,40 +1097,11 @@ def run_fullscale_bandoff(dev, card: str, banded) -> tuple[dict, list[dict]]:
           f"launches on the main-path scan {launches} [{card}]")
     args = capture_loop_args(model, gpu_cloud, draw_cuda)
     row = _grid_row("fullscale_bandoff", "the scan's non-plane cloud", args)
-    grid_tuning(args, card)
     sweeps = row["sweeps"]
     per_sweep = None if row["device_ms"] is None else row["device_ms"] / sweeps
     print(f"grid-wide loop a sweep (fullscale band off): device {_ms(per_sweep)}, bound "
           f"{row['bound_ms'] / sweeps:.4f} ms ({sweeps} sweeps) [{card}]")
     return launches, [row]
-
-
-def grid_tuning(args, card: str) -> None:
-    """The grid-wide loop on the band-off scan's own clustering inputs with
-    GRID_BLOCKS_PER_SM blocks a multiprocessor and GRID_CHUNKS columns a
-    work item, each equal to the default launch (``loop grid blocks:``
-    lines, from which ``ops.cluster.GRID_BLOCKS_PER_SM`` and
-    ``GRID_CHUNK`` are read)."""
-    from pointcloud_obstacle_processing_tpu_torch import _build
-    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
-
-    lib = _build.kernels()
-    want = cluster.grid_loop(*args)
-    launches = [(nb, chunk) for nb in GRID_BLOCKS_PER_SM for chunk in GRID_CHUNKS]
-    times = {k: [] for k in launches}
-    for _ in range(2):  # two rounds in turn, each launch timed once a round
-        for nb, chunk in launches:
-            def run(nb=nb, chunk=chunk):
-                return cluster.grid_loop(*args, blocks_per_sm=nb, chunk=chunk)
-
-            _assert_equal(f"loop grid blocks {nb}, chunk {chunk}", run().labels, want.labels)
-            times[nb, chunk].append(f"call {_time_ms(run, 10):.4f} ms, device "
-                                    f"{_ms(_device_ms(run, 10))}")
-    for (nb, chunk), t in times.items():
-        print(f"loop grid blocks: {nb} a multiprocessor ({lib.pcp_cluster_grid_blocks(nb)} "
-              f"blocks), {chunk}-column chunks, the band-off scan's non-plane cloud "
-              f"({int(args[1].sum())} valid of {args[1].shape[-1]}, {int(want.sweeps)} sweeps): "
-              f"{'; '.join(t)} [{card}]")
 
 
 def run_cluster_wide(dev, card: str) -> tuple[list[dict], dict]:
@@ -1131,6 +1144,7 @@ def run_cluster_wide(dev, card: str) -> tuple[list[dict], dict]:
                      fl.euc_cluster_tolerance ** 2, fl.cluster_max_iters))
     print(f"kernel {row['name']} [{row['path']}: {row['shape']}]: equal to plain; {_times(row)} "
           f"[{card}]")
+    check_k4(dev, rng, c, n_valid, fl.euc_cluster_tolerance ** 2, card)
     loop_crossover(dev, card)
     return [row], launches
 
@@ -1164,9 +1178,10 @@ def loop_crossover(dev, card: str) -> None:
     all of the rows valid: the grid-wide loop kernel everywhere, the loop
     kernel (one thread-block cluster) where it fits, and the per-sweep path
     (one K4 launch, the hook in PyTorch and a host read a sweep) above
-    ``ops.cluster.LOOP_MAX_CAPACITY``.  Labels, ``unconverged`` and sweeps
-    must agree exactly; each is timed with CUDA events over 10 calls
-    (``loop crossover:`` lines, from which ``LOOP_MAX_CAPACITY`` is read)."""
+    ``ops.cluster.LOOP_MAX_CAPACITY``.  Each form's labels, ``unconverged``
+    and sweeps must equal ``cluster_loop_plain``'s on the same inputs
+    exactly; each is timed with CUDA events over 10 calls (``loop
+    crossover:`` lines, from which ``LOOP_MAX_CAPACITY`` is read)."""
     from pointcloud_obstacle_processing_tpu_torch import _build
     from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as fl
     from pointcloud_obstacle_processing_tpu_torch.ops import cluster
@@ -1185,15 +1200,17 @@ def loop_crossover(dev, card: str) -> None:
                 forms["loop kernel"] = cluster.loop_kernel
             if c > cluster.LOOP_MAX_CAPACITY:
                 forms["per-sweep K4"] = cluster.per_sweep_loop
-            outs = {k: f(*args) for k, f in forms.items()}
-            g = outs["grid-wide loop"]
-            for k, o in outs.items():
+            g = cluster.cluster_loop_plain(*args)
+            for k, f in forms.items():
+                o = f(*args)
                 _assert_equal(f"loop crossover C {c} {k} labels", o.labels, g.labels)
                 if (bool(o.unconverged), int(o.sweeps)) != (bool(g.unconverged), int(g.sweeps)):
-                    raise AssertionError(f"loop crossover C {c} {k}: unconverged/sweeps differ")
+                    raise AssertionError(f"loop crossover C {c} {k}: unconverged/sweeps differ "
+                                         "from the plain loop's")
             times = ", ".join(f"{k} {_time_ms(lambda f=f: f(*args), 10):.4f} ms"
                               for k, f in forms.items())
-            print(f"loop crossover: C {c} ({n_valid} valid, {int(g.sweeps)} sweeps, loop "
+            print(f"loop crossover: C {c} ({n_valid} valid, {int(g.sweeps)} sweeps, every form "
+                  f"equal to the plain loop; loop "
                   f"kernel blocks {lib.pcp_cluster_loop_blocks(c, 0)}; limit "
                   f"{cluster.LOOP_MAX_CAPACITY}, fit {fit}): {times} [{card}]")
 

@@ -66,11 +66,8 @@ _SIGNATURES = {
     # blocks a scan, labels out, unconverged, sweeps, stream
     "pcp_cluster_loop": [_VP, _VP, _VP, _I, _I, _F, _I, _I, _VP, _VP, _VP, _VP],
     # pts (packed [B, C, 4]), valid, labels, batch, c, tol2, max_iters,
-    # blocks a multiprocessor, columns a work item, labels out,
-    # unconverged, sweeps, scratch, stream
-    "pcp_cluster_grid_loop": [_VP, _VP, _VP, _I, _I, _F, _I, _I, _I, _VP, _VP, _VP, _VP, _VP],
-    # blocks a multiprocessor -> blocks of the grid-wide loop's grid (0: none fits)
-    "pcp_cluster_grid_blocks": [_I],
+    # labels out, unconverged, sweeps, scratch, stream
+    "pcp_cluster_grid_loop": [_VP, _VP, _VP, _I, _I, _F, _I, _VP, _VP, _VP, _VP, _VP],
     # c, nb -> blocks of the loop kernel's cluster (nb 0: the one-scan
     # choice; 0: none fits)
     "pcp_cluster_loop_blocks": [_I, _I],
@@ -79,13 +76,11 @@ _SIGNATURES = {
     # pts (packed [C, 4]), valid, labels, starts, tile_live, c, window,
     # tol2, out, stream
     "pcp_cluster_sweep_banded": [_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _VP, _VP],
-    # values, heads, c, n, out, scratch, flags, ints (tile flags, -0.0
-    # bits), stream
+    # values, heads, c, n, out, scratch, flags ([2, n] bytes), ints (tile
+    # flags, -0.0 bits), stream
     "pcp_segscan": [_VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],
     # n -> steps past the local kernel's reach
     "pcp_segscan_global_steps": [_I],
-    # -> the longest row the segmented scan takes
-    "pcp_segscan_max_n": [],
     # ids, weights, valid, n, c, k, exact, out (zeroed by the call), stream
     "pcp_binned_sum": [_VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP],
     # a and its lead, row and value strides; b (or null) and its strides;

@@ -58,13 +58,14 @@ namespace {
 constexpr int kThreads = 256;     // threads a block
 constexpr int kRows = 2;          // query rows a thread
 constexpr int kTileRows = kThreads * kRows;  // query rows a work item
-constexpr int kChunk = 256;       // most columns a work item (the launch's `chunk`)
+constexpr int kChunk = 256;       // most columns a work item
+constexpr int kBlocksPerSm = 3;   // blocks a multiprocessor (capped at the co-resident limit)
 constexpr int kMaxScans = 1024;   // scans a launch
 
 __global__ void __launch_bounds__(kThreads)
 cluster_grid_loop(const float4* __restrict__ pts, const unsigned char* __restrict__ valid,
                   const int* __restrict__ labels_in, int batch, int c, float tol2,
-                  int max_iters, int chunk, int* __restrict__ labels_out,
+                  int max_iters, int* __restrict__ labels_out,
                   unsigned char* __restrict__ unconverged, int* __restrict__ sweeps, int* lab,
                   int* upd, int* nbr, int* hi1, int* changed) {
   cg::grid_group grid = cg::this_grid();
@@ -121,7 +122,7 @@ cluster_grid_loop(const float4* __restrict__ pts, const unsigned char* __restric
       for (int b = 0; b < batch; ++b) {
         s_items[b] = acc;
         const int h = s_hi[b];
-        if (s_act[b]) acc += ((h + kTileRows - 1) / kTileRows) * ((h + chunk - 1) / chunk);
+        if (s_act[b]) acc += ((h + kTileRows - 1) / kTileRows) * ((h + kChunk - 1) / kChunk);
       }
       s_items[batch] = acc;
     }
@@ -136,10 +137,10 @@ cluster_grid_loop(const float4* __restrict__ pts, const unsigned char* __restric
       int b = 0;
       while (s_items[b + 1] <= item) ++b;
       const int h = s_hi[b];
-      const int chunks = (h + chunk - 1) / chunk;
+      const int chunks = (h + kChunk - 1) / kChunk;
       const int local = item - s_items[b];
-      const int j0 = (local % chunks) * chunk;
-      const int len = min(chunk, h - j0);
+      const int j0 = (local % chunks) * kChunk;
+      const int len = min(kChunk, h - j0);
       const long long base = static_cast<long long>(b) * c;
       __syncthreads();  // the previous item's reads of sp and slc are done
       for (int j = threadIdx.x; j < len; j += kThreads) {
@@ -233,7 +234,7 @@ cluster_grid_loop(const float4* __restrict__ pts, const unsigned char* __restric
   }
 }
 
-int grid_blocks(int blocks_per_sm) {
+int grid_blocks() {
   int dev = 0, sms = 0, occ = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
@@ -242,27 +243,22 @@ int grid_blocks(int blocks_per_sm) {
     cudaGetLastError();
     return 0;
   }
-  return sms * min(occ, blocks_per_sm);
+  return sms * min(occ, kBlocksPerSm);
 }
 
 }  // namespace
-
-// Blocks of the grid the launch takes with `blocks_per_sm` a multiprocessor
-// (capped at the co-resident limit); 0 where none fits.
-extern "C" int pcp_cluster_grid_blocks(int blocks_per_sm) { return grid_blocks(blocks_per_sm); }
 
 // pts [batch, c, 4], valid, labels and labels_out [batch, c]; unconverged
 // and sweeps [batch]; scratch: 5 * batch * c + 4 * batch ints
 extern "C" int pcp_cluster_grid_loop(const float* pts, const unsigned char* valid,
                                      const int* labels, int batch, int c, float tol2,
-                                     int max_iters, int blocks_per_sm, int chunk,
-                                     int* labels_out,
+                                     int max_iters, int* labels_out,
                                      unsigned char* unconverged, int* sweeps, int* scratch,
                                      void* stream) {
-  if (batch <= 0 || batch > kMaxScans || chunk < 1 || chunk > kChunk) {
+  if (batch <= 0 || batch > kMaxScans) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = grid_blocks(blocks_per_sm);
+  const int blocks = grid_blocks();
   if (blocks <= 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const float4* p4 = reinterpret_cast<const float4*>(pts);
   const size_t total = static_cast<size_t>(batch) * c;
@@ -271,7 +267,7 @@ extern "C" int pcp_cluster_grid_loop(const float* pts, const unsigned char* vali
   int* nbr = upd + 2 * total;   // [batch, c] row minima
   int* hi1 = nbr + total;       // [batch]
   int* chg = hi1 + batch;       // [3, batch]
-  void* args[] = {&p4, &valid, &labels, &batch, &c, &tol2, &max_iters, &chunk, &labels_out,
+  void* args[] = {&p4, &valid, &labels, &batch, &c, &tol2, &max_iters, &labels_out,
                   &unconverged, &sweeps, &lab, &upd, &nbr, &hi1, &chg};
   cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(cluster_grid_loop),
                                                 dim3(blocks), dim3(kThreads), args, 0,

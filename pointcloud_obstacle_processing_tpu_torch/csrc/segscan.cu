@@ -46,6 +46,10 @@
 //   the later steps in shared memory, and writes every value out.  With no
 //   head at all that is one more read and write of the buffer, where one
 //   launch a later step (11 at N = 2^21) read and wrote all of it each.
+// * Past kMaxSharedN values a row, one residue's coarse sequence no longer
+//   fits a block's shared memory: segscan_local then writes every tile as
+//   live, and the later steps run as segscan_step, one launch a step over
+//   the whole buffer in global memory (values and flags double-buffered).
 //
 // Bound on the H100: one read and one write of [C, N] float32 plus the
 // heads, so memory: at [4, 2^21] ~69 MB, ~0.02 ms at 3.35 TB/s.  The local
@@ -63,10 +67,13 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxResidues = 32;         // residues a block of segscan_global
 
 constexpr int kTile = 4096;              // outputs a block of segscan_local
+// the longest row whose later steps run in shared memory: one residue's
+// coarse sequence, 32 values a thread
+constexpr int kMaxSharedN = kHalo * 32 * kThreads;
 
 __global__ void __launch_bounds__(kThreads)
 segscan_local(const float* __restrict__ values, const unsigned char* __restrict__ heads, int n,
-              int global_steps, float* __restrict__ out, float* __restrict__ live_out,
+              int global_steps, int all_live, float* __restrict__ out, float* __restrict__ live_out,
               unsigned char* __restrict__ flags, int* __restrict__ tile_live,
               unsigned* __restrict__ neg0) {
   constexpr int kWindow = kTile + kHalo;
@@ -152,7 +159,7 @@ segscan_local(const float* __restrict__ values, const unsigned char* __restrict_
   for (int r = kHalo / kThreads; r < kPer; ++r) {
     mine |= later && ws + tid + r * kThreads < n && dist[r] >= kHalo;
   }
-  const bool live = __syncthreads_or(mine) != 0;
+  const bool live = __syncthreads_or(mine) != 0 || all_live;
   if (later && ch == 0 && tid == 0) tile_live[blockIdx.x] = live;
   for (int r = kHalo / kThreads; r < kPer; ++r) {
     const int g = ws + tid + r * kThreads;
@@ -236,6 +243,25 @@ segscan_global(int c, int n, int residues, const float* __restrict__ live_in,
   }
 }
 
+// One later step d over the whole [c, n] buffer in global memory, for rows
+// past kMaxSharedN: v'[i] = v[i] + (f[i] ? 0 : v[i - d]), f'[i] = f[i] |
+// f[i - d] (channel 0 writes the flags).
+__global__ void __launch_bounds__(kThreads)
+segscan_step(int c, int n, int d, const float* __restrict__ v_in,
+             const unsigned char* __restrict__ f_in, float* __restrict__ v_out,
+             unsigned char* __restrict__ f_out) {
+  const size_t total = static_cast<size_t>(c) * n;
+  const size_t stride = static_cast<size_t>(gridDim.x) * kThreads;
+  for (size_t k = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; k < total;
+       k += stride) {
+    const int j = static_cast<int>(k % n);
+    const bool src = j >= d;
+    const bool f = f_in[j] != 0;
+    v_out[k] = v_in[k] + (f ? 0.0f : (src ? v_in[k - d] : 0.0f));
+    if (k < static_cast<size_t>(n)) f_out[j] = f || !src || f_in[j - d];
+  }
+}
+
 template <int kPerThread>
 int launch_global(int c, int n, int residues, const float* live_in, const unsigned char* flags,
                   const int* tile_live, const unsigned* neg0, float* out, cudaStream_t s) {
@@ -269,25 +295,40 @@ extern "C" int pcp_segscan_global_steps(int n) {
   return steps;
 }
 
-// The longest row the kernel takes (the later steps' coarse sequence of one
-// residue in a block's shared memory, 32 values a thread).
-extern "C" int pcp_segscan_max_n() { return kHalo * 32 * kThreads; }
-
 // values [c, n] and heads [n] in; out [c, n]; scratch [c, n] (unused when
-// n <= kHalo); flags [n] bytes; ints: ceil(n / kTile) tile flags, then
-// c * ceil(n / 32) words of -0.0 bits.  One launch, or two where steps past
-// the local kernel's reach remain.
+// n <= kHalo); flags [2, n] bytes (the second row only past kMaxSharedN);
+// ints: ceil(n / kTile) tile flags, then c * ceil(n / 32) words of -0.0
+// bits.  One launch, or two where steps past the local kernel's reach
+// remain; past kMaxSharedN values a row, one more a later step.
 extern "C" int pcp_segscan(const float* values, const unsigned char* heads, int c, int n,
                            float* out, float* scratch, unsigned char* flags, int* ints,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > pcp_segscan_max_n()) return static_cast<int>(cudaErrorInvalidValue);
   const int global_steps = pcp_segscan_global_steps(n);
   const int tiles = (n + kTile - 1) / kTile;
   int* tile_live = ints;
   unsigned* neg0 = reinterpret_cast<unsigned*>(ints + tiles);
-  segscan_local<<<dim3(tiles, c), kThreads, 0, s>>>(values, heads, n, global_steps, out, scratch,
-                                                   flags, tile_live, neg0);
+  if (n > kMaxSharedN) {
+    // every tile as it stands, into the buffer that leaves the last step's
+    // output in `out`; then the later steps in global memory
+    float* v[2] = {global_steps % 2 ? scratch : out, global_steps % 2 ? out : scratch};
+    unsigned char* f[2] = {flags, flags + n};
+    segscan_local<<<dim3(tiles, c), kThreads, 0, s>>>(values, heads, n, global_steps, 1, out,
+                                                     v[0], f[0], tile_live, neg0);
+    cudaError_t err = cudaGetLastError();
+    int dev = 0, sms = 0;
+    if (err == cudaSuccess && (err = cudaGetDevice(&dev)) == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    for (int k = 0; err == cudaSuccess && k < global_steps; ++k) {
+      segscan_step<<<sms * 4, kThreads, 0, s>>>(c, n, kHalo << k, v[k % 2], f[k % 2],
+                                               v[(k + 1) % 2], f[(k + 1) % 2]);
+      err = cudaGetLastError();
+    }
+    return static_cast<int>(err);
+  }
+  segscan_local<<<dim3(tiles, c), kThreads, 0, s>>>(values, heads, n, global_steps, 0, out,
+                                                   scratch, flags, tile_live, neg0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || global_steps == 0) return static_cast<int>(err);
   const int coarse = (n + kHalo - 1) / kHalo;

@@ -115,7 +115,8 @@ def sum_like_xla(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor
     that order (``tests/test_torch_outliers.py`` holds it bitwise to
     ``jnp.sum``).
 
-    ``a`` [..., S, N] gives [..., S].  With ``b`` [..., T, N] it sums the
+    ``a`` [..., S, N] gives [..., S] (and [N] a 0-d sum).  With ``b``
+    [..., T, N] it sums the
     products ``a[..., s, :] * b[..., t, :]`` into [..., S, T], as XLA:CPU
     evaluates ``jnp.sum(p * q)``: above 32 values the product is a fusion
     of its own, rounded before the windows add it (RANSAC's covariance);
@@ -129,8 +130,11 @@ def sum_like_xla(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor
 
 
 def _xla_sum_kernel(a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
-    """One launch of the sum kernel: a block a row (and row of ``b``),
-    strided operands read in place."""
+    """One launch of the sum kernel (two for rows of more than 32,768
+    values): a block a row (and row of ``b``), strided operands read in
+    place."""
+    if b is None and a.dim() == 1:  # [N]: one row
+        return _xla_sum_kernel(a[None], None)[0]
     if a.dim() < 2 or (b is not None and (b.dim() != a.dim() or b.shape[:-2] != a.shape[:-2]
                                           or b.shape[-1] != a.shape[-1])):
         raise ValueError("sum_like_xla: a [..., S, N] and b [..., T, N] with the same leading "
@@ -149,11 +153,11 @@ def _xla_sum_kernel(a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     if out.numel():
         lib = _build.kernels()
         # the second-level window sums of long rows
-        scratch = torch.empty(out.numel() * lib.pcp_xla_sum_scratch(n), dtype=torch.float32,
-                              device=a.device)
+        windows = lib.pcp_xla_sum_scratch(n)
+        scratch = torch.empty(out.numel() * windows, dtype=torch.float32, device=a.device)
         err = lib.pcp_xla_sum(
             ra.data_ptr(), *ra.stride(), None if b is None else rb.data_ptr(), *rb.stride(),
             ra.shape[0], s_a, s_b, n, out.data_ptr(), scratch.data_ptr(), _build.stream_handle())
         _build.check(err, "xla_sum")
-        _build.LAUNCHES["xla_sum"] += 1
+        _build.LAUNCHES["xla_sum"] += 2 if windows else 1
     return out.reshape(*lead, s_a) if b is None else out.reshape(*lead, s_a, s_b)

@@ -361,15 +361,7 @@ def per_sweep_loop(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput
     return _sweep_loop(lambda lab: sweep_jump(pch, valid, lab, tol2), labels, max_iters)
 
 
-# The grid-wide loop's launch: blocks a multiprocessor and columns a work
-# item, timed on the band-off fullscale scan's clustering (chip_smoke.py's
-# "loop grid blocks:" lines).
-GRID_BLOCKS_PER_SM = 3
-GRID_CHUNK = 256
-
-
-def grid_loop(pk, valid, labels, tol2: float, max_iters: int,
-              blocks_per_sm: int = GRID_BLOCKS_PER_SM, chunk: int = GRID_CHUNK) -> LoopOutput:
+def grid_loop(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
     """The whole loop in one cooperative launch of the grid-wide loop kernel
     (``csrc/cluster_grid_loop.cu``; CUDA tensors, any capacity, a batch
     included): the points stay in global memory, the sweep is split over
@@ -390,7 +382,7 @@ def grid_loop(pk, valid, labels, tol2: float, max_iters: int,
     scratch = torch.empty(5 * batch * n + 4 * batch, dtype=torch.int32, device=pk.device)
     err = lib.pcp_cluster_grid_loop(
         pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), batch, n, float(np.float32(tol2)),
-        int(max_iters), int(blocks_per_sm), int(chunk), out.data_ptr(), unconverged.data_ptr(),
+        int(max_iters), out.data_ptr(), unconverged.data_ptr(),
         sweeps.data_ptr(), scratch.data_ptr(), _build.stream_handle(),
     )
     _build.check(err, "cluster_grid_loop")

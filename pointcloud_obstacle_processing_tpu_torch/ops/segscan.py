@@ -17,11 +17,12 @@ CUDA tensors and takes ``segmented_inclusive_scan_plain`` only for CPU
 tensors.  K6 runs the steps d < ``HALO`` in one launch, a block per
 ``TILE`` outputs of a channel, and the later steps, which join only
 elements of one residue modulo ``HALO``, in a second launch that returns at
-once where no segment reaches further back than ``HALO``.  The reference's
-kernel runs only on the TPU, for N % 128 == 0 and a block that fits its
-VMEM; those are limits of the TPU.  This function takes any N >= 1 on the
-CPU and up to 2^24 values a row on the card (a residue's whole sequence in
-one block's shared memory).
+once where no segment reaches further back than ``HALO``.  Past 2^24
+values a row, where one residue's sequence no longer fits a block's shared
+memory, the later steps run one launch a step in global memory.  The
+reference's kernel runs only on the TPU, for N % 128 == 0 and a block that
+fits its VMEM; those are limits of the TPU.  This function takes any N >= 1
+on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -84,14 +85,12 @@ def segmented_inclusive_scan(values: torch.Tensor, heads: torch.Tensor) -> torch
     if v.numel() == 0:
         return values.clone()
     lib = _build.kernels()
-    if n > lib.pcp_segscan_max_n():
-        raise ValueError(f"segmented_inclusive_scan: rows of {n} values; the kernel takes up to "
-                         f"{lib.pcp_segscan_max_n()}")
     out = torch.empty_like(v)
-    # the values and flags of tiles with a live element, the tiles' live
+    # the values and flags of tiles with a live element (flags twice, for
+    # the steps in global memory of rows past 2^24 values), the tiles' live
     # flags and the -0.0 bits of the flagged values
     scratch = torch.empty_like(v) if n > HALO else out
-    flags = torch.empty(n, dtype=torch.uint8, device=v.device)
+    flags = torch.empty(2 * n, dtype=torch.uint8, device=v.device)
     ints = torch.empty(-(-n // TILE) + c * -(-n // 32), dtype=torch.int32, device=v.device)
     err = lib.pcp_segscan(v.data_ptr(), heads.data_ptr(), c, n, out.data_ptr(),
                           scratch.data_ptr(), flags.data_ptr(), ints.data_ptr(),

@@ -395,6 +395,8 @@ def test_grid_loop_takes_a_batch(dev):
     ((1, 3, 16_384), True),
     ((1, 3, 262_144), True),  # the covariance at fullscale: two launches
     ((2, 100_003), False),  # a long row of odd length: both levels padded
+    ((24_576,), False),  # one row, [N] -> []
+    ((100_003,), False),
 ])
 def test_sum_kernel_equals_plain(dev, shape, prod):
     """The sum kernel (``ops.sum_like_xla``) against its plain version in
@@ -407,8 +409,11 @@ def test_sum_kernel_equals_plain(dev, shape, prod):
     b = torch.tensor(rng.standard_normal(shape).astype(np.float32), device=dev) if prod else None
     _build.reset_launch_counts()
     got = sum_like_xla(a, b)
-    assert _build.LAUNCHES["xla_sum"] == 1
+    assert _build.LAUNCHES["xla_sum"] == (2 if shape[-1] > 32_768 else 1)
+    assert got.shape == sum_like_xla_plain(a.cpu(), None if b is None else b.cpu()).shape
     _eq(got.view(torch.int32), sum_like_xla_plain(a, b).view(torch.int32))
+    if a.dim() == 1:
+        return
     at = a.transpose(-1, -2).contiguous().transpose(-1, -2)  # the same values, strided
     bt = None if b is None else b.transpose(-1, -2).contiguous().transpose(-1, -2)
     _eq(sum_like_xla(at, bt).view(torch.int32), got.view(torch.int32))
@@ -533,6 +538,8 @@ def test_distance_kernels_on_cross_term_pairs(dev):
     (4, 131_072, "none"), (4, 2_097_152, "none"),  # one segment: every element live
     (4, 131_072, "all"), (2, 20_000, "sparse"),  # every element a head; long segments
     (2, 20_000, "sparse_zeros"),  # -0.0 everywhere: the signs of zero that live steps read
+    # past 2^24 values a row: the later steps one launch each in global memory
+    (1, 2**24 + 4096, "runs"), (1, 2**24 + 4096, "none"), (2, 2**24 + 4096, "sparse_zeros"),
 ])
 def test_segscan_kernel_equals_plain(dev, c, n, heads_kind):
     """K6 against its plain version in bit patterns, with heads from a
