@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the flagship scan, the
 fullscale 2M-point window (banded, and with the band off), the flagship
-batch of 32, and the segmented scan and weighted binning entry points.
+batch of 32, the segmented scan and weighted binning entry points, and the
+node (sensor frames to a published grid) at the flagship and fullscale
+widths.
 
     python3 chip_smoke.py
 
@@ -86,6 +88,34 @@ Phases (any failure raises and exits non-zero before the last line):
    ``flagship_batch``), and the loop kernel with 1, 2, 4, 8 and 16 blocks
    a scan (``loop blocks:`` lines).
 
+9. The node (``runtime.driver.ObstacleDetectionNode``), fed by the
+   launch's ``SyntheticKinect`` over the in-process bus.  The flagship node
+   (``FLAGSHIP_CONFIG.replace(accumulate_count=16)``, 6,272-point frames,
+   ``publish_point_clouds`` off) in the four modes (sync or async, host or
+   device accumulation): 2 warm-up and 10 measured windows of frames back
+   to back (windows and frames per second, window p50 from the trigger
+   frame to the publish, trigger-callback p50, upload and fetch bytes a
+   window), the host syncs that sync debug mode flags in one trigger
+   callback and its dispatch (none in async + device mode), the kernels'
+   launches in one window (counts from 0 around its trigger), and 5
+   windows at a sensor cadence (a sleep after each frame of 1.5 x the sync
+   trigger p50 / 16): ``t_async / t_sync`` from their trigger p50s.  The
+   sync and async grids are equal window by window; every sync device-mode
+   window equals a direct ``process_frames`` of its frames; one card
+   window equals the port's CPU node on the same frames (the crosscheck
+   bar); one window with ``publish_point_clouds`` publishes the five debug
+   clouds.  Every node's host accumulator is the native one.  Then the
+   fullscale node through ``launch(config=REFERENCE_FULLSCALE_CONFIG,
+   points_per_frame=10_000)`` (200 frames a window, host accumulation;
+   device accumulation is refused, 2,097,152 % 200 != 0), sync and async,
+   1 warm-up and 3 measured windows: each window equals a direct
+   ``process_scan`` of the accumulator's snapshot with the node's draw,
+   sync and async grids are equal, and the rates, p50s and bytes as
+   above.  The node paths' kernels (K1-K3 and the loop kernel, or K5; the
+   sum kernel and the 3x3 tail) are checked and timed on one window's
+   inputs (paths ``node_flagship`` and ``node_fullscale``, launches a
+   window), and a ``node:`` line holds the phase's numbers as JSON.
+
 Each phase prints its seconds.
 Its last line is ``{"ok": true, "device": {...}}``; the line before it is
 the JSON list of kernels, one entry per kernel and path, with launches on
@@ -122,6 +152,18 @@ BATCH = 32  # the flagship batch: bench.py's B, 8 distinct scenes tiled
 BATCH_SCENES = 8
 BATCH_TIMED = 10
 LOOP_BLOCKS = (1, 2, 4, 8, 16)  # blocks a scan of the loop kernel timed on the batch
+# the node (phase 9): the flagship node takes 16 frames of 6,272 points a
+# window (16 x 6,272 = 100,352 = FLAGSHIP_CONFIG.max_points, so device
+# accumulation applies); the fullscale node the shipped 200 frames of 10,000
+NODE_FRAMES, NODE_FRAME_POINTS = 16, 6_272
+NODE_WARMUP, NODE_WINDOWS, NODE_CADENCE_WINDOWS = 2, 10, 5
+FULLSCALE_FRAME_POINTS = 10_000
+FULLSCALE_NODE_WARMUP, FULLSCALE_NODE_WINDOWS = 1, 3
+NODE_MODES = ((False, False), (False, True), (True, False), (True, True))  # (async, device)
+
+
+def _mode_name(async_mode: bool, device_mode: bool) -> str:
+    return f"{'async' if async_mode else 'sync'}+{'device' if device_mode else 'host'}"
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes per second and float32 operations per second outside the tensor
@@ -1394,6 +1436,404 @@ def run_batch(dev, card: str) -> tuple[dict, list[dict]]:
     return launches, rows
 
 
+def _k5_row(path, calls):
+    """K5 on every call a run made to it (each sweep of the banded loop),
+    each held bitwise against the plain version; timed on the first."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+
+    err = 0.0
+    for i, (args, _) in enumerate(calls):
+        err = max(err, _assert_equal(f"K5 cluster_sweep_banded {path} sweep {i}",
+                                     cluster.sweep_jump_banded(*args),
+                                     cluster.sweep_jump_banded_plain(*args)))
+    args = calls[0][0]
+    pk, valid, _, _, tile, window, _, live = args
+    c = valid.shape[-1]
+    has_valid = valid.reshape(c // tile, tile).any(dim=1)
+    computed = int((has_valid if live is None else has_valid & live).sum())
+    return _row(
+        "cluster_sweep_banded", path,
+        f"{len(calls)} sweeps a run, all equal; timed: the first, C {c}, {int(valid.sum())} "
+        f"valid, window {window}, {computed} tiles computed", "cluster_sweep_banded.cu",
+        "cluster.py:329", err,
+        lambda: cluster.sweep_jump_banded(*args), lambda: cluster.sweep_jump_banded_plain(*args),
+        _bound(c * 21 + (c // tile) * 5 + c * 4, computed * tile * window * D2_OPS),
+    )
+
+
+def _node_rows(path: str, once, loop: str) -> list[dict]:
+    """The node path's kernels on the inputs one of its windows gives them
+    (``once`` runs that window's pipeline call again): K1, K2, K3, the
+    cluster loop (``loop``: the loop kernel or K5), the sum kernel and the
+    3x3 tail, each checked and timed as in phase 2."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster, compaction, outliers, voxel
+
+    (k1,) = _capture(voxel, "sorted_run_reduce", once)
+    (k2,) = _capture(compaction, "compact_and_gather_exact", once)
+    (k3,) = _capture(outliers, "knn_mean", once)
+    rows = [_k1_batch_row(path, *k1), _k2_batch_row(path, k2[0])]
+    nv = int(k3[0][2].sum())
+    rows.append(_k3_row(path, f"the window's voxel cloud ({nv} valid of {k3[0][1].shape[-1]})",
+                        k3[0]))
+    if loop == "cluster_loop":
+        (lp,) = _capture(cluster, "cluster_loop", once)
+        rows.append(_loop_row(path, "the window's non-plane cloud", lp[0]))
+    else:
+        rows.append(_k5_row(path, _capture(cluster, "sweep_jump_banded", once)))
+    sums, tails = capture_refine(once)
+    return rows + [_sum_row(path, sums), _tail_row(path, tails)]
+
+
+def _node_rig(cfg, dev, async_mode: bool, device_mode: bool, points: int, draw_for_cycle=None):
+    """A node on a bus of its own with the launch's static sensor mount and
+    a synthetic Kinect (scene seed 0) publishing to it; records every
+    frame message and every published grid."""
+    from pointcloud_obstacle_processing_tpu_torch.runtime.bus import MessageBus
+    from pointcloud_obstacle_processing_tpu_torch.runtime.driver import (
+        POINT_TOPIC,
+        ObstacleDetectionNode,
+    )
+    from pointcloud_obstacle_processing_tpu_torch.runtime.launch import (
+        DEFAULT_SENSOR_POS,
+        DEFAULT_SENSOR_QUAT,
+        SyntheticKinect,
+    )
+    from pointcloud_obstacle_processing_tpu_torch.runtime.tf import TransformBuffer
+
+    bus, tf = MessageBus(immediate=True), TransformBuffer()
+    tf.set_static("world", "kinect2_link", DEFAULT_SENSOR_QUAT, DEFAULT_SENSOR_POS)
+    node = ObstacleDetectionNode(cfg, bus=bus, tf_buffer=tf, async_pipeline=async_mode,
+                                 accumulate_on_device=device_mode, device=dev,
+                                 draw_for_cycle=draw_for_cycle)
+    if node.accumulator.backend != "native":
+        raise AssertionError("the node's host accumulator fell back to NumPy: g++ build failed")
+    kinect = SyntheticKinect(bus.advertise(POINT_TOPIC),
+                             tf.lookup_transform("world", "kinect2_link"),
+                             points_per_frame=points)
+    rec = {"frames": [], "grids": []}
+    bus.subscribe(POINT_TOPIC, rec["frames"].append, queue_size=1)
+    bus.subscribe("occupancy_grid", lambda m: rec["grids"].append(m.data.copy()))
+    return node, kinect, rec
+
+
+def _node_window(node, kinect, sleep_s: float = 0.0) -> None:
+    """The frames of one window and its trigger frame (``sleep_s`` after
+    each accumulated frame: a sensor cadence)."""
+    for _ in range(node.config.accumulate_count):
+        kinect.emit_frame()
+        if sleep_s:
+            time.sleep(sleep_s)
+    kinect.emit_frame()
+
+
+def _count_node_syncs(node, kinect) -> int:
+    """Host syncs (sync debug mode) of one trigger frame's callback and of
+    the dispatch it hands over (joined), the window's frames before it
+    uncounted."""
+    import torch
+
+    for _ in range(node.config.accumulate_count):
+        kinect.emit_frame()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            kinect.emit_frame()
+            node.join()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def _replay_draws(cfg, dev, n: int) -> list:
+    """The draws a node seeded 0 takes for its first ``n`` windows."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.pipeline import default_draw
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return [default_draw(cfg, gen, dev) for _ in range(n)]
+
+
+def _grids_equal(label: str, a: list, b: list) -> None:
+    if len(a) != len(b) or not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{label}: published grids differ")
+
+
+def _window_frames(msgs, cfg, dev):
+    """A device-mode window as the node uploads it: each frame decoded,
+    truncated to its capacity and padded with empty slots."""
+    import torch
+
+    A, F = cfg.accumulate_count, cfg.max_points // cfg.accumulate_count
+    pts, valid = np.zeros((A, F, 3), np.float32), np.zeros((A, F), bool)
+    for a, m in enumerate(msgs):
+        xyz = m.xyz()[:F]
+        pts[a, : len(xyz)], valid[a, : len(xyz)] = xyz, True
+    return torch.tensor(pts, device=dev), torch.tensor(valid, device=dev)
+
+
+def _stats_of(res) -> dict:
+    return {k: int(getattr(res.stats, k).item()) for k in _COUNTS + _FLAGS}
+
+
+def run_node_flagship(dev, card: str) -> tuple[dict, list[dict], dict]:
+    """Phase 9a: the flagship node (``FLAGSHIP_CONFIG.replace(
+    accumulate_count=16)``, 6,272-point frames) in the four modes."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import _build
+    from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG
+    from pointcloud_obstacle_processing_tpu_torch.ops.ransac import draw_from_uniform
+    from pointcloud_obstacle_processing_tpu_torch.ops.transforms import RigidTransform
+    from pointcloud_obstacle_processing_tpu_torch.pipeline import process_frames
+    from pointcloud_obstacle_processing_tpu_torch.runtime.driver import POINT_TOPIC
+    from pointcloud_obstacle_processing_tpu_torch.runtime.launch import (
+        DEFAULT_SENSOR_POS,
+        DEFAULT_SENSOR_QUAT,
+    )
+
+    cfg = FLAGSHIP_CONFIG.replace(accumulate_count=NODE_FRAMES, publish_point_clouds=False)
+    A = cfg.accumulate_count
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop", "xla_sum", "plane_refine"]
+    out, grids, trig, launches = {}, {}, {}, None
+    for async_mode, device_mode in NODE_MODES:
+        mode = _mode_name(async_mode, device_mode)
+        node, kinect, rec = _node_rig(cfg, dev, async_mode, device_mode, NODE_FRAME_POINTS)
+        for _ in range(NODE_WARMUP):
+            _node_window(node, kinect)
+        node.flush()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NODE_WINDOWS):
+            _node_window(node, kinect)
+        node.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        measured = slice(NODE_WARMUP, NODE_WARMUP + NODE_WINDOWS)
+        t_trig = statistics.median(node.trigger_seconds[measured]) * 1e3
+        t_win = statistics.median(m["window_seconds"] for m in node.metrics[measured]) * 1e3
+        n_sync = _count_node_syncs(node, kinect)
+        node.flush()
+        # the path's launches a window: counts from 0 around one trigger
+        # (every mode drives this window, so that the modes see the same
+        # frames and draws throughout; the sync device-mode counts are kept)
+        for _ in range(A):
+            kinect.emit_frame()
+        _build.reset_launch_counts()
+        kinect.emit_frame()
+        node.flush()
+        torch.cuda.synchronize()
+        if not async_mode and device_mode:
+            launches = dict(_build.LAUNCHES)
+            missing = [k for k in path if launches[k] <= 0]
+            if missing:
+                raise AssertionError(f"node flagship: kernels not launched in a window: {missing}")
+        # a sensor cadence that gives the card each window while the host
+        # accumulates the next (tests/test_async_driver.py's production regime)
+        sleep_s = 1.5 * trig.get((False, device_mode), t_trig) * 1e-3 / A
+        n0 = len(node.trigger_seconds)
+        for _ in range(NODE_CADENCE_WINDOWS):
+            _node_window(node, kinect, sleep_s)
+        node.flush()
+        torch.cuda.synchronize()
+        t_cad = statistics.median(node.trigger_seconds[n0:]) * 1e3
+        trig.setdefault((False, device_mode), t_trig)
+        m = node.metrics[NODE_WARMUP]
+        bad = [k for k in _OVERFLOWS if any(x[k] for x in node.metrics)]
+        if bad:
+            raise AssertionError(f"node flagship {mode}: overflow flags {bad}")
+        if async_mode and device_mode and n_sync:
+            raise AssertionError(f"node flagship {mode}: {n_sync} host syncs in the trigger "
+                                 "callback and its dispatch, expected 0")
+        grids[async_mode, device_mode] = rec["grids"]
+        out[mode] = dict(windows_per_s=NODE_WINDOWS / wall,
+                         frames_per_s=NODE_WINDOWS * (A + 1) / wall, window_p50_ms=t_win,
+                         trigger_p50_ms=t_trig, cadence_trigger_p50_ms=t_cad,
+                         upload_bytes=m["upload_bytes"], fetch_bytes=m["fetch_bytes"],
+                         syncs=n_sync, node=node, rec=rec)
+        print(f"node flagship {mode}: {NODE_WINDOWS / wall:.2f} windows per second, "
+              f"{NODE_WINDOWS * (A + 1) / wall:.1f} frames per second ({NODE_WINDOWS} windows "
+              f"after {NODE_WARMUP}, frames back to back); window p50 {t_win:.3f} ms (trigger "
+              f"frame to publish); trigger callback p50 {t_trig:.3f} ms back to back, {t_cad:.3f} "
+              f"ms at a cadence of {sleep_s * 1e3:.3f} ms a frame; upload {m['upload_bytes']} "
+              f"bytes, fetch {m['fetch_bytes']} bytes a window; flagged syncs {n_sync} (trigger "
+              f"callback + its dispatch); counts {{{', '.join(f'{k}: {m[k]}' for k in _COUNTS)}}}; "
+              f"accumulator {node.accumulator.backend} [{card}]")
+    for device_mode in (False, True):
+        _grids_equal(f"node flagship sync vs async ({'device' if device_mode else 'host'})",
+                     grids[False, device_mode], grids[True, device_mode])
+    for device_mode in (False, True):
+        s, a = (out[_mode_name(x, device_mode)]["cadence_trigger_p50_ms"] for x in (False, True))
+        out[f"ratio_{'device' if device_mode else 'host'}"] = a / s
+        print(f"node flagship t_async / t_sync ({'device' if device_mode else 'host'} "
+              f"accumulation, at the cadence): {a:.3f} / {s:.3f} ms = {a / s:.4f} [{card}]")
+
+    # every sync device-mode window equals a direct process_frames of its frames
+    run = out[_mode_name(False, True)]
+    node, rec = run["node"], run["rec"]
+    n_win = len(node.metrics)
+    draws = _replay_draws(cfg, dev, n_win)
+    q, t = (torch.tensor(np.float32(x), device=dev) for x in (DEFAULT_SENSOR_QUAT, DEFAULT_SENSOR_POS))
+    poses = RigidTransform(q.expand(A, 4), t.expand(A, 3))
+
+    def direct(c):
+        pts, valid = _window_frames(rec["frames"][c * (A + 1): c * (A + 1) + A], cfg, dev)
+        return process_frames(pts, valid, cfg, poses, shadow_sensor_pose=RigidTransform(q, t),
+                              draw=draws[c])
+
+    for c in range(n_win):
+        res = direct(c)
+        if not np.array_equal(res.grid.data.cpu().numpy().reshape(-1), rec["grids"][c]):
+            raise AssertionError(f"node flagship window {c}: grid != direct process_frames")
+        want = _stats_of(res)
+        got = {k: int(node.metrics[c][k]) for k in want}
+        if got != want:
+            raise AssertionError(f"node flagship window {c}: {got} != direct {want}")
+    print(f"node flagship sync+device: each of {n_win} windows == a direct process_frames of its "
+          f"frames on the card (grid, counts, flags) [{card}]")
+    rows = _node_rows("node_flagship", lambda: direct(n_win - 1), "cluster_loop")
+
+    # one window on the card == the port's CPU node on the same frames (the
+    # same RANSAC uniforms on both sides)
+    u = np.random.default_rng(RANSAC_SEED).random(
+        (cfg.max_planes, cfg.ransac_hypotheses, 3)).astype(np.float32)
+    card_node, kinect, _ = _node_rig(cfg, dev, False, True, NODE_FRAME_POINTS,
+                                     lambda c: draw_from_uniform(torch.tensor(u, device=dev)))
+    cpu_node, _, _ = _node_rig(cfg, "cpu", False, True, NODE_FRAME_POINTS,
+                               lambda c: draw_from_uniform(torch.tensor(u)))
+    kinect.pub.bus.subscribe(POINT_TOPIC, cpu_node.cloud_cb)  # the same frames
+    t = time.perf_counter()
+    _node_window(card_node, kinect)
+    err = _compare("node flagship card vs cpu node", card_node.last_result, cpu_node.last_result)
+    print(f"node flagship: card window == cpu node window (grid, counts, flags exact; centroid "
+          f"max |d| {err:.2e}; {time.perf_counter() - t:.1f} s) [{card}]")
+
+    # publish_point_clouds: one window that fetches and publishes the debug clouds
+    dbg, kinect, _ = _node_rig(cfg.replace(publish_point_clouds=True), dev, True, True,
+                               NODE_FRAME_POINTS)
+    sizes = {}
+    for topic in ("voxel_grid", "statistical_outliers", "planar_cloud", "indices_cloud", "cloud_f"):
+        dbg.bus.subscribe(topic, lambda m, k=topic: sizes.setdefault(k, m.xyz()))
+    _node_window(dbg, kinect)
+    dbg.flush()
+    m = dbg.metrics[-1]
+    if len(sizes) != 5 or len(sizes["voxel_grid"]) != m["voxel_points"] or \
+            len(sizes["cloud_f"]) != m["nonplane_points"] or \
+            not all(np.isfinite(v).all() for v in sizes.values()):
+        raise AssertionError(f"node flagship debug clouds: {({k: len(v) for k, v in sizes.items()})}, "
+                             f"metrics {m}")
+    print(f"node flagship publish_point_clouds: five debug clouds published "
+          f"({', '.join(f'{k} {len(v)}' for k, v in sizes.items())} points); fetch "
+          f"{m['fetch_bytes']} bytes a window [{card}]")
+    for r in out.values():
+        if isinstance(r, dict):
+            r.pop("node"), r.pop("rec")
+    return launches, rows, out
+
+
+def run_node_fullscale(dev, card: str) -> tuple[dict, list[dict], dict]:
+    """Phase 9b: the fullscale node through ``launch`` (200 frames of
+    10,000 points, host accumulation), sync and async."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import Cloud, _build
+    from pointcloud_obstacle_processing_tpu_torch.models import REFERENCE_FULLSCALE_CONFIG
+    from pointcloud_obstacle_processing_tpu_torch.native import ScanAccumulator
+    from pointcloud_obstacle_processing_tpu_torch.pipeline import process_scan
+    from pointcloud_obstacle_processing_tpu_torch.runtime.driver import ObstacleDetectionNode
+    from pointcloud_obstacle_processing_tpu_torch.runtime.launch import launch
+
+    cfg = REFERENCE_FULLSCALE_CONFIG
+    try:
+        ObstacleDetectionNode(cfg, accumulate_on_device=True, device=dev)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("fullscale node: device accumulation accepted a window that does "
+                             "not divide max_points")
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded", "xla_sum",
+            "plane_refine"]
+    cycles = FULLSCALE_NODE_WARMUP + FULLSCALE_NODE_WINDOWS
+    out, grids, launches, rows = {}, {}, None, []
+    for async_mode in (False, True):
+        mode = _mode_name(async_mode, False)
+        snaps, marks, orig = [], [], ScanAccumulator.snapshot
+
+        def recording(self, out=None):
+            pts, valid = orig(self, out)
+            snaps.append((pts.copy(), valid.copy()))
+            marks.append((time.perf_counter(), dict(_build.LAUNCHES)))
+            return pts, valid
+
+        ScanAccumulator.snapshot = recording
+        _build.reset_launch_counts()
+        try:
+            node, results = launch(config=cfg, cycles=cycles,
+                                   points_per_frame=FULLSCALE_FRAME_POINTS,
+                                   async_pipeline=async_mode, device=dev)
+            node.flush()
+            torch.cuda.synchronize()
+        finally:
+            ScanAccumulator.snapshot = orig
+        end = dict(_build.LAUNCHES)
+        if node.accumulator.backend != "native":
+            raise AssertionError("fullscale node: the host accumulator fell back to NumPy")
+        windows = (results[1:] + [node.last_result]) if async_mode else results
+        if len(windows) != cycles or len(snaps) != cycles:
+            raise AssertionError(f"fullscale node {mode}: {len(windows)} windows published, "
+                                 f"{len(snaps)} snapshots")
+        # each window == a direct process_scan of its snapshot with its draw
+        draws = _replay_draws(cfg, dev, cycles)
+        sensor = node.tf.lookup_transform("world", "kinect2_link").to(dev)
+        worst = 0.0
+        for c, ((pts, valid), res) in enumerate(zip(snaps, windows)):
+            cloud = Cloud(points=torch.tensor(pts, device=dev), valid=torch.tensor(valid, device=dev))
+
+            def once(cloud=cloud, c=c):
+                return process_scan(cloud, cfg, sensor, draw=draws[c])
+
+            worst = max(worst, _compare(f"fullscale node {mode} window {c}", res, once()))
+            _assert_equal(f"fullscale node {mode} window {c} point_cluster",
+                          res.clusters.point_cluster, once().clusters.point_cluster)
+        grids[async_mode] = [w.grid.data.cpu().numpy() for w in windows]
+        if not async_mode:
+            # a sync window's kernels all launch in its trigger callback:
+            # the counts between two triggers (the last: to the end)
+            per = [{k: b[k] - a[k] for k in a} for (_, a), (_, b) in
+                   zip(marks[1:], marks[2:] + [(None, end)])]
+            for i, w in enumerate(per):
+                missing = [k for k in path if w[k] <= 0]
+                if missing:
+                    raise AssertionError(f"fullscale node: kernels not launched in window "
+                                         f"{i + 1}: {missing}")
+            launches = per[-1]
+            rows = _node_rows("node_fullscale", once, "cluster_sweep_banded")
+        stamps = [t for t, _ in marks[FULLSCALE_NODE_WARMUP:]]
+        rate = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        measured = slice(FULLSCALE_NODE_WARMUP, None)
+        t_trig = statistics.median(node.trigger_seconds[measured]) * 1e3
+        t_win = statistics.median(m["window_seconds"] for m in node.metrics[measured]) * 1e3
+        m = node.metrics[-1]
+        out[mode] = dict(windows_per_s=rate, frames_per_s=rate * (cfg.accumulate_count + 1),
+                         window_p50_ms=t_win, trigger_p50_ms=t_trig,
+                         upload_bytes=m["upload_bytes"], fetch_bytes=m["fetch_bytes"])
+        print(f"node fullscale {mode}: {rate:.3f} windows per second, "
+              f"{rate * (cfg.accumulate_count + 1):.1f} frames per second (between the "
+              f"triggers of {FULLSCALE_NODE_WINDOWS} windows after {FULLSCALE_NODE_WARMUP}; "
+              f"launch's back-to-back synthetic frames); window p50 {t_win:.3f} ms; trigger "
+              f"callback p50 {t_trig:.3f} ms; upload {m['upload_bytes']} bytes, fetch "
+              f"{m['fetch_bytes']} bytes a window; each window == a direct process_scan of its "
+              f"snapshot (centroid max |d| {worst:.2e}); counts "
+              f"{{{', '.join(f'{k}: {m[k]}' for k in _COUNTS)}}} [{card}]")
+    _grids_equal("fullscale node sync vs async", grids[False], grids[True])
+    s, a = (out[_mode_name(x, False)]["trigger_p50_ms"] for x in (False, True))
+    out["ratio_host"] = a / s
+    print(f"node fullscale t_async / t_sync: {a:.3f} / {s:.3f} ms = {a / s:.4f} [{card}]")
+    return launches, rows, out
+
+
 def main() -> None:
     import torch
 
@@ -1452,6 +1892,15 @@ def main() -> None:
     launches["flagship_batch"], batch_rows = run_batch(dev, card)
     rows += batch_rows
     print(f"phase 8 (flagship batch): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches["node_flagship"], flagship_rows, node = run_node_flagship(dev, card)
+    launches["node_fullscale"], fullscale_rows, node_fs = run_node_fullscale(dev, card)
+    for r in flagship_rows + fullscale_rows:
+        print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: equal to plain; {_times(r)} "
+              f"[{card}]")
+    rows += flagship_rows + fullscale_rows
+    print("node: " + json.dumps({"flagship": node, "fullscale": node_fs}))
+    print(f"phase 9 (node): {time.perf_counter() - t:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["path"]][r["name"]]

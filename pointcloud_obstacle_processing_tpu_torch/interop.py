@@ -1,7 +1,8 @@
 """Carry the reference package's state across to the port.
 
 The pipeline has no weights; what both sides must share to compute the same
-thing is the configuration, the input cloud and the sensor pose.  The
+thing is the configuration, the input cloud (or a window of sensor-frame
+frames) and the sensor pose (or one pose a frame).  The
 reference side hands them over as plain Python and NumPy values (a
 ``dataclasses.asdict`` of its ``PipelineConfig``, the cloud's ``points`` and
 ``valid`` arrays, the pose's quaternion and translation), so this module
@@ -13,6 +14,7 @@ from __future__ import annotations
 from typing import Any, Mapping, NamedTuple
 
 import numpy as np
+import torch
 
 from . import _build
 from .config import PipelineConfig
@@ -26,6 +28,8 @@ class ReferenceState(NamedTuple):
     config: PipelineConfig | None
     cloud: Cloud | None
     pose: RigidTransform | None
+    frames: torch.Tensor | None = None  # [A, F, 3] float32
+    frame_valid: torch.Tensor | None = None  # [A, F] bool
 
 
 def from_reference(
@@ -35,6 +39,8 @@ def from_reference(
     quat_xyzw: np.ndarray | None = None,
     translation: np.ndarray | None = None,
     device="cuda",
+    frames: np.ndarray | None = None,
+    frame_valid: np.ndarray | None = None,
 ) -> ReferenceState:
     """Build the port's config, cloud and pose from the reference's state.
 
@@ -42,7 +48,10 @@ def from_reference(
     all-True for the given points; a pose needs both its quaternion and its
     translation.  A batch of scans comes as ``points`` [B, N, 3], ``valid``
     [B, N] and, for a pose a scan, ``quat_xyzw`` [B, 4] and ``translation``
-    [B, 3] (the reference's vmapped inputs).  Tensors go to the card unless ``device`` says otherwise;
+    [B, 3] (the reference's vmapped inputs).  A window for ``process_frames``
+    comes as ``frames`` [A, F, 3], ``frame_valid`` [A, F] (all-True by
+    default) and a pose a frame, ``quat_xyzw`` [A, 4] and ``translation``
+    [A, 3].  Tensors go to the card unless ``device`` says otherwise;
     without a card this raises.
     """
     device = _build.resolve_device(device)
@@ -55,4 +64,10 @@ def from_reference(
         raise ValueError("a pose needs both quat_xyzw and translation")
     if quat_xyzw is not None:
         pose = RigidTransform.from_quat_trans(quat_xyzw, translation, device=device)
-    return ReferenceState(config=cfg, cloud=cloud, pose=pose)
+    win = win_valid = None
+    if frames is not None:
+        win = torch.tensor(np.asarray(frames, np.float32), device=device)
+        win_valid = (torch.ones(win.shape[:-1], dtype=torch.bool, device=device)
+                     if frame_valid is None
+                     else torch.tensor(np.asarray(frame_valid, bool), device=device))
+    return ReferenceState(config=cfg, cloud=cloud, pose=pose, frames=win, frame_valid=win_valid)

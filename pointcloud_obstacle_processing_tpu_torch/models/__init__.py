@@ -13,11 +13,12 @@ import torch
 
 from .. import _build
 from ..config import REFERENCE_YAML_CONFIG, PipelineConfig
-from ..pipeline import process_scan
+from ..pipeline import process_frames, process_scan
 
 __all__ = [
     "ObstacleDetectionModel",
     "process_scan",
+    "process_frames",
     "FLAGSHIP_CONFIG",
     "REFERENCE_FULLSCALE_CONFIG",
 ]

@@ -4,6 +4,11 @@ Counterpart of ``pointcloud_obstacle_processing_tpu/ops/transforms.py``: an
 xyzw quaternion plus a translation, applied as one rotate + add.  A
 transform may hold one pose (``[4]``, ``[3]``) or one per scan (``[B, 4]``,
 ``[B, 3]``); ``apply`` broadcasts it over each scan's points.
+
+Each function is written as XLA:CPU evaluates the reference's (read off
+its optimized HLO and probed on seeded poses): where a product feeds an
+add, the chain is an ``ops.fma``, so the port's results are bitwise the
+reference's jitted ones (``tests/test_torch_node.py``).
 """
 
 from __future__ import annotations
@@ -13,9 +18,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import fma
+from . import fma, sqrt32
 
-__all__ = ["RigidTransform", "quat_rotate"]
+__all__ = ["RigidTransform", "quat_rotate", "quat_to_matrix"]
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -40,6 +45,33 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return fma(w, t, v) + _cross(u, t)
 
 
+def _norm4(q: torch.Tensor) -> torch.Tensor:
+    """``jnp.linalg.norm(q, axis=-1)`` of xyzw quaternions as XLA:CPU
+    evaluates it: the squares summed in order, each fused into the add,
+    ``sqrt(fma(w, w, fma(z, z, fma(y, y, x * x))))``."""
+    x, y, z, w = q.unbind(-1)
+    return sqrt32(fma(w, w, fma(z, z, fma(y, y, x * x))))
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """xyzw quaternion(s) ``[..., 4]`` -> rotation matrices ``[..., 3, 3]``
+    (tf::Quaternion convention), normalized first.  Each entry's
+    ``a*b +- c*d`` is ``fma(a, b, +-(c*d))``: XLA:CPU fuses the first
+    product into the add (the doubling and ``1 -`` are exact)."""
+    q = q / _norm4(q)[..., None]
+    x, y, z, w = q.unbind(-1)
+
+    def pair(a, b, c, d, sign):  # a*b + sign * c*d, the first product fused
+        return fma(a, b, sign * (c * d))
+
+    rows = (
+        (1 - 2 * pair(y, y, z, z, 1), 2 * pair(x, y, w, z, -1), 2 * pair(x, z, w, y, 1)),
+        (2 * pair(x, y, w, z, 1), 1 - 2 * pair(x, x, z, z, 1), 2 * pair(y, z, w, x, -1)),
+        (2 * pair(x, z, w, y, -1), 2 * pair(y, z, w, x, 1), 1 - 2 * pair(x, x, y, y, 1)),
+    )
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
 @dataclasses.dataclass
 class RigidTransform:
     """SE(3) transform p' = R(q) p + t."""
@@ -60,6 +92,56 @@ class RigidTransform:
             quat_xyzw=torch.as_tensor(np.asarray(quat_xyzw, np.float32), device=device),
             translation=torch.as_tensor(np.asarray(translation, np.float32), device=device),
         )
+
+    @classmethod
+    def from_matrix(cls, m) -> "RigidTransform":
+        """From a 4x4 (or 3x4) homogeneous matrix, or a stack ``[..., 4, 4]``
+        of them: Shepperd's method, branch-free through the signs of the
+        off-diagonal differences, as the reference writes it (its sums
+        are plain adds; only the final norm fuses, ``_norm4``)."""
+        m = torch.as_tensor(m, dtype=torch.float32)
+        r, t = m[..., :3, :3], m[..., :3, 3]
+        r00, r11, r22 = r[..., 0, 0], r[..., 1, 1], r[..., 2, 2]
+        zero = torch.zeros((), dtype=torch.float32)
+
+        def root(v):  # sqrt(max(0, v)) / 2
+            return sqrt32(torch.maximum(zero, v)) / 2
+
+        qw = root(1 + ((r00 + r11) + r22))
+        qx = torch.copysign(root(((1 + r00) - r11) - r22), r[..., 2, 1] - r[..., 1, 2])
+        qy = torch.copysign(root(((1 - r00) + r11) - r22), r[..., 0, 2] - r[..., 2, 0])
+        qz = torch.copysign(root(((1 - r00) - r11) + r22), r[..., 1, 0] - r[..., 0, 1])
+        q = torch.stack([qx, qy, qz, qw], dim=-1)
+        return cls(quat_xyzw=q / _norm4(q)[..., None], translation=t.contiguous())
+
+    def matrix(self) -> torch.Tensor:
+        """The 4x4 homogeneous matrix ``[..., 4, 4]``."""
+        q = self.quat_xyzw
+        m = torch.zeros((*q.shape[:-1], 4, 4), dtype=torch.float32, device=q.device)
+        m[..., :3, :3] = quat_to_matrix(q)
+        m[..., :3, 3] = self.translation
+        m[..., 3, 3] = 1.0
+        return m
+
+    def compose(self, other: "RigidTransform") -> "RigidTransform":
+        """self ∘ other: apply ``other`` first, then ``self``.  Each component
+        of the Hamilton product sums four products in the reference's order;
+        XLA:CPU rounds the second and fuses the other three,
+        ``fma(p3, fma(p2, fma(p0, p1)))``."""
+        x1, y1, z1, w1 = self.quat_xyzw.unbind(-1)
+        x2, y2, z2, w2 = other.quat_xyzw.unbind(-1)
+        q = torch.stack(
+            [
+                fma(-z1, y2, fma(y1, z2, fma(w1, x2, x1 * w2))),
+                fma(z1, x2, fma(y1, w2, fma(w1, y2, -(x1 * z2)))),
+                fma(z1, w2, fma(-y1, x2, fma(w1, z2, x1 * y2))),
+                fma(-z1, z2, fma(-y1, y2, fma(w1, w2, -(x1 * x2)))),
+            ],
+            dim=-1,
+        )
+        # self.apply(other.translation), pose by pose
+        t = quat_rotate(self.quat_xyzw, other.translation) + self.translation
+        return RigidTransform(quat_xyzw=q, translation=t)
 
     def to(self, device) -> "RigidTransform":
         return RigidTransform(self.quat_xyzw.to(device), self.translation.to(device))

@@ -37,7 +37,7 @@ from .ops.transforms import RigidTransform
 from .ops.voxel import voxel_downsample
 from .types import Cloud, OccupancyGrid, PipelineResult, StageStats, batch_of, scan_of
 
-__all__ = ["process_scan", "default_draw"]
+__all__ = ["process_scan", "process_frames", "default_draw"]
 
 
 def default_draw(config: PipelineConfig, generator: torch.Generator, device,
@@ -90,6 +90,34 @@ def process_scan(cloud: Cloud, config: PipelineConfig,
         world_from_sensor, draw, vox.overflow, vmapped=not single,
     )
     return scan_of(res) if single else res
+
+
+def process_frames(frames: torch.Tensor, frame_valid: torch.Tensor, config: PipelineConfig,
+                   world_from_sensor_per_frame: RigidTransform,
+                   shadow_sensor_pose: RigidTransform | None = None,
+                   draw: Draw | None = None,
+                   generator: torch.Generator | None = None) -> PipelineResult:
+    """Accumulate sensor-frame scans into a world cloud, then process
+    (reference ``pipeline.process_frames``; the reference node's
+    accumulation, obstacle_detection.cpp:691-698, on the device).
+
+    ``frames`` [A, F, 3] and ``frame_valid`` [A, F] hold A frames of F
+    slots; ``world_from_sensor_per_frame`` holds one pose a frame
+    (``[A, 4]``, ``[A, 3]``).  Each frame is transformed by its own pose
+    (the broadcasting ``apply``, bitwise the reference's ``jax.vmap`` of
+    it), the frames are flattened in order, and the cloud goes through
+    ``process_scan``.  A*F must equal ``config.max_points``.  The shadow
+    geometry takes ``shadow_sensor_pose``, by default the last frame's pose
+    (the reference node's latest tf lookup)."""
+    A, F, _ = frames.shape
+    if A * F != config.max_points:
+        raise ValueError(f"A*F={A * F} != config.max_points={config.max_points}")
+    world = world_from_sensor_per_frame.apply(frames)
+    cloud = Cloud(points=world.reshape(A * F, 3), valid=frame_valid.reshape(A * F))
+    if shadow_sensor_pose is None:
+        shadow_sensor_pose = RigidTransform(world_from_sensor_per_frame.quat_xyzw[-1],
+                                            world_from_sensor_per_frame.translation[-1])
+    return process_scan(cloud, config, shadow_sensor_pose, draw=draw, generator=generator)
 
 
 def _post_voxel(voxel_cloud: Cloud, n_voxels: torch.Tensor, hole_grid: torch.Tensor,

@@ -134,6 +134,15 @@ def test_port_imports_without_jax():
         "import pointcloud_obstacle_processing_tpu_torch.utils.scene\n"
         "import pointcloud_obstacle_processing_tpu_torch.ops.segscan\n"
         "import pointcloud_obstacle_processing_tpu_torch.ops.binning\n"
+        "import pointcloud_obstacle_processing_tpu_torch.native\n"
+        "import pointcloud_obstacle_processing_tpu_torch.runtime\n"
+        "import pointcloud_obstacle_processing_tpu_torch.runtime.launch\n"
+        "import pointcloud_obstacle_processing_tpu_torch.runtime.calibration\n"
+        "import pointcloud_obstacle_processing_tpu_torch.runtime.recording\n"
+        "import pointcloud_obstacle_processing_tpu_torch.runtime.transport\n"
+        "import pointcloud_obstacle_processing_tpu_torch.utils.timing\n"
+        "from pointcloud_obstacle_processing_tpu_torch.native import ScanAccumulator\n"
+        "assert ScanAccumulator(8).backend in ('native', 'numpy')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'pointcloud_obstacle_processing_tpu')]\n"
         "assert not bad, bad\n"
