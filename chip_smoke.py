@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the flagship scan, the
 fullscale 2M-point window (banded, and with the band off), the flagship
-batch of 32, the segmented scan and weighted binning entry points, and the
+batch of 32, the segmented scan and weighted binning entry points, the
 node (sensor frames to a published grid) at the flagship and fullscale
-widths.
+widths, and the multi-device paths (point-sharded scans, the voxel-table
+merges, data parallel) on 4 ranks sharing the card.
 
     python3 chip_smoke.py
 
@@ -115,6 +116,33 @@ Phases (any failure raises and exits non-zero before the last line):
    sum kernel and the 3x3 tail) are checked and timed on one window's
    inputs (paths ``node_flagship`` and ``node_fullscale``, launches a
    window), and a ``node:`` line holds the phase's numbers as JSON.
+
+10. The multi-device paths on 4 gloo ranks sharing the one card
+   (``parallel.ranks.spawn``; the kernels are built before the spawn,
+   every process group and the join have a timeout; NCCL refuses two ranks
+   on one card, so these times are no multi-GPU speed).  Each job runs 4
+   windows, counts from 0 on each rank around the first: the flagship
+   scan over 4 x 25,088-point shards (the dense merge, K3 and K4's
+   per-sweep kernel over each rank's rows), the fullscale window over 4 x
+   524,288-point shards with the key-range distributed merge (the default
+   at 4 shards) and again with ``distribute_merge=False`` (both run K1's
+   counts mode; K5 over each rank's tiles), ``dp_sp_pipeline`` on a 2x2
+   mesh of 4 flagship scans, ``data_parallel_pipeline`` on 2 ranks x 16
+   flagship scans, and the window's voxel tables merged both ways (one
+   warm-up window, checked, then 3 timed).  Checks:
+   the path's kernels launched on every rank; every rank of a ``points``
+   row holds the same result; each card run equals the same run on 4 gloo
+   CPU ranks (the crosscheck bar and every point's cluster); the two
+   merges agree (keys, counts and ``num`` exact, sums within 1e-5); the
+   sharded flagship and fullscale scans keep the single-scan card run's
+   structure (tests/test_sharding.py:61-84's bar); ``data_parallel_pipeline``
+   equals ``batched_pipeline`` bitwise.  Then K1's counts mode (both merge
+   shapes), K2 on the dense merge's bins, and K3, K4 and K5 over rank 0's
+   rows on rank 0's own inputs, held bitwise against their plain versions
+   and timed as in phase 2 (paths ``sp_flagship``, ``sp_fullscale``,
+   ``sp_fullscale_replicated``).  A ``sharded:`` line a path gives the
+   backend and staging, windows per second, the p50, collective bytes and
+   calls a window and the host reads; a ``sharded:`` JSON line holds them.
 
 Each phase prints its seconds.
 Its last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -1834,6 +1862,427 @@ def run_node_fullscale(dev, card: str) -> tuple[dict, list[dict], dict]:
     return launches, rows, out
 
 
+# ---- phase 10: point-sharded runs, 4 gloo ranks sharing the card ------------
+
+SP_SHARDS = 4  # the points axis of phase 10
+SP_WINDOWS = 3  # timed windows a job runs on the card, after one warm-up (checked)
+DP_RANKS, DP_SCANS = 2, 32  # data_parallel_pipeline: 2 ranks x 16 flagship scans
+SP_TIMEOUT_S = 900.0  # every rank group's process group and join
+CPU_RANK_THREADS = 2  # the CPU ranks' threads (4 ranks on the host's 8 cores)
+_MOD = f"{PKG}.ops"
+SP_CAPTURE = [(f"{_MOD}.voxel", "sorted_run_reduce"),
+              (f"{PKG}.parallel.sharding", "sorted_run_reduce"),
+              (f"{_MOD}.voxel", "compact_and_gather_exact"),
+              (f"{_MOD}.compaction", "compact_and_gather_exact"), (f"{_MOD}.outliers", "knn_mean"),
+              (f"{_MOD}.cluster", "sweep_jump"), (f"{_MOD}.cluster", "sweep_jump_banded")]
+# kernels each sharded path must launch on every rank, counted from 0
+SP_PATHS = {
+    "sp_flagship": ["runreduce", "compact_gather", "knn_mean_rows", "cluster_sweep_rows"],
+    "sp_fullscale": ["runreduce", "runreduce_counts", "compact_gather", "knn_mean_rows",
+                     "cluster_sweep_banded_rows"],
+    "sp_fullscale_replicated": ["runreduce", "runreduce_counts", "compact_gather",
+                                "knn_mean_rows", "cluster_sweep_banded_rows"],
+    "sp_dp_2x2": ["runreduce", "compact_gather", "knn_mean_rows", "cluster_sweep_rows"],
+    "data_parallel": ["runreduce", "compact_gather", "knn_mean", "cluster_loop"],
+    "merge_fullscale": ["runreduce", "runreduce_counts"],
+}
+
+
+def _to_dev(obj, dev):
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_dev(v, dev) for v in obj)
+    if isinstance(obj, dict):
+        return {k: _to_dev(v, dev) for k, v in obj.items()}
+    return obj
+
+
+def _leaves(res) -> list:
+    import dataclasses
+
+    import torch
+
+    out = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(res)
+    return out
+
+
+def _same(label: str, a, b) -> None:
+    """Every tensor of two results equal, bit for bit."""
+    import torch
+
+    for i, (x, y) in enumerate(zip(_leaves(a), _leaves(b), strict=True)):
+        if not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{label}: field {i} differs")
+
+
+def _structural(label: str, sp, single) -> float:
+    """The reference's point-sharded-against-single bar
+    (tests/test_sharding.py:61-84): crop and voxel counts exact, cluster
+    count equal, under 1% of the grid's cells different, centroids within
+    5e-2 (the voxel sums re-associate across shards).  Returns the grid's
+    disagreement."""
+    for k in ("cropped_points", "voxel_points", "num_clusters"):
+        a, b = int(getattr(sp.stats, k)), int(getattr(single.stats, k))
+        if a != b:
+            raise AssertionError(f"{label}: {k} sharded {a} != single {b}")
+    frac = float((sp.grid.data.cpu() != single.grid.data.cpu()).float().mean())
+    err = float((sp.centroids.points.xyzr.cpu() - single.centroids.points.xyzr.cpu()).abs().max())
+    if frac >= 0.01 or err >= 5e-2:
+        raise AssertionError(f"{label}: grid disagreement {frac}, centroid |d| {err}")
+    return frac
+
+
+def _sp_inputs():
+    """Phase 10's inputs: the flagship scene 0 (one scan), the fullscale
+    window, four flagship scenes for the 2x2 mesh and the 32 scans of the
+    data-parallel run, with their RANSAC uniforms (as numpy arrays)."""
+    from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as fl
+    from pointcloud_obstacle_processing_tpu_torch.models import REFERENCE_FULLSCALE_CONFIG as fs
+    from pointcloud_obstacle_processing_tpu_torch.utils.scene import make_fullscale_window
+
+    def scans(count, scenes):
+        pts = np.zeros((count, fl.max_points, 3), np.float32)
+        valid = np.zeros((count, fl.max_points), bool)
+        for b in range(count):
+            p = scenes[b % len(scenes)].points[: fl.max_points]
+            pts[b, : len(p)] = p
+            valid[b, : len(p)] = True
+        return pts, valid
+
+    def uniforms(cfg, count):
+        return np.random.default_rng(RANSAC_SEED).random(
+            (count, cfg.max_planes, cfg.ransac_hypotheses, 3)).astype(np.float32)
+
+    scenes = [_scene(s) for s in range(BATCH_SCENES)]
+    fs_pts, fs_valid = make_fullscale_window(FULLSCALE_POINTS)
+    return {
+        "flagship": (*scans(1, scenes[:1]), uniforms(fl, 1)),
+        "fullscale": (fs_pts[None], fs_valid[None], uniforms(fs, 1)),
+        "dp_sp": (*scans(4, scenes[:4]), uniforms(fl, 4)),
+        "dp": (*scans(DP_SCANS, scenes), uniforms(fl, DP_SCANS)),
+    }
+
+
+def _sp_jobs(inputs, device: str, windows: int) -> dict:
+    """Phase 10's jobs by path (the data-parallel one on the card only)."""
+    from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as fl
+    from pointcloud_obstacle_processing_tpu_torch.models import REFERENCE_FULLSCALE_CONFIG as fs
+
+    def job(kind, cfg, mesh, key, **kw):
+        pts, valid, u = inputs[key]
+        return dict(kind=kind, config=cfg, mesh=mesh, points=pts, valid=valid,
+                    draw=("uniform", u), device=device, windows=windows,
+                    warmup=int(device == "cuda"),
+                    capture=SP_CAPTURE if device == "cuda" else None, **kw)
+
+    sp = {"data": 1, "points": SP_SHARDS}
+    jobs = {
+        "sp_flagship": job("dp_sp", fl, sp, "flagship"),
+        "sp_fullscale": job("dp_sp", fs, sp, "fullscale"),  # the distributed merge (default)
+        "sp_fullscale_replicated": job("dp_sp", fs, sp, "fullscale",
+                                       options={"distribute_merge": False}),
+        "sp_dp_2x2": job("dp_sp", fl, {"data": 2, "points": 2}, "dp_sp"),
+    }
+    if device == "cuda":
+        jobs["data_parallel"] = job("data_parallel", fl, {"data": DP_RANKS}, "dp")
+        pts, valid, _ = inputs["fullscale"]  # the window's voxel tables merged both ways
+        jobs["merge_fullscale"] = dict(kind="merge", config=fs, mesh=sp, points=pts[0],
+                                       valid=valid[0], device=device, windows=windows, warmup=1)
+    return jobs
+
+
+def _k1_counts_row(path, what, call):
+    """K1's counts mode on a merge's own sorted rows."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import runreduce
+
+    a, kw = call
+    skey, offs, sentinel, cap = a
+    vk, nk = runreduce.sorted_run_reduce(*a, **kw)
+    vp, np_ = runreduce.sorted_run_reduce_plain(*a, **kw)
+    _assert_equal(f"K1 counts {path} run counts", nk, np_)
+    k = min(int(np_.reshape(-1)[0]), cap)
+    err = _assert_equal(f"K1 counts {path} ({what})", vk[..., :k, :], vp[..., :k, :])
+    n = skey.shape[-1]
+    w = runreduce.default_group(n) * 128
+    return _row(
+        "runreduce_counts", path, f"{what}: {n} rows, {w}-row windows, {int(np_.sum())} runs, "
+        f"cap {cap}", "runreduce.cu", "pallas_runreduce.py:115 (counts :162-163, :488, :693)", err,
+        lambda: runreduce.sorted_run_reduce(*a, **kw),
+        lambda: runreduce.sorted_run_reduce_plain(*a, **kw),
+        # keys and four payloads in, the filled slots and num out; 4 channels
+        # x log2(w) Hillis-Steele adds a row
+        _bound(n * 20 + k * 20 + 4, 4 * n * int(np.log2(w))),
+        plain_reps=2,
+    )
+
+
+def _k3_rows_row(path, what, call):
+    """K3 over one shard's range of the query tiles."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import outliers
+
+    a, kw = call
+    pch, p_sq, valid, starts, rt, width, k = a
+    first, count = kw["tile_range"]
+    err = _assert_equal(f"K3 knn_mean rows {path} ({what})", outliers.knn_mean(*a, **kw),
+                        outliers.knn_mean_plain(*a, **kw))
+    live = int(outliers._tile_live(valid, starts.shape[0], rt)[..., first:first + count].sum())
+    nv, scans = p_sq.shape[-1], p_sq[..., 0].numel()
+    return _row(
+        "knn_mean_rows", path, f"{what}: tiles {first}-{first + count - 1} of {starts.shape[0]}, "
+        f"row tile {rt}, window {width}, k {k}", "knn_select.cu", "outliers.py:142 (tiles "
+        "of a shard, :407-416)", err,
+        lambda: outliers.knn_mean(*a, **kw), lambda: outliers.knn_mean_plain(*a, **kw),
+        _bound(scans * nv * 17 + starts.shape[0] * 4 + scans * count * rt * 4,
+               live * rt * width * D2_OPS),
+        plain_reps=2,
+    )
+
+
+def _k4_rows_row(path, what, call):
+    """K4's per-sweep kernel over one shard's range of the query rows."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+
+    a, kw = call
+    pch, valid, labels, tol2, rows = a
+    err = _assert_equal(f"K4 cluster_sweep rows {path} ({what})", cluster.sweep_jump(*a),
+                        cluster.sweep_jump_plain(*a))
+    c = labels.shape[0]
+    n_valid = int(valid.sum())
+    q_valid = int(valid[rows[0]:rows[0] + rows[1]].sum())
+    return _row(
+        "cluster_sweep_rows", path, f"{what}: rows {rows[0]}-{rows[0] + rows[1] - 1} of C {c}, "
+        f"{n_valid} valid", "cluster_sweep.cu", "cluster.py:86 (qslice, :461-530)", err,
+        lambda: cluster.sweep_jump(*a), lambda: cluster.sweep_jump_plain(*a),
+        # points, valid and labels in, the range's labels out; its valid rows
+        # against every valid column
+        _bound(c * 21 + rows[1] * 4, q_valid * n_valid * D2_OPS),
+        plain_reps=5,
+    )
+
+
+def _k5_rows_row(path, what, call):
+    """K5 over one shard's range of the query tiles."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+
+    a, kw = call
+    pk, valid, labels, tol2, tile, window, starts, live, tile_range = a
+    err = _assert_equal(f"K5 sweep_banded rows {path} ({what})", cluster.sweep_jump_banded(*a),
+                        cluster.sweep_jump_banded_plain(*a))
+    c = labels.shape[0]
+    first, count = tile_range
+    vt = valid.reshape(-1, tile)[first:first + count].any(dim=1)
+    if live is not None:
+        vt &= live[first:first + count]
+    return _row(
+        "cluster_sweep_banded_rows", path, f"{what}: tiles {first}-{first + count - 1} of "
+        f"{c // tile}, window {window}, {int(vt.sum())} live", "cluster_sweep_banded.cu",
+        "cluster.py:329 (qslice)", err,
+        lambda: cluster.sweep_jump_banded(*a), lambda: cluster.sweep_jump_banded_plain(*a),
+        _bound(c * 21 + (c // tile) * 5 + count * tile * 4,
+               int(vt.sum()) * tile * window * D2_OPS),
+        plain_reps=5,
+    )
+
+
+def _k2_merge_row(path, what, call):
+    """K2 on the dense merge's [4, Kp] bins."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import compaction
+
+    a, kw = call
+    bins, occ2d, cap = a
+    lk, nk, vk = compaction.compact_and_gather_exact(*a)
+    lp, np_, vp = compaction.compact_and_gather_plain(*a)
+    _assert_equal(f"K2 merge {path} count", nk, np_)
+    k = min(int(np_.reshape(-1)[0]), cap)
+    _assert_equal(f"K2 merge {path} loc", lk[..., :k], lp[..., :k])
+    err = _assert_equal(f"K2 merge {path} vals", vk[..., :k, :], vp[..., :k, :])
+    kp = bins.shape[-1]
+    return _row(
+        "compact_gather", path, f"{what}: [4, {kp}] bins -> {cap} slots, {k} occupied",
+        "compaction.cu", "pallas_compaction.py:59", err,
+        lambda: compaction.compact_and_gather_exact(*a),
+        lambda: compaction.compact_and_gather_plain(*a),
+        _bound(kp + k * (16 + 4 + 16) + 4, 0),
+        library_fn=lambda: bins.reshape(4, kp).T[occ2d.reshape(-1)],
+    )
+
+
+def _sp_rows(path: str, captured: dict, dev) -> list[dict]:
+    """The path's kernels on rank 0's own inputs of its first window."""
+    shard_k1 = [c for c in captured[f"{_MOD}.voxel.sorted_run_reduce"] if "quantum" in c[1]]
+    rows = [_k1_batch_row(path, *_to_dev(shard_k1[0], dev))]  # rank 0's shard's voxels
+    merges = [c for c in captured[f"{PKG}.parallel.sharding.sorted_run_reduce"]] + \
+        [c for c in captured[f"{_MOD}.voxel.sorted_run_reduce"] if len(c[0][1]) == 4]
+    for c in merges[:1]:
+        what = ("the distributed merge's range" if path == "sp_fullscale"
+                else "the replicated sort merge")
+        rows.append(_k1_counts_row(path, what, _to_dev(c, dev)))
+    if captured[f"{_MOD}.voxel.compact_and_gather_exact"]:
+        rows.append(_k2_merge_row(path, "the dense merge", _to_dev(
+            captured[f"{_MOD}.voxel.compact_and_gather_exact"][0], dev)))
+    else:  # the compaction before clustering
+        rows.append(_k2_batch_row(path, _to_dev(
+            captured[f"{_MOD}.compaction.compact_and_gather_exact"][0][0], dev)))
+    knn = [c for c in captured[f"{_MOD}.outliers.knn_mean"] if c[1].get("tile_range")]
+    rows.append(_k3_rows_row(path, "rank 0's tiles of the merged voxel cloud",
+                             _to_dev(knn[0], dev)))
+    for name, fn in (("sweep_jump", _k4_rows_row), ("sweep_jump_banded", _k5_rows_row)):
+        calls = captured[f"{_MOD}.cluster.{name}"]
+        if calls:
+            rows.append(fn(path, "rank 0's rows, first sweep", _to_dev(calls[0], dev)))
+    return rows
+
+
+def _sp_line(path: str, res: dict, card: str) -> dict:
+    ms = [s * 1e3 for s in res["seconds"]]
+    p50 = statistics.median(ms)
+    c = res["collectives"]
+    out = {"path": path, "backend": res["backend"], "staging": res["staging"],
+           "windows_per_s": 1e3 / p50, "p50_ms": p50, "ms": ms,
+           "collective_bytes_per_window": c["bytes"], "collective_calls": c["calls"],
+           "host_reads": c["host_reads"] + int(res["host_syncs"] or 0)}
+    print(f"sharded: {path}: backend {res['backend']}, staging {res['staging']}; "
+          f"{out['windows_per_s']:.2f} windows per second, p50 {p50:.3f} ms over {len(ms)} "
+          f"windows ({', '.join(f'{m:.3f}' for m in ms)}); {c['bytes']} collective bytes and "
+          f"{c['calls']} collectives a window (rank 0); host reads {out['host_reads']} "
+          f"({c['host_reads']} staged copies, {res['host_syncs']} change tests) [{card}]")
+    return out
+
+
+def run_sharded(dev, card: str) -> tuple[dict, list[dict]]:
+    """Phase 10: the point-sharded and data-parallel paths on 4 gloo ranks
+    sharing the card, held to the same runs on 4 gloo CPU ranks."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import Cloud
+    from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as fl
+    from pointcloud_obstacle_processing_tpu_torch.models import REFERENCE_FULLSCALE_CONFIG as fs
+    from pointcloud_obstacle_processing_tpu_torch.ops.ransac import draw_from_uniform
+    from pointcloud_obstacle_processing_tpu_torch.parallel import ranks
+    from pointcloud_obstacle_processing_tpu_torch.parallel.sharding import batched_pipeline
+    from pointcloud_obstacle_processing_tpu_torch.pipeline import process_scan
+    from pointcloud_obstacle_processing_tpu_torch.types import scan_of
+
+    inputs = _sp_inputs()
+    t = time.perf_counter()
+    cuda_jobs = _sp_jobs(inputs, dev.type, SP_WINDOWS)
+    out = ranks.spawn(ranks.run_jobs, SP_SHARDS, list(cuda_jobs.values()), timeout_s=SP_TIMEOUT_S)
+    card_runs = {p: [r[j] for r in out] for j, p in enumerate(cuda_jobs)}
+    print(f"phase 10 card ranks: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cpu_jobs = _sp_jobs(inputs, "cpu", 1)
+    out = ranks.spawn(ranks.run_jobs, SP_SHARDS, list(cpu_jobs.values()), timeout_s=SP_TIMEOUT_S,
+                      threads=CPU_RANK_THREADS)
+    cpu_runs = {p: [r[j] for r in out] for j, p in enumerate(cpu_jobs)}
+    print(f"phase 10 CPU ranks: {time.perf_counter() - t:.1f} s")
+
+    launches, lines = {}, []
+    for path, runs in card_runs.items():
+        members = [r for r in runs if r is not None]
+        for rank, r in enumerate(members):
+            missing = [k for k in SP_PATHS[path] if r["launches"][k] <= 0]
+            if missing:
+                raise AssertionError(f"{path} rank {rank}: kernels not launched: {missing}")
+            if r["backend"] != "gloo" or r["staging"] != "pinned host":
+                raise AssertionError(f"{path}: backend {r['backend']}, staging {r['staging']}")
+        launches[path] = members[0]["launches"]
+        p = cuda_jobs[path]["mesh"].get("points", 1)
+        for rank, r in enumerate(members):  # every rank of a points row holds one result
+            _same(f"{path} rank {rank} vs its row's first", r["out"],
+                  members[rank - rank % p]["out"])
+        lines.append(_sp_line(path, members[0], card))
+        if path in cpu_runs:  # the card run against the same run on gloo CPU ranks
+            for rank, (a, b) in enumerate(zip(members, cpu_runs[path])):
+                for i in range(a["out"].grid.data.shape[0]):
+                    ra, rb = scan_of(a["out"], i), scan_of(b["out"], i)
+                    _compare(f"{path} rank {rank} scan {i}", ra, rb)
+                    _assert_equal(f"{path} rank {rank} scan {i} point_cluster",
+                                  ra.clusters.point_cluster, rb.clusters.point_cluster)
+            counts = {k: getattr(members[0]["out"].stats, k).tolist() for k in _COUNTS}
+            print(f"{path}: {len(members)} card ranks equal, each == its gloo CPU rank (grid, "
+                  f"counts, flags, point clusters exact; centroids within 1e-5); {counts}; "
+                  f"launches on rank 0 {members[0]['launches']} [{card}]")
+
+    # the two fullscale merges agree: keys, counts, num exact, sums within
+    # the reference's test tolerance (test_sharding.py, rtol = atol = 1e-5)
+    m = card_runs["merge_fullscale"][0]["out"]
+    d, r = m["distributed"], m["replicated"]
+    n = int(r.num_voxels[0])
+    if bool(d.overflow[0]) or bool(r.overflow[0]) or int(d.num_voxels[0]) != n:
+        raise AssertionError("fullscale merges: overflow or voxel counts differ")
+    for f in ("keys", "counts"):
+        _assert_equal(f"fullscale merges' {f}", getattr(d, f)[0, :n], getattr(r, f)[0, :n])
+    sums_err = float((d.sums[0, :n] - r.sums[0, :n]).abs().max())
+    if not torch.allclose(d.sums[0, :n], r.sums[0, :n], rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"fullscale merges' sums differ by {sums_err}")
+    print(f"fullscale distributed == replicated merge of the window's 4 shard tables: {n} "
+          f"voxels, keys, counts and num exact, sums max |d| {sums_err:.2e}")
+    dist_v, rep_v = (card_runs[p][0]["out"].voxel_cloud for p in
+                     ("sp_fullscale", "sp_fullscale_replicated"))
+    dist_s, rep_s = (card_runs[p][0]["out"].stats
+                     for p in ("sp_fullscale", "sp_fullscale_replicated"))
+    if int(dist_s.voxel_points) != int(rep_s.voxel_points) or bool(dist_s.voxel_overflow):
+        raise AssertionError("fullscale: distributed and replicated merges differ in count")
+    _assert_equal("fullscale merges' voxel masks", dist_v.valid, rep_v.valid)
+    cen = float((dist_v.points - rep_v.points).abs().max())
+    if cen >= 1e-5:
+        raise AssertionError(f"fullscale merges' centroids differ by {cen}")
+    print(f"fullscale distributed == replicated merge: {int(dist_s.voxel_points[0])} voxels, "
+          f"masks exact, centroid max |d| {cen:.2e}")
+
+    # the sharded runs against the single-scan card runs (structure)
+    for path, cfg, key in (("sp_flagship", fl, "flagship"), ("sp_fullscale", fs, "fullscale")):
+        pts, valid, u = inputs[key]
+        single = process_scan(Cloud(points=torch.tensor(pts[0], device=dev),
+                                    valid=torch.tensor(valid[0], device=dev)), cfg,
+                              draw=draw_from_uniform(torch.tensor(u[0], device=dev)))
+        frac = _structural(path, scan_of(card_runs[path][0]["out"], 0), single)
+        print(f"{path} vs the single-scan card run: counts exact, grid disagreement {frac:.5f}")
+
+    # data_parallel_pipeline == batched_pipeline, bit for bit
+    pts, valid, u = inputs["dp"]
+    whole = batched_pipeline(fl)(Cloud(points=torch.tensor(pts, device=dev),
+                                       valid=torch.tensor(valid, device=dev)),
+                                 draw=draw_from_uniform(torch.tensor(u, device=dev)))
+    per = DP_SCANS // DP_RANKS
+    for rank in range(DP_RANKS):
+        r = card_runs["data_parallel"][rank]
+        if r["collectives"]["calls"]:
+            raise AssertionError("data_parallel_pipeline ran a collective")
+        for i in range(per):
+            _same(f"data_parallel rank {rank} scan {i}", scan_of(r["out"], i),
+                  scan_of(whole, rank * per + i))
+    print(f"data_parallel_pipeline ({DP_RANKS} ranks x {per} scans) == batched_pipeline "
+          f"({DP_SCANS} scans), every field bitwise")
+
+    rows = []
+    for path in ("sp_flagship", "sp_fullscale", "sp_fullscale_replicated"):
+        rows += _sp_rows(path, card_runs[path][0]["captured"], dev)
+    for r in rows:
+        print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: equal to plain; {_times(r)} "
+              f"[{card}]")
+    print("sharded: " + json.dumps({"shards": SP_SHARDS, "card": card, "paths": lines}))
+    return launches, rows
+
+
 def main() -> None:
     import torch
 
@@ -1901,6 +2350,11 @@ def main() -> None:
     rows += flagship_rows + fullscale_rows
     print("node: " + json.dumps({"flagship": node, "fullscale": node_fs}))
     print(f"phase 9 (node): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    sp_launches, sp_rows = run_sharded(dev, card)
+    launches.update(sp_launches)
+    rows += sp_rows
+    print(f"phase 10 (point-sharded, 4 ranks on one card): {time.perf_counter() - t:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["path"]][r["name"]]

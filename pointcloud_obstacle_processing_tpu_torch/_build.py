@@ -44,23 +44,26 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches since the last reset
-LAUNCHES = {"runreduce": 0, "compact_gather": 0, "knn_mean": 0, "cluster_loop": 0,
-            "cluster_grid_loop": 0, "cluster_sweep": 0, "cluster_sweep_banded": 0,
+# (a kernel's mode or form that a path must be seen to take counts apart:
+# K1's counts mode, K3-K5 over a row range of the query rows)
+LAUNCHES = {"runreduce": 0, "runreduce_counts": 0, "compact_gather": 0, "knn_mean": 0,
+            "knn_mean_rows": 0, "cluster_loop": 0, "cluster_grid_loop": 0, "cluster_sweep": 0,
+            "cluster_sweep_rows": 0, "cluster_sweep_banded": 0, "cluster_sweep_banded_rows": 0,
             "segscan": 0, "binned_sum": 0, "xla_sum": 0, "plane_refine": 0}
 
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 # C entry points: argument types in order (all return cudaError_t as int)
 _SIGNATURES = {
-    # skey, pay_a, pay_b, pay_c, packed, quantum, batch, n, w, sentinel,
-    # capacity, workspace, out, num, stream
-    "pcp_runreduce": [_VP, _VP, _VP, _VP, _I, _F, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
+    # skey, pay_a, pay_b, pay_c, counts (or null), packed, quantum, batch, n,
+    # w, sentinel, capacity, workspace, out, num, stream
+    "pcp_runreduce": [_VP, _VP, _VP, _VP, _VP, _I, _F, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
     # bins, occ, batch, c, k, capacity, loc, vals, scratch (num, block
     # counts), stream
     "pcp_compact_gather": [_VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
-    # px, py, pz, psq, valid, starts, batch, n, tiles, row_tile, width, k,
-    # big, half, out, stream
-    "pcp_knn_mean": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F,
+    # px, py, pz, psq, valid, starts, batch, n, first tile, tiles, row_tile,
+    # width, k, big, half, out, stream
+    "pcp_knn_mean": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _F,
                      _F, _VP, _VP],
     # pts (packed [B, C, 4]), valid, labels, batch, c, tol2, max_iters,
     # blocks a scan, labels out, unconverged, sweeps, stream
@@ -71,11 +74,11 @@ _SIGNATURES = {
     # c, nb -> blocks of the loop kernel's cluster (nb 0: the one-scan
     # choice; 0: none fits)
     "pcp_cluster_loop_blocks": [_I, _I],
-    # px, py, pz, psq, valid, labels, c, tol2, out, stream
-    "pcp_cluster_sweep": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _F, _VP, _VP],
-    # pts (packed [C, 4]), valid, labels, starts, tile_live, c, window,
-    # tol2, out, stream
-    "pcp_cluster_sweep_banded": [_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _VP, _VP],
+    # px, py, pz, psq, valid, labels, c, first row, rows, tol2, out, stream
+    "pcp_cluster_sweep": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP, _VP],
+    # pts (packed [C, 4]), valid, labels, starts, tile_live, c, first tile,
+    # tiles, window, tol2, out, stream
+    "pcp_cluster_sweep_banded": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP, _VP],
     # values, heads, c, n, out, scratch, flags ([2, n] bytes), ints (tile
     # flags, -0.0 bits), stream
     "pcp_segscan": [_VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],

@@ -22,11 +22,20 @@
 // adjacency test reads it, and the output is an integer, so the result is
 // exact once that tree is kept.
 //
-// Bound on the H100: C^2 pairs per sweep, ~9 operations each.  Off every
-// path: the cluster loop runs in one launch of a loop kernel at every
-// capacity (cluster_loop.cu, cluster_grid_loop.cu), and this kernel, one
-// launch a sweep with the hook in PyTorch (ops/cluster.py per_sweep_loop),
-// is the yardstick chip_smoke.py's "loop crossover:" lines time beside them.
+// A launch may take a range of the query rows, [row_first, row_first +
+// rows) against every column (the point-sharded path's shard: the
+// reference's _pallas_sweep_jump(..., qslice=...), cluster.py:86, called
+// from _neighbor_min_sweep :461-530); the output holds the range's rows,
+// each computed as in the whole sweep, so the gathered ranges equal it bit
+// for bit.  A collective must run between sweeps there, so this per-sweep
+// form, not the loop kernels, is the sharded path's.
+//
+// Bound on the H100: rows x C pairs per sweep, ~9 operations each.  On one
+// card the cluster loop runs in one launch of a loop kernel at every
+// capacity (cluster_loop.cu, cluster_grid_loop.cu); this kernel, one launch
+// a sweep with the hook in PyTorch (ops/cluster.py per_sweep_loop), runs
+// the point-sharded full sweep and is the yardstick chip_smoke.py's "loop
+// crossover:" lines time beside the loop kernels.
 
 #include <cuda_runtime.h>
 
@@ -38,15 +47,16 @@ constexpr int kChunk = 1024;
 __global__ void cluster_sweep(const float* __restrict__ px, const float* __restrict__ py,
                               const float* __restrict__ pz, const float* __restrict__ psq,
                               const unsigned char* __restrict__ valid,
-                              const int* __restrict__ labels, int c, float tol2,
-                              int* __restrict__ out) {
+                              const int* __restrict__ labels, int c, int row_first, int rows,
+                              float tol2, int* __restrict__ out) {
   __shared__ float sx[kChunk];
   __shared__ float sy[kChunk];
   __shared__ float sz[kChunk];
   __shared__ float ss[kChunk];
   __shared__ int sl[kChunk];
-  const int i = blockIdx.x * kTile + threadIdx.x;
-  const bool row = i < c;
+  const int local = blockIdx.x * kTile + threadIdx.x;  // the row of the range
+  const int i = row_first + local;
+  const bool row = local < rows && i < c;
   float qx = 0.0f, qy = 0.0f, qz = 0.0f, qsq = 0.0f;
   bool qv = false;
   int qlab = c;
@@ -81,17 +91,18 @@ __global__ void cluster_sweep(const float* __restrict__ px, const float* __restr
       }
     }
   }
-  if (row) out[i] = best < qlab ? best : qlab;
+  if (row) out[local] = best < qlab ? best : qlab;
 }
 
 }  // namespace
 
+// out [rows]: the sweep of rows row_first .. row_first + rows - 1
 extern "C" int pcp_cluster_sweep(const float* px, const float* py, const float* pz,
                                  const float* psq, const unsigned char* valid,
-                                 const int* labels, int c, float tol2, int* out,
-                                 void* stream) {
+                                 const int* labels, int c, int row_first, int rows, float tol2,
+                                 int* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cluster_sweep<<<(c + kTile - 1) / kTile, kTile, 0, s>>>(px, py, pz, psq, valid, labels, c,
-                                                         tol2, out);
+  cluster_sweep<<<(rows + kTile - 1) / kTile, kTile, 0, s>>>(px, py, pz, psq, valid, labels, c,
+                                                            row_first, rows, tol2, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,6 +37,11 @@
 // multiply-adds (-fmad=false leaves the intrinsics alone); d2 = (q_sq +
 // c_sq) - 2*cross.
 //
+// A launch may take a range of the query tiles, tile_first .. tile_first +
+// tiles - 1, against the whole column table (the point-sharded path's shard,
+// the reference's _pallas_sweep_jump_banded(..., qslice=...), cluster.py:329);
+// the output holds the range's rows, each as in the whole sweep.
+//
 // Bound on the H100: at the fullscale shape (C = 16384, W = 4096) a sweep
 // scores at most 128 x 128 x 4096 = 67 M pairs of ~9 operations, 0.6
 // GFLOP, ~9 us at the fp32 rate, and the live tiles are about half of that;
@@ -59,22 +64,23 @@ constexpr int kChunk = 1024;
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kTile * kSplit)
     cluster_sweep_banded(const float4* __restrict__ pts, const unsigned char* __restrict__ valid,
                          const int* __restrict__ labels, const int* __restrict__ starts,
-                         const unsigned char* __restrict__ tile_live, int c, int window,
-                         float tol2, int* __restrict__ out) {
+                         const unsigned char* __restrict__ tile_live, int c, int tile_first,
+                         int window, float tol2, int* __restrict__ out) {
   __shared__ float4 sp[kChunk];
   __shared__ int sl[kChunk];
   __shared__ int part[kSplit][kTile];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int t = blockIdx.x / kCluster;
+  const int t = tile_first + static_cast<int>(blockIdx.x) / kCluster;
   const int r = threadIdx.x % kTile;
   const int g = threadIdx.x / kTile;
   const int i = t * kTile + r;
+  const int o = i - tile_first * kTile;  // the row of the output
   const int qlab = labels[i];
   const bool qv = valid[i] != 0;
   const bool live = tile_live == nullptr || tile_live[t] != 0;
   if (!__syncthreads_or(live && qv)) {  // uniform over the block and the cluster
-    if (rank == 0 && g == 0) out[i] = qlab;
+    if (rank == 0 && g == 0) out[o] = qlab;
     return;
   }
   const int start = starts[t];
@@ -115,20 +121,23 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kTile * kSpli
         best = v < best ? v : best;
       }
     }
-    out[i] = best < qlab ? best : qlab;
+    out[o] = best < qlab ? best : qlab;
   }
   cluster.sync();  // no block leaves while rank 0 may still read its partials
 }
 
 }  // namespace
 
+// starts and tile_live [c / 128] (every tile); out [tiles * 128]: the rows
+// of tiles tile_first .. tile_first + tiles - 1
 extern "C" int pcp_cluster_sweep_banded(const float* pts, const unsigned char* valid,
                                         const int* labels, const int* starts,
-                                        const unsigned char* tile_live, int c, int window,
-                                        float tol2, int* out, void* stream) {
+                                        const unsigned char* tile_live, int c, int tile_first,
+                                        int tiles, int window, float tol2, int* out,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cluster_sweep_banded<<<(c / kTile) * kCluster, kTile * kSplit, 0, s>>>(
-      reinterpret_cast<const float4*>(pts), valid, labels, starts, tile_live, c, window, tol2,
-      out);
+  cluster_sweep_banded<<<tiles * kCluster, kTile * kSplit, 0, s>>>(
+      reinterpret_cast<const float4*>(pts), valid, labels, starts, tile_live, c, tile_first,
+      window, tol2, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -65,6 +65,12 @@
 // the centre-out order cut insertions from ~120 / ~206 per query (columns
 // in order) to ~20 / ~19 (scripts/knn_insertion_sim.py, on the CPU).
 //
+// A launch may take a range of the query tiles (the point-sharded path's
+// shard, the reference's _map_query_tiles over [s*T/S, (s+1)*T/S),
+// outliers.py:407-416): tile_first offsets the tile index, the output holds
+// the range's rows only; each query's arithmetic is unchanged, so the
+// gathered ranges equal the whole call bit for bit.
+//
 // Bound on the H100: the fullscale call scores ~600 M pairs (163 live
 // tiles x 1,024 rows x 3,584 columns) of ~9 operations each, 0.08 ms at
 // the fp32 rate; it reads ~4.5 MB and writes 1 MB.  The loop issues about
@@ -156,7 +162,8 @@ __global__ void __launch_bounds__(kGroups * kRowThreads)
     knn_mean(const float* __restrict__ px, const float* __restrict__ py,
              const float* __restrict__ pz, const float* __restrict__ psq,
              const unsigned char* __restrict__ valid, const int* __restrict__ starts, int n,
-             int row_tile, int width, int k, float big, float half, float* __restrict__ out) {
+             int tile_first, int row_tile, int width, int k, float big, float half,
+             float* __restrict__ out) {
   {  // this block's scan
     const size_t scan = blockIdx.z;
     px += scan * n;
@@ -177,8 +184,9 @@ __global__ void __launch_bounds__(kGroups * kRowThreads)
   // to group 0
   __shared__ float spare[kListFloats > kPendFloats ? kListFloats : kPendFloats];
   __shared__ float fourth[kGroups][kRows];  // each group's 4th value
-  const int t = blockIdx.x;
+  const int t = tile_first + blockIdx.x;  // the query tile (of a range: sharded queries)
   const int tile0 = t * row_tile;
+  const int o0 = blockIdx.x * row_tile;  // its first row of the output
   const int tid = threadIdx.x;
   const int g = tid / kRowThreads;
   const int rt = tid % kRowThreads;
@@ -195,7 +203,7 @@ __global__ void __launch_bounds__(kGroups * kRowThreads)
 #pragma unroll
       for (int m = 0; m < kQ; ++m) {
         const int r = r0 + rt + m * kRowThreads;
-        if (r < row_tile) out[tile0 + r] = 0.0f;
+        if (r < row_tile) out[o0 + r] = 0.0f;
       }
     }
     return;
@@ -379,7 +387,7 @@ __global__ void __launch_bounds__(kGroups * kRowThreads)
         cnt = __fadd_rn(cnt, 1.0f);
       }
     }
-    out[tile0 + r] = __fdiv_rn(sum, cnt < 1.0f ? 1.0f : cnt);
+    out[o0 + r] = __fdiv_rn(sum, cnt < 1.0f ? 1.0f : cnt);
   }
 }
 
@@ -419,11 +427,13 @@ static int residency_pad(int* pad) {
   return 0;
 }
 
-// channels, psq and valid [batch, n]; out [batch, tiles * row_tile]
+// channels, psq and valid [batch, n]; starts [all tiles]; the query tiles
+// tile_first .. tile_first + tiles - 1 (all of them, or one shard's range);
+// out [batch, tiles * row_tile]
 extern "C" int pcp_knn_mean(const float* px, const float* py, const float* pz, const float* psq,
                             const unsigned char* valid, const int* starts, int batch, int n,
-                            int tiles, int row_tile, int width, int k, float big, float half,
-                            float* out, void* stream) {
+                            int tile_first, int tiles, int row_tile, int width, int k, float big,
+                            float half, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tiles * row_tile >= kManyRows) {
     static int pad = -1;  // set at the first launch
@@ -432,12 +442,12 @@ extern "C" int pcp_knn_mean(const float* px, const float* py, const float* pz, c
       if (err) return err;
     }
     dim3 grid(tiles, (row_tile + kQ * 128 - 1) / (kQ * 128), batch);
-    knn_mean<1, 128><<<grid, 128, batch == 1 ? pad : 0, s>>>(px, py, pz, psq, valid, starts, n,
-                                                             row_tile, width, k, big, half, out);
+    knn_mean<1, 128><<<grid, 128, batch == 1 ? pad : 0, s>>>(
+        px, py, pz, psq, valid, starts, n, tile_first, row_tile, width, k, big, half, out);
   } else {
     dim3 grid(tiles, (row_tile + kQ * 32 - 1) / (kQ * 32), batch);
-    knn_mean<4, 32><<<grid, 128, 0, s>>>(px, py, pz, psq, valid, starts, n, row_tile, width, k,
-                                         big, half, out);
+    knn_mean<4, 32><<<grid, 128, 0, s>>>(px, py, pz, psq, valid, starts, n, tile_first,
+                                         row_tile, width, k, big, half, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,12 @@
 // dimension).  Each buffer (sentinel keys for invalid rows, sorted last)
 // and its payloads: three float32 offset buffers, or two int32 buffers with
 // 16-bit fixed-point offsets (x in pxy's high half, y in its low half, z in
-// pz) decoded here with a logical shift.  Output: for each run of equal keys,
+// pz) decoded here with a logical shift.  Counts mode (the reference's fourth
+// value buffer, _kernel :162-163, _kernel2w :488, _xla_fallback :693; the
+// voxel-table merges): a fourth float32 buffer of per-row counts, which the
+// count channel loads (0 for invalid rows) where it otherwise takes an
+// implicit 1; the same launch, one more pointer, every add unchanged, so
+// all-ones counts give the three-buffer result bit for bit.  Output: for each run of equal keys,
 // (key as f32, sum_x, sum_y, sum_z, count) at slot = rank of the run, for
 // the first `capacity` runs, and the run count `num`.  Slots at or past
 // `num` are not written.
@@ -77,8 +82,8 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 }
 
 __device__ __forceinline__ float4 load_row(const void* pay_a, const void* pay_b,
-                                           const float* pay_c, int packed, float quantum,
-                                           int g, bool valid) {
+                                           const float* pay_c, const float* pay_d, int packed,
+                                           float quantum, int g, bool valid) {
   if (packed) {
     const unsigned pxy = static_cast<unsigned>(static_cast<const int*>(pay_a)[g]);
     const int pz = static_cast<const int*>(pay_b)[g];
@@ -86,8 +91,9 @@ __device__ __forceinline__ float4 load_row(const void* pay_a, const void* pay_b,
                        __fmul_rn(static_cast<float>(pxy & 0xFFFFu), quantum),
                        __fmul_rn(static_cast<float>(pz), quantum), valid ? 1.0f : 0.0f);
   }
+  const float count = pay_d ? (valid ? pay_d[g] : 0.0f) : (valid ? 1.0f : 0.0f);
   return make_float4(static_cast<const float*>(pay_a)[g], static_cast<const float*>(pay_b)[g],
-                     pay_c[g], valid ? 1.0f : 0.0f);
+                     pay_c[g], count);
 }
 
 __device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
@@ -97,8 +103,9 @@ __device__ __forceinline__ unsigned long long load_status(const unsigned long lo
 template <int R>
 __global__ void __launch_bounds__(1024)
 rr_window(const int* __restrict__ skey, const void* __restrict__ pay_a,
-          const void* __restrict__ pay_b, const float* __restrict__ pay_c, int packed,
-          float quantum, int n, int w, int sentinel, int capacity, Workspace ws,
+          const void* __restrict__ pay_b, const float* __restrict__ pay_c,
+          const float* __restrict__ pay_d, int packed, float quantum, int n, int w,
+          int sentinel, int capacity, Workspace ws,
           float* __restrict__ out, int* __restrict__ num) {
   extern __shared__ float4 sval[];  // [R][T]: row i0 + r of thread tid at r * T + tid
   __shared__ int s_t, s_excl;
@@ -122,6 +129,7 @@ rr_window(const int* __restrict__ skey, const void* __restrict__ pay_a,
   pay_a = static_cast<const int*>(pay_a) + row0;  // int32 or float32: 4 bytes a row
   pay_b = static_cast<const int*>(pay_b) + row0;
   if (pay_c) pay_c += row0;
+  if (pay_d) pay_d += row0;
   out += static_cast<size_t>(b) * capacity * 5;
   num += b;
   ws.carry_agg += b * steps;
@@ -149,7 +157,8 @@ rr_window(const int* __restrict__ skey, const void* __restrict__ pay_a,
     const int k = key[m + 1];
     const bool valid = k < sentinel;
     const bool head = loc >= 0 && valid && k != key[m];
-    v[m] = loc >= 0 ? load_row(pay_a, pay_b, pay_c, packed, quantum, base + loc, valid) : zero;
+    v[m] = loc >= 0 ? load_row(pay_a, pay_b, pay_c, pay_d, packed, quantum, base + loc, valid)
+                    : zero;
     if (m < R - 1) {
       if (head) last = loc;
       lh[m] = last;
@@ -341,8 +350,8 @@ rr_window(const int* __restrict__ skey, const void* __restrict__ pay_a,
 
 template <int R>
 int launch(const int* skey, const void* pay_a, const void* pay_b, const void* pay_c,
-           int packed, float quantum, int batch, int n, int w, int sentinel, int capacity,
-           const Workspace& ws, float* out, int* num, cudaStream_t s) {
+           const void* pay_d, int packed, float quantum, int batch, int n, int w, int sentinel,
+           int capacity, const Workspace& ws, float* out, int* num, cudaStream_t s) {
   const int threads = w / R;
   const size_t smem = static_cast<size_t>(w) * sizeof(float4);
   if (smem > 48 * 1024) {
@@ -350,22 +359,23 @@ int launch(const int* skey, const void* pay_a, const void* pay_b, const void* pa
         rr_window<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  rr_window<R><<<batch * (n / w), threads, smem, s>>>(skey, pay_a, pay_b,
-                                           static_cast<const float*>(pay_c), packed, quantum, n,
-                                           w, sentinel, capacity, ws, out, num);
+  rr_window<R><<<batch * (n / w), threads, smem, s>>>(
+      skey, pay_a, pay_b, static_cast<const float*>(pay_c), static_cast<const float*>(pay_d),
+      packed, quantum, n, w, sentinel, capacity, ws, out, num);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// skey and the payloads [batch, n] (row-major), out [batch, capacity, 5],
+// skey and the payloads [batch, n] (row-major; pay_d the counts, or null),
+// out [batch, capacity, 5],
 // num [batch]; workspace: at least batch * steps * 44 + 4 bytes (the
 // wrapper allocates them), laid out as carry_agg, carry_inc, count_status,
 // carry_flag (batch * steps each), ticket
 extern "C" int pcp_runreduce(const int* skey, const void* pay_a, const void* pay_b,
-                             const void* pay_c, int packed, float quantum, int batch, int n,
-                             int w, int sentinel, int capacity, void* workspace, float* out,
-                             int* num, void* stream) {
+                             const void* pay_c, const void* pay_d, int packed, float quantum,
+                             int batch, int n, int w, int sentinel, int capacity,
+                             void* workspace, float* out, int* num, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int steps = batch * (n / w);  // windows of the whole batch
   char* p = static_cast<char*>(workspace);
@@ -379,10 +389,10 @@ extern "C" int pcp_runreduce(const int* skey, const void* pay_a, const void* pay
   const cudaError_t err = cudaMemsetAsync(
       ws.count_status, 0, static_cast<size_t>(steps) * 12 + 4, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (w >= 512) return launch<4>(skey, pay_a, pay_b, pay_c, packed, quantum, batch, n, w,
-                                 sentinel, capacity, ws, out, num, s);
-  if (w == 256) return launch<2>(skey, pay_a, pay_b, pay_c, packed, quantum, batch, n, w,
-                                 sentinel, capacity, ws, out, num, s);
-  return launch<1>(skey, pay_a, pay_b, pay_c, packed, quantum, batch, n, w, sentinel, capacity,
-                   ws, out, num, s);
+  if (w >= 512) return launch<4>(skey, pay_a, pay_b, pay_c, pay_d, packed, quantum, batch, n,
+                                 w, sentinel, capacity, ws, out, num, s);
+  if (w == 256) return launch<2>(skey, pay_a, pay_b, pay_c, pay_d, packed, quantum, batch, n,
+                                 w, sentinel, capacity, ws, out, num, s);
+  return launch<1>(skey, pay_a, pay_b, pay_c, pay_d, packed, quantum, batch, n, w, sentinel,
+                   capacity, ws, out, num, s);
 }

@@ -6,6 +6,16 @@ import torch
 from .. import _build
 
 
+def query_range(n: int, span) -> tuple[int, int]:
+    """(first, count) of the query rows or tiles a call computes: all ``n``,
+    or ``span`` = (first, count) inside them (a rank's share on the
+    point-sharded path)."""
+    first, count = (0, n) if span is None else span
+    if not (0 <= first and count >= 1 and first + count <= n):
+        raise ValueError(f"query range {span} outside the {n} rows or tiles")
+    return first, count
+
+
 def f32(value: float) -> torch.Tensor:
     """``value`` rounded to float32, as a 0-d CPU tensor.
 

@@ -13,9 +13,10 @@ propagation over the compacted non-plane buffer.
   scan) up to ``LOOP_MAX_CAPACITY`` points, the grid-wide loop kernel
   (``grid_loop``, ``csrc/cluster_grid_loop.cu``, one cooperative grid over
   every SM) above it; CPU tensors take ``cluster_loop_plain``.  The
-  per-sweep form (``per_sweep_loop``: one launch of ``sweep_jump``,
-  ``csrc/cluster_sweep.cu``, a sweep, the hook in PyTorch) is off every
-  path, kept as the yardstick ``chip_smoke.py`` times beside them;
+  per-sweep form (one launch of ``sweep_jump``, ``csrc/cluster_sweep.cu``,
+  a sweep, the hook in PyTorch) runs the point-sharded full sweep
+  (below); on one card ``per_sweep_loop`` is the yardstick
+  ``chip_smoke.py`` times beside the loop kernels;
 * the points and |p|^2 do not change within a clustering: they are laid
   out once for the sweeps, as the [C, 4] rows the loop kernels and K5 read
   (``pack_points``), or the [4, C] channel rows the per-sweep K4 reads
@@ -35,11 +36,24 @@ propagation over the compacted non-plane buffer.
 The reference tracks the frontier only on its TPU path; the port tracks it
 on every device, which is output-identical (see ``sweep_jump_banded``).
 
+On the point-sharded path (``shard``, a ``parallel.collectives.Axis``) each
+sweep scores this rank's contiguous range of the query rows against the
+whole (replicated) column table, the row-range forms of K4's per-sweep
+kernel and of K5, and gathers the ranges over the axis; the hook, the jump
+and every O(C) step stay replicated, so every rank carries the same labels
+and the loop runs in lockstep (the reference's ``_neighbor_min_sweep``
+with ``shard_axis``, cluster.py:461-530, under the same conditions: C
+divides by the ranks, and for the band the rows of a rank by 128).  A
+collective between sweeps rules out the one-launch loop kernels: the
+sharded full sweep is one launch a sweep, and reads its change test on the
+host once a sweep after the first, as the banded loop does.
+
 A batch of clouds (``[B, C]``) clusters each scan on its own: the loop
 kernels take the scan as a grid coordinate in one launch, each scan
 stopping at its own convergence, and every other step takes the scan axis
-as it comes.  The per-sweep K4 and the banded K5 take one scan at a time;
-the banded loop refuses a batch of more than one.
+as it comes.  The per-sweep K4 and the banded K5 take one scan at a time:
+the point-sharded path runs their loops scan after scan; elsewhere the
+banded loop refuses a batch of more than one.
 
 Slots are assigned by size descending, ties by smaller root.  The reference
 relies on ``lax.top_k`` being stable; ``torch.topk`` is not, so the order
@@ -54,7 +68,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import add_sq3, dot3, f32, fma, sqrt32, sum_like_xla, sum_sq3
+from . import add_sq3, dot3, f32, fma, query_range, sqrt32, sum_like_xla, sum_sq3
 from .. import _build
 from ..types import Cloud, ClusterSet, PointIndicesArray, PointWithRad, batch_of, scan_of
 
@@ -116,48 +130,56 @@ def pack_points(p, p_sq=None) -> torch.Tensor:
     return torch.cat([p, _norms(p, p_sq)[..., None]], dim=-1)
 
 
-def sweep_jump_plain(pch, valid, labels, tol2: float) -> torch.Tensor:
+def sweep_jump_plain(pch, valid, labels, tol2: float, rows=None) -> torch.Tensor:
     """Plain PyTorch version of kernel K4 (the reference's ``_xla_sweep_jump``
     contract): min over {label[i]} ∪ {label_col[label[i]]} ∪ neighbours.
-    ``pch``: ``point_channels``' [4, C] rows."""
+    ``pch``: ``point_channels``' [4, C] rows.  ``rows`` (first, count):
+    the sweep of those query rows only, against every column."""
     n = labels.shape[0]
+    first, count = query_range(n, rows)
     x, y, z, p_sq = pch
     t2 = f32(tol2)
     labels_col = torch.where(valid, labels, n)
     # the pointer jump (column labels[i]) and the own label, then the
     # neighbours; rows and columns past the last valid one have none
-    out = torch.minimum(labels_col[labels.long()], labels)
+    lab = labels[first:first + count]
+    out = torch.minimum(labels_col[lab.long()], lab)
     hi = int(valid.nonzero().max()) + 1 if bool(valid.any()) else 0
-    for r0 in range(0, hi, 256):  # 256-row tiles bound the [T, C] temporaries
-        r = slice(r0, min(r0 + 256, hi))
+    for r0 in range(first, min(first + count, hi), 256):  # 256-row tiles bound the temporaries
+        r = slice(r0, min(r0 + 256, first + count, hi))
         cross = dot3(x[r, None], y[r, None], z[r, None], x[None, :hi], y[None, :hi], z[None, :hi])
         d2 = (p_sq[r, None] + p_sq[None, :hi]) - 2.0 * cross
         adj = (d2 <= t2) & valid[None, :hi] & valid[r, None]
         cand = torch.where(adj, labels_col[None, :hi], n)
-        out[r] = torch.minimum(cand.min(dim=1).values, out[r])
+        o = slice(r.start - first, r.stop - first)
+        out[o] = torch.minimum(cand.min(dim=1).values, out[o])
     return out
 
 
-def sweep_jump(pch, valid, labels, tol2: float) -> torch.Tensor:
+def sweep_jump(pch, valid, labels, tol2: float, rows=None) -> torch.Tensor:
     """One fused neighbour-min + pointer-jump sweep: kernel K4 for CUDA
     tensors, the plain version for CPU tensors.  ``pch``:
-    ``point_channels``' [4, C] rows, which the kernel reads as they are."""
+    ``point_channels``' [4, C] rows, which the kernel reads as they are.
+    ``rows`` (first, count): the sweep of those query rows only ([count]),
+    the point-sharded path's row range."""
     if pch.device.type == "cpu":
-        return sweep_jump_plain(pch, valid, labels, tol2)
+        return sweep_jump_plain(pch, valid, labels, tol2, rows)
     n = labels.shape[0]
+    first, count = query_range(n, rows)
     if pch.shape != (4, n) or valid.shape != (n,) or labels.shape != (n,):
         raise ValueError("sweep_jump: point channels [4, C], valid [C] and labels [C]")
     _build.require_cuda("sweep_jump", pch, valid, labels,
                         dtypes=[torch.float32, torch.bool, torch.int32])
     x, y, z, p_sq = pch
     lib = _build.kernels()
-    out = torch.empty(n, dtype=torch.int32, device=pch.device)
+    out = torch.empty(count, dtype=torch.int32, device=pch.device)
     err = lib.pcp_cluster_sweep(
         x.data_ptr(), y.data_ptr(), z.data_ptr(), p_sq.data_ptr(), valid.data_ptr(),
-        labels.data_ptr(), n, float(np.float32(tol2)), out.data_ptr(), _build.stream_handle(),
+        labels.data_ptr(), n, first, count, float(np.float32(tol2)), out.data_ptr(),
+        _build.stream_handle(),
     )
     _build.check(err, "cluster_sweep")
-    _build.LAUNCHES["cluster_sweep"] += 1
+    _build.LAUNCHES["cluster_sweep" if rows is None else "cluster_sweep_rows"] += 1
     return out
 
 
@@ -191,24 +213,24 @@ def band_starts(p, valid, tile: int, window: int, tolerance: float):
 
 
 def sweep_jump_banded_plain(pk, valid, labels, tol2: float, tile: int, window: int, starts,
-                            tile_live=None) -> torch.Tensor:
+                            tile_live=None, tile_range=None) -> torch.Tensor:
     """Plain PyTorch version of kernel K5 (the reference's
     ``_xla_sweep_jump_banded`` contract): for row i of tile t,
     ``min(labels[i], labels_col[j])`` over the window columns j in
     ``[starts[t], starts[t] + window)`` that are neighbours of i or equal
     ``labels[i]``.  Tiles with ``tile_live[t]`` False write ``labels``
     through, as the kernel skips them.  ``pk``: ``pack_points``' [C, 4]
-    rows."""
+    rows.  ``tile_range`` (first, count): those query tiles only."""
     n = labels.shape[0]
-    tiles = n // tile
+    first, count = query_range(n // tile, tile_range)
     dev = pk.device
     x, y, z, p_sq = pk.unbind(1)
     t2 = f32(tol2)
     labels_col = torch.where(valid, labels, n)
     w_ids = torch.arange(window, device=dev)
-    out = torch.empty(n, dtype=torch.int32, device=dev)
-    for t0 in range(0, tiles, 8):  # 8 tiles per [t, T, W] block bound the temporaries
-        t1 = min(t0 + 8, tiles)
+    out = torch.empty(count * tile, dtype=torch.int32, device=dev)
+    for t0 in range(first, first + count, 8):  # 8 tiles per [t, T, W] block bound the temporaries
+        t1 = min(t0 + 8, first + count)
         cols = starts[t0:t1].long()[:, None] + w_ids  # [t, W]
         rows = slice(t0 * tile, t1 * tile)
         q = [v[rows].reshape(t1 - t0, tile, 1) for v in (x, y, z, p_sq, labels, valid)]
@@ -218,17 +240,22 @@ def sweep_jump_banded_plain(pk, valid, labels, tol2: float, tile: int, window: i
         adj = (d2 <= t2) & valid[cols][:, None, :] & q[5]
         hit = adj | (q[4] == cols[:, None, :])
         cand = torch.where(hit, labels_col[cols][:, None, :], n)
-        out[rows] = torch.minimum(cand.min(dim=2).values, q[4][:, :, 0]).reshape(-1)
+        out[(t0 - first) * tile:(t1 - first) * tile] = torch.minimum(
+            cand.min(dim=2).values, q[4][:, :, 0]).reshape(-1)
     if tile_live is not None:
-        out = torch.where(tile_live[:, None].expand(tiles, tile).reshape(n), out, labels)
+        live = tile_live[first:first + count, None].expand(count, tile).reshape(-1)
+        out = torch.where(live, out, labels[first * tile:(first + count) * tile])
     return out
 
 
 def sweep_jump_banded(pk, valid, labels, tol2: float, tile: int, window: int, starts,
-                      tile_live=None) -> torch.Tensor:
+                      tile_live=None, tile_range=None) -> torch.Tensor:
     """One banded neighbour-min + in-window pointer-jump sweep: kernel K5 for
     CUDA tensors, the plain version for CPU tensors.  ``pk``:
     ``pack_points``' [C, 4] rows, which the kernel reads as they are.
+    ``tile_range`` (first, count): the sweep of those query tiles only
+    ([count * tile] rows; ``starts`` and ``tile_live`` stay whole), the
+    point-sharded path's row range.
 
     A tile is skipped (its labels written through) where ``tile_live`` is
     False or it holds no valid row.  Both skips leave the cluster loop's
@@ -237,7 +264,8 @@ def sweep_jump_banded(pk, valid, labels, tol2: float, tile: int, window: int, st
     reads the same minima (the reference's skip note,
     ``_pallas_sweep_jump_banded``)."""
     if pk.device.type == "cpu":
-        return sweep_jump_banded_plain(pk, valid, labels, tol2, tile, window, starts, tile_live)
+        return sweep_jump_banded_plain(pk, valid, labels, tol2, tile, window, starts, tile_live,
+                                       tile_range)
     n = labels.shape[0]
     if tile != BAND_TILE or n % tile or window % 128 or not tile <= window < n:
         raise ValueError(
@@ -246,6 +274,7 @@ def sweep_jump_banded(pk, valid, labels, tol2: float, tile: int, window: int, st
             f"window={window}, capacity={n})"
         )
     tiles = n // tile
+    first, count = query_range(tiles, tile_range)
     if pk.shape != (n, 4) or valid.shape != (n,) or labels.shape != (n,) or \
             starts.shape != (tiles,) or (tile_live is not None and tile_live.shape != (tiles,)):
         raise ValueError("sweep_jump_banded: packed points [C, 4], valid and labels [C], "
@@ -259,14 +288,15 @@ def sweep_jump_banded(pk, valid, labels, tol2: float, tile: int, window: int, st
         dtypes.append(torch.bool)
     _build.require_cuda("sweep_jump_banded", *ops, dtypes=dtypes)
     lib = _build.kernels()
-    out = torch.empty(n, dtype=torch.int32, device=pk.device)
+    out = torch.empty(count * tile, dtype=torch.int32, device=pk.device)
     err = lib.pcp_cluster_sweep_banded(
         pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), starts.data_ptr(),
-        None if tile_live is None else tile_live.data_ptr(), n, window,
+        None if tile_live is None else tile_live.data_ptr(), n, first, count, window,
         float(np.float32(tol2)), out.data_ptr(), _build.stream_handle(),
     )
     _build.check(err, "cluster_sweep_banded")
-    _build.LAUNCHES["cluster_sweep_banded"] += 1
+    _build.LAUNCHES["cluster_sweep_banded" if tile_range is None
+                    else "cluster_sweep_banded_rows"] += 1
     return out
 
 
@@ -352,13 +382,19 @@ def cluster_loop(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
     return loop_kernel(pk, valid, labels, tol2, max_iters)
 
 
-def per_sweep_loop(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
+def per_sweep_loop(pk, valid, labels, tol2: float, max_iters: int, shard=None) -> LoopOutput:
     """The loop as one K4 launch a sweep, the hook in PyTorch and a host
-    read of the change test after each sweep but the last (CUDA tensors,
-    one scan).  Off every path: ``chip_smoke.py`` times it beside the two
-    loop kernels."""
+    read of the change test after each sweep but the last (one scan).  With
+    ``shard`` each sweep covers this rank's range of the rows, gathered
+    over the axis (the point-sharded full sweep); on one card
+    ``chip_smoke.py`` times it beside the two loop kernels."""
     pch = pk.T.contiguous()
-    return _sweep_loop(lambda lab: sweep_jump(pch, valid, lab, tol2), labels, max_iters)
+    if shard is None:
+        return _sweep_loop(lambda lab: sweep_jump(pch, valid, lab, tol2), labels, max_iters)
+    per = labels.shape[0] // shard.size
+    rows = (shard.rank * per, per)
+    return _sweep_loop(lambda lab: shard.all_gather(sweep_jump(pch, valid, lab, tol2, rows)),
+                       labels, max_iters)
 
 
 def grid_loop(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
@@ -434,11 +470,17 @@ class ClusterOutput(NamedTuple):  # a leading [B] on the tensors for a batch
     host_syncs: int = 0  # device-to-host reads made by the sweep loop
 
 
-def _banded_loop(pk, valid, labels, tol2: float, band_window: int, starts, max_iters: int):
+def _banded_loop(pk, valid, labels, tol2: float, band_window: int, starts, max_iters: int,
+                 shard=None):
     """The banded sweep's loop: frontier-gated K5 sweeps, the hook and one
     full-array pointer jump a sweep; one host read a sweep after the first.
-    Returns (labels, unconverged, host_syncs)."""
+    With ``shard`` each sweep covers this rank's range of the tiles,
+    gathered over the axis.  Returns (labels, unconverged, host_syncs)."""
     n = labels.shape[0]
+    tile_range = None
+    if shard is not None:
+        per = n // BAND_TILE // shard.size
+        tile_range = (shard.rank * per, per)
     win_hi = (starts + (band_window - 1)).long()
     win_lo = (starts - 1).clamp_min(0).long()
     host_syncs = 0
@@ -448,8 +490,11 @@ def _banded_loop(pk, valid, labels, tol2: float, band_window: int, starts, max_i
         # the previous sweep (a prefix-sum difference per window)
         cs = torch.cumsum(changed, dim=0, dtype=torch.int32)
         tile_live = (cs[win_hi] - torch.where(starts > 0, cs[win_lo], 0)) > 0
+        rows = () if tile_range is None else (tile_range,)
         nbr_min = sweep_jump_banded(pk, valid, labels, tol2, BAND_TILE, band_window, starts,
-                                    tile_live)
+                                    tile_live, *rows)
+        if shard is not None:
+            nbr_min = shard.all_gather(nbr_min)
         new = _hook(labels, nbr_min)
         # window-unlimited pointer jump: a root outside a tile's window is
         # out of the sweep's reach; one full-array jump per sweep keeps the
@@ -497,21 +542,25 @@ def _seed_labels(pts, valid, tolerance: float):
 
 def euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: int,
                       max_clusters: int, max_iters: int = 64,
-                      band_window: int = 0) -> ClusterOutput:
+                      band_window: int = 0, shard=None) -> ClusterOutput:
     """Connected components + size gate + size-descending slot assignment,
     of one cloud or of each scan of a batch.
 
     ``band_window`` takes the banded sweep where the reference does: a
     window of 128 columns or more, below the capacity, and a capacity
-    divisible by 128; otherwise the full sweep runs."""
+    divisible by 128; otherwise the full sweep runs.  ``shard``: the
+    sweeps' query rows split over that axis where they split evenly (see
+    the module docstring); each scan of a batch then runs its loop on its
+    own."""
     cloud, single = batch_of(cloud)
     res = _euclidean_cluster(cloud, tolerance, min_size, max_size, max_clusters, max_iters,
-                             band_window)
+                             band_window, shard)
     return scan_of(res) if single else res
 
 
 def _euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: int,
-                       max_clusters: int, max_iters: int, band_window: int) -> ClusterOutput:
+                       max_clusters: int, max_iters: int, band_window: int,
+                       shard=None) -> ClusterOutput:
     pts = cloud.points
     valid = cloud.valid.contiguous()
     b, n = valid.shape
@@ -524,15 +573,30 @@ def _euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: 
     idx = torch.arange(n, dtype=torch.int32, device=dev)
 
     banded = bool(band_window) and BAND_TILE <= band_window < n and n % BAND_TILE == 0
+    if banded and b != 1 and shard is None:
+        raise ValueError(f"euclidean_cluster: the banded sweep takes one scan at a time "
+                         f"(got a batch of {b}) outside the point-sharded path")
+    if shard is not None:  # the reference's can_shard (cluster.py:520-527)
+        per = n // shard.size
+        if shard.size < 2 or n % shard.size or (banded and per % BAND_TILE):
+            shard = None
     sweep_pts = pack_points(p, p_sq)  # the sweeps' operand, laid out once for the whole loop
     if banded:
-        if b != 1:
-            raise ValueError(f"euclidean_cluster: the banded sweep takes one scan at a time "
-                             f"(got a batch of {b})")
-        starts, band_overflow = band_starts(p[0], valid[0], BAND_TILE, band_window, tolerance)
-        lab, unconverged, host_syncs = _banded_loop(sweep_pts[0], valid[0], labels[0], tol2,
-                                                    band_window, starts, max_iters)
-        labels, unconverged, band_overflow = lab[None], unconverged[None], band_overflow[None]
+        outs = []
+        for i in range(b):  # K5 takes one scan at a time (a point-sharded batch)
+            starts, over = band_starts(p[i], valid[i], BAND_TILE, band_window, tolerance)
+            outs.append((*_banded_loop(sweep_pts[i], valid[i], labels[i], tol2, band_window,
+                                       starts, max_iters, shard), over))
+        labels, unconverged = (torch.stack([o[k] for o in outs]) for k in (0, 1))
+        host_syncs = sum(o[2] for o in outs)
+        band_overflow = torch.stack([o[3] for o in outs])
+    elif shard is not None:
+        band_overflow = torch.zeros(b, dtype=torch.bool, device=dev)
+        loops = [per_sweep_loop(sweep_pts[i], valid[i], labels[i], tol2, max_iters, shard)
+                 for i in range(b)]
+        labels = torch.stack([o.labels for o in loops])
+        unconverged = torch.stack([o.unconverged for o in loops])
+        host_syncs = sum(o.host_syncs for o in loops)
     else:
         band_overflow = torch.zeros(b, dtype=torch.bool, device=dev)
         labels, unconverged, _, host_syncs = cluster_loop(sweep_pts, valid, labels, tol2,

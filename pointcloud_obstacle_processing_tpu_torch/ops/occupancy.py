@@ -20,7 +20,8 @@ from ..types import Cloud
 from .filters import crop_box_mask
 from .histogram import histogram2d
 
-__all__ = ["grid_cell_xy", "grid_cell_index", "crop_and_seed", "mark_obstacles", "CropSeedResult"]
+__all__ = ["grid_cell_xy", "grid_cell_index", "cell_counts", "holes", "crop_and_seed",
+           "mark_obstacles", "CropSeedResult"]
 
 
 def grid_cell_xy(points: torch.Tensor, config: PipelineConfig):
@@ -62,16 +63,27 @@ class CropSeedResult(NamedTuple):
     hole_grid: torch.Tensor  # [..., H, W] int8: 100 where a crater is detected
 
 
-def crop_and_seed(cloud: Cloud, config: PipelineConfig) -> CropSeedResult:
-    """Crop + histogram + row average + hole detection (cpp:175-269)."""
-    H, W = config.grid_height, config.grid_width
-    in_box = cloud.valid & crop_box_mask(cloud.points, config)
-    col, row = grid_cell_xy(cloud.points, config)
-    counts = histogram2d(row, col, in_box, H, W)
-    row_averages = torch.div(counts.sum(dim=-1), W, rounding_mode="floor").to(torch.int32)
+def holes(counts: torch.Tensor, config: PipelineConfig):
+    """Row averages and the hole grid of a [..., H, W] cell histogram (the
+    whole cloud's: the point-sharded path sums its shards' first)."""
+    row_averages = torch.div(counts.sum(dim=-1), config.grid_width,
+                             rounding_mode="floor").to(torch.int32)
     threshold = row_averages.to(torch.float32) * f32(1.0 - config.dev_percent)
     hole = counts.to(torch.float32) < threshold[..., None]
-    hole_grid = torch.where(hole, 100, 0).to(torch.int8)
+    return row_averages, torch.where(hole, 100, 0).to(torch.int8)
+
+
+def cell_counts(cloud: Cloud, config: PipelineConfig):
+    """The crop mask and the [..., H, W] cell histogram of the cropped points."""
+    in_box = cloud.valid & crop_box_mask(cloud.points, config)
+    col, row = grid_cell_xy(cloud.points, config)
+    return in_box, histogram2d(row, col, in_box, config.grid_height, config.grid_width)
+
+
+def crop_and_seed(cloud: Cloud, config: PipelineConfig) -> CropSeedResult:
+    """Crop + histogram + row average + hole detection (cpp:175-269)."""
+    in_box, counts = cell_counts(cloud, config)
+    row_averages, hole_grid = holes(counts, config)
     return CropSeedResult(
         cloud=Cloud(points=cloud.points, valid=in_box),
         counts=counts,

@@ -15,6 +15,13 @@ smallest square roots.  Its plain version, taken only for CPU tensors, is
 Every function but ``knn_select_plain`` also takes a batch of clouds
 (``[B, N]``), each scan on its own: K3 takes the scan as a grid dimension,
 the gate's sums run per scan.
+
+On the point-sharded path (``shard``, a ``parallel.collectives.Axis``) each
+rank scores one contiguous range of the query tiles against the whole
+(replicated) cloud, K3's row-range form, and the ranges are gathered: the
+reference's ``_map_query_tiles`` (outliers.py:407-416), replicated where
+the tiles do not split evenly.  Every query's arithmetic is unchanged, so
+the gathered means equal the replicated call bit for bit.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import add_sq3, dot3, f32, fma, sqrt32, sum_like_xla
+from . import add_sq3, dot3, f32, fma, query_range, sqrt32, sum_like_xla
 from .. import _build
 from ..types import Cloud
 
@@ -77,34 +84,38 @@ def _tile_live(valid: torch.Tensor, tiles: int, row_tile: int) -> torch.Tensor:
     return padded.reshape(*valid.shape[:-1], tiles, row_tile).any(dim=-1)
 
 
-def knn_select_plain(pch, p_sq, valid, starts, row_tile: int, width: int) -> torch.Tensor:
+def knn_select_plain(pch, p_sq, valid, starts, row_tile: int, width: int,
+                     tile_range=None) -> torch.Tensor:
     """Plain PyTorch version of kernel K3: [16, n_q] ascending smallest d2 of
-    each query over its tile's window; ``big`` for tiles with no valid query."""
+    each query over its tile's window; ``big`` for tiles with no valid
+    query.  ``tile_range`` (first, count) scores those query tiles only
+    (``n_q`` = count * row_tile)."""
     n = p_sq.shape[0]
     tiles = starts.shape[0]
+    first, count = query_range(tiles, tile_range)
     n_q = tiles * row_tile
     dev = p_sq.device
     bigt = float(np.float32(BIG))  # a Python scalar: torch.where takes it as float32
     tile_chunk = 8  # tiles per [t, T, W] distance block: bounds the temporaries
-    q_ch = [torch.nn.functional.pad(c, (0, n_q - n)) for c in pch]
-    q_sq = torch.nn.functional.pad(p_sq, (0, n_q - n))
-    q_ids = torch.arange(n_q, device=dev)
+    q_ch = [torch.nn.functional.pad(c, (0, n_q - n)).reshape(tiles, row_tile) for c in pch]
+    q_sq = torch.nn.functional.pad(p_sq, (0, n_q - n)).reshape(tiles, row_tile)
+    q_ids = torch.arange(n_q, device=dev).reshape(tiles, row_tile)
     live = _tile_live(valid, tiles, row_tile)
-    out = torch.empty(tiles, row_tile, _SEL, dtype=torch.float32, device=dev)
-    for t0 in range(0, tiles, tile_chunk):
-        ts = slice(t0, min(t0 + tile_chunk, tiles))
+    out = torch.empty(count, row_tile, _SEL, dtype=torch.float32, device=dev)
+    for t0 in range(first, first + count, tile_chunk):
+        ts = slice(t0, min(t0 + tile_chunk, first + count))
         cols = starts[ts].long()[:, None] + torch.arange(width, device=dev)  # [t, W]
-        qs = [c.reshape(tiles, row_tile)[ts][:, :, None] for c in q_ch]  # [t, T, 1]
+        qs = [c[ts][:, :, None] for c in q_ch]  # [t, T, 1]
         cs = [c[cols][:, None, :] for c in pch]  # [t, 1, W]
         cross = dot3(*qs, *cs)  # the reference's fused chain, as kernel K3
-        d2 = (q_sq.reshape(tiles, row_tile)[ts][:, :, None] + p_sq[cols][:, None, :]) - 2.0 * cross
+        d2 = (q_sq[ts][:, :, None] + p_sq[cols][:, None, :]) - 2.0 * cross
         d2 = torch.clamp_min(d2, 0.0)
         d2 = torch.where(valid[cols][:, None, :], d2, bigt)
-        self_col = q_ids.reshape(tiles, row_tile)[ts][:, :, None] == cols[:, None, :]
-        d2 = torch.where(self_col, bigt, d2)
-        out[ts] = torch.topk(d2, _SEL, dim=-1, largest=False, sorted=True).values
-    out = torch.where(live[:, None, None], out, bigt)
-    return out.reshape(n_q, _SEL).T.contiguous()
+        d2 = torch.where(q_ids[ts][:, :, None] == cols[:, None, :], bigt, d2)
+        out[ts.start - first:ts.stop - first] = torch.topk(
+            d2, _SEL, dim=-1, largest=False, sorted=True).values
+    out = torch.where(live[first:first + count, None, None], out, bigt)
+    return out.reshape(count * row_tile, _SEL).T.contiguous()
 
 
 def mean_from_sorted(vals: torch.Tensor, k: int) -> torch.Tensor:
@@ -124,26 +135,33 @@ def mean_from_sorted(vals: torch.Tensor, k: int) -> torch.Tensor:
     return s / torch.clamp_min(cnt, 1.0)
 
 
-def knn_mean_plain(pch, p_sq, valid, starts, row_tile: int, width: int, k: int) -> torch.Tensor:
+def knn_mean_plain(pch, p_sq, valid, starts, row_tile: int, width: int, k: int,
+                   tile_range=None) -> torch.Tensor:
     """Plain PyTorch version of kernel K3: [..., n_q] mean distance to the k
     nearest valid neighbours in each query's tile window, scan by scan."""
     if p_sq.dim() > 1:
         return torch.stack([knn_mean_plain([c[b] for c in pch], p_sq[b], valid[b], starts,
-                                           row_tile, width, k) for b in range(p_sq.shape[0])])
-    return mean_from_sorted(knn_select_plain(pch, p_sq, valid, starts, row_tile, width), k)
+                                           row_tile, width, k, tile_range)
+                            for b in range(p_sq.shape[0])])
+    return mean_from_sorted(
+        knn_select_plain(pch, p_sq, valid, starts, row_tile, width, tile_range), k)
 
 
-def knn_mean(pch, p_sq, valid, starts, row_tile: int, width: int, k: int) -> torch.Tensor:
+def knn_mean(pch, p_sq, valid, starts, row_tile: int, width: int, k: int,
+             tile_range=None) -> torch.Tensor:
     """[n_q] (or [B, n_q] for channels, |p|^2 and mask of a batch, [B, N])
     mean distance to the k nearest valid neighbours in each query's tile
     window (0 for tiles with no valid query): kernel K3 for CUDA tensors,
     one launch a call with the scan as a grid dimension; the plain version
-    for CPU tensors.  ``starts`` [tiles] serve every scan."""
+    for CPU tensors.  ``starts`` [tiles] serve every scan.  ``tile_range``
+    (first, count): score those query tiles only, against the whole cloud
+    (K3's row-range form, the point-sharded path's; ``n_q`` = count *
+    row_tile)."""
     if p_sq.device.type == "cpu":
-        return knn_mean_plain(pch, p_sq, valid, starts, row_tile, width, k)
+        return knn_mean_plain(pch, p_sq, valid, starts, row_tile, width, k, tile_range)
     n = p_sq.shape[-1]
     lead = p_sq.shape[:-1]
-    tiles = starts.shape[0]
+    first, tiles = query_range(starts.shape[0], tile_range)
     if width > n or width % 16 or not 1 <= k <= _SEL:
         raise ValueError(f"knn_mean: window width {width} must be <= {n} and a multiple of 16, "
                          f"and 1 <= k <= {_SEL} (got k={k})")
@@ -160,19 +178,22 @@ def knn_mean(pch, p_sq, valid, starts, row_tile: int, width: int, k: int) -> tor
     out = torch.empty(*lead, tiles * row_tile, dtype=torch.float32, device=p_sq.device)
     err = lib.pcp_knn_mean(
         pch[0].data_ptr(), pch[1].data_ptr(), pch[2].data_ptr(), p_sq.data_ptr(),
-        valid.data_ptr(), starts.data_ptr(), batch, n, tiles, row_tile, width, k,
+        valid.data_ptr(), starts.data_ptr(), batch, n, first, tiles, row_tile, width, k,
         float(np.float32(BIG)), float(f32(BIG * 0.5)), out.data_ptr(), _build.stream_handle(),
     )
     _build.check(err, "knn_mean")
-    _build.LAUNCHES["knn_mean"] += 1
+    _build.LAUNCHES["knn_mean" if tile_range is None else "knn_mean_rows"] += 1
     return out
 
 
-def knn_mean_distances(cloud: Cloud, k: int, row_tile: int = 512, band: int = 1024) -> torch.Tensor:
+def knn_mean_distances(cloud: Cloud, k: int, row_tile: int = 512, band: int = 1024,
+                       shard=None) -> torch.Tensor:
     """Mean distance to the k nearest valid neighbours in each point's rank
     window ([..., N] float32; 0 for invalid points).  The cloud (or each
     scan of a batch) must be in voxel-lattice order, as
-    ``voxel_downsample`` emits it."""
+    ``voxel_downsample`` emits it.  ``shard``: score this rank's range of
+    the query tiles and gather the ranges over the axis (see the module
+    docstring)."""
     pts = cloud.points
     n = cloud.capacity
     valid = cloud.valid
@@ -195,8 +216,13 @@ def knn_mean_distances(cloud: Cloud, k: int, row_tile: int = 512, band: int = 10
            for col, center_c in zip(cols, centers)]
     p_sq = add_sq3(*pch)  # the reference's written-out sum, as XLA:CPU fuses it
     starts = band_starts(n, row_tile, band, tiles, pts.device)
-    out = knn_mean(pch, p_sq, valid.contiguous(), starts, row_tile, width, k)[..., :n]
-    return torch.where(valid, out, 0.0)
+    if shard is not None and shard.size > 1 and tiles % shard.size == 0:
+        per = tiles // shard.size
+        out = shard.all_gather(knn_mean(pch, p_sq, valid.contiguous(), starts, row_tile, width,
+                                        k, tile_range=(shard.rank * per, per)), dim=-1)
+    else:
+        out = knn_mean(pch, p_sq, valid.contiguous(), starts, row_tile, width, k)
+    return torch.where(valid, out[..., :n], 0.0)
 
 
 def gate_threshold(n, s2, mu, std_dev_mult: float) -> torch.Tensor:
@@ -227,10 +253,12 @@ def gate_sums(d: torch.Tensor, valid: torch.Tensor):
 
 
 def remove_statistical_outliers(cloud: Cloud, mean_k: int, std_dev_mult: float,
-                                row_tile: int = 512, band: int = 1024) -> OutlierResult:
+                                row_tile: int = 512, band: int = 1024,
+                                shard=None) -> OutlierResult:
     """PCL's filter (obstacle_detection.cpp:326-330) with its n-1 estimator,
-    on one cloud or on each scan of a batch."""
-    d = knn_mean_distances(cloud, mean_k, row_tile, band)
+    on one cloud or on each scan of a batch (``shard``: the kNN's query
+    tiles split over that axis, the gathered means replicated)."""
+    d = knn_mean_distances(cloud, mean_k, row_tile, band, shard)
     n, s1, s2 = gate_sums(d, cloud.valid)
     threshold = gate_threshold(n, s2, s1 / n, std_dev_mult)
     keep = cloud.valid & (d <= threshold[..., None])

@@ -33,6 +33,7 @@ __all__ = [
     "ransac_plane_once",
     "segment_planes",
     "draw_from_uniform",
+    "draw_from_bits",
     "PlaneOnceResult",
     "SegmentPlanesResult",
 ]
@@ -51,6 +52,26 @@ def draw_from_uniform(u: torch.Tensor) -> Draw:
         hi = torch.clamp_min(n_valid, 1)[..., None, None]
         idx = torch.floor(u[..., r, :, :] * hi.to(torch.float32)).to(torch.int64)
         return torch.minimum(idx, (hi - 1).to(torch.int64))
+
+    return draw
+
+
+def draw_from_bits(hi: torch.Tensor, lo: torch.Tensor) -> Draw:
+    """Draws that replay the reference's ``jax.random.randint(key, (K, 3), 0,
+    max(n_valid, 1))`` from the two words of random bits it takes for each
+    index (``hi``, ``lo``: [rounds, K, 3], or [B, rounds, K, 3] for a
+    batch, uint32 values held in int64), with its arithmetic: ``(hi % span)
+    * (2^32 % span) + lo % span`` in uint32, modulo ``span``.  Every rank of
+    a point-sharded run replays the reference's key chain from the same
+    words."""
+    mask = 0xFFFFFFFF
+
+    def draw(r: int, n_valid: torch.Tensor) -> torch.Tensor:
+        span = torch.clamp_min(n_valid, 1).to(torch.int64)[..., None, None]
+        mult = ((65536 % span) * (65536 % span) & mask) % span
+        h = hi[..., r, :, :].to(span.device) % span
+        low = lo[..., r, :, :].to(span.device) % span
+        return (((h * mult) & mask) + low & mask) % span
 
     return draw
 

@@ -9,7 +9,10 @@ Hillis-Steele shift+add scan in each window, then one carry add for each
 row before the window's first head, the carries chained window after window.
 
 Both take one buffer ``[N]`` or a batch ``[B, N]`` of them, each reduced on
-its own (the kernel takes the scan as a grid dimension).
+its own (the kernel takes the scan as a grid dimension).  In counts mode (a
+fourth float32 buffer of per-row counts, the voxel-table merges' input) the
+count channel sums those counts in place of an implicit 1 a row, in the
+same order as the other channels.
 ``sorted_run_reduce`` launches the CUDA kernel (``csrc/runreduce.cu``) for
 CUDA tensors and takes ``sorted_run_reduce_plain`` only for CPU tensors.
 """
@@ -67,13 +70,15 @@ def _flags(skey: torch.Tensor, sentinel: int):
 
 
 def _decode(offs, quantum):
+    """(x, y, z, counts or None): the payloads as float32 channels."""
     if quantum is not None:
         if len(offs) != 2:
             raise ValueError("quantum set: offs must be the (pxy, pz) int32 pair")
-        return unpack_offsets(offs[0], offs[1], quantum)
-    if len(offs) != 3:
-        raise ValueError("offs must be three float32 offset buffers")
-    return tuple(offs)
+        return (*unpack_offsets(offs[0], offs[1], quantum), None)
+    if len(offs) not in (3, 4):
+        raise ValueError("offs must be three float32 offset buffers, or four (the fourth "
+                         "the per-row counts)")
+    return (*offs[:3], offs[3] if len(offs) == 4 else None)
 
 
 def sorted_run_reduce_plain(skey, offs, sentinel: int, capacity: int, group: int | None = None,
@@ -85,11 +90,12 @@ def sorted_run_reduce_plain(skey, offs, sentinel: int, capacity: int, group: int
     group = group or default_group(n)
     w = group * 128
     steps = n // w
-    ox, oy, oz = _decode(offs, quantum)
+    ox, oy, oz, counts = _decode(offs, quantum)
     valid, heads, is_end = _flags(skey, sentinel)
     hw = heads.to(torch.int32).reshape(*lead, steps, w)
+    cnt = valid.to(torch.float32) if counts is None else torch.where(valid, counts, 0.0)
     ch = torch.stack(
-        [c.reshape(*lead, steps, w) for c in (ox, oy, oz, valid.to(torch.float32))]
+        [c.reshape(*lead, steps, w) for c in (ox, oy, oz, cnt)]
     )  # [4, *lead, steps, w]
     local = _scan_channels(ch, hw, w)
     no_head_yet = torch.cumsum(hw, dim=-1) == 0  # [*lead, steps, w]
@@ -120,9 +126,11 @@ def sorted_run_reduce(skey, offs, sentinel: int, capacity: int, group: int | Non
     ``skey``: [N] (or [B, N], one buffer a scan) int32 ascending,
     ``sentinel`` for invalid rows.  ``offs``: three float32 offset buffers
     of ``skey``'s shape, or with ``quantum`` the (pxy, pz) int32 pair of
-    16-bit fixed-point offsets.  Returns (vals [..., capacity, 5] f32, num
-    [...] int32); slots at or past ``num`` are unspecified.  One launch a
-    call, the batch included.
+    16-bit fixed-point offsets; or (without ``quantum``) four float32
+    buffers, the fourth the per-row counts the count channel sums (counts
+    mode; all-ones counts give the three-buffer result bit for bit).
+    Returns (vals [..., capacity, 5] f32, num [...] int32); slots at or
+    past ``num`` are unspecified.  One launch a call, the batch included.
     """
     n = skey.shape[-1]
     lead = skey.shape[:-1]
@@ -135,8 +143,9 @@ def sorted_run_reduce(skey, offs, sentinel: int, capacity: int, group: int | Non
 
     offs = tuple(offs)
     pay_dtype = torch.int32 if quantum is not None else torch.float32
-    if len(offs) != (2 if quantum is not None else 3):
-        raise ValueError("offs must be (pxy, pz) with quantum, else three float32 buffers")
+    if len(offs) not in ((2,) if quantum is not None else (3, 4)):
+        raise ValueError("offs must be (pxy, pz) with quantum, else three float32 buffers "
+                         "(or four: the fourth the per-row counts)")
     _build.require_cuda("sorted_run_reduce", skey, *offs,
                         dtypes=[torch.int32] + [pay_dtype] * len(offs))
     if any(o.shape != skey.shape for o in offs):
@@ -151,12 +160,13 @@ def sorted_run_reduce(skey, offs, sentinel: int, capacity: int, group: int | Non
     # the kernel's look-back workspace (csrc/runreduce.cu), cleared by the call
     workspace = torch.empty(batch * (n // w) * 44 + 16, dtype=torch.uint8, device=dev)
     packed = quantum is not None
+    counts = len(offs) == 4
     err = lib.pcp_runreduce(
         skey.data_ptr(), offs[0].data_ptr(), offs[1].data_ptr(),
-        None if packed else offs[2].data_ptr(), int(packed),
-        float(np.float32(quantum)) if packed else 0.0, batch, n, w, sentinel, capacity,
-        workspace.data_ptr(), vals.data_ptr(), num.data_ptr(), _build.stream_handle(),
+        None if packed else offs[2].data_ptr(), offs[3].data_ptr() if counts else None,
+        int(packed), float(np.float32(quantum)) if packed else 0.0, batch, n, w, sentinel,
+        capacity, workspace.data_ptr(), vals.data_ptr(), num.data_ptr(), _build.stream_handle(),
     )
     _build.check(err, "runreduce")
-    _build.LAUNCHES["runreduce"] += 1
+    _build.LAUNCHES["runreduce_counts" if counts else "runreduce"] += 1
     return vals, num

@@ -10,6 +10,13 @@ both payload modes (three float32 offsets, or 16-bit fixed point packed in
 two int32 columns) are ported; the dense-bin engines and the Morton order
 are not (``PipelineConfig.validate`` refuses them).  Every function takes
 one cloud or a batch of them (``[B, N]``, each scan on its own).
+
+The point-sharded path voxelizes each shard on its own and merges the
+gathered per-shard (key, sum, count) tables (``merge_voxel_partials_packed``,
+``merge_voxel_partials``): large tables by a stable sort on the packed key
+and K1 in counts mode, small ones by adding into dense bins in shard order
+and compacting the occupied bins with K2.  The reference's 3-key sort
+fallback for unbounded keys is not ported: the merge refuses such keys.
 """
 
 from __future__ import annotations
@@ -21,11 +28,19 @@ import torch
 
 from . import f32, fma, recip32
 from ..types import Cloud
+from .compaction import compact_and_gather_exact
 from .runreduce import sorted_run_reduce
 
-__all__ = ["voxel_downsample", "voxel_partials", "finalize_voxels", "VoxelResult", "VoxelPartials"]
+__all__ = ["voxel_downsample", "voxel_partials", "finalize_voxels", "merge_voxel_partials",
+           "merge_voxel_partials_packed", "VoxelResult", "VoxelPartials"]
 
 _I32_MAX = 2**31 - 1
+
+# merge_voxel_partials: gathered-table row count at or above which the
+# packed-key sort and K1's counts mode replace the dense-bin merge (the
+# reference's threshold, voxel.py:75, a property of the function, not of
+# the device)
+_SORT_MERGE_MIN_ROWS = 1 << 19
 
 
 class VoxelResult(NamedTuple):  # a leading [B] on every field for a batch
@@ -152,6 +167,135 @@ def voxel_partials(cloud: Cloud, leaf_size: float, capacity: int, bounds=None,
     imin, dims = spec
     return _sort_segment_partials(pts, valid, ijk, imin, dims, leaf_size, capacity,
                                   payload_packing)
+
+
+def _pack_keys(keys: torch.Tensor, counts: torch.Tensor, spec) -> torch.Tensor:
+    """[..., R, 3] (ix, iy, iz) table keys -> [..., R] packed int32 lattice
+    keys under ``spec``: real rows (counts > 0) ``(kx*dy + ky)*dz + kz``
+    after the imin shift and clip, empty rows the sentinel K."""
+    imin, dims = spec
+    K = dims[0] * dims[1] * dims[2]
+    kx, ky, kz = (torch.clamp(keys[..., c] - imin[c], 0, dims[c] - 1) for c in range(3))
+    return torch.where(counts > 0.0, (kx * dims[1] + ky) * dims[2] + kz, K).to(torch.int32)
+
+
+def _channelled_vals_to_partials(sv: torch.Tensor, num: torch.Tensor, K: int, spec,
+                                 capacity: int) -> VoxelPartials:
+    """Channel-leading [..., 5, capacity] merged table (packed key, sum_xyz,
+    count) and run count -> VoxelPartials: the output formatting the sort
+    merge and the distributed merge share."""
+    slot = torch.arange(capacity, device=sv.device)
+    out_valid = slot < torch.clamp_max(num, capacity)[..., None]
+    lx, ly, lz = _unpack_keys(torch.clamp(sv[..., 0, :].to(torch.int32), 0, K - 1), spec)
+    keys = torch.stack([torch.where(out_valid, l, _I32_MAX) for l in (lx, ly, lz)], dim=-1)
+    sums = torch.stack([torch.where(out_valid, sv[..., ch, :], 0.0) for ch in (1, 2, 3)], dim=-1)
+    return VoxelPartials(
+        keys=keys.to(torch.int32),
+        sums=sums,
+        counts=torch.where(out_valid, sv[..., 4, :], 0.0),
+        num_voxels=num,
+        overflow=num > capacity,
+    )
+
+
+def _dense_bins_to_partials(bins: torch.Tensor, occ2d: torch.Tensor, spec, capacity: int,
+                            leaf_size: float) -> VoxelPartials:
+    """Dense channel-leading [..., 4, Kp] corner-relative (sum_xyz, count)
+    bins -> VoxelPartials: the first ``capacity`` occupied bins in ascending
+    packed order through K2's compaction and exact gather, then each sum
+    back to absolute, ``rel + corner * count`` as jitted XLA:CPU evaluates
+    it: the product re-associated to ``lattice * (count * leaf)`` and fused
+    into the add (``tests/test_torch_sharding.py`` holds the merge bitwise
+    to the reference's)."""
+    loc, num, slot_vals = compact_and_gather_exact(bins, occ2d, capacity)
+    slot = torch.arange(capacity, device=bins.device)
+    out_valid = slot < torch.clamp_max(num, capacity)[..., None]
+    lx, ly, lz = _unpack_keys(loc, spec)
+    slot_counts = slot_vals[..., 3]
+    lf = f32(leaf_size)
+    keys, sums = [], []
+    for ch, l in enumerate((lx, ly, lz)):
+        keys.append(torch.where(out_valid, l, _I32_MAX))
+        sums.append(torch.where(
+            out_valid, fma(l.to(torch.float32), slot_counts * lf, slot_vals[..., ch]), 0.0))
+    return VoxelPartials(
+        keys=torch.stack(keys, dim=-1).to(torch.int32),
+        sums=torch.stack(sums, dim=-1),
+        counts=torch.where(out_valid, slot_counts, 0.0),
+        num_voxels=num,
+        overflow=num > capacity,
+    )
+
+
+def merge_voxel_partials_packed(packed: torch.Tensor, sums: torch.Tensor, counts: torch.Tensor,
+                                capacity: int, spec, leaf_size: float,
+                                tables: int = 1) -> VoxelPartials:
+    """Merge concatenated partial tables keyed by packed int32 lattice keys
+    (``_pack_keys``; [..., R], sums [..., R, 3], counts [..., R]): the
+    reference's ``merge_voxel_partials_packed`` (voxel.py:617), each scan of
+    a batch on its own.  The output is in ascending lattice order.
+
+    Engines, by table size as the reference chooses (:652): at least
+    ``_SORT_MERGE_MIN_ROWS`` rows, a multiple of 128, take a stable sort on
+    the packed key and K1 in counts mode (the counts ride the count
+    channel; integer-valued, so exact in any order); smaller tables add
+    each row's corner-relative sums into dense [4, Kp] bins and compact the
+    occupied bins with K2.  The reference's scatter-add applies the rows in
+    order; the rows here are ``tables`` equal blocks (the per-shard tables
+    of a gather), each with unique real keys, added block after block, so
+    a bin takes its adds in the same order and no two adds of one block
+    meet (exact on every device)."""
+    imin, dims = spec
+    K = dims[0] * dims[1] * dims[2]
+    rows = packed.shape[-1]
+    lead = packed.shape[:-1]
+    if rows >= _SORT_MERGE_MIN_ROWS and rows % 128 == 0:
+        sk, order = torch.sort(packed, dim=-1, stable=True)
+        pay = [sums[..., c].gather(-1, order) for c in range(3)] + [counts.gather(-1, order)]
+        vals, num = sorted_run_reduce(sk, pay, K, capacity)
+        return _channelled_vals_to_partials(vals.transpose(-1, -2), num, K, spec, capacity)
+    if rows % tables:
+        raise ValueError(f"merge: {rows} rows do not split into {tables} tables")
+    real = counts > 0.0
+    lx, ly, lz = _unpack_keys(torch.clamp(packed, 0, K - 1), spec)
+    lf = f32(leaf_size)
+    # rel = sums - corner * counts, corner = lattice * leaf, as jitted
+    # XLA:CPU evaluates it: fma(-lattice, counts * leaf, sums)
+    rel = [fma(-l.to(torch.float32), counts * lf, sums[..., c]) for c, l in enumerate((lx, ly, lz))]
+    upd = torch.stack([torch.where(real, r, 0.0) for r in rel]
+                      + [torch.where(real, counts, 0.0)], dim=-1)  # [..., R, 4]
+    kp = -(-K // 128) * 128
+    scans = packed[..., 0].numel()
+    # bin k of scan b at b * (kp + 1) + k; kp: the drop bin of empty rows
+    flat = torch.zeros(scans * (kp + 1), 4, dtype=torch.float32, device=packed.device)
+    base = (torch.arange(scans, device=packed.device) * (kp + 1)).reshape(*lead, 1)
+    idx = torch.where(real, packed.long(), kp) + base  # [..., R]
+    per = rows // tables
+    for t in range(tables):
+        blk = slice(t * per, (t + 1) * per)
+        flat.index_add_(0, idx[..., blk].reshape(-1), upd[..., blk, :].reshape(-1, 4))
+    bins = flat.reshape(*lead, kp + 1, 4)[..., :kp, :].transpose(-1, -2).contiguous()
+    occ2d = (bins[..., 3, :] > 0.0).reshape(*lead, kp // 128, 128)
+    return _dense_bins_to_partials(bins, occ2d, spec, capacity, leaf_size)
+
+
+def merge_voxel_partials(partials: VoxelPartials, capacity: int, bounds=None,
+                         leaf_size: float | None = None, tables: int = 1) -> VoxelPartials:
+    """Merge concatenated partial tables (keys [..., R, 3]; the reference's
+    ``merge_voxel_partials``, voxel.py:704): with ``bounds`` and
+    ``leaf_size`` whose lattice packs into at most 2^23 bins the keys pack
+    and ``merge_voxel_partials_packed`` merges them.  Unbounded keys take
+    the reference's 3-key sort fallback, which is not ported: raises."""
+    spec = _pack_spec(bounds, leaf_size) if leaf_size is not None else None
+    if spec is None or spec[1][0] * spec[1][1] * spec[1][2] > (1 << 23):
+        raise ValueError(
+            "merge_voxel_partials: keys that do not pack into <= 2^23 lattice bins need the "
+            "reference's 3-key sort fallback (voxel.py:734-748), which is not ported "
+            f"(bounds={bounds!r}, leaf {leaf_size})"
+        )
+    packed = _pack_keys(partials.keys, partials.counts, spec)
+    return merge_voxel_partials_packed(packed, partials.sums, partials.counts, capacity, spec,
+                                       leaf_size, tables)
 
 
 def finalize_voxels(partials: VoxelPartials) -> VoxelResult:

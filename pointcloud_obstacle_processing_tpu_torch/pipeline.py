@@ -123,10 +123,18 @@ def process_frames(frames: torch.Tensor, frame_valid: torch.Tensor, config: Pipe
 def _post_voxel(voxel_cloud: Cloud, n_voxels: torch.Tensor, hole_grid: torch.Tensor,
                 n_in: torch.Tensor, n_cropped: torch.Tensor, config: PipelineConfig,
                 world_from_sensor: RigidTransform, draw: Draw,
-                voxel_overflow: torch.Tensor, vmapped: bool) -> PipelineResult:
+                voxel_overflow: torch.Tensor, vmapped: bool, shard=None) -> PipelineResult:
     """Stages 3-8, on a batch (``vmapped``: RANSAC's refinement as the
     reference's ``batched_pipeline`` evaluates it, else as its single
-    scan does; see ``ops.ransac._sum3``)."""
+    scan does; see ``ops.ransac._sum3``).  Shared with the point-sharded
+    path (``parallel.sharding``), which enters with the merged voxel cloud
+    replicated on every rank; its ``shard`` (a ``parallel.collectives.
+    Axis``) splits the two O(N*W) stages, the kNN's query tiles and the
+    cluster sweeps' query rows, over the axis and gathers their results,
+    bit for bit the replicated form (the reference's ``shard_axis`` and
+    ``num_shards``, pipeline.py:110-182); the O(N) stages stay replicated.
+    The reference's ``point_sharded`` only turns its dead-tile skip off;
+    the port has no such skip (below)."""
     # knn_skip_dead_tiles needs no code here: K3 and its plain version
     # always give query tiles with no valid point the mean of `big` rows,
     # 0, the output the reference's per-tile skip gives (those rows are
@@ -137,6 +145,7 @@ def _post_voxel(voxel_cloud: Cloud, n_voxels: torch.Tensor, hole_grid: torch.Ten
         config.statistical_outlier_std_dev_thresh,
         row_tile=config.knn_row_tile,
         band=config.knn_band,
+        shard=shard,
     )
     seg = segment_planes(outl.cloud, config, draw, vmapped=vmapped)
     comp = compact(seg.nonplane_cloud, config.cluster_capacity)
@@ -148,6 +157,7 @@ def _post_voxel(voxel_cloud: Cloud, n_voxels: torch.Tensor, hole_grid: torch.Ten
         config.max_clusters,
         config.cluster_max_iters,
         band_window=config.cluster_band_window,
+        shard=shard,
     )
     centroids = cluster_centroids(comp.cloud, clus.clusters)
     shadows = cast_shadows(hole_grid, comp.cloud, clus.clusters, world_from_sensor, config)

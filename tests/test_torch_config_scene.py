@@ -141,6 +141,9 @@ def test_port_imports_without_jax():
         "import pointcloud_obstacle_processing_tpu_torch.runtime.recording\n"
         "import pointcloud_obstacle_processing_tpu_torch.runtime.transport\n"
         "import pointcloud_obstacle_processing_tpu_torch.utils.timing\n"
+        "import pointcloud_obstacle_processing_tpu_torch.parallel.collectives\n"
+        "import pointcloud_obstacle_processing_tpu_torch.parallel.ranks\n"
+        "import pointcloud_obstacle_processing_tpu_torch.parallel.sharding\n"
         "from pointcloud_obstacle_processing_tpu_torch.native import ScanAccumulator\n"
         "assert ScanAccumulator(8).backend in ('native', 'numpy')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -805,3 +805,123 @@ def test_batched_slice_on_the_card_equals_cpu(dev):
         _eq(getattr(a.stats, f), getattr(b.stats, f))
     np.testing.assert_allclose(a.centroids.points.xyzr.cpu().numpy(),
                                b.centroids.points.xyzr.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("b,n,n_runs,cap", [
+    (1, 4 * 131_072, 60_000, 131_072),  # the fullscale distributed merge's range at S = 4
+    (1, 4 * 262_144, 180_000, 262_144),  # the fullscale replicated sort merge at S = 4
+    (2, 8192, 700, 1024),  # a batch: the scan a grid dimension
+])
+def test_runreduce_counts_mode_equals_plain(dev, b, n, n_runs, cap):
+    """K1's counts mode (a fourth buffer of per-row counts, the merges'):
+    bitwise the plain version, counted apart from the three-buffer form;
+    with all-ones counts bitwise the three-buffer kernel."""
+    rng = np.random.default_rng(n + b)
+    sentinel = 1 << 22
+    skey = np.full((b, n), sentinel, np.int32)
+    for i in range(b):
+        n_valid = n - 5000 * (i + 1) if n > 10_000 else n - 300 * (i + 1)
+        skey[i, :n_valid] = np.sort(rng.integers(0, n_runs, n_valid) * 7)
+    k = torch.tensor(skey, device=dev)
+    offs = [torch.tensor(rng.standard_normal((b, n)).astype(np.float32), device=dev)
+            for _ in range(3)]
+    cnt = torch.tensor(rng.integers(1, 30, (b, n)).astype(np.float32), device=dev)
+    before = dict(_build.LAUNCHES)
+    vk, nk = runreduce.sorted_run_reduce(k, offs + [cnt], sentinel, cap)
+    assert _build.LAUNCHES["runreduce_counts"] == before["runreduce_counts"] + 1
+    assert _build.LAUNCHES["runreduce"] == before["runreduce"]
+    vp, np_ = runreduce.sorted_run_reduce_plain(k, offs + [cnt], sentinel, cap)
+    _eq(nk, np_)
+    for i in range(b):
+        m = min(int(nk[i]), cap)
+        _eq(vk[i, :m], vp[i, :m])
+    v4, n4 = runreduce.sorted_run_reduce(k, offs + [torch.ones_like(cnt)], sentinel, cap)
+    v3, n3 = runreduce.sorted_run_reduce(k, offs, sentinel, cap)
+    _eq(n4, n3)
+    for i in range(b):
+        m = min(int(n3[i]), cap)
+        _eq(v4[i, :m], v3[i, :m])
+
+
+@pytest.mark.parametrize("n,n_valid,rt,band,shards", [
+    (24576, 21500, 384, 512, 4),  # the flagship voxel cloud over 4 shards
+    (262144, 166000, 1024, 1280, 4),  # the fullscale voxel cloud over 4 shards
+    (4096, 3000, 128, 192, 8),
+])
+def test_knn_select_row_range_equals_plain(dev, n, n_valid, rt, band, shards):
+    """K3 over each shard's range of the query tiles: bitwise its plain
+    version and the same rows of the whole call."""
+    rng = np.random.default_rng(n + shards)
+    pts = rng.uniform([0, 0, -0.1], [4.5, 3.78, 0.3], (n, 3)).astype(np.float32)
+    pts = pts[np.argsort(pts[:, 0], kind="stable")]
+    valid = torch.tensor(np.arange(n) < n_valid, device=dev)
+    p = torch.tensor(pts, device=dev)
+    pch = [torch.where(valid, p[:, c] - 2.0, 0.0).contiguous() for c in range(3)]
+    p_sq = pch[0] * pch[0] + pch[1] * pch[1] + pch[2] * pch[2]
+    tiles = -(-n // rt)
+    starts = outliers.band_starts(n, rt, band, tiles, dev)
+    width = rt + 2 * band
+    whole = outliers.knn_mean(pch, p_sq, valid, starts, rt, width, 15)
+    per = tiles // shards
+    for s in range(shards):
+        before = _build.LAUNCHES["knn_mean_rows"]
+        got = outliers.knn_mean(pch, p_sq, valid, starts, rt, width, 15, tile_range=(s * per, per))
+        assert _build.LAUNCHES["knn_mean_rows"] == before + 1
+        _eq(got, outliers.knn_mean_plain(pch, p_sq, valid, starts, rt, width, 15,
+                                         tile_range=(s * per, per)))
+        _eq(got, whole[s * per * rt:(s + 1) * per * rt])
+
+
+@pytest.mark.parametrize("c,n_valid,shards", [(1024, 600, 4), (16384, 7000, 4), (2048, 2000, 8)])
+def test_cluster_sweep_row_range_equals_plain(dev, c, n_valid, shards):
+    """K4's per-sweep kernel over each shard's range of the query rows
+    (the point-sharded full sweep): bitwise its plain version and the same
+    rows of the whole sweep."""
+    rng = np.random.default_rng(c + shards)
+    valid = torch.tensor(np.arange(c) < n_valid, device=dev)
+    p = torch.where(valid[:, None], torch.tensor(
+        rng.uniform(-1.5, 1.5, (c, 3)).astype(np.float32), device=dev), 0.0)
+    lab = np.arange(c, dtype=np.int32)
+    lab[:n_valid] = rng.integers(0, np.arange(n_valid) + 1)
+    labels = torch.tensor(lab, device=dev)
+    pch = cluster.point_channels(p)
+    whole = cluster.sweep_jump(pch, valid, labels, 0.16)
+    per = c // shards
+    for s in range(shards):
+        rows = (s * per, per)
+        before = _build.LAUNCHES["cluster_sweep_rows"]
+        got = cluster.sweep_jump(pch, valid, labels, 0.16, rows)
+        assert _build.LAUNCHES["cluster_sweep_rows"] == before + 1
+        _eq(got, cluster.sweep_jump_plain(pch, valid, labels, 0.16, rows))
+        _eq(got, whole[s * per:(s + 1) * per])
+
+
+@pytest.mark.parametrize("c,n_valid,window,gated,shards", [
+    (16384, 7000, 4096, True, 4),  # the fullscale shape over 4 shards
+    (16384, 16384, 4096, False, 4),
+    (1024, 1000, 256, True, 8),
+])
+def test_cluster_sweep_banded_row_range_equals_plain(dev, c, n_valid, window, gated, shards):
+    """K5 over each shard's range of the query tiles: bitwise its plain
+    version and the same rows of the whole sweep."""
+    rng = np.random.default_rng(c + window + shards)
+    pts = rng.uniform([-2.2, -1.9, -0.3], [2.2, 1.9, 0.3], (c, 3)).astype(np.float32)
+    pts = pts[np.argsort(pts[:, 0], kind="stable")]
+    valid = torch.tensor(np.arange(c) < n_valid, device=dev)
+    p = torch.where(valid[:, None], torch.tensor(pts, device=dev), 0.0)
+    lab = np.arange(c, dtype=np.int32)
+    lab[:n_valid] = rng.integers(0, np.arange(n_valid) + 1)
+    labels = torch.tensor(lab, device=dev)
+    starts, _ = cluster.band_starts(p, valid, 128, window, 0.4)
+    live = torch.tensor(rng.random(c // 128) < 0.5, device=dev) if gated else None
+    pk = cluster.pack_points(p)
+    whole = cluster.sweep_jump_banded(pk, valid, labels, 0.16, 128, window, starts, live)
+    per = c // 128 // shards
+    for s in range(shards):
+        tr = (s * per, per)
+        before = _build.LAUNCHES["cluster_sweep_banded_rows"]
+        got = cluster.sweep_jump_banded(pk, valid, labels, 0.16, 128, window, starts, live, tr)
+        assert _build.LAUNCHES["cluster_sweep_banded_rows"] == before + 1
+        _eq(got, cluster.sweep_jump_banded_plain(pk, valid, labels, 0.16, 128, window, starts,
+                                                 live, tr))
+        _eq(got, whole[s * per * 128:(s + 1) * per * 128])
