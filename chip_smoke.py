@@ -3,8 +3,9 @@
 fullscale 2M-point window (banded, and with the band off), the flagship
 batch of 32, the segmented scan and weighted binning entry points, the
 node (sensor frames to a published grid) at the flagship and fullscale
-widths, and the multi-device paths (point-sharded scans, the voxel-table
-merges, data parallel) on 4 ranks sharing the card.
+widths, the multi-device paths (point-sharded scans, the voxel-table
+merges, data parallel) on 4 ranks sharing the card, a batch of two
+fullscale windows, and the flagship scan with each kNN engine.
 
     python3 chip_smoke.py
 
@@ -143,6 +144,28 @@ Phases (any failure raises and exits non-zero before the last line):
    ``sp_fullscale_replicated``).  A ``sharded:`` line a path gives the
    backend and staging, windows per second, the p50, collective bytes and
    calls a window and the host reads; a ``sharded:`` JSON line holds them.
+
+11. The fullscale batch and the kNN engines.  Counts from 0, one call of
+   ``batched_pipeline(REFERENCE_FULLSCALE_CONFIG)`` on two fullscale
+   windows (``make_fullscale_window`` arenas 100 and 101, a RANSAC draw of
+   its own for each): the banded cluster loop launches K5 once a sweep for
+   the whole batch, the scan a grid dimension, as many times as the slower
+   window's single run sweeps (not their sum), with at most the sweeps
+   less one host reads; each window equals its single-window card run by
+   phase 8's bar (the crosscheck bar, every point's cluster exact; arena
+   101 overflows the band in both runs, and no window overflows a
+   capacity).  The
+   batch p50 over 5 batches, windows per second against the single
+   window's (timed in the same call) and peak device memory; then batched
+   K5 on every sweep of the batch held bitwise against its plain version
+   and timed (path ``fullscale_batch``).  Then the flagship scan of scene
+   0 with each kNN engine off the sorting network (``knn_backend``
+   ``exact``, ``approx``, ``banded_approx``; ``banded`` with
+   ``statistical_outlier_mean_k=20``; ``downsample_input_data=False``,
+   whose cropped cloud overflows the 24,576 voxel slots as in the
+   reference): none launches K3, each card run equals the port's CPU run
+   (grid, counts and flags exact, the kNN mean distances bitwise), and
+   each engine's kNN stage p50 (CUDA events) on a ``knn engines:`` line.
 
 Each phase prints its seconds.
 Its last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -1464,9 +1487,10 @@ def run_batch(dev, card: str) -> tuple[dict, list[dict]]:
     return launches, rows
 
 
-def _k5_row(path, calls):
-    """K5 on every call a run made to it (each sweep of the banded loop),
-    each held bitwise against the plain version; timed on the first."""
+def _k5_row(path, calls, plain_reps=20):
+    """K5 on every call a run made to it (each sweep of the banded loop, one
+    scan or a batch), each held bitwise against the plain version; timed on
+    the first."""
     from pointcloud_obstacle_processing_tpu_torch.ops import cluster
 
     err = 0.0
@@ -1477,15 +1501,17 @@ def _k5_row(path, calls):
     args = calls[0][0]
     pk, valid, _, _, tile, window, _, live = args
     c = valid.shape[-1]
-    has_valid = valid.reshape(c // tile, tile).any(dim=1)
+    b = valid[..., 0].numel()
+    has_valid = valid.reshape(*valid.shape[:-1], c // tile, tile).any(dim=-1)
     computed = int((has_valid if live is None else has_valid & live).sum())
     return _row(
         "cluster_sweep_banded", path,
-        f"{len(calls)} sweeps a run, all equal; timed: the first, C {c}, {int(valid.sum())} "
-        f"valid, window {window}, {computed} tiles computed", "cluster_sweep_banded.cu",
-        "cluster.py:329", err,
+        f"{f'B {b}, ' if valid.dim() > 1 else ''}{len(calls)} sweeps a run, all equal; timed: "
+        f"the first, C {c}, {valid.sum(dim=-1).tolist()} valid, window {window}, {computed} "
+        f"tiles computed", "cluster_sweep_banded.cu", "cluster.py:329", err,
         lambda: cluster.sweep_jump_banded(*args), lambda: cluster.sweep_jump_banded_plain(*args),
-        _bound(c * 21 + (c // tile) * 5 + c * 4, computed * tile * window * D2_OPS),
+        _bound(b * (c * 21 + (c // tile) * 5 + c * 4), computed * tile * window * D2_OPS),
+        plain_reps=plain_reps,
     )
 
 
@@ -2086,17 +2112,18 @@ def _k5_rows_row(path, what, call):
     pk, valid, labels, tol2, tile, window, starts, live, tile_range = a
     err = _assert_equal(f"K5 sweep_banded rows {path} ({what})", cluster.sweep_jump_banded(*a),
                         cluster.sweep_jump_banded_plain(*a))
-    c = labels.shape[0]
+    c = labels.shape[-1]
+    b = labels[..., 0].numel()  # the scans of the batch (each scan's range)
     first, count = tile_range
-    vt = valid.reshape(-1, tile)[first:first + count].any(dim=1)
+    vt = valid.reshape(*valid.shape[:-1], c // tile, tile)[..., first:first + count, :].any(-1)
     if live is not None:
-        vt &= live[first:first + count]
+        vt &= live[..., first:first + count]
     return _row(
-        "cluster_sweep_banded_rows", path, f"{what}: tiles {first}-{first + count - 1} of "
-        f"{c // tile}, window {window}, {int(vt.sum())} live", "cluster_sweep_banded.cu",
-        "cluster.py:329 (qslice)", err,
+        "cluster_sweep_banded_rows", path, f"{what}: {b} scan(s), tiles {first}-"
+        f"{first + count - 1} of {c // tile}, window {window}, {int(vt.sum())} live",
+        "cluster_sweep_banded.cu", "cluster.py:329 (qslice)", err,
         lambda: cluster.sweep_jump_banded(*a), lambda: cluster.sweep_jump_banded_plain(*a),
-        _bound(c * 21 + (c // tile) * 5 + count * tile * 4,
+        _bound(b * (c * 21 + (c // tile) * 5 + count * tile * 4),
                int(vt.sum()) * tile * window * D2_OPS),
         plain_reps=5,
     )
@@ -2283,6 +2310,192 @@ def run_sharded(dev, card: str) -> tuple[dict, list[dict]]:
     return launches, rows
 
 
+# ---- phase 11: the fullscale batch (K5 with the scan as a grid dimension) --
+# and the kNN engines off the sorting network ---------------------------------
+
+FULLSCALE_BATCH_SEEDS = (100, 101)  # two arenas (make_fullscale_window's seed)
+FULLSCALE_BATCH_TIMED = 5
+KNN_ENGINES = (  # name -> FLAGSHIP_CONFIG overrides
+    ("exact", dict(knn_backend="exact")),
+    ("approx", dict(knn_backend="approx")),
+    ("banded_approx", dict(knn_backend="banded_approx")),
+    ("banded_k20", dict(statistical_outlier_mean_k=20)),  # the in-window k-min
+    ("no_downsampling", dict(downsample_input_data=False)),  # full-width approx
+)
+KNN_TIMED = 5
+
+
+def _p50_ms(fn, n: int) -> float:
+    """Median of ``n`` calls, each timed with CUDA events, after a warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def run_fullscale_batch(dev, card: str) -> tuple[dict, list[dict]]:
+    """Phase 11a: ``batched_pipeline(REFERENCE_FULLSCALE_CONFIG)`` on two
+    fullscale windows (two arenas), counts from 0: the banded loop's K5
+    launches once a sweep for the batch (as many sweeps as the slower
+    window's single run, not their sum), host reads at most the sweeps less
+    one; each window equals its single-window card run with its draws (the
+    crosscheck bar, every point's cluster exact); batch p50, windows per
+    second against the single window's, peak memory; batched K5 against its
+    plain version on every sweep of the batch."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import Cloud, _build
+    from pointcloud_obstacle_processing_tpu_torch.models import REFERENCE_FULLSCALE_CONFIG as cfg
+    from pointcloud_obstacle_processing_tpu_torch.ops import cluster
+    from pointcloud_obstacle_processing_tpu_torch.ops.ransac import draw_from_uniform
+    from pointcloud_obstacle_processing_tpu_torch.parallel.sharding import batched_pipeline
+    from pointcloud_obstacle_processing_tpu_torch.pipeline import process_scan
+    from pointcloud_obstacle_processing_tpu_torch.types import scan_of
+    from pointcloud_obstacle_processing_tpu_torch.utils.scene import make_fullscale_window
+
+    b = len(FULLSCALE_BATCH_SEEDS)
+    windows = [make_fullscale_window(FULLSCALE_POINTS, seed=s) for s in FULLSCALE_BATCH_SEEDS]
+    clouds = Cloud(points=torch.tensor(np.stack([w[0] for w in windows])),
+                   valid=torch.tensor(np.stack([w[1] for w in windows]))).to(dev)
+    u = np.random.default_rng(RANSAC_SEED).random(
+        (b, cfg.max_planes, cfg.ransac_hypotheses, 3)).astype(np.float32)
+    u = torch.tensor(u, device=dev)
+    draw = draw_from_uniform(u)
+    pipe = batched_pipeline(cfg)
+
+    def run(c, draw):
+        return pipe(c, draw=draw)
+
+    # the single windows first: each one's sweeps (K5 launches)
+    singles, single_sweeps = [], []
+    for i in range(b):
+        _build.reset_launch_counts()
+        singles.append(process_scan(scan_of(clouds, i), cfg, draw=draw_from_uniform(u[i])))
+        torch.cuda.synchronize()
+        single_sweeps.append(_build.LAUNCHES["cluster_sweep_banded"])
+
+    # main path: counts from 0, one batch
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded", "xla_sum",
+            "plane_refine"]
+    _build.reset_launch_counts()
+    res = run(clouds, draw)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    missing = [k for k in path if launches[k] <= 0]
+    sweeps = launches["cluster_sweep_banded"]
+    if missing or sweeps != max(single_sweeps) or res.host_syncs > sweeps - 1:
+        raise AssertionError(
+            f"fullscale batch: kernels not launched {missing}; K5 launches {sweeps} for the "
+            f"batch, single windows {single_sweeps} (one a sweep for the batch expected); "
+            f"host reads {res.host_syncs} (at most the sweeps less one)")
+    worst = 0.0
+    for i in range(b):
+        rb = scan_of(res, i)
+        # arena 101's non-plane cloud overflows the 4,096-column band: its
+        # cluster_band_overflow is set, in the single-window run alike
+        # (compared below)
+        for k in ("voxel_overflow", "cluster_overflow"):
+            if bool(getattr(rb.stats, k)):
+                raise AssertionError(f"fullscale batch window {i}: {k} set")
+        worst = max(worst, _compare(f"fullscale batch window {i}", rb, singles[i]))
+        _assert_equal(f"fullscale batch window {i} point_cluster", rb.clusters.point_cluster,
+                      singles[i].clusters.point_cluster)
+        if int(rb.stats.num_clusters) < 1:
+            raise AssertionError(f"fullscale batch window {i}: no cluster found")
+    n_sync, res = _count_syncs(run, clouds, draw)
+    _check_syncs("fullscale batch", n_sync, res)
+    counts = {k: getattr(res.stats, k).tolist() for k in _COUNTS + ("cluster_band_overflow",)}
+    print(f"fullscale batch of {b}: each window == its single-window card run (grid, counts, "
+          f"flags, point clusters exact; centroid max |d| {worst:.2e}); {counts}; K5 launches "
+          f"{sweeps} (single windows {single_sweeps}); host reads {n_sync} (sync debug mode; "
+          f"cluster loop counts {res.host_syncs}); launches {launches} [{card}]")
+
+    times = _time_scans(run, [clouds], draw, FULLSCALE_BATCH_TIMED)
+    p50 = statistics.median(times)
+    one = scan_of(clouds, 0)
+    single = _time_scans(lambda c, draw: process_scan(c, cfg, draw=draw), [one],
+                         draw_from_uniform(u[0]), FULLSCALE_BATCH_TIMED)
+    single_p50 = statistics.median(single)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run(clouds, draw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"fullscale batch p50 {p50:.3f} ms per batch of {b} over {len(times)} batches (min "
+          f"{min(times):.3f}, max {max(times):.3f}); {b / p50 * 1e3:.2f} windows per second "
+          f"against {1e3 / single_p50:.2f} for single windows (p50 {single_p50:.3f} ms, same "
+          f"call); peak device memory {peak / 2**20:.1f} MiB [{card}]")
+
+    calls = _capture(cluster, "sweep_jump_banded", lambda: run(clouds, draw))
+    return launches, [_k5_row("fullscale_batch", calls, plain_reps=3)]
+
+
+def run_knn_engines(dev, card: str) -> dict:
+    """Phase 11b: the flagship scan (scene 0) with each kNN engine off the
+    sorting network, on the card against the port's CPU run of the same
+    input and draws: grid, counts and flags exact, centroids within 1e-5,
+    the kNN mean distances bitwise; none of them launches K3.  Each
+    engine's kNN stage p50 (CUDA events, on the scan's own voxel cloud)."""
+    from pointcloud_obstacle_processing_tpu_torch import Cloud, _build, pipeline
+    from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG, ObstacleDetectionModel
+    from pointcloud_obstacle_processing_tpu_torch.ops import outliers
+
+    scene = _scene(SCENE_SEEDS[0])
+    out = {}
+    for name, override in KNN_ENGINES:
+        cfg = FLAGSHIP_CONFIG.replace(**override)
+        cloud = Cloud.pad_to(scene.points[: cfg.max_points], cfg.max_points)
+        draw_cuda, draw_cpu = _draws(cfg, dev)
+        results = {}
+        for where, model, c, d in (("cuda", ObstacleDetectionModel(cfg, device=dev),
+                                    cloud.to(dev), draw_cuda),
+                                   ("cpu", ObstacleDetectionModel(cfg, device="cpu"), cloud,
+                                    draw_cpu)):
+            _build.reset_launch_counts()
+            # the outlier stage as the pipeline calls it (imported by name there)
+            seen, fn = [], pipeline.remove_statistical_outliers
+
+            def spy(*a, **kw):
+                r = fn(*a, **kw)
+                seen.append((a, kw, r))
+                return r
+
+            pipeline.remove_statistical_outliers = spy
+            try:
+                res = model(c, draw=d)
+            finally:
+                pipeline.remove_statistical_outliers = fn
+            results[where] = (res, seen[0], dict(_build.LAUNCHES))
+        (res, (args, kw, outl), launches), (ref, (_, _, outl_cpu), _) = \
+            results["cuda"], results["cpu"]
+        if launches["knn_mean"] or not launches["runreduce" if cfg.downsample_input_data
+                                               else "compact_gather"]:
+            raise AssertionError(f"knn engine {name}: K3 launched or the voxel stage missing: "
+                                 f"{launches}")
+        err = _compare(f"knn engine {name}", res, ref)
+        _assert_equal(f"knn engine {name} mean distances", outl.mean_distances,
+                      outl_cpu.mean_distances)
+        ms = _p50_ms(lambda: outliers.remove_statistical_outliers(*args, **kw), KNN_TIMED)
+        flags = {k: bool(getattr(res.stats, k).item()) for k in _FLAGS}
+        out[name] = dict(knn_p50_ms=ms, backend=kw["backend"],
+                         voxel_points=int(res.stats.voxel_points), flags=flags)
+        print(f"knn engine {name} ({kw['backend']}): cuda == cpu plain (grid, counts, flags "
+              f"exact, mean distances bitwise; centroid max |d| {err:.2e}); kNN stage p50 "
+              f"{ms:.3f} ms over {KNN_TIMED} calls; {int(res.stats.voxel_points)} voxel slots "
+              f"filled; flags {flags} [{card}]")
+    print("knn engines: " + json.dumps({"card": card, "engines": out}))
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2355,6 +2568,14 @@ def main() -> None:
     launches.update(sp_launches)
     rows += sp_rows
     print(f"phase 10 (point-sharded, 4 ranks on one card): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches["fullscale_batch"], fb_rows = run_fullscale_batch(dev, card)
+    for r in fb_rows:
+        print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: equal to plain; {_times(r)} "
+              f"[{card}]")
+    rows += fb_rows
+    run_knn_engines(dev, card)
+    print(f"phase 11 (fullscale batch, kNN engines): {time.perf_counter() - t:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["path"]][r["name"]]

@@ -78,7 +78,7 @@ _SIGNATURES = {
     "pcp_cluster_sweep": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP, _VP],
     # pts (packed [C, 4]), valid, labels, starts, tile_live, c, first tile,
     # tiles, window, tol2, out, stream
-    "pcp_cluster_sweep_banded": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP, _VP],
+    "pcp_cluster_sweep_banded": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP, _VP],
     # values, heads, c, n, out, scratch, flags ([2, n] bytes), ints (tile
     # flags, -0.0 bits), stream
     "pcp_segscan": [_VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],

@@ -42,6 +42,13 @@
 // the reference's _pallas_sweep_jump_banded(..., qslice=...), cluster.py:329);
 // the output holds the range's rows, each as in the whole sweep.
 //
+// A batch of scans is one launch, the scan the grid's y coordinate (the
+// reference's jax.vmap of the kernel): scan b reads its points, valid and
+// labels at b * c, its starts and tile_live at b * (c / 128), and writes its
+// rows at b * tiles * 128; each scan's sweep is the one-scan sweep of its
+// operands.  A scan whose tiles are all skipped (the cluster loop's converged
+// scans: no tile live) costs one read of its flags a block.
+//
 // Bound on the H100: at the fullscale shape (C = 16384, W = 4096) a sweep
 // scores at most 128 x 128 x 4096 = 67 M pairs of ~9 operations, 0.6
 // GFLOP, ~9 us at the fp32 rate, and the live tiles are about half of that;
@@ -65,7 +72,14 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kTile * kSpli
     cluster_sweep_banded(const float4* __restrict__ pts, const unsigned char* __restrict__ valid,
                          const int* __restrict__ labels, const int* __restrict__ starts,
                          const unsigned char* __restrict__ tile_live, int c, int tile_first,
-                         int window, float tol2, int* __restrict__ out) {
+                         int tiles, int window, float tol2, int* __restrict__ out) {
+  const int scan = static_cast<int>(blockIdx.y);
+  pts += static_cast<size_t>(scan) * c;
+  valid += static_cast<size_t>(scan) * c;
+  labels += static_cast<size_t>(scan) * c;
+  starts += static_cast<size_t>(scan) * (c / kTile);
+  if (tile_live != nullptr) tile_live += static_cast<size_t>(scan) * (c / kTile);
+  out += static_cast<size_t>(scan) * tiles * kTile;
   __shared__ float4 sp[kChunk];
   __shared__ int sl[kChunk];
   __shared__ int part[kSplit][kTile];
@@ -128,16 +142,18 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kTile * kSpli
 
 }  // namespace
 
-// starts and tile_live [c / 128] (every tile); out [tiles * 128]: the rows
-// of tiles tile_first .. tile_first + tiles - 1
+// pts [batch, c, 4]; valid and labels [batch, c]; starts and tile_live
+// [batch, c / 128] (every tile); out [batch, tiles * 128]: the rows of tiles
+// tile_first .. tile_first + tiles - 1 of each scan
 extern "C" int pcp_cluster_sweep_banded(const float* pts, const unsigned char* valid,
                                         const int* labels, const int* starts,
-                                        const unsigned char* tile_live, int c, int tile_first,
-                                        int tiles, int window, float tol2, int* out,
-                                        void* stream) {
+                                        const unsigned char* tile_live, int batch, int c,
+                                        int tile_first, int tiles, int window, float tol2,
+                                        int* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cluster_sweep_banded<<<tiles * kCluster, kTile * kSplit, 0, s>>>(
+  const dim3 grid(tiles * kCluster, batch);
+  cluster_sweep_banded<<<grid, kTile * kSplit, 0, s>>>(
       reinterpret_cast<const float4*>(pts), valid, labels, starts, tile_live, c, tile_first,
-      window, tol2, out);
+      tiles, window, tol2, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,9 +29,10 @@ propagation over the compacted non-plane buffer.
   ``csrc/cluster_sweep_banded.cu``; ``sweep_jump_banded_plain`` for CPU
   tensors);
 * sweeps repeat until no label changes, at most ``max_iters`` times.  The
-  loop kernels test that on the card; the banded loop (and the per-sweep
-  form) read ``changed.any()`` back to the host once per sweep after the
-  first, and ``ClusterOutput.host_syncs`` counts those reads.
+  loop kernels test that on the card; the per-sweep form reads
+  ``changed.any()`` back to the host after each sweep, the banded loop
+  after each sweep from the second (one read for a whole batch), and
+  ``ClusterOutput.host_syncs`` counts those reads.
 
 The reference tracks the frontier only on its TPU path; the port tracks it
 on every device, which is output-identical (see ``sweep_jump_banded``).
@@ -46,14 +47,15 @@ with ``shard_axis``, cluster.py:461-530, under the same conditions: C
 divides by the ranks, and for the band the rows of a rank by 128).  A
 collective between sweeps rules out the one-launch loop kernels: the
 sharded full sweep is one launch a sweep, and reads its change test on the
-host once a sweep after the first, as the banded loop does.
+host once a sweep, as the banded loop does.
 
 A batch of clouds (``[B, C]``) clusters each scan on its own: the loop
-kernels take the scan as a grid coordinate in one launch, each scan
-stopping at its own convergence, and every other step takes the scan axis
-as it comes.  The per-sweep K4 and the banded K5 take one scan at a time:
-the point-sharded path runs their loops scan after scan; elsewhere the
-banded loop refuses a batch of more than one.
+kernels and K5 take the scan as a grid coordinate, one launch for the
+batch (the loop kernels each scan stopping at its own convergence; the
+banded loop sweeping until no scan changes, a converged scan's labels
+fixed), and every other step takes the scan axis as it comes.  The
+per-sweep K4 takes one scan at a time: the point-sharded full sweep runs
+its loops scan after scan.
 
 Slots are assigned by size descending, ties by smaller root.  The reference
 relies on ``lax.top_k`` being stable; ``torch.topk`` is not, so the order
@@ -186,30 +188,31 @@ def sweep_jump(pch, valid, labels, tol2: float, rows=None) -> torch.Tensor:
 def band_starts(p, valid, tile: int, window: int, tolerance: float):
     """Column-window start of each ``tile``-row query tile of the banded
     sweep, and whether some tile's edges reach past its window (the
-    reference's ``_band_starts``).
+    reference's ``_band_starts``), for one cloud or each scan of a batch.
 
     With the masked prefix max of x (``runmax``) and suffix min
     (``runmin_r``): ``lo(t)`` counts the columns with ``runmax < min_x(t) -
     tol``, ``hi(t)`` is n less the columns with ``runmin_r > max_x(t) +
     tol``; ``start = clamp(lo, 0, n - window)`` aligned down to 128 and
     ``overflow = any(hi - start > window)``.  Max and min are exact, so the
-    starts equal the reference's.  Returns (starts [n // tile] int32,
-    overflow [] bool).
+    starts equal the reference's.  Returns (starts [..., n // tile] int32,
+    overflow [...] bool).
     """
-    n = p.shape[0]
+    n = p.shape[-2]
     tiles = n // tile
+    lead = valid.shape[:-1]
     tol = f32(tolerance)
-    x = p[:, 0]
-    runmax = torch.cummax(torch.where(valid, x, -torch.inf), dim=0).values
-    runmin_r = torch.cummin(torch.where(valid, x, torch.inf).flip(0), dim=0).values.flip(0)
-    xt = x.reshape(tiles, tile)
-    vt = valid.reshape(tiles, tile)
-    tmin = torch.where(vt, xt, torch.inf).min(dim=1).values
-    tmax = torch.where(vt, xt, -torch.inf).max(dim=1).values
-    lo = (runmax[None, :] < (tmin - tol)[:, None]).sum(dim=1)
-    hi = n - (runmin_r[None, :] > (tmax + tol)[:, None]).sum(dim=1)
+    x = p[..., 0]
+    runmax = torch.cummax(torch.where(valid, x, -torch.inf), dim=-1).values
+    runmin_r = torch.cummin(torch.where(valid, x, torch.inf).flip(-1), dim=-1).values.flip(-1)
+    xt = x.reshape(*lead, tiles, tile)
+    vt = valid.reshape(*lead, tiles, tile)
+    tmin = torch.where(vt, xt, torch.inf).min(dim=-1).values
+    tmax = torch.where(vt, xt, -torch.inf).max(dim=-1).values
+    lo = (runmax[..., None, :] < (tmin - tol)[..., :, None]).sum(dim=-1)  # [..., tiles]
+    hi = n - (runmin_r[..., None, :] > (tmax + tol)[..., :, None]).sum(dim=-1)
     start = torch.clamp(lo, 0, n - window) // 128 * 128
-    return start.to(torch.int32), ((hi - start) > window).any()
+    return start.to(torch.int32), ((hi - start) > window).any(dim=-1)
 
 
 def sweep_jump_banded_plain(pk, valid, labels, tol2: float, tile: int, window: int, starts,
@@ -220,7 +223,14 @@ def sweep_jump_banded_plain(pk, valid, labels, tol2: float, tile: int, window: i
     ``[starts[t], starts[t] + window)`` that are neighbours of i or equal
     ``labels[i]``.  Tiles with ``tile_live[t]`` False write ``labels``
     through, as the kernel skips them.  ``pk``: ``pack_points``' [C, 4]
-    rows.  ``tile_range`` (first, count): those query tiles only."""
+    rows.  ``tile_range`` (first, count): those query tiles only.  A batch
+    ([B, ...] operands, ``starts`` and ``tile_live`` [B, C / 128]) runs
+    scan by scan."""
+    if labels.dim() > 1:
+        return torch.stack([
+            sweep_jump_banded_plain(pk[b], valid[b], labels[b], tol2, tile, window, starts[b],
+                                    None if tile_live is None else tile_live[b], tile_range)
+            for b in range(labels.shape[0])])
     n = labels.shape[0]
     first, count = query_range(n // tile, tile_range)
     dev = pk.device
@@ -252,10 +262,13 @@ def sweep_jump_banded(pk, valid, labels, tol2: float, tile: int, window: int, st
                       tile_live=None, tile_range=None) -> torch.Tensor:
     """One banded neighbour-min + in-window pointer-jump sweep: kernel K5 for
     CUDA tensors, the plain version for CPU tensors.  ``pk``:
-    ``pack_points``' [C, 4] rows, which the kernel reads as they are.
+    ``pack_points``' [C, 4] rows, which the kernel reads as they are.  A
+    batch takes [B, C, 4] points, [B, C] ``valid`` and ``labels`` and [B, C
+    / 128] ``starts`` and ``tile_live``: one launch, the scan a grid
+    dimension, each scan's sweep on its own (the reference's ``jax.vmap``).
     ``tile_range`` (first, count): the sweep of those query tiles only
-    ([count * tile] rows; ``starts`` and ``tile_live`` stay whole), the
-    point-sharded path's row range.
+    ([..., count * tile] rows; ``starts`` and ``tile_live`` stay whole),
+    the point-sharded path's row range, within every scan.
 
     A tile is skipped (its labels written through) where ``tile_live`` is
     False or it holds no valid row.  Both skips leave the cluster loop's
@@ -266,7 +279,8 @@ def sweep_jump_banded(pk, valid, labels, tol2: float, tile: int, window: int, st
     if pk.device.type == "cpu":
         return sweep_jump_banded_plain(pk, valid, labels, tol2, tile, window, starts, tile_live,
                                        tile_range)
-    n = labels.shape[0]
+    n = labels.shape[-1]
+    lead = labels.shape[:-1]
     if tile != BAND_TILE or n % tile or window % 128 or not tile <= window < n:
         raise ValueError(
             f"sweep_jump_banded: needs tile {BAND_TILE}, a capacity divisible by it and "
@@ -275,10 +289,11 @@ def sweep_jump_banded(pk, valid, labels, tol2: float, tile: int, window: int, st
         )
     tiles = n // tile
     first, count = query_range(tiles, tile_range)
-    if pk.shape != (n, 4) or valid.shape != (n,) or labels.shape != (n,) or \
-            starts.shape != (tiles,) or (tile_live is not None and tile_live.shape != (tiles,)):
+    if len(lead) > 1 or pk.shape != (*lead, n, 4) or valid.shape != labels.shape or \
+            starts.shape != (*lead, tiles) or \
+            (tile_live is not None and tile_live.shape != starts.shape):
         raise ValueError("sweep_jump_banded: packed points [C, 4], valid and labels [C], "
-                         "starts and tile_live [C / 128]")
+                         "starts and tile_live [C / 128] (a leading [B] on each for a batch)")
     if pk.data_ptr() % 16:
         raise ValueError("sweep_jump_banded: the packed points must be 16-byte aligned")
     ops = [pk, valid, labels, starts]
@@ -288,10 +303,11 @@ def sweep_jump_banded(pk, valid, labels, tol2: float, tile: int, window: int, st
         dtypes.append(torch.bool)
     _build.require_cuda("sweep_jump_banded", *ops, dtypes=dtypes)
     lib = _build.kernels()
-    out = torch.empty(count * tile, dtype=torch.int32, device=pk.device)
+    batch = labels[..., 0].numel()
+    out = torch.empty(*lead, count * tile, dtype=torch.int32, device=pk.device)
     err = lib.pcp_cluster_sweep_banded(
         pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), starts.data_ptr(),
-        None if tile_live is None else tile_live.data_ptr(), n, first, count, window,
+        None if tile_live is None else tile_live.data_ptr(), batch, n, first, count, window,
         float(np.float32(tol2)), out.data_ptr(), _build.stream_handle(),
     )
     _build.check(err, "cluster_sweep_banded")
@@ -303,10 +319,10 @@ def sweep_jump_banded(pk, valid, labels, tol2: float, tile: int, window: int, st
 def _hook(labels, nbr_min):
     """Each point's neighbourhood minimum onto its root (scatter-min; the
     same int32 minima as the reference's one-hot form), then the new
-    labels ``min(labels, upd, nbr_min)``."""
-    n = labels.shape[0]
-    upd = torch.full((n,), n, dtype=torch.int32, device=labels.device)
-    upd.scatter_reduce_(0, labels.long(), nbr_min, reduce="amin", include_self=True)
+    labels ``min(labels, upd, nbr_min)``; each scan of a batch on its
+    own."""
+    upd = torch.full_like(labels, labels.shape[-1])
+    upd.scatter_reduce_(-1, labels.long(), nbr_min, reduce="amin", include_self=True)
     return torch.minimum(torch.minimum(labels, upd), nbr_min)
 
 
@@ -472,11 +488,17 @@ class ClusterOutput(NamedTuple):  # a leading [B] on the tensors for a batch
 
 def _banded_loop(pk, valid, labels, tol2: float, band_window: int, starts, max_iters: int,
                  shard=None):
-    """The banded sweep's loop: frontier-gated K5 sweeps, the hook and one
-    full-array pointer jump a sweep; one host read a sweep after the first.
-    With ``shard`` each sweep covers this rank's range of the tiles,
-    gathered over the axis.  Returns (labels, unconverged, host_syncs)."""
-    n = labels.shape[0]
+    """The banded sweep's loop over a batch ([B, C] labels): frontier-gated
+    K5 sweeps, one launch a sweep for the whole batch, the hook and one
+    full-array pointer jump a sweep; one host read of the whole batch's
+    change test a sweep after the second (so the reads are the sweeps less
+    one).  A scan that has converged has no
+    live tile, and its labels stay as they are through the hook and the
+    jump (they are their fixpoint), as the reference's vmapped
+    ``lax.while_loop`` keeps a finished scan's state.  With ``shard`` each
+    sweep covers this rank's range of the tiles of every scan, gathered
+    over the axis.  Returns (labels, unconverged [B], host_syncs)."""
+    n = labels.shape[-1]
     tile_range = None
     if shard is not None:
         per = n // BAND_TILE // shard.size
@@ -484,29 +506,31 @@ def _banded_loop(pk, valid, labels, tol2: float, band_window: int, starts, max_i
     win_hi = (starts + (band_window - 1)).long()
     win_lo = (starts - 1).clamp_min(0).long()
     host_syncs = 0
-    changed = torch.ones(n, dtype=torch.bool, device=labels.device)
+    changed = torch.ones_like(labels, dtype=torch.bool)
     for it in range(max_iters):
         # frontier: a tile is live when a label in its window changed in
         # the previous sweep (a prefix-sum difference per window)
-        cs = torch.cumsum(changed, dim=0, dtype=torch.int32)
-        tile_live = (cs[win_hi] - torch.where(starts > 0, cs[win_lo], 0)) > 0
+        cs = torch.cumsum(changed, dim=-1, dtype=torch.int32)
+        tile_live = (cs.gather(-1, win_hi) - torch.where(starts > 0, cs.gather(-1, win_lo), 0)) > 0
         rows = () if tile_range is None else (tile_range,)
         nbr_min = sweep_jump_banded(pk, valid, labels, tol2, BAND_TILE, band_window, starts,
                                     tile_live, *rows)
         if shard is not None:
-            nbr_min = shard.all_gather(nbr_min)
+            nbr_min = shard.all_gather(nbr_min, dim=-1)
         new = _hook(labels, nbr_min)
         # window-unlimited pointer jump: a root outside a tile's window is
         # out of the sweep's reach; one full-array jump per sweep keeps the
         # doubling (labels[i] names an in-component point <= i)
-        new = torch.minimum(new, new[new.long()])
+        new = torch.minimum(new, new.gather(-1, new.long()))
         changed = new != labels
         labels = new
-        if it + 1 < max_iters:
+        # the first sweep's change test is not read: a sweep after one that
+        # changed nothing has no live tile and changes nothing
+        if 0 < it < max_iters - 1:
             host_syncs += 1
             if not bool(changed.any()):
                 break
-    return labels, changed.any(), host_syncs
+    return labels, changed.any(dim=-1), host_syncs
 
 
 def _seed_labels(pts, valid, tolerance: float):
@@ -550,8 +574,8 @@ def euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: i
     window of 128 columns or more, below the capacity, and a capacity
     divisible by 128; otherwise the full sweep runs.  ``shard``: the
     sweeps' query rows split over that axis where they split evenly (see
-    the module docstring); each scan of a batch then runs its loop on its
-    own."""
+    the module docstring); each scan of a batch then runs its full-sweep
+    loop on its own, while the banded loop sweeps the batch at once."""
     cloud, single = batch_of(cloud)
     res = _euclidean_cluster(cloud, tolerance, min_size, max_size, max_clusters, max_iters,
                              band_window, shard)
@@ -573,23 +597,15 @@ def _euclidean_cluster(cloud: Cloud, tolerance: float, min_size: int, max_size: 
     idx = torch.arange(n, dtype=torch.int32, device=dev)
 
     banded = bool(band_window) and BAND_TILE <= band_window < n and n % BAND_TILE == 0
-    if banded and b != 1 and shard is None:
-        raise ValueError(f"euclidean_cluster: the banded sweep takes one scan at a time "
-                         f"(got a batch of {b}) outside the point-sharded path")
     if shard is not None:  # the reference's can_shard (cluster.py:520-527)
         per = n // shard.size
         if shard.size < 2 or n % shard.size or (banded and per % BAND_TILE):
             shard = None
     sweep_pts = pack_points(p, p_sq)  # the sweeps' operand, laid out once for the whole loop
     if banded:
-        outs = []
-        for i in range(b):  # K5 takes one scan at a time (a point-sharded batch)
-            starts, over = band_starts(p[i], valid[i], BAND_TILE, band_window, tolerance)
-            outs.append((*_banded_loop(sweep_pts[i], valid[i], labels[i], tol2, band_window,
-                                       starts, max_iters, shard), over))
-        labels, unconverged = (torch.stack([o[k] for o in outs]) for k in (0, 1))
-        host_syncs = sum(o[2] for o in outs)
-        band_overflow = torch.stack([o[3] for o in outs])
+        starts, band_overflow = band_starts(p, valid, BAND_TILE, band_window, tolerance)
+        labels, unconverged, host_syncs = _banded_loop(sweep_pts, valid, labels, tol2,
+                                                       band_window, starts, max_iters, shard)
     elif shard is not None:
         band_overflow = torch.zeros(b, dtype=torch.bool, device=dev)
         loops = [per_sweep_loop(sweep_pts[i], valid[i], labels[i], tol2, max_iters, shard)

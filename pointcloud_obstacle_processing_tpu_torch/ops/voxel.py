@@ -8,7 +8,7 @@ keys.  The output is one centroid per occupied voxel, in ascending
 (ix, iy, iz) order, for the first ``max_voxels`` voxels.  Lattice order and
 both payload modes (three float32 offsets, or 16-bit fixed point packed in
 two int32 columns) are ported; the dense-bin engines and the Morton order
-are not (``PipelineConfig.validate`` refuses them).  Every function takes
+are not (``PipelineConfig.refuse_unported`` refuses them).  Every function takes
 one cloud or a batch of them (``[B, N]``, each scan on its own).
 
 The point-sharded path voxelizes each shard on its own and merges the

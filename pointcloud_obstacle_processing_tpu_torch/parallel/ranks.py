@@ -52,6 +52,9 @@ def _entry(rank: int, fn, world: int, store_path: str, out_dir: str, backend: st
     try:
         out = fn(rank, world, *args)
         torch.save(out, Path(out_dir, f"rank{rank}.pt"))
+        # a rank that ends early must not close its connections while a
+        # peer is still making them (gloo: "connection closed by peer")
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 

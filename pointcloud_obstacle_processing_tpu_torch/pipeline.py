@@ -5,8 +5,11 @@ Counterpart of ``pointcloud_obstacle_processing_tpu/pipeline.py``
 (obstacle_detection.cpp:699-927):
 
 1. crop + occupancy histogram + crater/hole detection
-2. VoxelGrid downsample (sort engine, kernel K1)
-3. statistical outlier removal (banded kNN, kernel K3)
+2. VoxelGrid downsample (sort engine, kernel K1), or with
+   ``downsample_input_data`` off the cropped cloud compacted into the
+   ``max_voxels`` slots (kernel K2)
+3. statistical outlier removal (``knn_backend``; the banded sorting network
+   is kernel K3)
 4. iterative RANSAC plane removal
 5. compaction (kernel K2) + euclidean clustering (full sweep, kernel K4;
    banded sweep when ``cluster_band_window`` is set, kernel K5) + centroids
@@ -64,6 +67,7 @@ def process_scan(cloud: Cloud, config: PipelineConfig,
     ``world_from_sensor`` is the sensor pose for the shadow geometry,
     identity by default; a batch takes one pose for all or one a scan.
     """
+    config.refuse_unported()
     dev = cloud.device
     cloud, single = batch_of(cloud)
     if world_from_sensor is None:
@@ -77,17 +81,22 @@ def process_scan(cloud: Cloud, config: PipelineConfig,
     n_in = cloud.count()
     seed = crop_and_seed(cloud, config)
     cropped = seed.cloud
-    bounds = (
-        (config.x_min, config.y_min, config.z_min),
-        (config.x_max, config.y_max, config.z_max),
-    )  # cropped points are in the box: the packed single-key sort applies
-    vox = voxel_downsample(
-        cropped, config.downsample_leaf_size, config.max_voxels, bounds,
-        config.voxel_payload_packing,
-    )
+    if config.downsample_input_data:
+        bounds = (
+            (config.x_min, config.y_min, config.z_min),
+            (config.x_max, config.y_max, config.z_max),
+        )  # cropped points are in the box: the packed single-key sort applies
+        vox = voxel_downsample(
+            cropped, config.downsample_leaf_size, config.max_voxels, bounds,
+            config.voxel_payload_packing,
+        )
+        voxel_cloud, n_voxels, voxel_overflow = vox.cloud, vox.num_voxels, vox.overflow
+    else:  # the cropped cloud compacted straight into the voxel slots
+        comp0 = compact(cropped, config.max_voxels)
+        voxel_cloud, n_voxels, voxel_overflow = comp0.cloud, comp0.count, comp0.overflow
     res = _post_voxel(
-        vox.cloud, vox.num_voxels, seed.hole_grid, n_in, cropped.count(), config,
-        world_from_sensor, draw, vox.overflow, vmapped=not single,
+        voxel_cloud, n_voxels, seed.hole_grid, n_in, cropped.count(), config,
+        world_from_sensor, draw, voxel_overflow, vmapped=not single,
     )
     return scan_of(res) if single else res
 
@@ -135,15 +144,20 @@ def _post_voxel(voxel_cloud: Cloud, n_voxels: torch.Tensor, hole_grid: torch.Ten
     ``num_shards``, pipeline.py:110-182); the O(N) stages stay replicated.
     The reference's ``point_sharded`` only turns its dead-tile skip off;
     the port has no such skip (below)."""
-    # knn_skip_dead_tiles needs no code here: K3 and its plain version
-    # always give query tiles with no valid point the mean of `big` rows,
-    # 0, the output the reference's per-tile skip gives (those rows are
-    # masked downstream)
+    # knn_skip_dead_tiles needs no code here: every kNN engine gives query
+    # tiles with no valid point outputs that the final mask sets to 0, the
+    # output the reference's per-tile skip gives.  The banded engines need
+    # the voxel stage's lattice order: without it the kNN takes the
+    # full-width 'approx' engine, as the reference's does.
+    backend = config.knn_backend
+    if backend in ("banded", "banded_approx") and not config.downsample_input_data:
+        backend = "approx"
     outl = remove_statistical_outliers(
         voxel_cloud,
         config.statistical_outlier_mean_k,
         config.statistical_outlier_std_dev_thresh,
         row_tile=config.knn_row_tile,
+        backend=backend,
         band=config.knn_band,
         shard=shard,
     )

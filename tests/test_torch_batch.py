@@ -197,7 +197,8 @@ def test_facade_and_from_reference_take_a_batch():
     """``from_reference`` carries [B, N, 3] points, [B, N] masks and [B]
     poses across; ``ObstacleDetectionModel`` and ``batched_pipeline`` run
     the batch with the model's generator ([B, rounds, K, 3] draws), the
-    same seed giving the same results; the banded sweep refuses a batch."""
+    same seed giving the same results; the banded sweep clusters a batch,
+    each scan as its single run."""
     buf, valid = _inputs()
     quat = np.tile(np.array([0.0, 0.0, 0.0, 1.0], np.float32), (B, 1))
     trans = np.arange(B * 3, dtype=np.float32).reshape(B, 3) * 0.01
@@ -213,7 +214,13 @@ def test_facade_and_from_reference_take_a_batch():
     assert (a.stats.num_planes >= 1).all() and (a.stats.num_clusters >= 1).all()
     with pytest.raises(ValueError):
         batched_pipeline(st.config)(scan_of(st.cloud, 0))
-    with pytest.raises(ValueError):
-        cluster.euclidean_cluster(Cloud(points=st.cloud.points[:2, :2048],
-                                        valid=st.cloud.valid[:2, :2048]),
-                                  0.08, 3, 1000, 8, band_window=512)
+    both = cluster.euclidean_cluster(Cloud(points=st.cloud.points[:2, :2048],
+                                           valid=st.cloud.valid[:2, :2048]),
+                                     0.08, 3, 1000, 8, band_window=512)
+    for b in range(2):
+        one = cluster.euclidean_cluster(Cloud(points=st.cloud.points[b, :2048],
+                                              valid=st.cloud.valid[b, :2048]),
+                                        0.08, 3, 1000, 8, band_window=512)
+        for name in ("labels", "root_slot", "overflow", "band_overflow", "unconverged"):
+            assert torch.equal(getattr(both, name)[b], getattr(one, name)), name
+        assert torch.equal(both.clusters.point_cluster[b], one.clusters.point_cluster)

@@ -57,17 +57,42 @@ def test_config_from_dict_copy_matches_reference():
         dict(voxel_binning="mxu"),
         dict(voxel_binning="scatter"),
         dict(voxel_order="morton"),
-        dict(knn_backend="exact"),
-        dict(knn_backend="approx"),
-        dict(knn_backend="banded_approx"),
         dict(cluster_band_window=4096, cluster_capacity=4104),  # band needs 128-multiple capacity
-        dict(downsample_input_data=False),
     ],
 )
 def test_validate_refuses_unported_engines(override):
     base = port_models.FLAGSHIP_CONFIG
     with pytest.raises(ValueError):
         base.replace(**override).validate()
+
+
+@pytest.mark.parametrize(
+    "override",
+    [
+        dict(knn_backend="exact"),
+        dict(knn_backend="approx"),
+        dict(knn_backend="banded_approx"),
+        dict(downsample_input_data=False),
+    ],
+)
+def test_validate_accepts_the_ported_knn_engines(override):
+    """The kNN engines and the undownsampled path, once refused, validate
+    and run a small scan to a finite result."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.pipeline import process_scan
+
+    cfg = port.REFERENCE_YAML_CONFIG.replace(
+        max_points=8192, max_voxels=2048, cluster_capacity=512, max_clusters=8,
+        downsample_leaf_size=0.06, knn_band=256, knn_row_tile=256, **override)
+    cfg.validate()
+    scene = make_scene(seed=3, spec=SceneSpec(n_ground=6000, n_rocks=2, points_per_rock=600,
+                                              n_noise=40))
+    res = process_scan(port.Cloud.pad_to(scene.points[: cfg.max_points], cfg.max_points), cfg,
+                       generator=torch.Generator().manual_seed(0))
+    assert res.grid.data.shape == (cfg.grid_height, cfg.grid_width)
+    assert int(res.stats.inlier_points) > 0
+    assert np.isfinite(res.centroids.points.xyzr.numpy()).all()
 
 
 def test_validate_accepts_the_ported_slice():

@@ -925,3 +925,83 @@ def test_cluster_sweep_banded_row_range_equals_plain(dev, c, n_valid, window, ga
         _eq(got, cluster.sweep_jump_banded_plain(pk, valid, labels, 0.16, 128, window, starts,
                                                  live, tr))
         _eq(got, whole[s * per * 128:(s + 1) * per * 128])
+
+
+def _banded_batch(dev, c, n_valids, window, seed):
+    """A batch of lattice-ordered (x-sorted) cluster buffers with seeded
+    labels: packed points, valid, labels and each scan's band starts."""
+    rng = np.random.default_rng(seed)
+    pts = np.zeros((len(n_valids), c, 3), np.float32)
+    valid = np.zeros((len(n_valids), c), bool)
+    for b, n_valid in enumerate(n_valids):
+        q = rng.uniform([-2.2, -1.9, -0.3], [2.2, 1.9, 0.3], (n_valid, 3)).astype(np.float32)
+        pts[b, :n_valid] = q[np.argsort(q[:, 0], kind="stable")]
+        valid[b, :n_valid] = True
+    p, p_sq, labels = cluster._seed_labels(torch.tensor(pts, device=dev),
+                                           torch.tensor(valid, device=dev), 0.4)
+    starts, _ = cluster.band_starts(p, torch.tensor(valid, device=dev), 128, window, 0.4)
+    return cluster.pack_points(p, p_sq), torch.tensor(valid, device=dev), labels, starts
+
+
+@pytest.mark.parametrize("c,n_valids,window,tile_range", [
+    (1024, (1000, 600, 0), 256, None),  # a scan with no valid point
+    (16384, (7000, 16384, 12000), 4096, None),  # the fullscale shape
+    (16384, (7000, 16384, 12000), 4096, (32, 32)),  # one rank's tiles of four
+])
+def test_cluster_sweep_banded_batch_equals_plain(dev, c, n_valids, window, tile_range):
+    """K5 at B = 3, one launch for the batch, with every tile live and with
+    a mixed ``tile_live`` (one scan with no live tile), against the plain
+    version and against each scan's own launch."""
+    pk, valid, labels, starts = _banded_batch(dev, c, n_valids, window, c + window)
+    rng = np.random.default_rng(c)
+    live = torch.tensor(rng.random(starts.shape) < 0.5, device=dev)
+    live[1] = False
+    for tl in (None, live):
+        before = _build.LAUNCHES["cluster_sweep_banded" if tile_range is None
+                                 else "cluster_sweep_banded_rows"]
+        got = cluster.sweep_jump_banded(pk, valid, labels, 0.16, 128, window, starts, tl,
+                                        tile_range)
+        assert _build.LAUNCHES["cluster_sweep_banded" if tile_range is None
+                               else "cluster_sweep_banded_rows"] == before + 1
+        _eq(got, cluster.sweep_jump_banded_plain(pk, valid, labels, 0.16, 128, window, starts,
+                                                 tl, tile_range))
+        for b in range(3):
+            _eq(got[b], cluster.sweep_jump_banded(pk[b], valid[b], labels[b], 0.16, 128, window,
+                                                  starts[b], None if tl is None else tl[b],
+                                                  tile_range))
+
+
+def test_banded_loop_batch_equals_per_scan_loops(dev):
+    """The batched banded loop on the card (one K5 launch a sweep for the
+    batch) against each scan's own loop and against the CPU's loop: labels
+    and ``unconverged`` bitwise."""
+    pk, valid, labels, starts = _banded_batch(dev, 16384, (7000, 16384, 12000), 4096, 5)
+    before = _build.LAUNCHES["cluster_sweep_banded"]
+    lab, unc, syncs = cluster._banded_loop(pk, valid, labels, 0.16, 4096, starts, 64)
+    sweeps = _build.LAUNCHES["cluster_sweep_banded"] - before
+    assert syncs == sweeps - 1
+    for b in range(3):
+        one = cluster._banded_loop(pk[b:b + 1], valid[b:b + 1], labels[b:b + 1], 0.16, 4096,
+                                   starts[b:b + 1], 64)
+        _eq(lab[b], one[0][0])
+        _eq(unc[b], one[1][0])
+    cpu = cluster._banded_loop(pk.cpu(), valid.cpu(), labels.cpu(), 0.16, 4096, starts.cpu(), 64)
+    _eq(lab, cpu[0])
+    _eq(unc, cpu[1])
+
+
+def test_cluster_sweep_banded_refuses_mismatched_batches(dev):
+    """The batched K5 wrapper refuses operands whose scan counts or tile
+    counts do not match."""
+    pk, valid, labels, starts = _banded_batch(dev, 1024, (1000, 600, 300), 256, 1)
+    live = torch.ones_like(starts, dtype=torch.bool)
+    with pytest.raises(ValueError):  # starts of two scans for three
+        cluster.sweep_jump_banded(pk, valid, labels, 0.16, 128, 256, starts[:2])
+    with pytest.raises(ValueError):  # one scan's starts for the batch
+        cluster.sweep_jump_banded(pk, valid, labels, 0.16, 128, 256, starts[0])
+    with pytest.raises(ValueError):  # tile_live of the wrong tile count
+        cluster.sweep_jump_banded(pk, valid, labels, 0.16, 128, 256, starts, live[:, :4])
+    with pytest.raises(ValueError):  # labels of two scans
+        cluster.sweep_jump_banded(pk, valid, labels[:2], 0.16, 128, 256, starts)
+    with pytest.raises(ValueError):  # packed points of two scans
+        cluster.sweep_jump_banded(pk[:2], valid, labels, 0.16, 128, 256, starts)

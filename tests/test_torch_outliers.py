@@ -141,11 +141,16 @@ def test_knn_select_plain_is_the_exact_sorted_16():
 
 
 def test_knn_refuses_unported_widths():
+    """The two shapes the banded kNN once refused now run as the reference
+    runs them, bitwise: a band that covers the buffer (the full-width
+    branch, ``kmin_mean`` over every column) and k > 16 (the in-window
+    ``kmin_mean`` in place of the sorting network)."""
     pts, valid = _lattice_cloud(1, 100, 256)
-    with pytest.raises(ValueError):  # the band covers the buffer: full-width engine
-        outliers.knn_mean_distances(Cloud.from_points(pts, valid), 15, row_tile=128, band=128)
-    with pytest.raises(ValueError):  # k > 16
-        outliers.knn_mean_distances(Cloud.from_points(pts, valid), 20, row_tile=32, band=32)
+    for k, row_tile, band in ((15, 128, 128), (20, 32, 32)):
+        want = np.asarray(_ref(pts, valid, k, 1.0, row_tile, band).mean_distances)
+        got = outliers.knn_mean_distances(Cloud.from_points(pts, valid), k, row_tile=row_tile,
+                                          band=band).numpy()
+        np.testing.assert_array_equal(got, want)
 
 
 # --- kernel K3's selection schedule, modelled in numpy ----------------------

@@ -12,10 +12,12 @@ the reference's own bar (tests/test_sharding.py:61-84), and
 ``data_parallel_pipeline`` against ``batched_pipeline``.
 
 The reference's ``test_sharding.py`` config (8,192 points, 2,048 voxels)
-with its ``SHARD_CFG`` kNN tile and band and cluster band: its plain
-``CFG`` takes the reference's full-width kNN engine (band wider than the
-table), which the port does not carry.  The ranks are spawned once for
-the module (4 ranks, every job in one group), with timeouts."""
+with its ``SHARD_CFG`` kNN tile and band and cluster band (its plain
+``CFG`` also takes the banded kNN: 512 + 2*512 = 1,536 columns < 2,048;
+``SHARD_CFG``'s tiles of 128 split over the ranks), and once with
+``knn_backend="exact"``: the full-width kNN, its query tiles split over
+the ranks.  The ranks are spawned once for the module (4 ranks, every job
+in one group), with timeouts."""
 
 from __future__ import annotations
 
@@ -51,10 +53,10 @@ SP_CASES = {
     "1x4": ({"data": 1, "points": 4}, SHARD_CFG.replace(cluster_band_window=0), 7, 9,
             {"distribute_merge": True}),
     "2x2": ({"data": 2, "points": 2}, SHARD_CFG, 11, 5, {}),
+    "1x2_exact": ({"data": 1, "points": 2}, SHARD_CFG.replace(knn_backend="exact"), 3, 4, {}),
 }
 DP_BATCH, DP_SEED, DP_KEY = 4, 20, 6
-# the batch runs the full sweep (the banded loop takes one scan at a time
-# outside the point-sharded path)
+# the batch with the full sweep, and with the banded sweep (SHARD_CFG)
 DP_CFG = SHARD_CFG.replace(cluster_band_window=0)
 
 
@@ -82,9 +84,10 @@ def _jobs():
     clouds = _batch(DP_BATCH, seed0=DP_SEED)
     keys = jax.random.split(jax.random.PRNGKey(DP_KEY), DP_BATCH)
     hi, lo = jax_draw_bits(keys, DP_CFG.max_planes, DP_CFG.ransac_hypotheses)
-    jobs.append(dict(kind="data_parallel", config=_port_cfg(DP_CFG), mesh={"data": 2},
-                     points=np.asarray(clouds.points), valid=np.asarray(clouds.valid),
-                     draw=("bits", hi, lo)))
+    for cfg in (DP_CFG, SHARD_CFG):
+        jobs.append(dict(kind="data_parallel", config=_port_cfg(cfg), mesh={"data": 2},
+                         points=np.asarray(clouds.points), valid=np.asarray(clouds.valid),
+                         draw=("bits", hi, lo)))
     # draws from a generator seeded differently on each rank: the first
     # rank's are broadcast
     jobs.append(dict(kind="dp_sp", config=_port_cfg(SHARD_CFG), mesh={"data": 2, "points": 2},
@@ -99,7 +102,7 @@ def port_runs(tmp_path_factory):
     or "dp": the jobs' per-rank results (None off the mesh)}."""
     out = ranks.spawn(ranks.run_jobs, WORLD, _jobs(), timeout_s=TIMEOUT_S,
                       tmp_dir=str(tmp_path_factory.mktemp("ranks")))
-    keys = [(c, s) for c in SP_CASES for s in (True, False)] + ["dp", "generator"]
+    keys = [(c, s) for c in SP_CASES for s in (True, False)] + ["dp", "dp_banded", "generator"]
     return {k: [r[j] for r in out] for j, k in enumerate(keys)}
 
 
@@ -198,14 +201,24 @@ def test_data_parallel_is_the_batched_pipeline(port_runs):
     """Each rank's two scans of ``data_parallel_pipeline`` equal
     ``batched_pipeline`` on the whole batch, bit for bit, with no
     collective."""
+    _assert_data_parallel(port_runs["dp"], DP_CFG)
+
+
+def test_data_parallel_banded_is_the_batched_pipeline(port_runs):
+    """The same with the banded cluster sweep (``SHARD_CFG``): each rank's
+    two scans run one batched banded loop."""
+    _assert_data_parallel(port_runs["dp_banded"], SHARD_CFG)
+    assert (port_runs["dp_banded"][0]["out"].stats.num_clusters >= 1).all()
+
+
+def _assert_data_parallel(runs, cfg):
     clouds = _batch(DP_BATCH, seed0=DP_SEED)
     keys = jax.random.split(jax.random.PRNGKey(DP_KEY), DP_BATCH)
-    hi, lo = jax_draw_bits(keys, DP_CFG.max_planes, DP_CFG.ransac_hypotheses)
-    whole = batched_pipeline(_port_cfg(DP_CFG))(
+    hi, lo = jax_draw_bits(keys, cfg.max_planes, cfg.ransac_hypotheses)
+    whole = batched_pipeline(_port_cfg(cfg))(
         Cloud(points=torch.tensor(np.asarray(clouds.points)),
               valid=torch.tensor(np.asarray(clouds.valid))),
         draw=draw_from_bits(torch.tensor(hi), torch.tensor(lo)))
-    runs = port_runs["dp"]
     assert runs[2] is None and runs[3] is None  # a mesh of the first two ranks
     for rank in (0, 1):
         assert runs[rank]["collectives"]["calls"] == 0
