@@ -27,20 +27,24 @@ Phases (any failure raises and exits non-zero before the last line):
    for all its sweeps (``pack_points``).
 3. Flagship path: counts from 0, ``ObstacleDetectionModel(FLAGSHIP_CONFIG)``
    on the card over three seeded scenes; checks that K1-K3, the loop
-   kernel, the sum kernel and RANSAC's 3x3 tail kernel were launched, that
+   kernel, the sum kernel (once a call of ``sum_like_xla``) and RANSAC's
+   refinement step (``covariance_tail``: the covariance sums with the 3x3
+   tail as their epilogue, once a call) were launched, that
    no overflow flag is set and that each rock of the scene is matched by a
    cluster, and compares each scan with the same scan through the plain
    versions on the CPU (same RANSAC draws): grid, stage counts and flags
    exact, centroids within 1e-5.  Times ``process_scan`` per scan (p50),
    counts its host syncs, which must be none, and its device operations
    (kernels, memsets, copies; ``torch.profiler``).  Then K3, the loop
-   kernel, the sum kernel (every call of a scan) and the 3x3 tail (every
-   call) again, checked and timed as in phase 2, on the inputs the scan of
-   scene 0 gives them.
+   kernel, the sum kernel (every call of a scan held bitwise, each call
+   shape timed beside ``.sum(-1)``) and ``covariance_tail`` (every call)
+   again, checked and timed as in phase 2, on the inputs the scan of scene
+   0 gives them.
 4. Fullscale path: counts from 0, one scan of the canonical fullscale
    window (``make_fullscale_window(2_097_152)``) through
    ``ObstacleDetectionModel(REFERENCE_FULLSCALE_CONFIG)`` on the card;
-   checks that K1, K2, K3, K5 and the two refinement kernels were launched
+   checks that K1, K2, K3, K5, the sum kernel and ``covariance_tail`` were
+   launched (once a call each)
    and that no overflow flag is set, and compares it with the same window
    through the plain versions on the CPU by the same bar.  Times a few
    scans (p50) and counts host syncs (all the banded loop's reads) and
@@ -85,7 +89,7 @@ Phases (any failure raises and exits non-zero before the last line):
    the batch call (p50, min and max over 10 batches after one warm-up;
    scans per second = 32 / p50) and prints its device operations, device
    time and busy share (``torch.profiler``) and peak device memory.  Then
-   K1, K2, K3, the loop kernel and the two refinement kernels at B = 32 on
+   K1, K2, K3, the loop kernel, the sum kernel and ``covariance_tail`` at B = 32 on
    the inputs the batch gives them, checked and timed as in phase 2 (path
    ``flagship_batch``), and the loop kernel with 1, 2, 4, 8 and 16 blocks
    a scan (``loop blocks:`` lines).
@@ -114,7 +118,7 @@ Phases (any failure raises and exits non-zero before the last line):
    ``process_scan`` of the accumulator's snapshot with the node's draw,
    sync and async grids are equal, and the rates, p50s and bytes as
    above.  The node paths' kernels (K1-K3 and the loop kernel, or K5; the
-   sum kernel and the 3x3 tail) are checked and timed on one window's
+   sum kernel and ``covariance_tail``) are checked and timed on one window's
    inputs (paths ``node_flagship`` and ``node_fullscale``, launches a
    window), and a ``node:`` line holds the phase's numbers as JSON.
 
@@ -138,8 +142,9 @@ Phases (any failure raises and exits non-zero before the last line):
    sharded flagship and fullscale scans keep the single-scan card run's
    structure (tests/test_sharding.py:61-84's bar); ``data_parallel_pipeline``
    equals ``batched_pipeline`` bitwise.  Then K1's counts mode (both merge
-   shapes), K2 on the dense merge's bins, and K3, K4 and K5 over rank 0's
-   rows on rank 0's own inputs, held bitwise against their plain versions
+   shapes), K2 on the dense merge's bins, K3, K4 and K5 over rank 0's
+   rows, and the sum kernel and ``covariance_tail`` (every call of the two
+   sharded scans' first window) on rank 0's own inputs, held bitwise against their plain versions
    and timed as in phase 2 (paths ``sp_flagship``, ``sp_fullscale``,
    ``sp_fullscale_replicated``).  A ``sharded:`` line a path gives the
    backend and staging, windows per second, the p50, collective bytes and
@@ -626,64 +631,130 @@ def _grid_row(path, what, args):
     return row
 
 
-def _sum_row(path, calls):
+def _sum_rows(path, calls):
     """The sum kernel on every call a scan (or batch) made to it, each held
-    bitwise against the plain version; timed on the refinement's covariance
-    call (the two-operand form; its launches are the most of a scan)."""
+    bitwise against the plain version (one launch a call); each distinct
+    call shape timed beside its library call, ``.sum(-1)`` of the same
+    values (of the products, for two operands)."""
     import torch
 
-    from pointcloud_obstacle_processing_tpu_torch import ops
+    from pointcloud_obstacle_processing_tpu_torch import _build, ops
 
-    err = 0.0
+    err, shapes = 0.0, {}
     for i, ((a, b), _) in enumerate(calls):
+        _build.reset_launch_counts()
+        got = ops._xla_sum_kernel(a, b)
+        if _build.LAUNCHES["xla_sum"] != 1:
+            raise AssertionError(f"sum kernel {path} call {i}: {_build.LAUNCHES['xla_sum']} "
+                                 "launches, one expected")
         err = max(err, _assert_equal(f"sum kernel {path} call {i} ({tuple(a.shape)})",
-                                     ops._xla_sum_kernel(a, b).view(torch.int32),
+                                     got.view(torch.int32),
                                      ops.sum_like_xla_plain(a, b).view(torch.int32)))
-    (a, b), _ = next(c for c in calls if c[0][1] is not None)
-    lead, sa, n = a[..., 0, 0].numel(), a.shape[-2], a.shape[-1]
-    sb = b.shape[-2]
-    return _row(
-        "xla_sum", path, f"{len(calls)} calls a run, all equal; timed: covariance "
-        f"{tuple(a.shape)} x {tuple(b.shape)}", "xla_sum.cu", "ransac.py:174 (plain XLA, no TPU kernel)", err,
-        lambda: ops._xla_sum_kernel(a, b), lambda: ops.sum_like_xla_plain(a, b),
-        # both operands read once, the sums written; a product and an add a term
-        _bound(lead * (sa + sb) * n * 4 + lead * sa * sb * 4, 2 * lead * sa * sb * n),
-        library_fn=lambda: (a[..., :, None, :] * b[..., None, :, :]).sum(-1), plain_reps=3,
-    )
+        key = (tuple(a.shape), a.stride(), None if b is None else (tuple(b.shape), b.stride()))
+        shapes.setdefault(key, []).append(i)
+    rows = []
+    for idx in shapes.values():
+        (a, b), _ = calls[idx[0]]
+        lead, sa, n = a[..., 0, 0].numel(), a.shape[-2], a.shape[-1]
+        sb = 1 if b is None else b.shape[-2]
+        what = (f"{tuple(a.shape)}{'' if a.is_contiguous() else ' strided'}"
+                + ("" if b is None else f" x {tuple(b.shape)}"))
+        rows.append(_row(
+            "xla_sum", path, f"{what}: {len(idx)} of the run's {len(calls)} calls, all equal",
+            "xla_sum.cu", "ransac.py:174 (plain XLA, no TPU kernel)", err,
+            lambda a=a, b=b: ops._xla_sum_kernel(a, b),
+            lambda a=a, b=b: ops.sum_like_xla_plain(a, b),
+            # each operand row read once, the sums written; an add (and a product) a term
+            _bound(lead * (sa + (0 if b is None else sb)) * n * 4 + lead * sa * sb * 4,
+                   lead * sa * sb * n * (1 if b is None else 2)),
+            library_fn=(lambda a=a: a.sum(-1)) if b is None else
+            (lambda a=a, b=b: (a[..., :, None, :] * b[..., None, :, :]).sum(-1)),
+            plain_reps=3,
+        ))
+    return rows
 
 
 def _tail_row(path, calls):
-    """The refinement's 3x3 tail on every call a run made to it, each held
-    bitwise against the plain version; one timed."""
+    """RANSAC's refinement step (``covariance_tail``: the covariance sums
+    and the 3x3 tail in one launch) on every call a run made to it, each
+    held bitwise against ``sum_like_xla_plain`` then ``plane_tail_plain`` on
+    the same inputs; one timed.  No one PyTorch call computes the step."""
     import torch
 
+    from pointcloud_obstacle_processing_tpu_torch import _build, ops
     from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    def plain(masked, off, *rest):
+        return ransac.plane_tail_plain(ops.sum_like_xla_plain(masked, off), *rest)
 
     err = 0.0
     for i, (args, _) in enumerate(calls):
-        for g, w in zip(ransac.plane_tail(*args), ransac.plane_tail_plain(*args)):
-            err = max(err, _assert_equal(f"plane_refine {path} call {i}", g.view(torch.int32),
+        _build.reset_launch_counts()
+        got = ransac.covariance_tail(*args)
+        if _build.LAUNCHES["covariance_tail"] != 1 or _build.LAUNCHES["xla_sum"]:
+            raise AssertionError(f"covariance_tail {path} call {i}: launches {_build.LAUNCHES}")
+        for g, w in zip(got, plain(*args)):
+            err = max(err, _assert_equal(f"covariance_tail {path} call {i}", g.view(torch.int32),
                                          w.view(torch.int32)))
     args = calls[0][0]
-    b = args[0].shape[0]
+    b, n = args[0].shape[0], args[0].shape[-1]
     return _row(
-        "plane_refine", path, f"{len(calls)} calls a run, all equal; {b} scans a call",
-        "plane_refine.cu", "ransac.py:70 (plain XLA, no TPU kernel)", err,
-        lambda: ransac.plane_tail(*args), lambda: ransac.plane_tail_plain(*args),
-        # 17 floats in and 4 out a scan; 24 steps of 9 fma, 3 mul, the norm,
-        # 3 divides a scan (~50 operations a step)
-        _bound(b * 21 * 4, b * 24 * 50), plain_reps=3,
+        "covariance_tail", path, f"[{b}, 3, {n}] x [{b}, 3, {n}] and the 3x3 tail: "
+        f"{len(calls)} calls a run, all equal; {b} scan(s) a call",
+        "xla_sum.cu", "ransac.py:184-195 (plain XLA, no TPU kernel)", err,
+        lambda: ransac.covariance_tail(*args), lambda: plain(*args),
+        # six rows read once, 8 floats in and 4 out a scan; the nine sums'
+        # products and adds, then 24 steps of ~50 operations
+        _bound(b * (6 * n + 12) * 4, b * (9 * n * 2 + 24 * 50)), plain_reps=3,
     )
 
 
 def capture_refine(run) -> tuple[list, list]:
-    """The calls one run makes to the sum kernel and to the 3x3 tail."""
+    """The calls one run makes to the sum kernel and to ``covariance_tail``."""
     from pointcloud_obstacle_processing_tpu_torch import ops
     from pointcloud_obstacle_processing_tpu_torch.ops import ransac
 
     sums = []
-    tails = _capture(ransac, "plane_tail", lambda: sums.extend(_capture(ops, "_xla_sum_kernel", run)))
+    tails = _capture(ransac, "covariance_tail",
+                     lambda: sums.extend(_capture(ops, "_xla_sum_kernel", run)))
     return sums, tails
+
+
+def count_refine(run):
+    """``run()`` with the calls it makes to the sum kernel and to
+    ``covariance_tail`` counted: (result, sum calls, step calls)."""
+    from pointcloud_obstacle_processing_tpu_torch import ops
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    seen = {"sum": 0, "tail": 0}
+    fns = {"sum": (ops, "_xla_sum_kernel"), "tail": (ransac, "covariance_tail")}
+    saved = {k: getattr(m, n) for k, (m, n) in fns.items()}
+
+    def counting(k):
+        def call(*a, **kw):
+            seen[k] += 1
+            return saved[k](*a, **kw)
+        return call
+
+    for k, (m, n) in fns.items():
+        setattr(m, n, counting(k))
+    try:
+        res = run()
+    finally:
+        for k, (m, n) in fns.items():
+            setattr(m, n, saved[k])
+    return res, seen["sum"], seen["tail"]
+
+
+def check_refine_launches(label: str, launches: dict, sums: int, tails: int) -> None:
+    """The sum kernel launched once a call of ``sum_like_xla`` at every
+    length, ``covariance_tail`` once a call and at least once, and the
+    standalone 3x3 tail kernel (``plane_refine``) gone."""
+    if launches["xla_sum"] != sums or launches["covariance_tail"] != tails or not tails or \
+            "plane_refine" in launches:
+        raise AssertionError(f"{label}: sum kernel launches {launches['xla_sum']} for {sums} "
+                             f"calls, covariance_tail {launches['covariance_tail']} for {tails} "
+                             f"calls (launches {launches})")
 
 
 def check_loop(dev, rng, path, c, n_valid, tol2, max_iters):
@@ -970,18 +1041,21 @@ def _check_overflows(label: str, res) -> None:
 
 def _drive(model, cloud, draw, path: list[str]) -> tuple[object, dict]:
     """One main-path scan with the launch counts from 0; fails if a kernel
-    of ``path`` was not launched.  Returns the result and the counts."""
+    of ``path`` was not launched, or the sum kernel and ``covariance_tail``
+    not once a call (``check_refine_launches``).  Returns the result and
+    the counts."""
     import torch
 
     from pointcloud_obstacle_processing_tpu_torch import _build
 
     _build.reset_launch_counts()
-    res = model(cloud, draw=draw)
+    res, sums, tails = count_refine(lambda: model(cloud, draw=draw))
     torch.cuda.synchronize()
     counts = dict(_build.LAUNCHES)
     missing = [k for k in path if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    check_refine_launches("main path", counts, sums, tails)
     return res, counts
 
 
@@ -1059,7 +1133,7 @@ def run_flagship(dev, card: str) -> tuple[dict, list[dict]]:
     gpu_clouds = [clouds[s].to(dev) for s in SCENE_SEEDS]
 
     # main path: counts from 0, one scan of each scene on the card
-    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop", "xla_sum", "plane_refine"]
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop", "xla_sum", "covariance_tail"]
     launches = dict.fromkeys(_build.LAUNCHES, 0)
     results = {}
     for s, gc in zip(SCENE_SEEDS, gpu_clouds):
@@ -1088,7 +1162,7 @@ def run_flagship(dev, card: str) -> tuple[dict, list[dict]]:
     sums, tails = capture_refine(lambda: model(gpu_clouds[0], draw=draw_cuda))
     return launches, [check_k3_scan("flagship", model, gpu_clouds[0], draw_cuda),
                       _loop_row("flagship", "the scan's non-plane cloud", loop_args),
-                      _sum_row("flagship", sums), _tail_row("flagship", tails)]
+                      *_sum_rows("flagship", sums), _tail_row("flagship", tails)]
 
 
 def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
@@ -1110,7 +1184,7 @@ def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
     gpu_cloud = cloud.to(dev)
 
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded", "xla_sum",
-            "plane_refine"]
+            "covariance_tail"]
     res, launches = _drive(model, gpu_cloud, draw_cuda, path)
     _check_overflows("fullscale", res)
     if int(res.stats.num_clusters) < 1:
@@ -1134,7 +1208,7 @@ def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
           f"scan {launches} [{card}]")
     sums, tails = capture_refine(lambda: model(gpu_cloud, draw=draw_cuda))
     return launches, [check_k3_scan("fullscale", model, gpu_cloud, draw_cuda),
-                      _sum_row("fullscale", sums), _tail_row("fullscale", tails)], res
+                      *_sum_rows("fullscale", sums), _tail_row("fullscale", tails)], res
 
 
 def run_fullscale_bandoff(dev, card: str, banded) -> tuple[dict, list[dict]]:
@@ -1164,7 +1238,7 @@ def run_fullscale_bandoff(dev, card: str, banded) -> tuple[dict, list[dict]]:
     gpu_cloud = Cloud(points=torch.tensor(pts), valid=torch.tensor(valid)).to(dev)
 
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_grid_loop", "xla_sum",
-            "plane_refine"]
+            "covariance_tail"]
     res, launches = _drive(model, gpu_cloud, draw_cuda, path)
     others = {k: launches[k] for k in ("cluster_loop", "cluster_sweep", "cluster_sweep_banded")}
     if launches["cluster_grid_loop"] != 1 or any(others.values()):
@@ -1425,13 +1499,13 @@ def run_batch(dev, card: str) -> tuple[dict, list[dict]]:
     # main path: counts from 0, one batch
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop"]
     _build.reset_launch_counts()
-    res = run(clouds, draw)
+    res, sums, tails = count_refine(lambda: run(clouds, draw))
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    if any(launches[k] != 1 for k in path) or not launches["xla_sum"] or \
-            not launches["plane_refine"]:
+    if any(launches[k] != 1 for k in path):
         raise AssertionError(f"batched flagship: each of {path} must launch once a batch, "
-                             f"the sum kernel and the 3x3 tail at least once, got {launches}")
+                             f"got {launches}")
+    check_refine_launches("batched flagship", launches, sums, tails)
     worst = 0.0
     for b in range(BATCH):
         rb = scan_of(res, b)
@@ -1477,7 +1551,7 @@ def run_batch(dev, card: str) -> tuple[dict, list[dict]]:
         _k2_batch_row("flagship_batch", k2[0]),
         _k3_row("flagship_batch", f"the batch's voxel clouds ({BATCH} scans)", k3[0]),
         _loop_row("flagship_batch", "the batch's non-plane clouds", lp[0]),
-        _sum_row("flagship_batch", sums),
+        *_sum_rows("flagship_batch", sums),
         _tail_row("flagship_batch", tails),
     ]
     for r in rows:
@@ -1518,8 +1592,8 @@ def _k5_row(path, calls, plain_reps=20):
 def _node_rows(path: str, once, loop: str) -> list[dict]:
     """The node path's kernels on the inputs one of its windows gives them
     (``once`` runs that window's pipeline call again): K1, K2, K3, the
-    cluster loop (``loop``: the loop kernel or K5), the sum kernel and the
-    3x3 tail, each checked and timed as in phase 2."""
+    cluster loop (``loop``: the loop kernel or K5), the sum kernel and
+    ``covariance_tail``, each checked and timed as in phase 2."""
     from pointcloud_obstacle_processing_tpu_torch.ops import cluster, compaction, outliers, voxel
 
     (k1,) = _capture(voxel, "sorted_run_reduce", once)
@@ -1535,7 +1609,7 @@ def _node_rows(path: str, once, loop: str) -> list[dict]:
     else:
         rows.append(_k5_row(path, _capture(cluster, "sweep_jump_banded", once)))
     sums, tails = capture_refine(once)
-    return rows + [_sum_row(path, sums), _tail_row(path, tails)]
+    return rows + [*_sum_rows(path, sums), _tail_row(path, tails)]
 
 
 def _node_rig(cfg, dev, async_mode: bool, device_mode: bool, points: int, draw_for_cycle=None):
@@ -1650,7 +1724,7 @@ def run_node_flagship(dev, card: str) -> tuple[dict, list[dict], dict]:
 
     cfg = FLAGSHIP_CONFIG.replace(accumulate_count=NODE_FRAMES, publish_point_clouds=False)
     A = cfg.accumulate_count
-    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop", "xla_sum", "plane_refine"]
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop", "xla_sum", "covariance_tail"]
     out, grids, trig, launches = {}, {}, {}, None
     for async_mode, device_mode in NODE_MODES:
         mode = _mode_name(async_mode, device_mode)
@@ -1676,14 +1750,14 @@ def run_node_flagship(dev, card: str) -> tuple[dict, list[dict], dict]:
         for _ in range(A):
             kinect.emit_frame()
         _build.reset_launch_counts()
-        kinect.emit_frame()
-        node.flush()
+        _, sums, tails = count_refine(lambda: (kinect.emit_frame(), node.flush()))
         torch.cuda.synchronize()
         if not async_mode and device_mode:
             launches = dict(_build.LAUNCHES)
             missing = [k for k in path if launches[k] <= 0]
             if missing:
                 raise AssertionError(f"node flagship: kernels not launched in a window: {missing}")
+            check_refine_launches("node flagship window", launches, sums, tails)
         # a sensor cadence that gives the card each window while the host
         # accumulates the next (tests/test_async_driver.py's production regime)
         sleep_s = 1.5 * trig.get((False, device_mode), t_trig) * 1e-3 / A
@@ -1808,7 +1882,7 @@ def run_node_fullscale(dev, card: str) -> tuple[dict, list[dict], dict]:
         raise AssertionError("fullscale node: device accumulation accepted a window that does "
                              "not divide max_points")
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded", "xla_sum",
-            "plane_refine"]
+            "covariance_tail"]
     cycles = FULLSCALE_NODE_WARMUP + FULLSCALE_NODE_WINDOWS
     out, grids, launches, rows = {}, {}, None, []
     for async_mode in (False, True):
@@ -1900,7 +1974,8 @@ SP_CAPTURE = [(f"{_MOD}.voxel", "sorted_run_reduce"),
               (f"{PKG}.parallel.sharding", "sorted_run_reduce"),
               (f"{_MOD}.voxel", "compact_and_gather_exact"),
               (f"{_MOD}.compaction", "compact_and_gather_exact"), (f"{_MOD}.outliers", "knn_mean"),
-              (f"{_MOD}.cluster", "sweep_jump"), (f"{_MOD}.cluster", "sweep_jump_banded")]
+              (f"{_MOD}.cluster", "sweep_jump"), (f"{_MOD}.cluster", "sweep_jump_banded"),
+              (_MOD, "_xla_sum_kernel"), (f"{_MOD}.ransac", "covariance_tail")]
 # kernels each sharded path must launch on every rank, counted from 0
 SP_PATHS = {
     "sp_flagship": ["runreduce", "compact_gather", "knn_mean_rows", "cluster_sweep_rows"],
@@ -2175,6 +2250,9 @@ def _sp_rows(path: str, captured: dict, dev) -> list[dict]:
         calls = captured[f"{_MOD}.cluster.{name}"]
         if calls:
             rows.append(fn(path, "rank 0's rows, first sweep", _to_dev(calls[0], dev)))
+    if path in ("sp_flagship", "sp_fullscale"):  # the sums and steps of the window
+        rows += _sum_rows(path, _to_dev(captured[f"{_MOD}._xla_sum_kernel"], dev))
+        rows.append(_tail_row(path, _to_dev(captured[f"{_MOD}.ransac.covariance_tail"], dev)))
     return rows
 
 
@@ -2385,11 +2463,12 @@ def run_fullscale_batch(dev, card: str) -> tuple[dict, list[dict]]:
 
     # main path: counts from 0, one batch
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded", "xla_sum",
-            "plane_refine"]
+            "covariance_tail"]
     _build.reset_launch_counts()
-    res = run(clouds, draw)
+    res, sums, tails = count_refine(lambda: run(clouds, draw))
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    check_refine_launches("fullscale batch", launches, sums, tails)
     missing = [k for k in path if launches[k] <= 0]
     sweeps = launches["cluster_sweep_banded"]
     if missing or sweeps != max(single_sweeps) or res.host_syncs > sweeps - 1:
@@ -2436,7 +2515,9 @@ def run_fullscale_batch(dev, card: str) -> tuple[dict, list[dict]]:
           f"call); peak device memory {peak / 2**20:.1f} MiB [{card}]")
 
     calls = _capture(cluster, "sweep_jump_banded", lambda: run(clouds, draw))
-    return launches, [_k5_row("fullscale_batch", calls, plain_reps=3)]
+    sums, tails = capture_refine(lambda: run(clouds, draw))
+    return launches, [_k5_row("fullscale_batch", calls, plain_reps=3),
+                      *_sum_rows("fullscale_batch", sums), _tail_row("fullscale_batch", tails)]
 
 
 def run_knn_engines(dev, card: str) -> dict:

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for Hopper
 (``sm_90a``), all started together, and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``.  The build
 runs at first use, never at import, into ``_build/`` beside this file
-(listed in ``.gitignore``); the library's name carries a hash of the sources
-and flags, so an edited source is rebuilt and a current one is reused.
+(listed in ``.gitignore``); the library's name carries a hash of the sources,
+the headers they include (``csrc/*.cuh``) and the flags, so an edited source
+is rebuilt and a current one is reused.
 
 ``-fmad=false`` keeps every ``a*b + c`` as a rounded multiply then a rounded
 add, the fixed float32 expression trees the reference's kernels are written
@@ -49,7 +50,7 @@ NVCC_FLAGS = [
 LAUNCHES = {"runreduce": 0, "runreduce_counts": 0, "compact_gather": 0, "knn_mean": 0,
             "knn_mean_rows": 0, "cluster_loop": 0, "cluster_grid_loop": 0, "cluster_sweep": 0,
             "cluster_sweep_rows": 0, "cluster_sweep_banded": 0, "cluster_sweep_banded_rows": 0,
-            "segscan": 0, "binned_sum": 0, "xla_sum": 0, "plane_refine": 0}
+            "segscan": 0, "binned_sum": 0, "xla_sum": 0, "covariance_tail": 0}
 
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -86,13 +87,13 @@ _SIGNATURES = {
     "pcp_segscan_global_steps": [_I],
     # ids, weights, valid, n, c, k, exact, out (zeroed by the call), stream
     "pcp_binned_sum": [_VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP],
-    # a and its lead, row and value strides; b (or null) and its strides;
-    # lead, rows of a, rows of b, n, out, scratch, stream
-    "pcp_xla_sum": [_VP, _LL, _LL, _LL, _VP, _LL, _LL, _LL, _I, _I, _I, _I, _VP, _VP, _VP],
-    # n -> second-level window sums a row needs in scratch
-    "pcp_xla_sum_scratch": [_I],
-    # cov, cen, n_inl, normal, d, batch, vmapped, normal out, d out, stream
-    "pcp_plane_refine": [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP],
+    # the arguments packed as csrc/xla_sum.cu's SumArgs (ops._SUM_ARGS)
+    "pcp_xla_sum": [ctypes.c_char_p],
+    # the tile (rows of a, rows of b; 0: one operand), covariance_tail ->
+    # the largest cluster the card schedules
+    "pcp_xla_sum_max_blocks": [_I, _I, _I],
+    # the arguments packed as SumArgs, covariance_tail's operands included
+    "pcp_covariance_tail": [ctypes.c_char_p],
 }
 
 BUILD_SECONDS: list[float] = []  # wall time of each build this process ran
@@ -118,7 +119,7 @@ def kernels() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
     sources = sorted(_SRC.glob("*.cu"))
     digest = hashlib.sha256()
-    for s in sources:
+    for s in sources + sorted(_SRC.glob("*.cuh")):
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -1,5 +1,8 @@
 """Device-side compute stages of the port (mirrors the reference's ``ops``)."""
 
+import functools
+import struct
+
 import numpy as np
 import torch
 
@@ -89,6 +92,42 @@ def add_sq3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 XLA_REDUCE_WINDOW = 32  # XLA:CPU's TreeReductionRewriter window
 
 
+def xla_sum_levels(n: int) -> tuple[int, ...]:
+    """The values at each level of XLA:CPU's tree for a row of ``n``
+    values: ``n``, then ``ceil(c / 32)`` windows of the level below while
+    it holds more than 32; the last level's (32 or fewer) values enter the
+    plain reduce."""
+    w = XLA_REDUCE_WINDOW
+    sizes = [n]
+    while sizes[-1] > w:
+        sizes.append(-(-sizes[-1] // w))
+    return tuple(sizes)
+
+
+@functools.lru_cache(maxsize=None)
+def xla_sum_plan(n: int, blocks: int) -> tuple[int, tuple[tuple[int, int], ...]]:
+    """How the sum kernel's thread-block cluster splits a row of ``n``
+    values over at most ``blocks`` blocks: ``(level, ranges)``, block ``b``
+    summing the windows ``ranges[b][0] .. ranges[b][1] - 1`` of that level
+    of XLA:CPU's tree (``xla_sum_levels``), and the first block then the
+    levels above it and the plain reduce.  The level is the highest one
+    with at least one window a block (a level boundary is the only cut that
+    keeps XLA:CPU's order), never below level 2, whose windows (1,024 value
+    slots) are a warp's unit: a row with fewer level-2 windows than blocks
+    takes one block a window.  A row of 1,024 values or fewer is one block
+    (level 1, its level-1 windows), one of 32 or fewer the plain reduce
+    (level 0).  ``tests/test_torch_xla_sum.py`` replays a plan and holds it
+    bitwise to ``sum_like_xla_plain``."""
+    sizes = xla_sum_levels(n)
+    top = len(sizes) - 1
+    if top <= 1:
+        return top, ((0, sizes[top]),)
+    level = max((i for i in range(2, top + 1) if sizes[i] >= blocks), default=2)
+    nb = min(blocks, sizes[level])
+    cuts = [b * sizes[level] // nb for b in range(nb + 1)]
+    return level, tuple(zip(cuts[:-1], cuts[1:]))
+
+
 def sum_like_xla_plain(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of ``sum_like_xla``: one PyTorch add a step."""
     w = XLA_REDUCE_WINDOW
@@ -132,42 +171,94 @@ def sum_like_xla(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor
     of its own, rounded before the windows add it (RANSAC's covariance);
     up to 32 it is fused into the plain reduce's adds, ``acc = fma(p_k,
     q_k, acc)``.  CUDA tensors take one launch of the sum kernel
-    (``csrc/xla_sum.cu``; two for rows of more than 32,768 values); CPU
-    tensors the plain version."""
+    (``csrc/xla_sum.cu``) at every length; CPU tensors the plain version."""
     if a.device.type == "cpu":
         return sum_like_xla_plain(a, b)
     return _xla_sum_kernel(a, b)
 
 
-def _xla_sum_kernel(a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
-    """One launch of the sum kernel (two for rows of more than 32,768
-    values): a block a row (and row of ``b``), strided operands read in
-    place."""
-    if b is None and a.dim() == 1:  # [N]: one row
-        return _xla_sum_kernel(a[None], None)[0]
+@functools.lru_cache(maxsize=None)
+def _launch_plan(index: int, lead: int, s_a: int, s_b: int, n: int, tail: bool,
+                 blocks: int | None) -> tuple:
+    """The sum kernel's tile and plan for ``lead`` x ``s_a`` rows of a and
+    ``s_b`` of b (0: one operand) of ``n`` values on card ``index``: (tile
+    rows of a, tile rows of b, level, blocks, 17 block bounds), as
+    ``SumArgs`` takes them.
+
+    A cluster owns one row (and one of b) while a cluster a row still
+    leaves each at least 8 of the card's SMs: more SMs read a call's rows
+    than one cluster's 16 can.  Else up to 4 rows of a, or 3 of a and 3 of
+    b, each row read once for all of the tile's outputs; ``covariance_tail``
+    (``tail``) always takes the 3 x 3 tile.  ``blocks`` a cluster (by
+    default as many as fill the card's SMs), up to the largest cluster the
+    card schedules, split by ``xla_sum_plan``."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    if tail:
+        t_a, t_b = 3, 3
+    elif lead * s_a * max(s_b, 1) * 8 <= sms:
+        t_a, t_b = 1, min(s_b, 1)
+    else:
+        t_a, t_b = (min(s_a, 3), min(s_b, 3)) if s_b else (min(s_a, 4), 0)
+    clusters = lead * -(-s_a // t_a) * (-(-s_b // t_b) if s_b else 1)
+    if blocks is None:
+        blocks = sms // clusters
+    cap = _build.kernels().pcp_xla_sum_max_blocks(t_a, t_b, int(tail))
+    level, ranges = xla_sum_plan(n, max(1, min(cap, blocks)))
+    bounds = [r[0] for r in ranges] + [ranges[-1][1]]
+    return (t_a, t_b, level, len(ranges), *bounds, *[0] * (17 - len(bounds)))
+
+
+# ``csrc/xla_sum.cu``'s ``SumArgs``: the sum kernel's arguments as one block
+# of 43 8-byte fields (pointers, strides, sizes, the tile, the plan, out,
+# stream; then covariance_tail's operands, zero for a plain sum)
+_SUM_ARGS = struct.Struct("<43q")
+_NO_TAIL = (0,) * 8
+
+
+def _rows(t: torch.Tensor) -> tuple[torch.Tensor, tuple]:
+    """``t`` [..., S, N] as [L, S, N] rows: the tensor to read (``t``, or
+    for more than one leading dim its reshape, a copy where no view
+    exists; the caller keeps it until the launch) and (L, S, N, lead
+    stride, row stride, value stride)."""
+    if t.dim() == 3:
+        return t, (*t.shape, *t.stride())
+    if t.dim() == 2:
+        return t, (1, *t.shape, 0, *t.stride())
+    r = t.reshape(-1, *t.shape[-2:])
+    return r, (*r.shape, *r.stride())
+
+
+def _check_operands(name: str, a: torch.Tensor, b: torch.Tensor | None) -> None:
+    """``a`` [..., S, N] and ``b`` [..., T, N]: float32 on one CUDA device,
+    the same leading dims and N."""
     if a.dim() < 2 or (b is not None and (b.dim() != a.dim() or b.shape[:-2] != a.shape[:-2]
                                           or b.shape[-1] != a.shape[-1])):
-        raise ValueError("sum_like_xla: a [..., S, N] and b [..., T, N] with the same leading "
+        raise ValueError(f"{name}: a [..., S, N] and b [..., T, N] with the same leading "
                          "dims and N")
-    n = a.shape[-1]
-    lead = a.shape[:-2]
-    # [L, S, N] rows, a view where the leading dims allow
-    ra = a.reshape(-1, *a.shape[-2:])
-    rb = ra if b is None else b.reshape(-1, *b.shape[-2:])
-    if not (ra.is_cuda and rb.is_cuda) or rb.get_device() != ra.get_device():
-        raise ValueError("sum_like_xla: every operand must lie on one CUDA device")
-    if ra.dtype != torch.float32 or rb.dtype != torch.float32:
-        raise TypeError("sum_like_xla: float32 operands")
-    s_a, s_b = ra.shape[1], (1 if b is None else rb.shape[1])
-    out = torch.empty(ra.shape[0], s_a, s_b, dtype=torch.float32, device=a.device)
+    if not a.is_cuda or (b is not None and b.get_device() != a.get_device()):
+        raise ValueError(f"{name}: every operand must lie on one CUDA device")
+    if a.dtype != torch.float32 or (b is not None and b.dtype != torch.float32):
+        raise TypeError(f"{name}: float32 operands")
+
+
+def _xla_sum_kernel(a: torch.Tensor, b: torch.Tensor | None,
+                    blocks: int | None = None) -> torch.Tensor:
+    """One launch of the sum kernel at every length: a thread-block cluster
+    of up to ``blocks`` blocks a tile of rows (``csrc/xla_sum.cu``),
+    strided operands read in place, no scratch."""
+    one_row = b is None and a.dim() == 1  # [N] -> []
+    _check_operands("sum_like_xla", a[None] if one_row else a, b)
+    ta, ra = (a, (1, 1, a.shape[0], 0, 0, a.stride(0))) if one_row else _rows(a)
+    tb, rb = (None, (0,) * 6) if b is None else _rows(b)
+    lead, s_a, n = ra[:3]
+    s_b = 1 if b is None else rb[1]
+    out = torch.empty(a.shape[:-1] if b is None else (*a.shape[:-1], s_b),
+                      dtype=torch.float32, device=a.device)
     if out.numel():
-        lib = _build.kernels()
-        # the second-level window sums of long rows
-        windows = lib.pcp_xla_sum_scratch(n)
-        scratch = torch.empty(out.numel() * windows, dtype=torch.float32, device=a.device)
-        err = lib.pcp_xla_sum(
-            ra.data_ptr(), *ra.stride(), None if b is None else rb.data_ptr(), *rb.stride(),
-            ra.shape[0], s_a, s_b, n, out.data_ptr(), scratch.data_ptr(), _build.stream_handle())
-        _build.check(err, "xla_sum")
-        _build.LAUNCHES["xla_sum"] += 2 if windows else 1
-    return out.reshape(*lead, s_a) if b is None else out.reshape(*lead, s_a, s_b)
+        plan = _launch_plan(a.get_device(), lead, s_a, 0 if b is None else s_b, n, False, blocks)
+        args = _SUM_ARGS.pack(ta.data_ptr(), *ra[3:], 0 if tb is None else tb.data_ptr(),
+                              *rb[3:], lead, s_a, s_b, n, *plan, out.data_ptr(),
+                              _build.stream_handle(), *_NO_TAIL)
+        _build.check(_build.kernels().pcp_xla_sum(args), "xla_sum")
+        _build.LAUNCHES["xla_sum"] += 1
+    return out

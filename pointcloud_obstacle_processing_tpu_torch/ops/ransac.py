@@ -24,7 +24,17 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import add_sq3, dot3, f32, fma, sqrt32, sum_like_xla
+from . import (
+    _SUM_ARGS,
+    _launch_plan,
+    add_sq3,
+    dot3,
+    f32,
+    fma,
+    sqrt32,
+    sum_like_xla,
+    sum_like_xla_plain,
+)
 from .. import _build
 from ..config import PipelineConfig
 from ..types import Cloud, PlaneModel, batch_of, scan_of
@@ -32,6 +42,7 @@ from ..types import Cloud, PlaneModel, batch_of, scan_of
 __all__ = [
     "ransac_plane_once",
     "segment_planes",
+    "covariance_tail",
     "draw_from_uniform",
     "draw_from_bits",
     "PlaneOnceResult",
@@ -110,12 +121,12 @@ def _smallest_eigvec_3x3(cov: torch.Tensor, init: torch.Tensor, iters: int = 24,
 
 
 def plane_tail_plain(cov, cen, n_inl, normal, d, vmapped: bool):
-    """Plain PyTorch version of the refinement's per-scan tail (kernel
-    ``plane_refine``): the smallest eigenvector of ``cov`` [B, 3, 3] seeded
-    with ``normal`` [B, 3], turned to ``normal``'s side, and its offset
-    through the centroid ``cen`` [B, 3]; where fewer than 3 inliers were
-    summed (``n_inl`` [B]) the plane (``normal``, ``d`` [B]) stays.
-    Returns (normal [B, 3], d [B])."""
+    """Plain PyTorch version of the refinement's per-scan tail (the epilogue
+    of ``covariance_tail``'s kernel): the smallest eigenvector of ``cov``
+    [B, 3, 3] seeded with ``normal`` [B, 3], turned to ``normal``'s side,
+    and its offset through the centroid ``cen`` [B, 3]; where fewer than 3
+    inliers were summed (``n_inl`` [B]) the plane (``normal``, ``d`` [B])
+    stays.  Returns (normal [B, 3], d [B])."""
     nrm = _smallest_eigvec_3x3(cov, normal, vmapped=vmapped)
     nrm = nrm * torch.sign(_sum3(nrm, normal, vmapped) + f32(1e-30))[..., None]
     nd = -dot3(nrm[:, 0], nrm[:, 1], nrm[:, 2], cen[:, 0], cen[:, 1], cen[:, 2])
@@ -123,25 +134,39 @@ def plane_tail_plain(cov, cen, n_inl, normal, d, vmapped: bool):
     return torch.where(ok[:, None], nrm, normal), torch.where(ok, nd, d)
 
 
-def plane_tail(cov, cen, n_inl, normal, d, vmapped: bool):
-    """The refinement's per-scan tail (``plane_tail_plain``): one launch of
-    kernel ``plane_refine`` (``csrc/plane_refine.cu``, a thread a scan)
-    for CUDA tensors, the plain version for CPU tensors."""
-    if cov.device.type == "cpu":
-        return plane_tail_plain(cov, cen, n_inl, normal, d, vmapped)
-    b = cov.shape[0]
-    if cov.shape != (b, 3, 3) or cen.shape != (b, 3) or n_inl.shape != (b,) or \
-            normal.shape != (b, 3) or d.shape != (b,):
-        raise ValueError("plane_tail: cov [B, 3, 3], cen [B, 3], n_inl [B], normal [B, 3], d [B]")
-    ops = [t.contiguous() for t in (cov, cen, n_inl, normal, d)]
-    _build.require_cuda("plane_tail", *ops, dtypes=[torch.float32] * 5)
-    out_n = torch.empty_like(ops[3])
-    out_d = torch.empty_like(ops[4])
-    err = _build.kernels().pcp_plane_refine(
-        *(t.data_ptr() for t in ops), b, int(vmapped), out_n.data_ptr(), out_d.data_ptr(),
-        _build.stream_handle())
-    _build.check(err, "plane_refine")
-    _build.LAUNCHES["plane_refine"] += 1
+def covariance_tail(masked_off, off, cen, n_inl, normal, d, vmapped: bool):
+    """One refinement step's covariance and 3x3 tail: ``cov =
+    sum_like_xla(masked_off, off)`` ([B, 3, N] each: the inliers' and all
+    points' offsets from the centroid ``cen`` [B, 3]), then
+    ``plane_tail_plain(cov, cen, n_inl, normal, d, vmapped)``.  Returns
+    (normal [B, 3], d [B]).  CPU tensors take those two plain versions;
+    CUDA tensors one launch of the sum kernel (``csrc/xla_sum.cu``), one
+    thread-block cluster a scan owning its nine sums, with the tail
+    (``csrc/plane_tail.cuh``) as its epilogue."""
+    if masked_off.device.type == "cpu":
+        return plane_tail_plain(sum_like_xla_plain(masked_off, off), cen, n_inl, normal, d,
+                                vmapped)
+    bsz, n = masked_off.shape[0], masked_off.shape[-1]
+    if masked_off.shape != (bsz, 3, n) or off.shape != (bsz, 3, n) or cen.shape != (bsz, 3) or \
+            n_inl.shape != (bsz,) or normal.shape != (bsz, 3) or d.shape != (bsz,):
+        raise ValueError("covariance_tail: masked_off and off [B, 3, N], cen [B, 3], n_inl [B], "
+                         "normal [B, 3], d [B]")
+    cen, normal, d = cen.contiguous(), normal.contiguous(), d.contiguous()
+    index = masked_off.get_device()  # -1 for a CPU tensor
+    if any(t.get_device() != index or t.dtype != torch.float32
+           for t in (off, cen, n_inl, normal, d)) or masked_off.dtype != torch.float32:
+        raise ValueError("covariance_tail: float32 operands on one CUDA device")
+    out_n = torch.empty_like(normal)
+    out_d = torch.empty_like(d)
+    if bsz:
+        plan = _launch_plan(index, bsz, 3, 3, n, True, None)
+        args = _SUM_ARGS.pack(
+            masked_off.data_ptr(), *masked_off.stride(), off.data_ptr(), *off.stride(), bsz, 3,
+            3, n, *plan, 0, _build.stream_handle(), cen.data_ptr(), n_inl.data_ptr(),
+            n_inl.stride(0), normal.data_ptr(), d.data_ptr(), int(vmapped), out_n.data_ptr(),
+            out_d.data_ptr())
+        _build.check(_build.kernels().pcp_covariance_tail(args), "covariance_tail")
+        _build.LAUNCHES["covariance_tail"] += 1
     return out_n, out_d
 
 
@@ -241,16 +266,16 @@ def _plane_once(cloud: Cloud, u: torch.Tensor, config: PipelineConfig, axis, vma
     # refinement (setOptimizeCoefficients); the reference's lax.cond on
     # ``found`` becomes a select over an unconditional computation.  Its
     # sums in XLA:CPU's order (``sum_like_xla``): the inlier count and the
-    # centroid's sums in one call, the covariance's nine in another
-    # (products rounded, then summed); the per-scan 3x3 tail in one more
+    # centroid's sums in one call, the covariance's nine (products rounded,
+    # then summed) and the per-scan 3x3 tail in another
     r_normal, r_d, r_in = normal, d, inliers
     for _ in range(config.ransac_refine_iters):
         s4 = sum_like_xla(torch.where(r_in[:, None, :], pts1, 0.0))  # [B, 4]: sx, sy, sz, n
         n_inl = s4[:, 3]
         cen = s4[:, :3] / torch.clamp_min(n_inl, 3.0)[:, None]
         off = pts1[:, :3] - cen[..., None]  # [B, 3, N]
-        cov = sum_like_xla(torch.where(r_in[:, None, :], off, 0.0), off)  # [B, 3, 3]
-        nrm, nd = plane_tail(cov, cen, n_inl, r_normal, r_d, vmapped)
+        nrm, nd = covariance_tail(torch.where(r_in[:, None, :], off, 0.0), off, cen, n_inl,
+                                  r_normal, r_d, vmapped)
         new_in = (torch.abs(_plane_dist(x, y, z, nrm[:, 0, None], nrm[:, 1, None],
                                         nrm[:, 2, None], nd[:, None])) < thresh) & valid
         r_normal, r_d = nrm, nd

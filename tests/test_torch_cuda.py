@@ -393,15 +393,27 @@ def test_grid_loop_takes_a_batch(dev):
     ((32, 3, 24_576), True),  # RANSAC's covariance, a batch of 32
     ((2, 3, 20), True),  # a short product: fused into the plain reduce
     ((1, 3, 16_384), True),
-    ((1, 3, 262_144), True),  # the covariance at fullscale: two launches
+    ((1, 3, 262_144), True),  # the covariance at fullscale
     ((2, 100_003), False),  # a long row of odd length: both levels padded
     ((24_576,), False),  # one row, [N] -> []
     ((100_003,), False),
+    ((1, 4, 24_576), False),  # the refinement's masked sums
+    ((9, 1024), False),  # more rows than a cluster's tile
+    ((2, 5, 4096), True),  # more rows of a and b than a tile
+    ((2, 2, 3, 1000), True),  # two leading dims: [L, S, N] rows by reshape
+    *[((1, 3, n), True) for n in (1, 31, 32, 33, 1023, 1024, 1025, 32_768, 32_769, 2**20 + 7)],
+    *[((2, n), False) for n in (1, 31, 32, 33, 1023, 1024, 1025, 32_768, 32_769, 2**20 + 7)],
 ])
 def test_sum_kernel_equals_plain(dev, shape, prod):
     """The sum kernel (``ops.sum_like_xla``) against its plain version in
-    bit patterns, contiguous and strided (a transposed view, read in place)."""
-    from pointcloud_obstacle_processing_tpu_torch.ops import sum_like_xla, sum_like_xla_plain
+    bit patterns, one launch a call at every length, contiguous and strided
+    (a transposed view, read in place), at every cluster size the plan
+    takes."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import (
+        _xla_sum_kernel,
+        sum_like_xla,
+        sum_like_xla_plain,
+    )
 
     rng = np.random.default_rng(shape[-1])
     a = torch.tensor((rng.standard_normal(shape) * 10).astype(np.float32), device=dev)
@@ -409,9 +421,12 @@ def test_sum_kernel_equals_plain(dev, shape, prod):
     b = torch.tensor(rng.standard_normal(shape).astype(np.float32), device=dev) if prod else None
     _build.reset_launch_counts()
     got = sum_like_xla(a, b)
-    assert _build.LAUNCHES["xla_sum"] == (2 if shape[-1] > 32_768 else 1)
+    assert _build.LAUNCHES["xla_sum"] == 1
     assert got.shape == sum_like_xla_plain(a.cpu(), None if b is None else b.cpu()).shape
-    _eq(got.view(torch.int32), sum_like_xla_plain(a, b).view(torch.int32))
+    want = sum_like_xla_plain(a, b)
+    _eq(got.view(torch.int32), want.view(torch.int32))
+    for blocks in (1, 2, 8, 16):
+        _eq(_xla_sum_kernel(a, b, blocks).view(torch.int32), want.view(torch.int32))
     if a.dim() == 1:
         return
     at = a.transpose(-1, -2).contiguous().transpose(-1, -2)  # the same values, strided
@@ -419,33 +434,95 @@ def test_sum_kernel_equals_plain(dev, shape, prod):
     _eq(sum_like_xla(at, bt).view(torch.int32), got.view(torch.int32))
 
 
-@pytest.mark.parametrize("vmapped", [False, True])
-def test_plane_tail_kernel_equals_plain(dev, vmapped):
-    """The refinement's 3x3 tail kernel against its plain version in bit
-    patterns, on 512 covariances of plane-like clouds, with some scans of
-    fewer than 3 inliers (the plane stays)."""
-    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+def test_sum_kernel_transposed_and_broadcast_operands(dev):
+    """Operands read in place: the clustering's centre (a transposed [C, 3]
+    buffer, value stride 3), a broadcast row (stride 0), an offset view
+    that is not 16-byte aligned, and a batch of such rows."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import sum_like_xla, sum_like_xla_plain
 
-    rng = np.random.default_rng(int(vmapped))
-    b = 512
-    covs, normals, cens = [], [], []
-    for _ in range(b):
-        m = int(rng.integers(20, 2000))
-        pts = np.stack([rng.uniform(0, 4, m), rng.uniform(0, 3, m),
-                        rng.normal(0, 0.02, m) + rng.normal(0, 0.1) * rng.uniform(0, 4, m)], -1)
-        d = pts - pts.mean(0)
-        covs.append((d.T @ d).astype(np.float32))
-        cens.append(pts.mean(0).astype(np.float32))
-        n0 = rng.normal(0, 0.1, 3) + [0, 0, 1]
-        normals.append((n0 / np.linalg.norm(n0)).astype(np.float32))
-    args = [torch.tensor(np.stack(x), device=dev) for x in (covs, cens)]
-    n_inl = torch.tensor(rng.integers(0, 3000, b).astype(np.float32), device=dev)
-    normal = torch.tensor(np.stack(normals), device=dev)
+    rng = np.random.default_rng(5)
+    pts = torch.tensor(rng.standard_normal((4, 16_384, 3)).astype(np.float32), device=dev)
+    row = torch.tensor(rng.standard_normal(24_576).astype(np.float32), device=dev)
+    flat = torch.tensor(rng.standard_normal(3 * 24_576 + 4).astype(np.float32), device=dev)
+    cases = [
+        (pts[0].transpose(0, 1), None),  # [3, C], value stride 3
+        (pts.transpose(1, 2), None),  # [4, 3, C]
+        (pts[:1, :1024].transpose(1, 2), pts[:1, :1024].transpose(1, 2)),
+        (row.expand(3, -1), None),  # three rows of one buffer (row stride 0)
+        (flat[1:-3].reshape(3, 24_576), None),  # 4 bytes past alignment
+        (flat[1:-3].reshape(1, 3, 24_576), flat[:-4].reshape(1, 3, 24_576)),
+    ]
+    for a, b in cases:
+        _build.reset_launch_counts()
+        got = sum_like_xla(a, b)
+        assert _build.LAUNCHES["xla_sum"] == 1
+        _eq(got.view(torch.int32), sum_like_xla_plain(a, b).view(torch.int32))
+
+
+def test_sum_kernel_on_two_streams(dev):
+    """Two streams summing different rows at once (the node launches on
+    several): each result equals the plain version."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import sum_like_xla, sum_like_xla_plain
+
+    rng = np.random.default_rng(9)
+    ins = [tuple(torch.tensor(rng.standard_normal((1, 3, 262_144)).astype(np.float32),
+                              device=dev) for _ in range(2)) for _ in range(2)]
+    streams = [torch.cuda.Stream() for _ in ins]
+    torch.cuda.synchronize()
+    outs = [[] for _ in ins]
+    for _ in range(20):
+        for (a, b), st, out in zip(ins, streams, outs):
+            with torch.cuda.stream(st):
+                out.append(sum_like_xla(a, b))
+    torch.cuda.synchronize()
+    for (a, b), out in zip(ins, outs):
+        want = sum_like_xla_plain(a, b).view(torch.int32)
+        for got in out:
+            _eq(got.view(torch.int32), want)
+
+
+def _tail_inputs(dev, b, n, seed):
+    """``covariance_tail``'s operands for ``b`` scans of plane-like clouds
+    of 20 to ``n`` points (padded with zeros), each with its inlier mask and
+    a plane near z; some scans have fewer than 3 inliers (the plane stays)."""
+    rng = np.random.default_rng(seed)
+    m = rng.integers(20, n + 1, b)
+    live = np.arange(n)[None, :] < m[:, None]
+    pts = np.stack([rng.uniform(0, 4, (b, n)), rng.uniform(0, 3, (b, n)),
+                    rng.normal(0, 0.02, (b, n))], 1)
+    pts[:, 2] += rng.normal(0, 0.1, (b, 1)) * pts[:, 0]
+    pts = np.where(live[:, None], pts, 0.0).astype(np.float32)
+    inl = live & (rng.random((b, n)) < 0.8)
+    inl[rng.random(b) < 0.05, 2:] = False
+    pts1 = torch.tensor(np.concatenate([pts, live[:, None].astype(np.float32)], 1), device=dev)
+    r_in = torch.tensor(inl, device=dev)
+    s4 = torch.where(r_in[:, None], pts1, 0.0).sum(-1)
+    n_inl = s4[:, 3]
+    cen = s4[:, :3] / torch.clamp_min(n_inl, 3.0)[:, None]
+    off = pts1[:, :3] - cen[..., None]
+    normal = rng.normal(0, 0.1, (b, 3)) + [0, 0, 1]
+    normal = torch.tensor((normal / np.linalg.norm(normal, axis=1, keepdims=True))
+                          .astype(np.float32), device=dev)
     d = torch.tensor(rng.standard_normal(b).astype(np.float32), device=dev)
+    return torch.where(r_in[:, None], off, 0.0), off, cen, n_inl, normal, d
+
+
+@pytest.mark.parametrize("b,n", [(512, 2048), (1, 24_576), (32, 24_576), (1, 262_144), (3, 20)])
+@pytest.mark.parametrize("vmapped", [False, True])
+def test_covariance_tail_equals_plain(dev, b, n, vmapped):
+    """The covariance launch with the 3x3 tail as its epilogue against
+    ``sum_like_xla_plain`` then ``plane_tail_plain``, in bit patterns: 512
+    plane-like clouds (some of fewer than 3 inliers; clusters of one
+    block), the flagship and fullscale rows (16 blocks), the batch of 32 (4
+    blocks) and a short row; one launch a call."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac, sum_like_xla_plain
+
+    args = _tail_inputs(dev, b, n, b + n + int(vmapped))
     _build.reset_launch_counts()
-    got = ransac.plane_tail(*args, n_inl, normal, d, vmapped)
-    assert _build.LAUNCHES["plane_refine"] == 1
-    want = ransac.plane_tail_plain(*args, n_inl, normal, d, vmapped)
+    got = ransac.covariance_tail(*args, vmapped)
+    assert _build.LAUNCHES["covariance_tail"] == 1 and _build.LAUNCHES["xla_sum"] == 0
+    masked, off, *rest = args
+    want = ransac.plane_tail_plain(sum_like_xla_plain(masked, off), *rest, vmapped)
     for g, w in zip(got, want):
         _eq(g.view(torch.int32), w.view(torch.int32))
 
