@@ -5,7 +5,9 @@ batch of 32, the segmented scan and weighted binning entry points, the
 node (sensor frames to a published grid) at the flagship and fullscale
 widths, the multi-device paths (point-sharded scans, the voxel-table
 merges, data parallel) on 4 ranks sharing the card, a batch of two
-fullscale windows, and the flagship scan with each kNN engine.
+fullscale windows, the flagship scan with each kNN engine, and the voxel
+engines off the sort engine's lattice order (``mxu``, ``scatter``, Morton,
+the 3-key fallback).
 
     python3 chip_smoke.py
 
@@ -171,6 +173,28 @@ Phases (any failure raises and exits non-zero before the last line):
    reference): none launches K3, each card run equals the port's CPU run
    (grid, counts and flags exact, the kNN mean distances bitwise), and
    each engine's kNN stage p50 (CUDA events) on a ``knn engines:`` line.
+
+12. The voxel engines, each path with the counts from 0 and held against the
+   same run through the plain versions on the CPU (the crosscheck bar,
+   every point's cluster, the voxel cloud and the voxel partials exact):
+   the flagship scan of scene 0 under ``voxel_binning="mxu"`` (payload
+   packing off, ``voxel_sum_precision`` "fast" and "exact") and
+   ``"scatter"`` and under ``voxel_order="morton"``; the fullscale window
+   under ``scatter`` and Morton (``mxu`` must raise there, its lattice
+   past 2^19 bins; under Morton the band may overflow, as on the CPU);
+   the flagship scan at a 0.01 leaf (452 x 380 x 77 bins, past 2^23: the
+   3-key fallback; 98,304 voxel slots, a 16,384-point cluster buffer);
+   and a ``batched_pipeline`` of 4 flagship scans under ``scatter``, each
+   equal to its single card run.  Checks the segment fold kernel's
+   launches (one a split term for ``mxu``, one for ``scatter``, the
+   fallback and the batch), K2 on the dense bins and K1 for Morton; prints
+   the scan p50 (5 scans, 3 at fullscale), the voxel stage's p50 beside the
+   sort engine's, the host syncs and the peak device memory of each path
+   (``voxel engine`` lines, a ``voxel engines:`` JSON line).  Then the
+   segment fold on every call of each path held bitwise against its plain
+   version on a CPU copy and timed beside its bound, the plain version
+   (CPU) and CUDA's ``index_add_``, K2 on the dense bins and K1 on the
+   Morton keys, checked and timed as in phase 2.
 
 Each phase prints its seconds.
 Its last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -2577,6 +2601,269 @@ def run_knn_engines(dev, card: str) -> dict:
     return out
 
 
+# ---- phase 12: the voxel engines off the sort engine's lattice order --------
+
+VOXEL_PATHS = (  # name -> (base preset, overrides, timed scans)
+    ("flagship_mxu_fast", "flagship", dict(voxel_binning="mxu", voxel_payload_packing=False), 5),
+    ("flagship_mxu_exact", "flagship", dict(voxel_binning="mxu", voxel_payload_packing=False,
+                                            voxel_sum_precision="exact"), 5),
+    ("flagship_scatter", "flagship", dict(voxel_binning="scatter", voxel_payload_packing=False),
+     5),
+    ("flagship_morton", "flagship", dict(voxel_order="morton"), 5),
+    ("fullscale_scatter", "fullscale", dict(voxel_binning="scatter",
+                                            voxel_payload_packing=False), 3),
+    ("fullscale_morton", "fullscale", dict(voxel_order="morton"), 3),
+    # a leaf past 2^23 lattice bins (452 x 380 x 77): the 3-key fallback;
+    # capacities raised until no flag is set on scene 0
+    ("fine_leaf", "flagship", dict(downsample_leaf_size=0.01, voxel_payload_packing=False,
+                                   max_voxels=98_304, cluster_capacity=16_384), 5),
+)
+VOXEL_BATCH = 4  # flagship scans of one scatter batch (scenes 0-3)
+
+
+def _fold_row(path, calls):
+    """The segment fold kernel on every call a run made to it, each held
+    bitwise (int32 views) against its plain version on a CPU copy; the
+    first timed beside its bound, the plain version on the CPU (host clock)
+    and CUDA's ``index_add_`` of the same rows (atomics, run-dependent
+    order: the library call, used nowhere in the port)."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import _build
+    from pointcloud_obstacle_processing_tpu_torch.ops.segfold import (
+        segment_fold,
+        segment_fold_plain,
+    )
+
+    err = 0.0
+    for i, ((dest, vals, bins), _) in enumerate(calls):
+        _build.reset_launch_counts()
+        got = segment_fold(dest, vals, bins)
+        if _build.LAUNCHES["segment_fold"] != 1:
+            raise AssertionError(f"segment_fold {path} call {i}: {_build.LAUNCHES}")
+        err = max(err, _assert_equal(f"segment_fold {path} call {i}", got.view(torch.int32),
+                                     segment_fold_plain(dest.cpu(), vals.cpu(), bins)
+                                     .view(torch.int32)))
+    (dest, vals, bins), _ = calls[0]
+    c, n = vals.shape[-2:]
+    scans = dest[..., 0].numel()
+    dest_cpu, vals_cpu = dest.cpu(), vals.cpu()
+    keep = (dest >= 0) & (dest < bins)
+    base = torch.arange(scans, device=dest.device).reshape(*dest.shape[:-1], 1) * (bins + 1)
+    idx = (torch.where(keep, dest.long(), bins) + base).reshape(-1)
+    rows = vals.transpose(-1, -2).reshape(-1, c).contiguous()
+    runs = int(((dest[..., 1:] != dest[..., :-1]) & keep[..., 1:]).sum()) + int(keep[..., 0].sum())
+    row = _row(
+        "segment_fold", path,
+        f"{scans} x {n} rows, {c} channels, {bins} bins a scan, {runs} runs; "
+        f"{len(calls)} call(s) a run, all equal; plain on the CPU",
+        "segment_fold.cu", "voxel.py:542-544 (plain XLA scatter-add, no TPU kernel)", err,
+        lambda: segment_fold(dest, vals, bins), lambda: None,
+        # dest and the values read once, the zeroed output written once
+        _bound(scans * n * (4 + 4 * c) + scans * bins * 4 * c, scans * n * c),
+        library_fn=lambda: torch.zeros(scans * (bins + 1), c, device=dest.device).index_add_(
+            0, idx, rows),
+        plain_reps=1,
+    )
+    reps = 3
+    t = time.perf_counter()
+    for _ in range(reps):
+        segment_fold_plain(dest_cpu, vals_cpu, bins)
+    row["plain_ms"] = (time.perf_counter() - t) * 1e3 / reps
+    return row
+
+
+def _voxel_partials_equal(label, args, kw):
+    """The voxel stage's partials on the card equal the CPU run's bitwise
+    (keys, sums, counts, num, overflow), from the scan's own cropped cloud."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import voxel
+
+    cloud, rest = args[0], args[1:]
+    got = voxel.voxel_partials(cloud, *rest, **kw)
+    want = voxel.voxel_partials(cloud.to("cpu"), *rest, **kw)
+    for f in ("keys", "sums", "counts", "num_voxels", "overflow"):
+        _assert_equal(f"{label} voxel partials {f}", getattr(got, f), getattr(want, f))
+    return int(want.num_voxels.reshape(-1)[0])
+
+
+def run_voxel_engines(dev, card: str) -> tuple[dict, list[dict]]:
+    """Phase 12: the flagship scan under the ``mxu`` (fast and exact) and
+    ``scatter`` engines and the Morton order, the fullscale window under
+    ``scatter`` and Morton, the flagship scan at a 0.01 leaf (the 3-key
+    fallback), and a scatter batch of 4 flagship scans.  Each card run,
+    counts from 0, against the same run through the plain versions on the
+    CPU (the crosscheck bar; the voxel partials bitwise); the kernels each
+    engine names launched (segment fold once a split term, K2 on the dense
+    bins, K1 for Morton); scan p50 with the voxel stage's p50 beside the
+    sort engine's and the peak device memory; the segment fold, K1 and K2
+    checked and timed on each path's own inputs."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import Cloud, _build, pipeline
+    from pointcloud_obstacle_processing_tpu_torch.models import (
+        FLAGSHIP_CONFIG,
+        REFERENCE_FULLSCALE_CONFIG,
+        ObstacleDetectionModel,
+    )
+    from pointcloud_obstacle_processing_tpu_torch.ops import histogram, voxel
+    from pointcloud_obstacle_processing_tpu_torch.ops.ransac import draw_from_uniform
+    from pointcloud_obstacle_processing_tpu_torch.parallel.sharding import batched_pipeline
+    from pointcloud_obstacle_processing_tpu_torch.pipeline import process_scan
+    from pointcloud_obstacle_processing_tpu_torch.types import scan_of
+    from pointcloud_obstacle_processing_tpu_torch.utils.scene import make_fullscale_window
+
+    scene = _scene(SCENE_SEEDS[0])
+    fs_pts, fs_valid = make_fullscale_window(FULLSCALE_POINTS)
+    inputs = {
+        "flagship": (FLAGSHIP_CONFIG, Cloud.pad_to(scene.points[: FLAGSHIP_CONFIG.max_points],
+                                                  FLAGSHIP_CONFIG.max_points)),
+        "fullscale": (REFERENCE_FULLSCALE_CONFIG,
+                      Cloud(points=torch.tensor(fs_pts), valid=torch.tensor(fs_valid))),
+    }
+    # the fullscale lattice (302 x 254 x 52 bins) is past the mxu engine's 2^19
+    cfg = REFERENCE_FULLSCALE_CONFIG.replace(voxel_binning="mxu", voxel_payload_packing=False)
+    try:
+        ObstacleDetectionModel(cfg, device=dev)(inputs["fullscale"][1].to(dev))
+    except ValueError as e:
+        if "binning='mxu' requires K <= 524288" not in str(e):
+            raise
+        print(f"fullscale mxu refused as the reference refuses it: {e}")
+    else:
+        raise AssertionError("fullscale mxu: the lattice past 2^19 bins was not refused")
+
+    def stage(run):
+        """The voxel stage's call as the pipeline makes it, and its output."""
+        seen, fn = [], pipeline.voxel_downsample
+        pipeline.voxel_downsample = lambda *a, **kw: seen.append((a, kw)) or fn(*a, **kw)
+        try:
+            out = run()
+        finally:
+            pipeline.voxel_downsample = fn
+        return out, seen[0]
+
+    launches, rows, summary = {}, [], {}
+    for name, base, override, timed in VOXEL_PATHS:
+        t0 = time.perf_counter()
+        base_cfg, cloud = inputs[base]
+        cfg = base_cfg.replace(**override)
+        model = ObstacleDetectionModel(cfg, device=dev)
+        draw_cuda, draw_cpu = _draws(cfg, dev)
+        gc = cloud.to(dev)
+        engine = "morton" if cfg.voxel_order == "morton" else (
+            "fallback" if name == "fine_leaf" else cfg.voxel_binning)
+        folds = {"mxu": 2 if cfg.voxel_sum_precision == "exact" else 1, "scatter": 1,
+                 "fallback": 1, "morton": 0}[engine]
+        path = ["knn_mean", "compact_gather", "xla_sum", "covariance_tail"]
+        path += ["runreduce"] if engine == "morton" else ["segment_fold"]
+        path += ["cluster_sweep_banded"] if cfg.cluster_band_window else (
+            ["cluster_grid_loop"] if cfg.cluster_capacity > 2048 else ["cluster_loop"])
+        (res, counts), (vargs, vkw) = stage(lambda: _drive(model, gc, draw_cuda, path))
+        want_k1 = 1 if engine == "morton" else 0
+        want_k2 = 2 if engine in ("mxu", "scatter") else 1  # the dense bins', the cluster buffer's
+        if counts["segment_fold"] != folds or counts["runreduce"] != want_k1 or \
+                counts["compact_gather"] != want_k2:
+            raise AssertionError(f"{name}: launches {counts}: expected {folds} segment fold(s), "
+                                 f"{want_k1} K1, {want_k2} K2")
+        launches[name] = counts
+        for k in ("voxel_overflow", "cluster_overflow"):
+            if bool(getattr(res.stats, k)):
+                raise AssertionError(f"{name}: {k} set")
+        t = time.perf_counter()
+        ref = ObstacleDetectionModel(cfg, device="cpu")(cloud, draw=draw_cpu)
+        cpu_s = time.perf_counter() - t
+        err = _compare(name, res, ref)
+        _assert_equal(f"{name} point_cluster", res.clusters.point_cluster,
+                      ref.clusters.point_cluster)
+        _assert_equal(f"{name} voxel cloud", res.voxel_cloud.points, ref.voxel_cloud.points)
+        nv = _voxel_partials_equal(name, vargs, vkw)
+        if int(res.stats.num_clusters) < 1:
+            raise AssertionError(f"{name}: no cluster found")
+
+        times = _time_scans(model, [gc], draw_cuda, timed)
+        n_sync, sres = _count_syncs(model, gc, draw_cuda)
+        _check_syncs(name, n_sync, sres, expected=None if cfg.cluster_band_window else 0)
+        vd = pipeline.voxel_downsample
+        stage_ms = _p50_ms(lambda: vd(*vargs, **vkw), 5)
+        # the same cropped cloud through the preset's own engine (the sort engine)
+        sort_args = (*vargs[:4], base_cfg.voxel_sum_precision, base_cfg.voxel_binning,
+                     base_cfg.voxel_order, base_cfg.voxel_payload_packing)
+        sort_ms = None if name == "fine_leaf" else _p50_ms(lambda: vd(*sort_args), 5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model(gc, draw=draw_cuda)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        flags = {k: bool(getattr(res.stats, k).item()) for k in _FLAGS}
+        p50 = statistics.median(times)
+        summary[name] = dict(scan_p50_ms=p50, voxel_stage_p50_ms=stage_ms,
+                             sort_engine_stage_p50_ms=sort_ms, peak_mib=peak / 2**20,
+                             voxels=nv, flags=flags, host_syncs=n_sync)
+        print(f"voxel engine {name}: cuda == cpu plain (grid, counts, flags, point clusters, "
+              f"voxel cloud and partials exact; centroid max |d| {err:.2e}); {nv} voxels; flags "
+              f"{flags}; scan p50 {p50:.3f} ms over {len(times)} scans (min {min(times):.3f}, "
+              f"max {max(times):.3f}); voxel stage p50 {stage_ms:.3f} ms, the sort engine's "
+              f"{'n/a (the lattice does not pack)' if sort_ms is None else f'{sort_ms:.3f} ms'}; "
+              f"host syncs {n_sync}; peak device memory {peak / 2**20:.1f} MiB; launches "
+              f"{counts}; cpu plain run {cpu_s:.1f} s [{card}]")
+
+        def once():
+            model(gc, draw=draw_cuda)
+
+        if engine == "morton":
+            (k1,) = _capture(voxel, "sorted_run_reduce", once)
+            rows.append(_k1_batch_row(name, *k1))
+        else:
+            terms: list = []  # the mxu engine folds in ops.histogram, one call a term
+            calls = _capture(voxel, "segment_fold",
+                             lambda: terms.extend(_capture(histogram, "segment_fold", once)))
+            rows.append(_fold_row(name, calls + terms))
+            if engine != "fallback":
+                (k2,) = _capture(voxel, "compact_and_gather_exact", once)
+                rows.append(_k2_batch_row(name, k2[0]))
+        print(f"voxel engine {name}: {time.perf_counter() - t0:.1f} s")
+
+    # a scatter batch of flagship scans: one segment fold launch a batch
+    name = "flagship_scatter_batch"
+    cfg = FLAGSHIP_CONFIG.replace(voxel_binning="scatter", voxel_payload_packing=False)
+    n = cfg.max_points
+    pts = np.zeros((VOXEL_BATCH, n, 3), np.float32)
+    valid = np.zeros((VOXEL_BATCH, n), bool)
+    for b in range(VOXEL_BATCH):
+        p = _scene(b).points[:n]
+        pts[b, : len(p)] = p
+        valid[b, : len(p)] = True
+    clouds = Cloud(points=torch.tensor(pts, device=dev), valid=torch.tensor(valid, device=dev))
+    u = torch.tensor(np.random.default_rng(RANSAC_SEED).random(
+        (VOXEL_BATCH, cfg.max_planes, cfg.ransac_hypotheses, 3)).astype(np.float32), device=dev)
+    pipe = batched_pipeline(cfg)
+    _build.reset_launch_counts()
+    res = pipe(clouds, draw=draw_from_uniform(u))
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    if counts["segment_fold"] != 1 or counts["runreduce"] or counts["compact_gather"] != 2:
+        raise AssertionError(f"{name}: launches {counts}: one segment fold and two K2 a batch")
+    launches[name] = counts
+    worst = 0.0
+    for b in range(VOXEL_BATCH):
+        one = process_scan(scan_of(clouds, b), cfg, draw=draw_from_uniform(u[b]))
+        worst = max(worst, _compare(f"{name} scan {b}", scan_of(res, b), one))
+        _assert_equal(f"{name} scan {b} point_cluster", scan_of(res, b).clusters.point_cluster,
+                      one.clusters.point_cluster)
+    times = _time_scans(lambda c, draw: pipe(c, draw=draw), [clouds], draw_from_uniform(u), 5)
+    p50 = statistics.median(times)
+    summary[name] = dict(batch_p50_ms=p50, scans=VOXEL_BATCH)
+    print(f"voxel engine {name}: each scan == its single-scan card run (grid, counts, flags, "
+          f"point clusters exact; centroid max |d| {worst:.2e}); batch p50 {p50:.3f} ms "
+          f"({VOXEL_BATCH / p50 * 1e3:.1f} scans per second); launches {counts} [{card}]")
+    rows.append(_fold_row(name, _capture(voxel, "segment_fold",
+                                         lambda: pipe(clouds, draw=draw_from_uniform(u)))))
+    for r in rows:
+        print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: equal to plain; {_times(r)} "
+              f"[{card}]")
+    print("voxel engines: " + json.dumps({"card": card, "paths": summary}))
+    return launches, rows
+
+
 def main() -> None:
     import torch
 
@@ -2657,6 +2944,11 @@ def main() -> None:
     rows += fb_rows
     run_knn_engines(dev, card)
     print(f"phase 11 (fullscale batch, kNN engines): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    voxel_launches, voxel_rows = run_voxel_engines(dev, card)
+    launches.update(voxel_launches)
+    rows += voxel_rows
+    print(f"phase 12 (voxel engines): {time.perf_counter() - t:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["path"]][r["name"]]

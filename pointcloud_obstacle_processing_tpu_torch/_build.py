@@ -50,7 +50,7 @@ NVCC_FLAGS = [
 LAUNCHES = {"runreduce": 0, "runreduce_counts": 0, "compact_gather": 0, "knn_mean": 0,
             "knn_mean_rows": 0, "cluster_loop": 0, "cluster_grid_loop": 0, "cluster_sweep": 0,
             "cluster_sweep_rows": 0, "cluster_sweep_banded": 0, "cluster_sweep_banded_rows": 0,
-            "segscan": 0, "binned_sum": 0, "xla_sum": 0, "covariance_tail": 0}
+            "segscan": 0, "binned_sum": 0, "xla_sum": 0, "covariance_tail": 0, "segment_fold": 0}
 
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -94,6 +94,8 @@ _SIGNATURES = {
     "pcp_xla_sum_max_blocks": [_I, _I, _I],
     # the arguments packed as SumArgs, covariance_tail's operands included
     "pcp_covariance_tail": [ctypes.c_char_p],
+    # dest, vals, scans, n, c, bins, out (zeroed by the call), stream
+    "pcp_segment_fold": [_VP, _VP, _I, _I, _I, _I, _VP, _VP],
 }
 
 BUILD_SECONDS: list[float] = []  # wall time of each build this process ran

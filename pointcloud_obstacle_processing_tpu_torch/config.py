@@ -3,9 +3,7 @@
 A copy of ``pointcloud_obstacle_processing_tpu/config.py``: the reference
 package's ``__init__`` imports JAX, so even its pure-Python config cannot be
 imported where JAX is absent.  ``tests/test_torch_config_scene.py`` holds
-the copy equal to the original.  The one addition: ``refuse_unported()``
-(which ``validate()`` calls) refuses the engines the PyTorch port does not
-carry yet.
+the copy equal to the original, ``validate()`` included.
 
 TPU-native re-design of the reference node's rosparam surface
 (reference: minibot_cr18/src/obstacle_detection.cpp:940-975 reads ~20 params via
@@ -245,23 +243,6 @@ class PipelineConfig:
                 f"multiple of 128 (got {self.cluster_capacity}); set "
                 "cluster_band_window=0 for the full sweep"
             )
-        self.refuse_unported()
-
-    def refuse_unported(self) -> None:
-        """Refuse the engines the PyTorch port does not carry yet: the
-        ``mxu`` and ``scatter`` voxel engines and the ``morton`` order, each
-        to be ported in a later change.  An engine that was asked for is
-        never swapped for another.  Every entry point of the port calls
-        this (``validate`` too); unlike ``validate`` it leaves alone the
-        configs the reference's ``process_scan`` runs unchecked."""
-        if self.voxel_binning not in ("auto", "sort"):
-            raise ValueError(
-                f"voxel_binning={self.voxel_binning!r} is not ported yet (a later change "
-                "ports it); the port runs the sort engine ('auto' or 'sort')"
-            )
-        if self.voxel_order != "lattice":
-            raise ValueError(f"voxel_order={self.voxel_order!r} is not ported yet (a later "
-                             "change ports 'morton')")
 
 
 # params.yaml:1-31 values — the configuration the robot actually shipped with.

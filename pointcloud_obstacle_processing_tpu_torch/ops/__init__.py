@@ -262,3 +262,16 @@ def _xla_sum_kernel(a: torch.Tensor, b: torch.Tensor | None,
         _build.check(_build.kernels().pcp_xla_sum(args), "xla_sum")
         _build.LAUNCHES["xla_sum"] += 1
     return out
+
+
+# the reference's ``ops`` names (imported last: the stages use the helpers above)
+from .cluster import cluster_centroids, euclidean_cluster  # noqa: E402
+from .compaction import compact, extract_indices  # noqa: E402
+from .filters import crop_box_mask, euclidean_distance, passthrough_mask  # noqa: E402
+from .histogram import histogram2d_mxu, weighted_histogram_mxu  # noqa: E402
+from .occupancy import crop_and_seed, grid_cell_index, grid_cell_xy, mark_obstacles  # noqa: E402
+from .outliers import knn_mean_distances, remove_statistical_outliers  # noqa: E402
+from .ransac import ransac_plane_once, segment_planes  # noqa: E402
+from .shadow import cast_shadows  # noqa: E402
+from .transforms import RigidTransform, quat_rotate, quat_to_matrix  # noqa: E402
+from .voxel import merge_voxel_partials, voxel_downsample, voxel_partials  # noqa: E402

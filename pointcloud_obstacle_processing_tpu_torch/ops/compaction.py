@@ -3,7 +3,8 @@
 Counterpart of ``pointcloud_obstacle_processing_tpu/ops/compaction.py`` and
 ``ops/pallas_compaction.py``.  ``compact`` moves the valid points of a cloud
 to the front in input order (PCL's index-order extraction) and shrinks the
-buffer to ``capacity_out``; ``compact_and_gather_exact`` is the primitive
+buffer to ``capacity_out`` (through K2, or for a capacity off the 128 grid
+by the reference's rank scatter); ``compact_and_gather_exact`` is the primitive
 under it, which launches the CUDA kernel (``csrc/compaction.cu``) for CUDA
 tensors and takes ``compact_and_gather_plain`` only for CPU tensors.  Both
 take one cloud or a batch (``[B, ...]``, each scan compacted on its own;
@@ -87,14 +88,14 @@ def compact_and_gather_exact(bins: torch.Tensor, occ2d: torch.Tensor, capacity: 
 
 def compact(cloud: Cloud, capacity_out: int | None = None) -> CompactResult:
     """Move valid points to the front, stably; shrink to ``capacity_out``
-    (one cloud, or each scan of a batch)."""
+    (one cloud, or each scan of a batch).  A cloud whose capacity is a
+    multiple of 128 goes through kernel K2; others take the reference's
+    rank scatter (compaction.py:83-101): each valid point's rank among the
+    valid points is its slot, written by a scatter of unique indices."""
     n = cloud.capacity
     capacity_out = capacity_out or n
     if n % 128:
-        raise ValueError(
-            f"compact needs a cloud capacity that is a multiple of 128 (got {n}); "
-            "the reference's rank-scatter form for other capacities is not ported"
-        )
+        return _rank_scatter(cloud, capacity_out)
     pts = cloud.points
     bins = torch.stack(
         [pts[..., 0], pts[..., 1], pts[..., 2], cloud.valid.to(torch.float32)], dim=-2
@@ -110,6 +111,29 @@ def compact(cloud: Cloud, capacity_out: int | None = None) -> CompactResult:
         cloud=Cloud(points=torch.stack(cols, dim=-1), valid=out_valid),
         count=torch.clamp_max(count, capacity_out),
         source_index=torch.where(out_valid, loc, 0),
+        overflow=count > capacity_out,
+    )
+
+
+def _rank_scatter(cloud: Cloud, capacity_out: int) -> CompactResult:
+    """``compact`` for capacities off the 128 grid: slots past the count
+    hold zeros (source index 0); a slot's point is the input point as it
+    is (the reference's ``.at[ids].set``)."""
+    valid = cloud.valid
+    lead, n = valid.shape[:-1], valid.shape[-1]
+    pos = torch.cumsum(valid.to(torch.int32), dim=-1, dtype=torch.int32) - 1
+    ids = torch.where(valid & (pos < capacity_out), pos, capacity_out).long()  # the drop slot
+    pts = torch.zeros(*lead, capacity_out + 1, 3, dtype=torch.float32, device=cloud.device)
+    pts.scatter_(-2, ids[..., None].expand(*lead, n, 3), cloud.points)
+    src = torch.zeros(*lead, capacity_out + 1, dtype=torch.int32, device=cloud.device)
+    src.scatter_(-1, ids, torch.arange(n, dtype=torch.int32, device=cloud.device).expand(
+        *lead, n))
+    count = valid.sum(dim=-1, dtype=torch.int32)
+    out_valid = torch.arange(capacity_out, device=cloud.device) < count[..., None]
+    return CompactResult(
+        cloud=Cloud(points=pts[..., :capacity_out, :], valid=out_valid),
+        count=torch.clamp_max(count, capacity_out),
+        source_index=src[..., :capacity_out],
         overflow=count > capacity_out,
     )
 

@@ -1,16 +1,37 @@
-"""Integer histograms and block compaction.
+"""Histograms, weighted bin sums and block compaction.
 
-Counterpart of the two pieces of ``pointcloud_obstacle_processing_tpu/ops/
-mxu_histogram.py`` that the slice runs.  The reference computes histograms
-as bf16 one-hot matmuls only to dodge serialized TPU scatters; on a GPU an
-int32 scatter-add is exact, so ``histogram2d`` counts directly.
+Counterpart of ``pointcloud_obstacle_processing_tpu/ops/mxu_histogram.py``.
+The reference computes histograms as bf16 one-hot matmuls only to dodge
+serialized TPU scatters.  On a GPU an int32 scatter-add is exact, so
+``histogram2d`` (the reference's ``histogram2d_mxu``) counts directly.  The
+weighted sums (``weighted_histogram_blocks``, the ``mxu`` voxel engine's)
+take the reference's bf16 split terms and add each bin's terms in order
+through ``ops.segfold.segment_fold``: XLA:CPU upcasts the one-hot operands
+to float32 and sums each bin's terms, at most 8 significant bits each,
+exactly unless a term lies below about 2^-16 of its bin's sum, so the
+in-order fold is the same function with O(N) work instead of N * K
+(``tests/test_torch_voxel_engines.py`` holds the two bitwise).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["histogram2d", "compact_occupied_blocks"]
+from .segfold import segment_fold
+
+__all__ = ["histogram2d", "histogram2d_mxu", "compact_occupied_blocks",
+           "weighted_histogram_mxu", "weighted_histogram_blocks", "compact_and_gather_blocks",
+           "MXU_HISTOGRAM_MAX_BINS"]
+
+# the reference's bin limit of its one-hot engine (mxu_histogram.py:45): the
+# ``mxu`` voxel engine refuses larger lattices
+MXU_HISTOGRAM_MAX_BINS = 1 << 19
+
+# above this many block rows the reference's compact_and_gather_blocks
+# gathers the values directly (mxu_histogram.py:158)
+_COMPACT_MXU_MAX_BLOCKS = 8192
 
 
 def histogram2d(
@@ -53,3 +74,87 @@ def compact_occupied_blocks(occupied: torch.Tensor, capacity: int, scan_dims: in
     loc = torch.zeros(*occ.shape[:-1], capacity + 1, dtype=torch.int32, device=occ.device)
     loc.scatter_(-1, slot, src)
     return loc[..., :capacity], num
+
+
+histogram2d_mxu = histogram2d  # the reference's name (mxu_histogram.py:54)
+
+
+def _traffic_optimal_hi(k: int) -> int:
+    """The reference's hi-factor width A of a K-bin histogram (its TPU
+    traffic optimum, A ~ sqrt(K/2) in multiples of 64 within [128, 512]);
+    it fixes the [C, A, B] layout of ``weighted_histogram_blocks``."""
+    a = int(math.sqrt(k / 2) / 64 + 0.5) * 64
+    return max(128, min(512, a))
+
+
+def weighted_histogram_blocks(ids: torch.Tensor, weights: torch.Tensor, valid: torch.Tensor,
+                              k: int, hi_size: int | None = None, exact_f32: bool = True):
+    """Per-bin sums of the weights' bf16 split terms in the block form
+    ``([..., C, A, B], a, b)``: position ``hi * b + lo`` is bin id.
+
+    ``ids`` [..., N] int32, ``weights`` [..., N, C] float32, ``valid``
+    [..., N]; a valid row whose id lies outside ``[0, a * b)`` adds nothing
+    (the reference's one-hot rows are zero there).  Each weight enters as
+    ``t0 = bf16(w)`` and, with ``exact_f32``, ``t1 = bf16(w - t0)``; each
+    term's bin sums are folded in row order (a stable sort of the ids,
+    then ``segment_fold``: one launch a term on the card) and the terms'
+    sums added, ``part_t0 + part_t1``, as the reference adds its matmuls
+    (mxu_histogram.py:130-140)."""
+    n, c = weights.shape[-2:]
+    lead = weights.shape[:-2]
+    a = hi_size or _traffic_optimal_hi(k)
+    b = -(-k // a)
+    ids = torch.where(valid, ids, a * b).to(torch.int32)  # a * b: dropped
+    w32 = torch.where(valid[..., None], weights, 0.0)
+    terms = [w32.to(torch.bfloat16).to(torch.float32)]
+    if exact_f32:
+        terms.append((w32 - terms[0]).to(torch.bfloat16).to(torch.float32))
+    skey, order = torch.sort(ids, dim=-1, stable=True)
+    at = order[..., None, :].expand(*lead, c, n)
+    acc = None
+    for t in terms:
+        part = segment_fold(skey, t.transpose(-1, -2).gather(-1, at), a * b)
+        acc = part if acc is None else acc + part
+    return acc.reshape(*lead, c, a, b), a, b
+
+
+def weighted_histogram_mxu(ids: torch.Tensor, weights: torch.Tensor, valid: torch.Tensor, k: int,
+                           hi_size: int | None = None, exact_f32: bool = True) -> torch.Tensor:
+    """``sums[..., j, c]``: the bin sums of ``weighted_histogram_blocks`` as
+    [..., k, C]."""
+    out, a, b = weighted_histogram_blocks(ids, weights, valid, k, hi_size, exact_f32)
+    return out.reshape(*out.shape[:-2], a * b).transpose(-1, -2)[..., :k, :]
+
+
+def compact_and_gather_blocks(bins: torch.Tensor, occ2d: torch.Tensor, capacity: int,
+                              value_terms=2):
+    """The reference's one-hot compaction with its values (mxu_histogram.py:
+    243-345), off every path (the pipeline compacts with kernel K2):
+    ``(loc [..., capacity] int32, num, values [..., capacity, C])`` for the
+    channel-leading ``bins`` [..., C, A*B] and their [..., A, B] occupancy.
+
+    Slots below ``num`` hold the occupied bins in ascending order, slots at
+    or past it bin ``(A - 1) * B``.  Up to 8,192 block rows the reference
+    gathers each value as ``value_terms`` bf16 split terms (an int, or one a
+    channel) through a one-hot product, which is exact: a slot's value is
+    its terms added in order from +0.0, 0 past ``num``.  Above that it
+    gathers the raw values of every slot."""
+    a, b = occ2d.shape[-2:]
+    c = bins.shape[-2]
+    per_channel = [value_terms] * c if isinstance(value_terms, int) else list(value_terms)
+    loc, num = compact_occupied_blocks(occ2d, capacity, scan_dims=occ2d.dim() - 2)
+    real = torch.arange(capacity, device=bins.device) < num[..., None]
+    loc = torch.where(real, loc, (a - 1) * b)
+    v = bins.gather(-1, loc.long()[..., None, :].expand(*loc.shape[:-1], c, capacity))
+    if a > _COMPACT_MXU_MAX_BLOCKS:
+        return loc, num, v.transpose(-1, -2)
+    values = []
+    for ci in range(c):
+        resid, seg = v[..., ci, :], torch.zeros_like(v[..., ci, :])
+        for _ in range(per_channel[ci]):
+            t = resid.to(torch.bfloat16).to(torch.float32)
+            seg = seg + t
+            resid = resid - t
+        # the one live lane's sum among zeros: +0.0 for a -0.0 value
+        values.append(torch.where(real, seg + 0.0, 0.0))
+    return loc, num, torch.stack(values, dim=-1)

@@ -20,6 +20,7 @@ as one ``[B, N, K]`` table.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -43,6 +44,7 @@ __all__ = [
     "ransac_plane_once",
     "segment_planes",
     "covariance_tail",
+    "hypotheses_for_confidence",
     "draw_from_uniform",
     "draw_from_bits",
     "PlaneOnceResult",
@@ -50,6 +52,20 @@ __all__ = [
 ]
 
 Draw = Callable[[int, torch.Tensor], torch.Tensor]
+
+
+def hypotheses_for_confidence(inlier_fraction: float, confidence: float = 0.99,
+                              multiple_of: int = 64) -> int:
+    """The hypothesis batch K equivalent to PCL's adaptive RANSAC count
+    ``log(1 - confidence) / log(1 - w^3)`` (RandomSampleConsensus::
+    computeModel) for the worst inlier fraction ``w`` a deployment must
+    handle, rounded up to a multiple of ``multiple_of`` (the reference's
+    ``hypotheses_for_confidence``, ransac.py:46)."""
+    w3 = max(min(inlier_fraction, 1.0), 1e-6) ** 3
+    if w3 >= 1.0:
+        return multiple_of
+    k = math.log(max(1.0 - confidence, 1e-12)) / math.log(1.0 - w3)
+    return max(multiple_of, int(math.ceil(k / multiple_of)) * multiple_of)
 
 
 def draw_from_uniform(u: torch.Tensor) -> Draw:

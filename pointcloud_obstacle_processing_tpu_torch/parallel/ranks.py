@@ -167,7 +167,8 @@ def _job_run(job: dict, mesh, device):
         def run():
             parts = voxel_partials(Cloud(points=pts[None, sl], valid=valid[None, sl]),
                                    cfg.downsample_leaf_size, cfg.max_voxels, bounds,
-                                   cfg.voxel_payload_packing)
+                                   cfg.voxel_sum_precision, cfg.voxel_binning,
+                                   cfg.voxel_order, cfg.voxel_payload_packing)
             dist_m = _distributed_merge(parts, cfg, axis, spec)
             rep = merge_voxel_partials_packed(
                 axis.all_gather(_pack_keys(parts.keys, parts.counts, spec), dim=-1),

@@ -43,7 +43,9 @@ from ..ops.voxel import (
     _channelled_vals_to_partials,
     _pack_keys,
     _pack_spec,
+    _packable,
     finalize_voxels,
+    merge_voxel_partials,
     merge_voxel_partials_packed,
     voxel_partials,
 )
@@ -220,7 +222,9 @@ def process_scan_point_sharded(cloud_shard: Cloud, config: PipelineConfig,
     more than two shards and a gathered table of at least
     ``_SORT_MERGE_MIN_ROWS`` rows, and it falls back to the replicated
     merge where the key ranges cannot be laid out (``max_voxels`` not a
-    multiple of 128, chunks under 128 rows).  RANSAC
+    multiple of 128, chunks under 128 rows).  A lattice that does not pack
+    into one key gathers the (ix, iy, iz) tables and merges them by the
+    3-key sort (the reference's unpackable branch).  RANSAC
     takes the reference's vmapped form (``dp_sp_pipeline`` vmaps the body
     even at a local batch of one)."""
     if config.voxel_order != "lattice":
@@ -248,21 +252,28 @@ def process_scan_point_sharded(cloud_shard: Cloud, config: PipelineConfig,
               (config.x_max, config.y_max, config.z_max))
     leaf = config.downsample_leaf_size
     parts = voxel_partials(Cloud(points=cloud_shard.points, valid=in_box), leaf,
-                           config.max_voxels, bounds, config.voxel_payload_packing)
-    # voxel_partials refuses a lattice that does not pack into one key, so
-    # the keys always pack (the reference's triple-key gather is its other
-    # engines')
+                           config.max_voxels, bounds, config.voxel_sum_precision,
+                           config.voxel_binning, config.voxel_order,
+                           config.voxel_payload_packing)
     spec = _pack_spec(bounds, leaf)
+    packable = _packable(spec)
     if distribute_merge is None:
         distribute_merge = S > 2 and S * config.max_voxels >= _SORT_MERGE_MIN_ROWS
-    if (distribute_merge and S > 1 and config.max_voxels % 128 == 0
+    if (distribute_merge and S > 1 and packable and config.max_voxels % 128 == 0
             and 2 * config.max_voxels // S >= 128):
         merged = _distributed_merge(parts, config, axis, spec)
-    else:  # keys packed on each rank before the gather: 20 bytes a row
+    elif packable:  # keys packed on each rank before the gather: 20 bytes a row
         merged = merge_voxel_partials_packed(
             axis.all_gather(_pack_keys(parts.keys, parts.counts, spec), dim=-1),
             axis.all_gather(parts.sums, dim=-2), axis.all_gather(parts.counts, dim=-1),
             config.max_voxels, spec, leaf, tables=S)
+    else:  # the (ix, iy, iz) tables gathered, merged by the 3-key sort
+        merged = merge_voxel_partials(
+            VoxelPartials(keys=axis.all_gather(parts.keys, dim=-2),
+                          sums=axis.all_gather(parts.sums, dim=-2),
+                          counts=axis.all_gather(parts.counts, dim=-1),
+                          num_voxels=parts.num_voxels, overflow=parts.overflow),
+            config.max_voxels, bounds, leaf)
     vox = finalize_voxels(merged)
 
     # stages 3-8 on the merged cloud; a shard's own table overflow drops

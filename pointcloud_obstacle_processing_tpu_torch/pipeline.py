@@ -5,9 +5,10 @@ Counterpart of ``pointcloud_obstacle_processing_tpu/pipeline.py``
 (obstacle_detection.cpp:699-927):
 
 1. crop + occupancy histogram + crater/hole detection
-2. VoxelGrid downsample (sort engine, kernel K1), or with
-   ``downsample_input_data`` off the cropped cloud compacted into the
-   ``max_voxels`` slots (kernel K2)
+2. VoxelGrid downsample (``voxel_binning``/``voxel_order``: the sort engine
+   and kernel K1, the dense engines and kernel K2, or the 3-key fallback),
+   or with ``downsample_input_data`` off the cropped cloud compacted into
+   the ``max_voxels`` slots (kernel K2)
 3. statistical outlier removal (``knn_backend``; the banded sorting network
    is kernel K3)
 4. iterative RANSAC plane removal
@@ -67,7 +68,6 @@ def process_scan(cloud: Cloud, config: PipelineConfig,
     ``world_from_sensor`` is the sensor pose for the shadow geometry,
     identity by default; a batch takes one pose for all or one a scan.
     """
-    config.refuse_unported()
     dev = cloud.device
     cloud, single = batch_of(cloud)
     if world_from_sensor is None:
@@ -85,9 +85,10 @@ def process_scan(cloud: Cloud, config: PipelineConfig,
         bounds = (
             (config.x_min, config.y_min, config.z_min),
             (config.x_max, config.y_max, config.z_max),
-        )  # cropped points are in the box: the packed single-key sort applies
+        )  # cropped points are in the box: the lattice key packs
         vox = voxel_downsample(
             cropped, config.downsample_leaf_size, config.max_voxels, bounds,
+            config.voxel_sum_precision, config.voxel_binning, config.voxel_order,
             config.voxel_payload_packing,
         )
         voxel_cloud, n_voxels, voxel_overflow = vox.cloud, vox.num_voxels, vox.overflow

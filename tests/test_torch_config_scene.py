@@ -54,9 +54,6 @@ def test_config_from_dict_copy_matches_reference():
 @pytest.mark.parametrize(
     "override",
     [
-        dict(voxel_binning="mxu"),
-        dict(voxel_binning="scatter"),
-        dict(voxel_order="morton"),
         dict(cluster_band_window=4096, cluster_capacity=4104),  # band needs 128-multiple capacity
     ],
 )
@@ -104,8 +101,9 @@ def test_validate_accepts_the_ported_slice():
 def test_fullscale_lattice_fits_the_sort_engine():
     """The fullscale crop box at the 0.015 leaf packs into 302 x 254 x 52 =
     3,988,816 bins: at most 2^23, so the sort engine applies, and below
-    2^24, so K1's float32 key channel is exact.  The port refuses larger
-    lattices rather than lose key bits."""
+    2^24, so K1's float32 key channel is exact.  A larger lattice does not
+    pack: the dense engines refuse it, as the reference's do (``auto`` takes
+    the 3-key fallback, ``tests/test_torch_voxel_engines.py``)."""
     from pointcloud_obstacle_processing_tpu.ops.voxel import _pack_spec as ref_pack_spec
 
     from pointcloud_obstacle_processing_tpu_torch.ops import voxel
@@ -120,7 +118,7 @@ def test_fullscale_lattice_fits_the_sort_engine():
     cloud = port.Cloud.from_points(np.zeros((128, 3), np.float32), device="cpu")
     big = ((0.0, 0.0, -0.5), (9.0, 7.56, 0.25))  # 4x the bins: past 2^23
     with pytest.raises(ValueError, match="2\\^23"):
-        voxel.voxel_partials(cloud, cfg.downsample_leaf_size, 1024, big)
+        voxel.voxel_partials(cloud, cfg.downsample_leaf_size, 1024, big, binning="scatter")
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -1082,3 +1082,58 @@ def test_cluster_sweep_banded_refuses_mismatched_batches(dev):
         cluster.sweep_jump_banded(pk, valid, labels[:2], 0.16, 128, 256, starts)
     with pytest.raises(ValueError):  # packed points of two scans
         cluster.sweep_jump_banded(pk[:2], valid, labels, 0.16, 128, 256, starts)
+
+
+@pytest.mark.parametrize("scans,n,c,bins", [(1, 100_352, 4, 230_144), (3, 20_000, 8, 4_000),
+                                            (2, 50_000, 1, 7), (1, 1, 3, 5)])
+def test_segment_fold_kernel_equals_plain(dev, scans, n, c, bins):
+    """The segment fold kernel bitwise against its plain version on a CPU
+    copy (``index_add_``, an in-order fold): runs from one row to tens of
+    thousands, rows out of range at both ends dropped, -0.0 values folded
+    to +0.0; one launch for the batch."""
+    from pointcloud_obstacle_processing_tpu_torch.ops.segfold import (
+        segment_fold,
+        segment_fold_plain,
+    )
+
+    rng = np.random.default_rng(n + c)
+    dest = np.sort(rng.integers(-3, bins + 3, (scans, n)), axis=-1).astype(np.int32)
+    vals = (rng.standard_normal((scans, c, n)) * 10.0 ** rng.uniform(-6, 3, (scans, c, n)))
+    vals = vals.astype(np.float32)
+    vals[..., : n // 50] = -0.0
+    d, v = torch.tensor(dest), torch.tensor(vals)
+    before = _build.LAUNCHES["segment_fold"]
+    got = segment_fold(d.to(dev), v.to(dev), bins)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["segment_fold"] == before + 1
+    _eq(got.view(torch.int32), segment_fold_plain(d, v, bins).view(torch.int32))
+
+
+@pytest.mark.parametrize("engine", ["scatter", "mxu_fast", "mxu_exact", "fallback", "morton"])
+def test_voxel_engines_on_the_card_equal_cpu(dev, engine):
+    """Each voxel engine's partials on the card equal the CPU run bitwise,
+    a batch of two scans included, through the kernels it names."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import voxel
+
+    kw, bounds, kernel = {
+        "scatter": (dict(binning="scatter"), "box", "segment_fold"),
+        "mxu_fast": (dict(binning="mxu", sum_precision="fast"), "box", "segment_fold"),
+        "mxu_exact": (dict(binning="mxu", sum_precision="exact"), "box", "segment_fold"),
+        "fallback": ({}, None, "segment_fold"),
+        "morton": (dict(order="morton"), "box", "runreduce"),
+    }[engine]
+    box = ((0.0, 0.0, -0.5), (4.5, 3.78, 0.25))
+    rng = np.random.default_rng(len(engine))
+    pts = rng.uniform(box[0], box[1], (2, 16_384, 3)).astype(np.float32)
+    pts[:, :8000] = pts[:, rng.integers(0, 100, 8000)] + rng.normal(0, 0.01, (2, 8000, 3))
+    pts = np.clip(pts, box[0], box[1]).astype(np.float32)
+    valid = rng.random((2, 16_384)) < 0.9
+    cloud = Cloud(points=torch.tensor(pts), valid=torch.tensor(valid))
+    bounds = box if bounds else None
+    want = voxel.voxel_partials(cloud, 0.04, 4096, bounds, **kw)
+    _build.reset_launch_counts()
+    got = voxel.voxel_partials(cloud.to(dev), 0.04, 4096, bounds, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[kernel] >= 1
+    for f in ("keys", "sums", "counts", "num_voxels", "overflow"):
+        _eq(getattr(got, f), getattr(want, f))

@@ -4,8 +4,7 @@ does not serve, against the JAX package: the in-window exact k-min
 of ``_score_tile`` (``score_tile``) and ``knn_mean_distances``' whole
 dispatch (full width, banded windows, an odd capacity), then
 ``process_scan`` with each ``knn_backend`` and with
-``downsample_input_data`` off against the reference's ``process_scan``, and
-the engines the port still refuses, refused by ``process_scan`` itself.
+``downsample_input_data`` off against the reference's ``process_scan``.
 
 Bar: mean distances bitwise (the clouds are dyadic, so both packages
 center them alike; the engines are exact selections); whole scans by the
@@ -15,8 +14,6 @@ exact sort (``ApproxTopK``'s fallback): held bitwise to ``lax.top_k``
 below, and bitwise the port's exact selection."""
 
 from __future__ import annotations
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -32,10 +29,8 @@ import pointcloud_obstacle_processing_tpu.ops.outliers as ref_outliers
 from pointcloud_obstacle_processing_tpu import Cloud as RefCloud
 from pointcloud_obstacle_processing_tpu.utils.scene import SceneSpec, make_scene
 
-import pointcloud_obstacle_processing_tpu_torch as port
 from pointcloud_obstacle_processing_tpu_torch import Cloud
 from pointcloud_obstacle_processing_tpu_torch.ops import outliers
-from pointcloud_obstacle_processing_tpu_torch.pipeline import process_scan
 
 BIG = np.float32(3.0e38)
 
@@ -196,15 +191,3 @@ def test_process_scan_engines_meet_crosscheck_bar(monkeypatch, case):
     else:
         assert engines == [(backend, width)]
     assert int(p.stats.num_clusters) >= 1
-
-
-@pytest.mark.parametrize("override", [dict(voxel_binning="mxu"), dict(voxel_binning="scatter"),
-                                      dict(voxel_order="morton")])
-def test_process_scan_refuses_unported_engines(override):
-    """The engines still to be ported raise from ``process_scan`` itself,
-    before any work, not only from ``validate``."""
-    cfg = port.PipelineConfig(**{**dataclasses.asdict(SMALL), **override})
-    cloud = Cloud.from_points(np.zeros((cfg.max_points, 3), np.float32),
-                              np.zeros(cfg.max_points, bool))
-    with pytest.raises(ValueError, match="not ported"):
-        process_scan(cloud, cfg, generator=torch.Generator().manual_seed(0))

@@ -92,8 +92,10 @@ def test_model_facade_runs_the_slice_with_its_generator():
     assert int(a.stats.num_planes) >= 1 and int(a.stats.num_clusters) >= 1
     assert np.isfinite(a.centroids.points.xyzr.numpy()).all()
     assert 0 <= a.host_syncs < cfg.cluster_max_iters
-    with pytest.raises(ValueError):  # an engine the port does not carry yet
-        ObstacleDetectionModel(cfg.replace(voxel_binning="mxu"), device="cpu")
+    # the dense mxu engine runs through the facade too (it refused it before
+    # the engine was ported)
+    m = ObstacleDetectionModel(cfg.replace(voxel_binning="mxu"), device="cpu", seed=1)(cloud)
+    np.testing.assert_array_equal(m.grid.data.numpy(), a.grid.data.numpy())
 
 
 def test_slice_with_banded_cluster_sweep_meets_crosscheck_bar():

@@ -107,7 +107,8 @@ def test_voxel_stage_bitwise_equals_reference(packing, leaf):
     r = jax.jit(lambda c: ref_voxel.voxel_downsample(
         c, leaf, cap, BOUNDS, binning="sort", payload_packing=packing))(
         RefCloud.from_points(pts, valid))
-    p = voxel.voxel_downsample(Cloud.from_points(pts, valid), leaf, cap, BOUNDS, packing)
+    p = voxel.voxel_downsample(Cloud.from_points(pts, valid), leaf, cap, BOUNDS,
+                               payload_packing=packing)
     assert int(r.num_voxels) == int(p.num_voxels)
     assert bool(r.overflow) == bool(p.overflow)
     np.testing.assert_array_equal(np.asarray(r.cloud.valid), p.cloud.valid.numpy())
@@ -133,7 +134,8 @@ def test_voxel_keys_take_the_leaf_as_xla_does(leaf):
     r = jax.jit(lambda c: ref_voxel.voxel_downsample(
         c, leaf, cap, BOUNDS, binning="sort", payload_packing=True))(
         RefCloud.from_points(pts, valid))
-    p = voxel.voxel_downsample(Cloud.from_points(pts, valid), leaf, cap, BOUNDS, True)
+    p = voxel.voxel_downsample(Cloud.from_points(pts, valid), leaf, cap, BOUNDS,
+                               payload_packing=True)
     assert int(r.num_voxels) == int(p.num_voxels)
     k = min(int(p.num_voxels), cap)
     np.testing.assert_array_equal(np.asarray(r.cloud.points)[:k], p.cloud.points.numpy()[:k])
@@ -141,9 +143,18 @@ def test_voxel_keys_take_the_leaf_as_xla_does(leaf):
 
 
 def test_voxel_stage_refuses_unpackable_bounds():
+    """Without bounds an explicit ``binning="sort"`` raises, as the
+    reference's does; ``auto`` takes the 3-key fallback, equal to the
+    reference's."""
     cloud = Cloud.pad_to(np.zeros((10, 3), np.float32), 128)
-    with pytest.raises(ValueError):
-        voxel.voxel_downsample(cloud, 0.04, 64, None)
+    with pytest.raises(ValueError, match="binning='sort' requires packable bounds"):
+        voxel.voxel_downsample(cloud, 0.04, 64, None, binning="sort")
+    pts = np.random.default_rng(5).uniform(-3, 3, (128, 3)).astype(np.float32)
+    r = jax.jit(lambda c: ref_voxel.voxel_downsample(c, 0.5, 64, None))(
+        RefCloud.from_points(pts, np.ones(128, bool)))
+    p = voxel.voxel_downsample(Cloud.from_points(pts, np.ones(128, bool)), 0.5, 64, None)
+    assert int(r.num_voxels) == int(p.num_voxels) > 0
+    np.testing.assert_array_equal(np.asarray(r.cloud.points), p.cloud.points.numpy())
 
 
 def test_runreduce_wrapper_takes_plain_version_on_cpu():

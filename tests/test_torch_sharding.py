@@ -220,7 +220,8 @@ def test_merge_packed_engines_match_reference(engine, shards, rows, n_real, capa
 
 def test_merge_voxel_partials_packs_triple_keys_and_refuses_unbounded():
     """``merge_voxel_partials`` on (ix, iy, iz) keys equals the reference's;
-    without bounds it raises (the 3-key sort fallback is not ported)."""
+    without bounds it takes the reference's 3-key sort fallback, bitwise
+    too."""
     cfg = MERGE_CFG
     bounds = _bounds(cfg)
     pts, valid = _scene_points(6)
@@ -236,8 +237,9 @@ def test_merge_voxel_partials_packs_triple_keys_and_refuses_unbounded():
     got = voxel.merge_voxel_partials(parts, cfg.max_voxels, bounds=bounds,
                                      leaf_size=cfg.downsample_leaf_size, tables=4)
     _assert_partials_equal(want, got)
-    with pytest.raises(ValueError, match="3-key sort fallback"):
-        voxel.merge_voxel_partials(parts, cfg.max_voxels)
+    want = jax.jit(lambda k, s, c: ref_voxel.merge_voxel_partials(
+        ref_voxel.VoxelPartials(k, s, c, 0, False), cfg.max_voxels))(*map(jnp.asarray, cat))
+    _assert_partials_equal(want, voxel.merge_voxel_partials(parts, cfg.max_voxels))
 
 
 def _k1_inputs(rng, b: int, n: int, n_keys: int, fractional: bool):
