@@ -186,25 +186,31 @@ Phases (any failure raises and exits non-zero before the last line):
    3-key fallback; 98,304 voxel slots, a 16,384-point cluster buffer);
    and a ``batched_pipeline`` of 4 flagship scans under ``scatter``, each
    equal to its single card run.  Checks the segment fold kernel's
-   launches (one a split term for ``mxu``, one for ``scatter``, the
+   launches (one a scan or batch: ``mxu`` fast and exact, ``scatter``, the
    fallback and the batch), K2 on the dense bins and K1 for Morton; prints
    the scan p50 (5 scans, 3 at fullscale), the voxel stage's p50 beside the
    sort engine's, the host syncs and the peak device memory of each path
    (``voxel engine`` lines, a ``voxel engines:`` JSON line).  Then the
    segment fold on every call of each path held bitwise against its plain
-   version on a CPU copy and timed beside its bound, the plain version
-   (CPU) and CUDA's ``index_add_``, K2 on the dense bins and K1 on the
+   version on a CPU copy, one device operation a call, and timed in three
+   forms beside its bound, the plain version (CPU) and CUDA's
+   ``index_add_``: the fused call (the sort's permutation and the split
+   terms inside), the unfused form (the gather, the split passes, a fold
+   launch a term, the add) and that form's fold launches alone (a
+   ``segment fold forms:`` JSON line); K2 on the dense bins and K1 on the
    Morton keys, checked and timed as in phase 2.
 
 Each phase prints its seconds.
 Its last line is ``{"ok": true, "device": {...}}``; the line before it is
 the JSON list of kernels, one entry per kernel and path, with launches on
-that path, errors, times and the bound.  There is no CPU fallback: without
-a CUDA card the script raises.
+that path, errors, times and the bound (the card's least time for the
+work, from the package's ``utils/bounds.py``).  There is no CPU fallback:
+without a CUDA card the script raises.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -245,13 +251,6 @@ NODE_MODES = ((False, False), (False, True), (True, False), (True, True))  # (as
 def _mode_name(async_mode: bool, device_mode: bool) -> str:
     return f"{'async' if async_mode else 'sync'}+{'device' if device_mode else 'host'}"
 
-# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
-# bytes per second and float32 operations per second outside the tensor
-# cores; bound_ms is the larger of bytes / HBM rate and operations / fp32 rate
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-D2_OPS = 9  # flops per scored pair: cross 1 mul + 2 fma; d2 add, mul, sub; the compare
-
 
 def _nvidia_smi() -> str:
     out = subprocess.run(
@@ -276,35 +275,63 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _warm_card(seconds: float = 1.0) -> None:
+    """Elementwise passes over 256 MB for about ``seconds``, so that the
+    card's clocks have left idle before timings of short kernels that follow
+    host work (no matrix product: cuBLAS would keep a workspace allocated
+    and lift the later peak-memory readings)."""
+    import torch
+
+    x = torch.ones(1 << 26, device="cuda")
+    t = time.perf_counter()
+    while time.perf_counter() - t < seconds:
+        for _ in range(20):
+            x.mul_(0.5).add_(0.5)
+        torch.cuda.synchronize()
+
+
 PROFILER_SESSIONS = 5  # torch.profiler sessions tried before a device time is "not measured"
 
 
-def _profiled_device_events(fn) -> list:
+def _profiled_device_events(fn, reps: int = 1) -> list:
     """The device's kernels, memsets and copies (``torch.profiler``) while
-    ``fn`` runs, ending in a synchronize.  A profiling session now and then
-    records no device event at all; such a session is taken again, up to
-    PROFILER_SESSIONS times, and then the list is empty."""
+    ``fn`` runs, ending in a synchronize.  A session runs ``fn`` twice: a
+    warm-up step whose events are dropped, then the recorded step.  In a
+    long process a session can lose events (a one-operation call counted
+    as 0.35-0.45 operations) or record none; a session whose count is not
+    a whole multiple of ``reps`` (the identical calls inside ``fn``) is
+    taken again, up to PROFILER_SESSIONS times, and then the list is
+    empty."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    counts = []
     for _ in range(PROFILER_SESSIONS):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if events:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # the step's own span on the device timeline is no operation
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.name.startswith("ProfilerStep")]
+        if events and len(events) % reps == 0:
             return events
-    print(f"torch.profiler recorded no device event in {PROFILER_SESSIONS} sessions: "
-          "device time not measured")
+        counts.append(len(events))
+    print(f"torch.profiler recorded {counts} device events in {PROFILER_SESSIONS} sessions of "
+          f"{reps} call(s): device time not measured")
     return []
 
 
-def _device_ms(fn, reps: int = 20) -> float | None:
-    """Device time per call: ``torch.profiler`` over ``reps`` calls after a
-    warm-up, the summed durations of the device's kernels, memsets and
-    copies over ``reps`` (None where the profiler recorded nothing).
-    Unlike ``_time_ms`` it leaves out the host's gaps between launches."""
+def _device_profile(fn, reps: int = 20) -> tuple[float | None, float | None]:
+    """``(device ms a call, device operations a call)`` from
+    ``torch.profiler`` over ``reps`` calls after a warm-up: the summed
+    durations of the device's kernels, memsets and copies, and their count,
+    each over ``reps`` (``(None, None)`` where no session recorded a whole
+    count, ``_profiled_device_events``)."""
     import torch
 
     fn()
@@ -314,14 +341,74 @@ def _device_ms(fn, reps: int = 20) -> float | None:
         for _ in range(reps):
             fn()
 
-    events = _profiled_device_events(run)
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps if events else None
+    events = _profiled_device_events(run, reps)
+    if not events:
+        return None, None
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps, len(events) / reps
+
+
+def _device_ms(fn, reps: int = 20) -> float | None:
+    """Device time per call (``_device_profile``).  Unlike ``_time_ms`` it
+    leaves out the host's gaps between launches."""
+    return _device_profile(fn, reps)[0]
+
+
+def _graph_device(fn, reps: int = 20) -> tuple[float | None, int | None]:
+    """``(graph ms a call, device operations a call)`` of ``fn`` from CUDA
+    graphs: one call captured and its nodes counted (the driver's
+    ``cuGraphGetNodes``), and ``reps`` calls captured and replayed between
+    two CUDA events, so the device runs them back to back with no host
+    gap.  The graph time includes each node's start on the device, so it
+    is not ``_device_ms`` (the kernels' own durations) and is reported
+    under its own name.  ``(None, None)`` where ``fn`` cannot be
+    captured."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    try:
+        one = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(one):
+            fn()
+        count = ctypes.c_size_t(0)
+        err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+            ctypes.c_void_p(one.raw_cuda_graph()), None, ctypes.byref(count))
+        ops = count.value if err == 0 else None
+        many = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(many):
+            for _ in range(reps):
+                fn()
+    except (RuntimeError, OSError, AttributeError, TypeError) as e:
+        print(f"CUDA graph capture failed ({e}): graph device time not measured")
+        return None, None
+    many.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    replays = 5
+    start.record()
+    for _ in range(replays):
+        many.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (replays * reps)
+    # the graphs' memory pools go now, before a later peak-memory reading
+    del one, many
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms, ops
 
 
 def _kernel_us(fn, reps: int = 20) -> dict:
     """Launches and device time (us) a call of each kernel ``fn`` launches,
-    from ``torch.profiler`` over ``reps`` calls (empty where it recorded
-    nothing)."""
+    from ``torch.profiler`` over ``reps`` calls (empty where no session
+    recorded a whole count)."""
     import re
 
     import torch
@@ -334,12 +421,11 @@ def _kernel_us(fn, reps: int = 20) -> dict:
             fn()
 
     out: dict = {}
-    for e in _profiled_device_events(run):
+    for e in _profiled_device_events(run, reps):
         names = re.findall(r"::(\w+)", e.name)
         key = names[0] if names else e.name[:40]
         n, us = out.get(key, (0.0, 0.0))
         out[key] = (n + 1 / reps, us + e.time_range.elapsed_us() / reps)
-    # a session now and then drops one event: launches a call are whole
     return {k: (round(n), round(us, 2)) for k, (n, us) in out.items()}
 
 
@@ -373,10 +459,14 @@ def _times(r: dict) -> str:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib}")
 
 
-def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound(name: str, *args, **kw) -> tuple[float, str]:
+    """``(bound_ms, bound_by)``: the card's least time for a kernel's work,
+    ``utils.bounds.<name>(*args, **kw)`` (the H100's data-sheet peaks and
+    the work counted from the shapes and this run's data) in ms."""
+    from pointcloud_obstacle_processing_tpu_torch.utils import bounds
+
+    seconds, limiter = getattr(bounds, name)(*args, **kw)
+    return seconds * 1e3, limiter
 
 
 def _assert_equal(name: str, a, b) -> float:
@@ -437,9 +527,7 @@ def check_k1(dev, rng, path, n, cap, n_valid, n_keys, sentinel, leaf, run_len=No
     k = min(int(nk), cap)
     err = _assert_equal(f"K1 runreduce {path} ({what})", vk[:k], vp[:k])
     w = runreduce.default_group(n) * 128
-    # keys + two payloads in, the filled slots and num out; 4 channels x
-    # log2(w) Hillis-Steele adds a row
-    bound = _bound(n * 12 + k * 20 + 4, 4 * n * int(np.log2(w)))
+    bound = _bound("runreduce", n, k, w)
     return _row(
         "runreduce", path, f"{n} rows, {what}, {w}-row windows, {int(nk)} runs, cap {cap}",
         "runreduce.cu", "pallas_runreduce.py:462", err,
@@ -472,8 +560,7 @@ def check_k2(dev, rng, path, nv, ccap, density):
         "compaction.cu", "pallas_compaction.py:59", err,
         lambda: compaction.compact_and_gather_exact(bins, occ2d, ccap),
         lambda: compaction.compact_and_gather_plain(bins, occ2d, ccap),
-        # the mask once; each filled slot's channels read, loc and vals written; num
-        _bound(nv + min(int(nk), ccap) * (4 * c + 4 + 4 * c) + 4, 0),
+        _bound("compact_gather", nv, min(int(nk), ccap), c),
         library_fn=lambda: bins.T[occ],  # boolean-mask gather
     )
 
@@ -516,13 +603,11 @@ def _k3_row(path, what, args):
                         outliers.knn_mean_plain(*args))
     live_tiles = int(outliers._tile_live(valid, tiles, rt).sum())
     return _row(
-        "knn_mean", path, f"{what}, row tile {rt}, window {width}, k {k}",
+        "knn_mean", path, f"{what}, row tile {rt}, window {width}, k {k}, {live_tiles} live tiles",
         "knn_select.cu", "outliers.py:142", err,
         lambda: outliers.knn_mean(*args),
         lambda: outliers.knn_mean_plain(*args),
-        # channels, |p|^2 and the mask read once, the starts, the [n_q] means written
-        _bound(scans * nv * 17 + tiles * 4 + scans * tiles * rt * 4,
-               live_tiles * rt * width * D2_OPS),
+        _bound("knn_mean", nv, tiles, tiles, live_tiles, rt, width, scans),
         plain_reps=3,
     )
 
@@ -581,7 +666,7 @@ def check_k4(dev, rng, c, n_valid, tol2, card: str) -> None:
         "cluster_sweep.cu", "cluster.py:86", err,
         lambda: cluster.sweep_jump(chans, valid, labels, tol2),
         lambda: cluster.sweep_jump_plain(chans, valid, labels, tol2),
-        _bound(c * 21 + c * 4, n_valid * n_valid * D2_OPS),  # pairs of valid points
+        _bound("cluster_sweep", c, c, n_valid, n_valid),
     )
     print(f"kernel {row['name']} [{row['path']}: {row['shape']}]: equal to plain; {_times(row)} "
           f"[{card}]")
@@ -607,14 +692,13 @@ def _loop_row(path, what, args, timed=True):
     n_valid = valid.reshape(scans, c).sum(dim=1).cpu().double()
     sweeps = torch.as_tensor(want.sweeps).reshape(scans).double()
     shape = (f"{what}: C {c}, {int(n_valid.sum())} valid, {int(sweeps.sum())} sweeps"
-             + (f", {scans} scans" if scans > 1 else ""))
+             + (f", {scans} scans, {int((sweeps * n_valid ** 2).sum())} valid pairs swept"
+                if scans > 1 else ""))
     return _row(
         "cluster_loop", path, shape, "cluster_loop.cu", "cluster.py:86", err,
         lambda: cluster.cluster_loop(*args),
         lambda: cluster.cluster_loop_plain(*args),
-        # packed points, valid and labels in; labels, the flag and the count out;
-        # each sweep scores the pairs of valid points
-        _bound(scans * (c * 21 + c * 4 + 5), float((sweeps * n_valid ** 2).sum()) * D2_OPS),
+        _bound("cluster_loop", c, n_valid.tolist(), sweeps.tolist()),
         plain_reps=5,
     )
 
@@ -646,9 +730,7 @@ def _grid_row(path, what, args):
         "cluster_grid_loop.cu", "cluster.py:86", err,
         lambda: cluster.grid_loop(*args),
         lambda: cluster.cluster_loop_plain(*args),
-        # packed points, valid and labels in; labels, the flag and the count out;
-        # each sweep scores the pairs of valid points
-        _bound(scans * (c * 21 + c * 4 + 5), float((sweeps * n_valid ** 2).sum()) * D2_OPS),
+        _bound("cluster_grid_loop", c, n_valid.tolist(), sweeps.tolist()),
         plain_reps=2,
     )
     row["sweeps"] = int(sweeps.sum())
@@ -688,9 +770,7 @@ def _sum_rows(path, calls):
             "xla_sum.cu", "ransac.py:174 (plain XLA, no TPU kernel)", err,
             lambda a=a, b=b: ops._xla_sum_kernel(a, b),
             lambda a=a, b=b: ops.sum_like_xla_plain(a, b),
-            # each operand row read once, the sums written; an add (and a product) a term
-            _bound(lead * (sa + (0 if b is None else sb)) * n * 4 + lead * sa * sb * 4,
-                   lead * sa * sb * n * (1 if b is None else 2)),
+            _bound("xla_sum", lead, sa, n, None if b is None else sb),
             library_fn=(lambda a=a: a.sum(-1)) if b is None else
             (lambda a=a, b=b: (a[..., :, None, :] * b[..., None, :, :]).sum(-1)),
             plain_reps=3,
@@ -727,9 +807,7 @@ def _tail_row(path, calls):
         f"{len(calls)} calls a run, all equal; {b} scan(s) a call",
         "xla_sum.cu", "ransac.py:184-195 (plain XLA, no TPU kernel)", err,
         lambda: ransac.covariance_tail(*args), lambda: plain(*args),
-        # six rows read once, 8 floats in and 4 out a scan; the nine sums'
-        # products and adds, then 24 steps of ~50 operations
-        _bound(b * (6 * n + 12) * 4, b * (9 * n * 2 + 24 * 50)), plain_reps=3,
+        _bound("covariance_tail", b, n), plain_reps=3,
     )
 
 
@@ -825,8 +903,7 @@ def check_k5(dev, rng, path, c, n_valid, window, tolerance):
             "cluster_sweep_banded.cu", "cluster.py:329", err,
             lambda: cluster.sweep_jump_banded(*args),
             lambda: cluster.sweep_jump_banded_plain(*args),
-            # packed points, valid and labels; starts and tile_live; out
-            _bound(c * 21 + (c // 128) * 5 + c * 4, computed * 128 * window * D2_OPS),
+            _bound("cluster_sweep_banded", c, 128, window, computed),
         ))
     return rows
 
@@ -880,7 +957,7 @@ def check_k7(dev, ids, weights, valid, k, binned=None) -> dict:
         "binning.cu", "pallas_binning.py:52", diff.max().item(),
         lambda: binning.binned_weighted_sum(ids, weights, valid, k),
         lambda: binning.binned_weighted_sum_plain(ids, weights, valid, k),
-        _bound(n * (4 + 4 * c + 1) + k * c * 4, n_terms),
+        _bound("binned_sum", n, c, k, n_terms),
         library_fn=lambda: torch.zeros(k, c, device=dev).index_add_(0, rows_k2, terms2),
     )
 
@@ -936,7 +1013,7 @@ def run_segscan_binning(dev, card: str) -> tuple[list[dict], dict]:
             "segscan.cu", "segscan.py:59", err,
             lambda: segscan.segmented_inclusive_scan(v, h),
             lambda: segscan.segmented_inclusive_scan_plain(v, h),
-            _bound(c_ * n_ * 8 + n_, steps * c_ * n_),
+            _bound("segscan", c_, n_, steps),
         ))
         rows[-1]["by_kernel"] = f"; launches and device us a call by kernel {by_kernel}"
     long_row_check(dev, rng, card)
@@ -1427,9 +1504,7 @@ def _k1_batch_row(path, a, kw):
         "runreduce.cu", "pallas_runreduce.py:301", err,
         lambda: runreduce.sorted_run_reduce(*a, **kw),
         lambda: runreduce.sorted_run_reduce_plain(*a, **kw),
-        # keys + two payloads in, the filled slots and num out; 4 channels x
-        # log2(w) Hillis-Steele adds a row
-        _bound(scans * n * 12 + kept * 20 + scans * 4, 4 * scans * n * int(np.log2(w))),
+        _bound("runreduce", n, kept, w, scans),
         plain_reps=3,
     )
 
@@ -1455,8 +1530,7 @@ def _k2_batch_row(path, a):
         "compaction.cu", "pallas_compaction.py:185", err,
         lambda: compaction.compact_and_gather_exact(*a),
         lambda: compaction.compact_and_gather_plain(*a),
-        # the masks once; each filled slot's channels read, loc and vals written; num
-        _bound(scans * nv + kept * (4 * c + 4 + 4 * c) + scans * 4, 0),
+        _bound("compact_gather", nv, kept, c, scans),
         library_fn=lambda: bins.transpose(1, 2)[occ],  # boolean-mask gather
     )
 
@@ -1608,7 +1682,7 @@ def _k5_row(path, calls, plain_reps=20):
         f"the first, C {c}, {valid.sum(dim=-1).tolist()} valid, window {window}, {computed} "
         f"tiles computed", "cluster_sweep_banded.cu", "cluster.py:329", err,
         lambda: cluster.sweep_jump_banded(*args), lambda: cluster.sweep_jump_banded_plain(*args),
-        _bound(b * (c * 21 + (c // tile) * 5 + c * 4), computed * tile * window * D2_OPS),
+        _bound("cluster_sweep_banded", c, tile, window, computed, b),
         plain_reps=plain_reps,
     )
 
@@ -2152,9 +2226,7 @@ def _k1_counts_row(path, what, call):
         f"cap {cap}", "runreduce.cu", "pallas_runreduce.py:115 (counts :162-163, :488, :693)", err,
         lambda: runreduce.sorted_run_reduce(*a, **kw),
         lambda: runreduce.sorted_run_reduce_plain(*a, **kw),
-        # keys and four payloads in, the filled slots and num out; 4 channels
-        # x log2(w) Hillis-Steele adds a row
-        _bound(n * 20 + k * 20 + 4, 4 * n * int(np.log2(w))),
+        _bound("runreduce_counts", n, k, w),
         plain_reps=2,
     )
 
@@ -2175,8 +2247,7 @@ def _k3_rows_row(path, what, call):
         f"row tile {rt}, window {width}, k {k}", "knn_select.cu", "outliers.py:142 (tiles "
         "of a shard, :407-416)", err,
         lambda: outliers.knn_mean(*a, **kw), lambda: outliers.knn_mean_plain(*a, **kw),
-        _bound(scans * nv * 17 + starts.shape[0] * 4 + scans * count * rt * 4,
-               live * rt * width * D2_OPS),
+        _bound("knn_mean", nv, starts.shape[0], count, live, rt, width, scans),
         plain_reps=2,
     )
 
@@ -2196,9 +2267,7 @@ def _k4_rows_row(path, what, call):
         "cluster_sweep_rows", path, f"{what}: rows {rows[0]}-{rows[0] + rows[1] - 1} of C {c}, "
         f"{n_valid} valid", "cluster_sweep.cu", "cluster.py:86 (qslice, :461-530)", err,
         lambda: cluster.sweep_jump(*a), lambda: cluster.sweep_jump_plain(*a),
-        # points, valid and labels in, the range's labels out; its valid rows
-        # against every valid column
-        _bound(c * 21 + rows[1] * 4, q_valid * n_valid * D2_OPS),
+        _bound("cluster_sweep", c, rows[1], q_valid, n_valid),
         plain_reps=5,
     )
 
@@ -2222,8 +2291,7 @@ def _k5_rows_row(path, what, call):
         f"{first + count - 1} of {c // tile}, window {window}, {int(vt.sum())} live",
         "cluster_sweep_banded.cu", "cluster.py:329 (qslice)", err,
         lambda: cluster.sweep_jump_banded(*a), lambda: cluster.sweep_jump_banded_plain(*a),
-        _bound(b * (c * 21 + (c // tile) * 5 + count * tile * 4),
-               int(vt.sum()) * tile * window * D2_OPS),
+        _bound("cluster_sweep_banded", c, tile, window, int(vt.sum()), b, count * tile),
         plain_reps=5,
     )
 
@@ -2246,7 +2314,7 @@ def _k2_merge_row(path, what, call):
         "compaction.cu", "pallas_compaction.py:59", err,
         lambda: compaction.compact_and_gather_exact(*a),
         lambda: compaction.compact_and_gather_plain(*a),
-        _bound(kp + k * (16 + 4 + 16) + 4, 0),
+        _bound("compact_gather", kp, k),
         library_fn=lambda: bins.reshape(4, kp).T[occ2d.reshape(-1)],
     )
 
@@ -2621,56 +2689,164 @@ VOXEL_PATHS = (  # name -> (base preset, overrides, timed scans)
 VOXEL_BATCH = 4  # flagship scans of one scatter batch (scenes 0-3)
 
 
-def _fold_row(path, calls):
-    """The segment fold kernel on every call a run made to it, each held
-    bitwise (int32 views) against its plain version on a CPU copy; the
-    first timed beside its bound, the plain version on the CPU (host clock)
-    and CUDA's ``index_add_`` of the same rows (atomics, run-dependent
-    order: the library call, used nowhere in the port)."""
+def unfused_fold(fold, dest, vals, bins, order=None, bf16_terms=0, width=None):
+    """The same function as one fused ``segment_fold`` call, composed as the
+    callers composed it before the kernel took the gather and the split
+    terms in: the bf16 split terms as separate passes, each term's values
+    gathered by the sort's permutation, one three-argument ``fold`` launch
+    a term (the dense engine's dropped rows mapped to the padded width, the
+    ``mxu`` terms folded into ``bins``), the terms' add and the pad to
+    ``width``.  ``fold`` may be any checkout's ``segment_fold``."""
+    import torch
+
+    width = bins if width is None else width
+    lead, (c, n) = vals.shape[:-2], vals.shape[-2:]
+    if bf16_terms == 0 and width > bins:
+        dest, bins = torch.where(dest >= bins, width, dest), width
+    terms = [vals]
+    if bf16_terms:
+        terms = [vals.to(torch.bfloat16).to(torch.float32)]
+        if bf16_terms == 2:
+            terms.append((vals - terms[0]).to(torch.bfloat16).to(torch.float32))
+    acc = None
+    for t in terms:
+        if order is not None:
+            t = t.gather(-1, order[..., None, :].expand(*lead, c, n))
+        part = fold(dest, t, bins)
+        acc = part if acc is None else acc + part
+    return torch.nn.functional.pad(acc, (0, width - acc.shape[-1])) if acc.shape[-1] < width \
+        else acc
+
+
+def _unfused_launches(dest, vals, bins, order=None, bf16_terms=0, width=None):
+    """The unfused form's fold launches' operands, precomputed: a list of
+    (dest, term values gathered, bins), one a term."""
+    import torch
+
+    calls = []
+    unfused_fold(lambda d, v, b: calls.append((d, v.contiguous(), b)) or
+                 torch.zeros(*v.shape[:-1], b, device=v.device),
+                 dest, vals, bins, order, bf16_terms, width)
+    return calls
+
+
+def _fold_library(dest, vals, bins, order=None, bf16_terms=0, width=None):
+    """One PyTorch call of the fold's function, used nowhere in the port:
+    CUDA's ``index_add_`` (atomics, in an order that changes from run to
+    run) of the first term's rows in input order into the bins of every
+    scan, dropped rows into one extra bin; its operands precomputed."""
+    import torch
+
+    width = bins if width is None else width
+    lead, (c, n) = vals.shape[:-2], vals.shape[-2:]
+    scans = dest[..., 0].numel()
+    if order is not None:  # each row's dest at its input position
+        dest = torch.empty_like(dest).scatter_(-1, order, dest)
+    t = vals if bf16_terms == 0 else vals.to(torch.bfloat16).to(torch.float32)
+    keep = (dest >= 0) & (dest < bins)
+    base = torch.arange(scans, device=dest.device).reshape(*lead, 1) * (width + 1)
+    idx = (torch.where(keep, dest.long(), width) + base).reshape(-1)
+    rows = t.transpose(-1, -2).reshape(-1, c).contiguous()
+    return lambda: torch.zeros(scans * (width + 1), c, device=dest.device).index_add_(0, idx, rows)
+
+
+def fold_rows(path, calls, segfold, label: str = "") -> list[dict]:
+    """The segment fold on every call a run made to it (each as one fused
+    call: the sort's permutation, the split terms, the padded width), held
+    bitwise (int32 views) against its plain version on a CPU copy; then
+    three rows on the first call: the fused call, the unfused form's fold
+    launches alone on their own operands, and the whole unfused form (the
+    gather, the split passes, a launch a term, the add), each held to the
+    fused call's output bitwise, timed beside the fused work's bound (from
+    ``utils.bounds``), the plain version on the CPU (host clock) and CUDA's
+    ``index_add_``.  Device time is the profiler's, as on every other row;
+    the CUDA-graph time (``_graph_device``) and the operations a call (the
+    graph's nodes, beside the profiler's count) stand under their own
+    names.  ``segfold`` is the ``ops.segfold`` of the checkout timed: one
+    whose ``segment_fold`` takes three arguments gets the two unfused rows
+    only."""
+    import inspect
+
     import torch
 
     from pointcloud_obstacle_processing_tpu_torch import _build
-    from pointcloud_obstacle_processing_tpu_torch.ops.segfold import (
-        segment_fold,
-        segment_fold_plain,
-    )
 
-    err = 0.0
-    for i, ((dest, vals, bins), _) in enumerate(calls):
-        _build.reset_launch_counts()
-        got = segment_fold(dest, vals, bins)
-        if _build.LAUNCHES["segment_fold"] != 1:
-            raise AssertionError(f"segment_fold {path} call {i}: {_build.LAUNCHES}")
-        err = max(err, _assert_equal(f"segment_fold {path} call {i}", got.view(torch.int32),
-                                     segment_fold_plain(dest.cpu(), vals.cpu(), bins)
-                                     .view(torch.int32)))
-    (dest, vals, bins), _ = calls[0]
+    fold, plain = segfold.segment_fold, segfold.segment_fold_plain
+    fused = "order" in inspect.signature(fold).parameters
+    (dest, vals, bins), kw = calls[0]
+    kw = dict(kw)
     c, n = vals.shape[-2:]
     scans = dest[..., 0].numel()
-    dest_cpu, vals_cpu = dest.cpu(), vals.cpu()
-    keep = (dest >= 0) & (dest < bins)
-    base = torch.arange(scans, device=dest.device).reshape(*dest.shape[:-1], 1) * (bins + 1)
-    idx = (torch.where(keep, dest.long(), bins) + base).reshape(-1)
-    rows = vals.transpose(-1, -2).reshape(-1, c).contiguous()
-    runs = int(((dest[..., 1:] != dest[..., :-1]) & keep[..., 1:]).sum()) + int(keep[..., 0].sum())
-    row = _row(
-        "segment_fold", path,
-        f"{scans} x {n} rows, {c} channels, {bins} bins a scan, {runs} runs; "
-        f"{len(calls)} call(s) a run, all equal; plain on the CPU",
-        "segment_fold.cu", "voxel.py:542-544 (plain XLA scatter-add, no TPU kernel)", err,
-        lambda: segment_fold(dest, vals, bins), lambda: None,
-        # dest and the values read once, the zeroed output written once
-        _bound(scans * n * (4 + 4 * c) + scans * bins * 4 * c, scans * n * c),
-        library_fn=lambda: torch.zeros(scans * (bins + 1), c, device=dest.device).index_add_(
-            0, idx, rows),
-        plain_reps=1,
-    )
-    reps = 3
+    width = kw.get("width") or bins
+    what = (f"{scans} x {n} rows, {c} channels, {bins} bins ({width} written) a scan, "
+            f"{'the sort permutation, ' if kw.get('order') is not None else ''}"
+            f"{kw.get('bf16_terms', 0)} split term(s)")
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t  # noqa: E731
+    args_cpu = [cpu(dest), cpu(vals), bins]
+    kw_cpu = {k: cpu(v) for k, v in kw.items()}
+    want = plain(*args_cpu, **kw_cpu) if fused else None
+    err = 0.0
+    if fused:
+        for i, ((d, v, b), k) in enumerate(calls):
+            _build.reset_launch_counts()
+            got = fold(d, v, b, **k)
+            if _build.LAUNCHES["segment_fold"] != 1:
+                raise AssertionError(f"segment_fold {path} call {i}: {_build.LAUNCHES}")
+            wi = want if i == 0 else plain(cpu(d), cpu(v), b, **{q: cpu(x) for q, x in k.items()})
+            err = max(err, _assert_equal(f"segment_fold {path} call {i}",
+                                         got.view(torch.int32), wi.view(torch.int32)))
+    bound = _bound("segment_fold", scans, n, c, width, kw.get("order") is not None,
+                   kw.get("bf16_terms", 0))
+    library = _fold_library(dest, vals, bins, **kw)
     t = time.perf_counter()
+    reps = 3
     for _ in range(reps):
-        segment_fold_plain(dest_cpu, vals_cpu, bins)
-    row["plain_ms"] = (time.perf_counter() - t) * 1e3 / reps
-    return row
+        plain(*args_cpu, **kw_cpu) if fused else \
+            unfused_fold(plain, *args_cpu, **kw_cpu)
+    plain_ms = (time.perf_counter() - t) * 1e3 / reps
+    # the unfused form (and its fold launches alone on their own operands)
+    # against its composition on the CPU through the plain version
+    err = max(err, _assert_equal(
+        f"segment_fold {path} unfused form",
+        unfused_fold(fold, dest, vals, bins, **kw).view(torch.int32),
+        unfused_fold(plain, *args_cpu, **kw_cpu).view(torch.int32)))
+    launches = _unfused_launches(dest, vals, bins, **kw)
+    alone_bound = [0.0, "bytes"]
+    for d, v, b in launches:
+        ms, by = _bound("segment_fold", scans, n, c, b)
+        alone_bound = [alone_bound[0] + ms, by]
+    # a call with no permutation, no split and no padding is its own
+    # unfused form
+    trivial = kw.get("order") is None and not kw.get("bf16_terms") and width == bins
+    forms = []
+    if fused:
+        forms.append((f"{label}fused call: {what}; {len(calls)} call(s) a run, all equal",
+                      lambda: fold(dest, vals, bins, **kw), bound))
+    if not (fused and trivial):
+        forms.append((f"{label}fold launch(es) alone on the unfused operands: {len(launches)} "
+                      f"launch(es) of {scans} x {n} rows into {launches[0][2]} bins",
+                      lambda: [fold(d, v, b) for d, v, b in launches], tuple(alone_bound)))
+    if not trivial:
+        forms.append((f"{label}unfused form (gather, split passes, a launch a term, add, "
+                      f"pad): {what}", lambda: unfused_fold(fold, dest, vals, bins, **kw), bound))
+    rows = []
+    _warm_card()  # the CPU plain runs above leave the card idle
+    library_graph_ms, _ = _graph_device(library)
+    for shape, fn, b in forms:
+        graph_ms, ops = _graph_device(fn)
+        profiled = _device_profile(fn)[1]
+        row = _row("segment_fold", path, f"{shape}; {ops} device operation(s) a call "
+                   f"(profiler: {profiled}); graph {_ms(graph_ms)}, library graph "
+                   f"{_ms(library_graph_ms)}", "segment_fold.cu",
+                   "voxel.py:542-544 (plain XLA scatter-add, no TPU kernel)",
+                   err, fn, lambda: None, b, library_fn=library, plain_reps=1)
+        row.update(plain_ms=plain_ms, graph_ms=graph_ms, device_ops=ops, profiler_ops=profiled,
+                   library_graph_ms=library_graph_ms)
+        rows.append(row)
+    if fused and rows[0]["device_ops"] != 1:
+        raise AssertionError(f"segment_fold {path}: {rows[0]['device_ops']} device operations "
+                             "a fused call (None: the graph capture failed), not 1")
+    return rows
 
 
 def _voxel_partials_equal(label, args, kw):
@@ -2693,10 +2869,13 @@ def run_voxel_engines(dev, card: str) -> tuple[dict, list[dict]]:
     fallback), and a scatter batch of 4 flagship scans.  Each card run,
     counts from 0, against the same run through the plain versions on the
     CPU (the crosscheck bar; the voxel partials bitwise); the kernels each
-    engine names launched (segment fold once a split term, K2 on the dense
-    bins, K1 for Morton); scan p50 with the voxel stage's p50 beside the
-    sort engine's and the peak device memory; the segment fold, K1 and K2
-    checked and timed on each path's own inputs."""
+    engine names launched (the segment fold once a scan, the ``mxu``
+    engine's split terms included; K2 on the dense bins, K1 for Morton);
+    scan p50 with the voxel stage's p50 beside the sort engine's and the
+    peak device memory; the segment fold (``fold_rows``: the fused call,
+    its unfused form and that form's fold launches alone, with the device
+    operations a call), K1 and K2 checked and timed on each path's own
+    inputs."""
     import torch
 
     from pointcloud_obstacle_processing_tpu_torch import Cloud, _build, pipeline
@@ -2705,7 +2884,7 @@ def run_voxel_engines(dev, card: str) -> tuple[dict, list[dict]]:
         REFERENCE_FULLSCALE_CONFIG,
         ObstacleDetectionModel,
     )
-    from pointcloud_obstacle_processing_tpu_torch.ops import histogram, voxel
+    from pointcloud_obstacle_processing_tpu_torch.ops import histogram, segfold, voxel
     from pointcloud_obstacle_processing_tpu_torch.ops.ransac import draw_from_uniform
     from pointcloud_obstacle_processing_tpu_torch.parallel.sharding import batched_pipeline
     from pointcloud_obstacle_processing_tpu_torch.pipeline import process_scan
@@ -2751,8 +2930,8 @@ def run_voxel_engines(dev, card: str) -> tuple[dict, list[dict]]:
         gc = cloud.to(dev)
         engine = "morton" if cfg.voxel_order == "morton" else (
             "fallback" if name == "fine_leaf" else cfg.voxel_binning)
-        folds = {"mxu": 2 if cfg.voxel_sum_precision == "exact" else 1, "scatter": 1,
-                 "fallback": 1, "morton": 0}[engine]
+        # one fold launch a scan: the mxu engine's split terms fold in one launch
+        folds = {"mxu": 1, "scatter": 1, "fallback": 1, "morton": 0}[engine]
         path = ["knn_mean", "compact_gather", "xla_sum", "covariance_tail"]
         path += ["runreduce"] if engine == "morton" else ["segment_fold"]
         path += ["cluster_sweep_banded"] if cfg.cluster_band_window else (
@@ -2813,10 +2992,10 @@ def run_voxel_engines(dev, card: str) -> tuple[dict, list[dict]]:
             (k1,) = _capture(voxel, "sorted_run_reduce", once)
             rows.append(_k1_batch_row(name, *k1))
         else:
-            terms: list = []  # the mxu engine folds in ops.histogram, one call a term
+            terms: list = []  # the mxu engine folds in ops.histogram
             calls = _capture(voxel, "segment_fold",
                              lambda: terms.extend(_capture(histogram, "segment_fold", once)))
-            rows.append(_fold_row(name, calls + terms))
+            rows.extend(fold_rows(name, calls + terms, segfold))
             if engine != "fallback":
                 (k2,) = _capture(voxel, "compact_and_gather_exact", once)
                 rows.append(_k2_batch_row(name, k2[0]))
@@ -2855,8 +3034,19 @@ def run_voxel_engines(dev, card: str) -> tuple[dict, list[dict]]:
     print(f"voxel engine {name}: each scan == its single-scan card run (grid, counts, flags, "
           f"point clusters exact; centroid max |d| {worst:.2e}); batch p50 {p50:.3f} ms "
           f"({VOXEL_BATCH / p50 * 1e3:.1f} scans per second); launches {counts} [{card}]")
-    rows.append(_fold_row(name, _capture(voxel, "segment_fold",
-                                         lambda: pipe(clouds, draw=draw_from_uniform(u)))))
+    rows.extend(fold_rows(name, _capture(voxel, "segment_fold",
+                                         lambda: pipe(clouds, draw=draw_from_uniform(u))),
+                          segfold))
+    forms = {}
+    for r in rows:
+        if r["name"] == "segment_fold":
+            forms.setdefault(r["path"], []).append(dict(
+                form=r["shape"].split(":")[0], device_ops=r["device_ops"],
+                profiler_ops=r["profiler_ops"], ms=r["ms"], device_ms=r["device_ms"],
+                graph_ms=r["graph_ms"], host_ms=r["host_ms"], bound_ms=r["bound_ms"],
+                library_device_ms=r["library_device_ms"],
+                library_graph_ms=r["library_graph_ms"]))
+    print("segment fold forms: " + json.dumps({"card": card, "paths": forms}))
     for r in rows:
         print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: equal to plain; {_times(r)} "
               f"[{card}]")

@@ -94,8 +94,9 @@ _SIGNATURES = {
     "pcp_xla_sum_max_blocks": [_I, _I, _I],
     # the arguments packed as SumArgs, covariance_tail's operands included
     "pcp_covariance_tail": [ctypes.c_char_p],
-    # dest, vals, scans, n, c, bins, out (zeroed by the call), stream
-    "pcp_segment_fold": [_VP, _VP, _I, _I, _I, _I, _VP, _VP],
+    # dest, vals, order (or null), scans, n, c, bins, width, vals' strides
+    # (scan, channel, row), bf16 terms, out (every element written), stream
+    "pcp_segment_fold": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _LL, _LL, _LL, _I, _VP, _VP],
 }
 
 BUILD_SECONDS: list[float] = []  # wall time of each build this process ran

@@ -13,12 +13,13 @@ import torch
 
 from .. import _build
 from ..config import REFERENCE_YAML_CONFIG, PipelineConfig
-from ..pipeline import process_frames, process_scan
+from ..pipeline import jit_pipeline, process_frames, process_scan
 
 __all__ = [
     "ObstacleDetectionModel",
     "process_scan",
     "process_frames",
+    "jit_pipeline",
     "FLAGSHIP_CONFIG",
     "REFERENCE_FULLSCALE_CONFIG",
 ]

@@ -22,8 +22,8 @@ import torch
 from .segfold import segment_fold
 
 __all__ = ["histogram2d", "histogram2d_mxu", "compact_occupied_blocks",
-           "weighted_histogram_mxu", "weighted_histogram_blocks", "compact_and_gather_blocks",
-           "MXU_HISTOGRAM_MAX_BINS"]
+           "weighted_histogram_mxu", "weighted_histogram_blocks", "weighted_bin_sums",
+           "compact_and_gather_blocks", "MXU_HISTOGRAM_MAX_BINS"]
 
 # the reference's bin limit of its one-hot engine (mxu_histogram.py:45): the
 # ``mxu`` voxel engine refuses larger lattices
@@ -87,6 +87,23 @@ def _traffic_optimal_hi(k: int) -> int:
     return max(128, min(512, a))
 
 
+def weighted_bin_sums(ids: torch.Tensor, weights: torch.Tensor, valid: torch.Tensor, k: int,
+                      hi_size: int | None = None, exact_f32: bool = True, align: int = 1):
+    """``(sums [..., C, width], a, b)``: the per-bin sums of
+    ``weighted_histogram_blocks`` with bin id ``hi * b + lo`` at that
+    position, ``a * b`` rounded up to a multiple of ``align`` (the bins past
+    ``a * b`` are +0.0).  One stable sort of the ids and one
+    ``segment_fold`` launch on the card, which gathers the raw weights by
+    the sort's permutation and folds their split terms."""
+    a = hi_size or _traffic_optimal_hi(k)
+    b = -(-k // a)
+    ids = torch.where(valid, ids, a * b).to(torch.int32)  # a * b: dropped
+    skey, order = torch.sort(ids, dim=-1, stable=True)
+    sums = segment_fold(skey, weights.transpose(-1, -2), a * b, order=order,
+                        bf16_terms=2 if exact_f32 else 1, width=-(-(a * b) // align) * align)
+    return sums, a, b
+
+
 def weighted_histogram_blocks(ids: torch.Tensor, weights: torch.Tensor, valid: torch.Tensor,
                               k: int, hi_size: int | None = None, exact_f32: bool = True):
     """Per-bin sums of the weights' bf16 split terms in the block form
@@ -96,26 +113,12 @@ def weighted_histogram_blocks(ids: torch.Tensor, weights: torch.Tensor, valid: t
     [..., N]; a valid row whose id lies outside ``[0, a * b)`` adds nothing
     (the reference's one-hot rows are zero there).  Each weight enters as
     ``t0 = bf16(w)`` and, with ``exact_f32``, ``t1 = bf16(w - t0)``; each
-    term's bin sums are folded in row order (a stable sort of the ids,
-    then ``segment_fold``: one launch a term on the card) and the terms'
-    sums added, ``part_t0 + part_t1``, as the reference adds its matmuls
-    (mxu_histogram.py:130-140)."""
-    n, c = weights.shape[-2:]
-    lead = weights.shape[:-2]
-    a = hi_size or _traffic_optimal_hi(k)
-    b = -(-k // a)
-    ids = torch.where(valid, ids, a * b).to(torch.int32)  # a * b: dropped
-    w32 = torch.where(valid[..., None], weights, 0.0)
-    terms = [w32.to(torch.bfloat16).to(torch.float32)]
-    if exact_f32:
-        terms.append((w32 - terms[0]).to(torch.bfloat16).to(torch.float32))
-    skey, order = torch.sort(ids, dim=-1, stable=True)
-    at = order[..., None, :].expand(*lead, c, n)
-    acc = None
-    for t in terms:
-        part = segment_fold(skey, t.transpose(-1, -2).gather(-1, at), a * b)
-        acc = part if acc is None else acc + part
-    return acc.reshape(*lead, c, a, b), a, b
+    term's bin sums are folded in row order after a stable sort of the ids
+    and the terms' sums added, ``part_t0 + part_t1``, as the reference adds
+    its matmuls (mxu_histogram.py:130-140): ``weighted_bin_sums``, one
+    ``segment_fold`` launch on the card."""
+    sums, a, b = weighted_bin_sums(ids, weights, valid, k, hi_size, exact_f32)
+    return sums.reshape(*sums.shape[:-1], a, b), a, b
 
 
 def weighted_histogram_mxu(ids: torch.Tensor, weights: torch.Tensor, valid: torch.Tensor, k: int,

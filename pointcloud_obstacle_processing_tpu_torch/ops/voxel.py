@@ -13,10 +13,11 @@ the reference chooses them (``voxel_partials``):
   by kernel K1 (``ops/runreduce.py``);
 - **mxu** and **scatter** (packable bounds): the offsets and a unit count
   summed into dense bins over the crop box's lattice, the reference's bf16
-  split terms for ``mxu`` (``ops.histogram.weighted_histogram_blocks``),
-  its float32 scatter-add for ``scatter``; each bin's rows are folded in
-  input order after a stable sort (``ops.segfold.segment_fold``), and the
-  occupied bins are compacted by kernel K2;
+  split terms for ``mxu`` (``ops.histogram.weighted_bin_sums``), its
+  float32 scatter-add for ``scatter``; each bin's rows are folded in input
+  order after a stable sort (``ops.segfold.segment_fold``, one launch that
+  gathers the rows by the sort's permutation and, for ``mxu``, splits the
+  terms), and the occupied bins are compacted by kernel K2;
 - **the 3-key fallback** (no bounds, or a lattice past 2^23 bins): a stable
   lexicographic sort of the three keys (three stable sorts, least
   significant first) and in-order segment sums (``segment_fold``).
@@ -40,7 +41,7 @@ import torch
 from . import f32, fma, recip32
 from ..types import Cloud
 from .compaction import compact_and_gather_exact
-from .histogram import MXU_HISTOGRAM_MAX_BINS, weighted_histogram_blocks
+from .histogram import MXU_HISTOGRAM_MAX_BINS, weighted_bin_sums
 from .runreduce import sorted_run_reduce
 from .segfold import segment_fold
 
@@ -273,8 +274,8 @@ def _dense_partials(pts, valid, ijk, spec, capacity: int, leaf_size: float, sum_
     lattice bins, the ``mxu`` engine's bf16 split terms (``binning`` not
     "scatter" and K <= ``MXU_HISTOGRAM_MAX_BINS``) or the ``scatter``
     engine's float32 adds, each bin's rows in input order (a stable sort
-    of the packed key, then ``segment_fold``); then K2 compacts the
-    occupied bins."""
+    of the packed key, then one ``segment_fold`` into the 128-padded bins);
+    then K2 compacts the occupied bins."""
     imin, dims = spec
     K = dims[0] * dims[1] * dims[2]
     ix, iy, iz = (torch.clamp(ijk[..., c] - imin[c], 0, dims[c] - 1) for c in range(3))
@@ -287,20 +288,17 @@ def _dense_partials(pts, valid, ijk, spec, capacity: int, leaf_size: float, sum_
                      valid.to(torch.float32)[..., None]], dim=-1)  # [..., N, 4]
     lead = pts.shape[:-2]
     if binning != "scatter" and K <= MXU_HISTOGRAM_MAX_BINS:
-        blocks, ha, hb = weighted_histogram_blocks(packed, upd, valid, K,
-                                                   exact_f32=(sum_precision == "exact"))
-        kp = -(-(ha * hb) // 128) * 128
         # padded bins (>= K) have zero counts and are never occupied
-        bins = torch.nn.functional.pad(blocks.reshape(*lead, 4, ha * hb), (0, kp - ha * hb))
+        bins, _, _ = weighted_bin_sums(packed, upd, valid, K,
+                                       exact_f32=(sum_precision == "exact"), align=128)
     else:
-        kp = -(-K // 128) * 128
         skey, perm = torch.sort(packed, dim=-1, stable=True)
-        n = perm.shape[-1]
         # the invalid rows (key K, sorted last) add +0.0 to bin K in the
-        # reference; dropped here, the bin keeps the +0.0 it is zeroed to
-        # (and the fold walks no long run of them)
-        bins = segment_fold(torch.where(skey == K, kp, skey), upd.transpose(-1, -2).gather(
-            -1, perm[..., None, :].expand(*lead, 4, n)), kp)  # [..., 4, kp]
+        # reference; dropped here (bins K), the bin keeps the +0.0 it is
+        # zeroed to; the fold gathers the rows by the sort's permutation
+        bins = segment_fold(skey, upd.transpose(-1, -2), K, order=perm,
+                            width=-(-K // 128) * 128)  # [..., 4, kp]
+    kp = bins.shape[-1]
     occ2d = (bins[..., 3, :] > 0.0).reshape(*lead, kp // 128, 128)
     return _dense_bins_to_partials(bins, occ2d, spec, capacity, leaf_size)
 

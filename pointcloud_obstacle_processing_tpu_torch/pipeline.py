@@ -28,6 +28,8 @@ a batch of one.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from .config import PipelineConfig
@@ -41,7 +43,7 @@ from .ops.transforms import RigidTransform
 from .ops.voxel import voxel_downsample
 from .types import Cloud, OccupancyGrid, PipelineResult, StageStats, batch_of, scan_of
 
-__all__ = ["process_scan", "process_frames", "default_draw"]
+__all__ = ["process_scan", "process_frames", "jit_pipeline", "default_draw"]
 
 
 def default_draw(config: PipelineConfig, generator: torch.Generator, device,
@@ -128,6 +130,18 @@ def process_frames(frames: torch.Tensor, frame_valid: torch.Tensor, config: Pipe
         shadow_sensor_pose = RigidTransform(world_from_sensor_per_frame.quat_xyzw[-1],
                                             world_from_sensor_per_frame.translation[-1])
     return process_scan(cloud, config, shadow_sensor_pose, draw=draw, generator=generator)
+
+
+def jit_pipeline(config: PipelineConfig):
+    """One callable per config, the reference's ``jit_pipeline``:
+    ``process_scan`` with ``config`` bound, after ``config.validate()``.
+
+    The reference compiles the scan once per config with ``jax.jit``.
+    PyTorch runs eagerly and the port's kernels are built once a process
+    at first use, so there is no compile step to take here: the callable
+    runs the same launches as ``process_scan``, and captures nothing."""
+    config.validate()
+    return partial(process_scan, config=config)
 
 
 def _post_voxel(voxel_cloud: Cloud, n_voxels: torch.Tensor, hole_grid: torch.Tensor,

@@ -74,6 +74,11 @@ class Cloud:
         valid = np.broadcast_to(np.arange(capacity) < n, buf.shape[:-1])
         return cls.from_points(buf, valid, device=device)
 
+    def masked_points(self, fill: float = float("nan")) -> torch.Tensor:
+        """The points with padding lanes replaced by ``fill`` (host and
+        debug use), any leading batch axis included."""
+        return torch.where(self.valid[..., None], self.points, fill)
+
 
 @dataclasses.dataclass
 class OccupancyGrid:

@@ -17,7 +17,12 @@ time alone from ``torch.profiler`` and host time alone, beside the library
 call where there is one); then the ``process_scan`` p50 of the flagship scenes (20 scans) and of
 the fullscale window (5 scans), the device operations of one scan of each,
 and K3 once more on the inputs each scan gives it (its voxel cloud).
-A checkout from before the kNN mean was fused into K3 and before the
+Then the segment fold on the operands of ``chip_smoke.py`` phase 12's fold
+paths (made by this checkout's voxel stage on the CPU): the fused call
+(where the checkout has one), the unfused form (the gather, the split
+passes, a launch a term, the add) and its fold launches alone, each held
+bitwise and timed (``chip_smoke.fold_rows``).  A checkout from before the
+kNN mean was fused into K3 and before the
 clustering packed its sweep points is driven through the same calls by
 ``_adapt``: its K3 row times the selection and ``mean_from_sorted``, the
 function the fused kernel computes, its K4 and K5 rows take the points
@@ -47,7 +52,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 KEYS = ("name", "path", "shape", "max_abs_err", "ms", "device_ms", "host_ms", "plain_ms",
-        "bound_ms", "library_ms", "library_device_ms", "library_host_ms")
+        "bound_ms", "library_ms", "library_device_ms", "library_host_ms", "device_ops",
+        "profiler_ops", "graph_ms", "library_graph_ms")
 
 
 def _chip_smoke():
@@ -57,10 +63,11 @@ def _chip_smoke():
     return mod
 
 
-def _this_cluster():
-    """This checkout's ``ops.cluster``, from this checkout's package loaded
-    under another name (``_pcp_torch_ab``), so that its imports resolve in
-    this checkout whatever package the run times."""
+def _this(module: str):
+    """This checkout's ``module`` (``ops.cluster``, ``utils.bounds``, ...),
+    from this checkout's package loaded under another name
+    (``_pcp_torch_ab``), so that its imports resolve in this checkout
+    whatever package the run times."""
     name = "_pcp_torch_ab"
     if name not in sys.modules:
         pkg = ROOT / "pointcloud_obstacle_processing_tpu_torch"
@@ -69,7 +76,53 @@ def _this_cluster():
         mod = importlib.util.module_from_spec(spec)
         sys.modules[name] = mod
         spec.loader.exec_module(mod)
-    return importlib.import_module(f"{name}.ops.cluster")
+    return importlib.import_module(f"{name}.{module}")
+
+
+def _fold_calls(cs, dev) -> list:
+    """``(path, calls)`` for the segment fold paths of ``chip_smoke.py``'s
+    phase 12 (the flagship scan of scene 0 under ``mxu`` and ``scatter``,
+    the fullscale window under ``scatter``, the 0.01 m leaf's 3-key
+    fallback, a ``scatter`` batch of scenes 0-3): the calls this checkout's
+    voxel stage makes to the fold on the cropped clouds, run on the CPU and
+    moved to the card, so that both checkouts fold the same operands."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.utils.scene import make_fullscale_window
+
+    models, occupancy = _this("models"), _this("ops.occupancy")
+    pipeline, voxel, histogram = _this("pipeline"), _this("ops.voxel"), _this("ops.histogram")
+    Cloud = _this("types").Cloud
+    fl, fs = models.FLAGSHIP_CONFIG, models.REFERENCE_FULLSCALE_CONFIG
+    n = fl.max_points
+    pts, valid = make_fullscale_window(cs.FULLSCALE_POINTS)
+    batch = np.zeros((cs.VOXEL_BATCH, n, 3), np.float32)
+    batch_valid = np.zeros((cs.VOXEL_BATCH, n), bool)
+    for b in range(cs.VOXEL_BATCH):
+        p = cs._scene(b).points[:n]
+        batch[b, : len(p)], batch_valid[b, : len(p)] = p, True
+    clouds = {"flagship": Cloud.pad_to(cs._scene(cs.SCENE_SEEDS[0]).points[:n], n),
+              "fullscale": Cloud(points=torch.tensor(pts), valid=torch.tensor(valid)),
+              "batch": Cloud(points=torch.tensor(batch), valid=torch.tensor(batch_valid))}
+    paths = [(name, base, override) for name, base, override, _ in cs.VOXEL_PATHS
+             if "morton" not in name and "order" not in override]
+    paths.append(("flagship_scatter_batch", "batch",
+                  dict(voxel_binning="scatter", voxel_payload_packing=False)))
+    out = []
+    for name, base, override in paths:
+        cfg = (fs if base == "fullscale" else fl).replace(**override)
+        cropped = occupancy.crop_and_seed(clouds[base], cfg).cloud
+        bounds = ((cfg.x_min, cfg.y_min, cfg.z_min), (cfg.x_max, cfg.y_max, cfg.z_max))
+        terms: list = []
+        calls = cs._capture(voxel, "segment_fold", lambda: terms.extend(cs._capture(
+            histogram, "segment_fold", lambda: pipeline.voxel_downsample(
+                cropped, cfg.downsample_leaf_size, cfg.max_voxels, bounds,
+                cfg.voxel_sum_precision, cfg.voxel_binning, cfg.voxel_order,
+                cfg.voxel_payload_packing))))
+        to = lambda x: x.to(dev) if torch.is_tensor(x) else x  # noqa: E731
+        out.append((name, [(tuple(map(to, a)), {k: to(v) for k, v in kw.items()})
+                           for a, kw in calls + terms]))
+    return out
 
 
 def _adapt(ops):
@@ -92,7 +145,7 @@ def _adapt(ops):
         # the loop as such a checkout runs it: this checkout's per-sweep loop
         # (one K4 launch a sweep, the hook in PyTorch, a host read of the
         # change test after each sweep) over that checkout's sweeps
-        here = _this_cluster()
+        here = _this("ops.cluster")
 
         def loop(sweep):
             def run_loop(pk, valid, labels, tol2, max_iters):
@@ -146,6 +199,9 @@ def run(root: str, label: str) -> dict:
     cs = _chip_smoke()
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: no CUDA device")
+    if importlib.util.find_spec("pointcloud_obstacle_processing_tpu_torch.utils.bounds") is None:
+        # a checkout from before the roofline module: the bounds of this one
+        sys.modules["pointcloud_obstacle_processing_tpu_torch.utils.bounds"] = _this("utils.bounds")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     card = f"{torch.cuda.get_device_name(0)}; nvidia-smi: {cs._nvidia_smi()}"
@@ -194,9 +250,15 @@ def run(root: str, label: str) -> dict:
     for path, args in scan_k3:
         rows.append(cs._k3_row(path, "the scan's voxel cloud", args))
     restore()
+    # the segment fold on phase 12's operands: the fused call where the
+    # checkout has one, the unfused form and its fold launches alone
+    from pointcloud_obstacle_processing_tpu_torch.ops import segfold
+
+    for path, calls in _fold_calls(cs, dev):
+        rows += cs.fold_rows(path, calls, segfold)
     return {"label": label, "root": root, "card": card, "scan_p50_ms": p50,
             "scan_device_ops": ops,
-            "rows": [{k: r[k] for k in KEYS} for r in rows]}
+            "rows": [{k: r.get(k) for k in KEYS} for r in rows]}
 
 
 def main() -> None:

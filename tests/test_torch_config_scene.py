@@ -10,6 +10,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import pointcloud_obstacle_processing_tpu as ref
 import pointcloud_obstacle_processing_tpu.models as ref_models
@@ -148,6 +149,24 @@ def test_scene_copy_equals_reference(seed, nan_frac):
         np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
 
 
+@pytest.mark.parametrize("fill", [float("nan"), 0.0, -7.5])
+def test_masked_points_equals_reference(fill):
+    """``Cloud.masked_points`` against the reference's on a seeded scene
+    with NaN points, padded, one cloud and a batch of two."""
+    scene = make_scene(seed=11, spec=SceneSpec(n_ground=3000, n_rocks=2, points_per_rock=200,
+                                               n_noise=50), nan_frac=0.01)
+    pts = np.zeros((2, 4096, 3), np.float32)
+    pts[:, : len(scene.points)] = scene.points
+    valid = np.random.default_rng(0).random((2, 4096)) < 0.8
+    valid[:, len(scene.points):] = False
+    for p, v in ((pts[0], valid[0]), (pts, valid)):
+        want = np.asarray(ref.Cloud(points=p, valid=v).masked_points(fill))
+        got = port.Cloud(points=torch.tensor(p), valid=torch.tensor(v)).masked_points(fill)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert np.isnan(scene.points).any()
+
+
 def test_port_imports_without_jax():
     code = (
         "import sys\n"
@@ -155,6 +174,7 @@ def test_port_imports_without_jax():
         "import pointcloud_obstacle_processing_tpu_torch.pipeline\n"
         "import pointcloud_obstacle_processing_tpu_torch.models\n"
         "import pointcloud_obstacle_processing_tpu_torch.utils.scene\n"
+        "import pointcloud_obstacle_processing_tpu_torch.utils.bounds\n"
         "import pointcloud_obstacle_processing_tpu_torch.ops.segscan\n"
         "import pointcloud_obstacle_processing_tpu_torch.ops.binning\n"
         "import pointcloud_obstacle_processing_tpu_torch.native\n"

@@ -1084,29 +1084,109 @@ def test_cluster_sweep_banded_refuses_mismatched_batches(dev):
         cluster.sweep_jump_banded(pk[:2], valid, labels, 0.16, 128, 256, starts)
 
 
-@pytest.mark.parametrize("scans,n,c,bins", [(1, 100_352, 4, 230_144), (3, 20_000, 8, 4_000),
-                                            (2, 50_000, 1, 7), (1, 1, 3, 5)])
-def test_segment_fold_kernel_equals_plain(dev, scans, n, c, bins):
+def _fold_case(name: str):
+    """(dest [S, N] int32, vals [S, C, N] float32 or a [S, N, C] buffer's
+    transpose, bins, keyword arguments) of a named segment fold case; each
+    dest meets the kernel's contract (sorted, out-of-range rows at both
+    ends)."""
+    rng = np.random.default_rng(len(name))
+
+    def values(scans, c, n):
+        v = rng.standard_normal((scans, c, n)) * 10.0 ** rng.uniform(-6, 3, (scans, c, n))
+        v = v.astype(np.float32)
+        v[..., : n // 50] = -0.0
+        return v
+
+    def sorted_dest(scans, n, bins):
+        return np.sort(rng.integers(-3, bins + 3, (scans, n)), axis=-1).astype(np.int32)
+
+    shapes = {"flagship_shape": (1, 100_352, 4, 230_144), "batch_c8": (3, 20_000, 8, 4_000),
+              "c1_seven_bins": (2, 50_000, 1, 7), "one_row": (1, 1, 3, 5),
+              "bins_below_tile": (2, 30_000, 4, 300), "bins_off_tile": (1, 40_000, 3, 5_000)}
+    if name in shapes:
+        scans, n, c, bins = shapes[name]
+        kw = {"width": 5_003} if name == "bins_off_tile" else {}  # scalar stores
+        return sorted_dest(scans, n, bins), values(scans, c, n), bins, kw
+    if name == "one_run_50k":
+        dest = np.full((1, 50_000), 123, np.int32)
+        return dest, values(1, 4, 50_000), 1_000, {}
+    if name == "occupancy_4pct_4m":  # ~12 rows a voxel, as the fullscale window
+        bins, n = 4_000_000, 2_097_152
+        occupied = np.sort(rng.choice(bins, bins // 25, replace=False))
+        dest = np.sort(rng.choice(occupied, n))[None].astype(np.int32)
+        return dest, values(1, 4, n), bins, {}
+    if name == "all_dropped":
+        dest = np.concatenate([np.full(3_000, -5), np.full(5_000, 2_000)])[None]
+        return dest.astype(np.int32), values(1, 4, 8_000), 2_000, {}
+    if name == "batch_uneven":  # empty, dense, sparse, one long run
+        n, bins = 30_000, 3_000
+        dest = np.stack([np.full(n, bins + 1), sorted_dest(1, n, bins)[0],
+                         np.sort(np.where(rng.random(n) < 0.01, rng.integers(0, bins, n), -1)),
+                         np.full(n, 7)]).astype(np.int32)
+        return dest, values(4, 4, n), bins, {}
+    # the callers' forms: the sort's permutation over a [S, N, 4] buffer read
+    # through its transpose, split terms, bins padded to 128
+    terms = int(name[-1])
+    scans, n, bins = 2, 100_352, 230_080
+    keys = np.where(rng.random((scans, n)) < 0.9,
+                    rng.integers(0, bins // 10, (scans, n)) * 10, bins)
+    order = np.argsort(keys, axis=-1, kind="stable")
+    dest = np.take_along_axis(keys, order, -1).astype(np.int32)
+    buf = rng.uniform(-0.04, 0.04, (scans, n, 4)).astype(np.float32)
+    buf[..., 3] = 1.0
+    return dest, buf, bins, dict(order=order, bf16_terms=terms, width=230_144)
+
+
+FOLD_CASES = ("flagship_shape", "batch_c8", "c1_seven_bins", "one_row", "one_run_50k",
+              "occupancy_4pct_4m", "all_dropped", "bins_below_tile", "bins_off_tile",
+              "batch_uneven", "order_terms0", "order_terms1", "order_terms2")
+
+
+@pytest.mark.parametrize("case", FOLD_CASES)
+def test_segment_fold_kernel_equals_plain(dev, case):
     """The segment fold kernel bitwise against its plain version on a CPU
-    copy (``index_add_``, an in-order fold): runs from one row to tens of
-    thousands, rows out of range at both ends dropped, -0.0 values folded
-    to +0.0; one launch for the batch."""
+    copy (the gather, the split terms, ``index_add_`` in row order): runs
+    from one row to 50,000, 4% occupancy over 4M bins, every row dropped,
+    bins below and off the kernel's 1,024-bin tile, a batch whose scans
+    fill differently, the sort's permutation and the split terms; rows out
+    of range at both ends dropped, -0.0 values folded to +0.0.  Each
+    output element is written: the call gets back a freed block the same
+    size filled with NaN.  One launch and one device operation a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from pointcloud_obstacle_processing_tpu_torch.ops.segfold import (
+        meets_contract,
         segment_fold,
         segment_fold_plain,
     )
 
-    rng = np.random.default_rng(n + c)
-    dest = np.sort(rng.integers(-3, bins + 3, (scans, n)), axis=-1).astype(np.int32)
-    vals = (rng.standard_normal((scans, c, n)) * 10.0 ** rng.uniform(-6, 3, (scans, c, n)))
-    vals = vals.astype(np.float32)
-    vals[..., : n // 50] = -0.0
-    d, v = torch.tensor(dest), torch.tensor(vals)
+    dest, vals, bins, kw = _fold_case(case)
+    d = torch.tensor(dest)
+    v = torch.tensor(vals)
+    if v.shape[-1] != d.shape[-1]:
+        v = v.transpose(-1, -2)  # a [S, N, C] buffer read as it lies
+    kw = {k: torch.tensor(x) if isinstance(x, np.ndarray) else x for k, x in kw.items()}
+    assert meets_contract(d, bins)
+    want = segment_fold_plain(d, v, bins, **kw)
+    dd, vd = d.to(dev), v.to(dev)
+    kd = {k: x.to(dev) if torch.is_tensor(x) else x for k, x in kw.items()}
+    junk = torch.full(want.shape, float("nan"), device=dev)
+    del junk  # the allocator hands this block back to the call
     before = _build.LAUNCHES["segment_fold"]
-    got = segment_fold(d.to(dev), v.to(dev), bins)
+    got = segment_fold(dd, vd, bins, **kd)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["segment_fold"] == before + 1
-    _eq(got.view(torch.int32), segment_fold_plain(d, v, bins).view(torch.int32))
+    assert not torch.isnan(got).any()
+    _eq(got.view(torch.int32), want.view(torch.int32))
+    for _ in range(5):  # a profiling session now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            segment_fold(dd, vd, bins, **kd)
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ops:
+            break
+    assert len(ops) == 1 and "segment_fold" in ops[0], ops
 
 
 @pytest.mark.parametrize("engine", ["scatter", "mxu_fast", "mxu_exact", "fallback", "morton"])

@@ -6,10 +6,12 @@ centroids within 1e-5), with the reference's RANSAC key chain replayed."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from test_torch_ransac import jax_key_chain_draw
 
@@ -19,6 +21,7 @@ from pointcloud_obstacle_processing_tpu.pipeline import jit_pipeline
 from pointcloud_obstacle_processing_tpu.utils.scene import SceneSpec, make_scene
 
 import pointcloud_obstacle_processing_tpu_torch as port
+from pointcloud_obstacle_processing_tpu_torch import models as port_models
 from pointcloud_obstacle_processing_tpu_torch.models import ObstacleDetectionModel
 from pointcloud_obstacle_processing_tpu_torch.ops import cluster as port_cluster
 from pointcloud_obstacle_processing_tpu_torch.pipeline import process_scan
@@ -36,7 +39,10 @@ FLAGS = ("voxel_overflow", "cluster_overflow", "cluster_band_overflow", "planes_
          "cluster_unconverged")
 
 
-def _crosscheck(ref_cfg, scene_pts, key_seed):
+def _runs(ref_cfg, scene_pts, key_seed, entries=("process_scan",)):
+    """The reference's jitted scan of ``scene_pts`` and the port's through
+    each of ``entries`` (``process_scan``, ``jit_pipeline``) on the same
+    RANSAC key chain: ``(reference result, [port results])``."""
     n = ref_cfg.max_points
     pts = scene_pts[:n]
     buf = np.zeros((n, 3), np.float32)
@@ -46,8 +52,15 @@ def _crosscheck(ref_cfg, scene_pts, key_seed):
     r = jit_pipeline(ref_cfg)(ref.Cloud.from_points(buf, valid), key)
     st = port.from_reference(dataclasses.asdict(ref_cfg), buf, valid, device="cpu")
     st.config.validate()
-    p = process_scan(st.cloud, st.config,
-                     draw=jax_key_chain_draw(key, ref_cfg.ransac_hypotheses))
+    draw = jax_key_chain_draw(key, ref_cfg.ransac_hypotheses)
+    scan = {"process_scan": functools.partial(process_scan, config=st.config),
+            "jit_pipeline": port_models.jit_pipeline(st.config)}
+    return r, [scan[e](st.cloud, draw=draw) for e in entries]
+
+
+def _assert_bar(r, p):
+    """The crosscheck bar: grid bit-identical, counts and flags exact,
+    centroids within 1e-5."""
     np.testing.assert_array_equal(np.asarray(r.grid.data), p.grid.data.numpy())
     for k in COUNTS + FLAGS:
         assert int(getattr(r.stats, k)) == int(getattr(p.stats, k)), k
@@ -56,13 +69,50 @@ def _crosscheck(ref_cfg, scene_pts, key_seed):
     assert ca.shape == cb.shape
     if len(ca):
         assert np.abs(np.sort(ca, axis=0) - np.sort(cb, axis=0)).max() < 1e-5
+
+
+def _crosscheck(ref_cfg, scene_pts, key_seed):
+    r, (p,) = _runs(ref_cfg, scene_pts, key_seed)
+    _assert_bar(r, p)
     return r, p
 
 
-@pytest.mark.parametrize("packing", [False, True])
-def test_slice_meets_crosscheck_bar(packing):
+@functools.lru_cache(maxsize=None)
+def _bar_runs(packing: bool):
+    """The bar scene through the reference (one compile a packing) and the
+    port's two entry points."""
     scene = make_scene(seed=11, spec=SPEC, nan_frac=0.01)
-    r, p = _crosscheck(CFG.replace(voxel_payload_packing=packing), scene.points, 0)
+    return _runs(CFG.replace(voxel_payload_packing=packing), scene.points, 0,
+                 ("process_scan", "jit_pipeline"))
+
+
+def _leaves(obj, prefix=""):
+    """Every tensor field of a result, by dotted name."""
+    if dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _leaves(getattr(obj, f.name), f"{prefix}{f.name}.")
+    elif hasattr(obj, "numpy"):
+        yield prefix[:-1], obj
+
+
+@pytest.mark.parametrize("entry,packing", [
+    pytest.param("process_scan", False, id="False"),
+    pytest.param("process_scan", True, id="True"),
+    pytest.param("jit_pipeline", False, id="jit_pipeline-False"),
+    pytest.param("jit_pipeline", True, id="jit_pipeline-True"),
+])
+def test_slice_meets_crosscheck_bar(entry, packing):
+    """The slice against the reference through each entry point;
+    ``jit_pipeline``'s result is also bitwise ``process_scan``'s, every
+    tensor field."""
+    r, (p, pj) = _bar_runs(packing)
+    if entry == "jit_pipeline":
+        pairs = list(zip(_leaves(p), _leaves(pj)))
+        assert pairs
+        for (name, a), (_, b) in pairs:
+            assert torch.equal(a, b), name
+        p = pj
+    _assert_bar(r, p)
     assert int(p.stats.num_planes) >= 1 and int(p.stats.num_clusters) >= 3
     # the debug clouds the reference publishes
     for name in ("voxel_cloud", "outlier_filtered_cloud", "plane_cloud", "last_plane_cloud",

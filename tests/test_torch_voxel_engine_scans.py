@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from test_torch_pipeline import _crosscheck
+from test_torch_voxel_engines import fold_spy  # noqa: F401  (a fixture)
 
 import pointcloud_obstacle_processing_tpu as ref
 from pointcloud_obstacle_processing_tpu.utils.scene import SceneSpec, make_scene
@@ -45,5 +46,8 @@ def crosscheck_case(override: dict):
 
 
 @pytest.mark.parametrize("case", list(SCAN_CASES))
-def test_process_scan_under_each_engine_meets_crosscheck_bar(case):
+def test_process_scan_under_each_engine_meets_crosscheck_bar(case, fold_spy):
+    """Each engine's scan, its segment fold calls within the kernel's
+    contract: one a scan for the dense engines, whatever the split terms."""
     crosscheck_case(SCAN_CASES[case])
+    assert len(fold_spy) == (0 if case == "morton" else 1)

@@ -37,7 +37,11 @@ import pointcloud_obstacle_processing_tpu_torch as port
 import pointcloud_obstacle_processing_tpu_torch.ops as port_ops
 from pointcloud_obstacle_processing_tpu_torch import Cloud
 from pointcloud_obstacle_processing_tpu_torch.ops import compaction, filters, histogram, ransac, voxel
-from pointcloud_obstacle_processing_tpu_torch.ops.segfold import segment_fold, segment_fold_plain
+from pointcloud_obstacle_processing_tpu_torch.ops.segfold import (
+    meets_contract,
+    segment_fold,
+    segment_fold_plain,
+)
 
 BOUNDS = ((0.0, 0.0, -0.5), (4.5, 3.78, 0.25))
 N, CAP = 8192, 2048
@@ -87,6 +91,24 @@ def _port_partials(name: str, pts, valid):
                                 CAP, bounds, **kw)
 
 
+@pytest.fixture
+def fold_spy(monkeypatch):
+    """Every call the voxel engines make to ``segment_fold``, each checked
+    against the kernel's contract (within a scan, dest mapped to [-1,
+    bins] is non-decreasing) as it is made: a list of ``(bins, any dest
+    past bins)``, one entry a call."""
+    seen = []
+
+    def spy(dest, vals, bins, **kw):
+        assert meets_contract(dest, bins), "segment_fold: dest breaks the kernel's contract"
+        seen.append((bins, bool((dest >= bins).any())))
+        return segment_fold(dest, vals, bins, **kw)
+
+    monkeypatch.setattr(voxel, "segment_fold", spy)
+    monkeypatch.setattr(histogram, "segment_fold", spy)
+    return seen
+
+
 def _seq_fold(dest, vals, bins):
     """A sequential float32 fold in row order, one scan: numpy's
     ``add.at`` adds its rows one after another."""
@@ -101,7 +123,10 @@ def _seq_fold(dest, vals, bins):
 def test_segment_fold_plain_is_a_sequential_fold(sort):
     """The plain version folds each bin's rows in input order, from +0.0 (a
     lone -0.0 comes out +0.0), over a batch of two scans, rows out of range
-    dropped; values spread over 10^-6 to 10^3, where the order shows."""
+    dropped; values spread over 10^-6 to 10^3, where the order shows.
+    Unsorted rows break the contract and are refused; folded through their
+    stable sort's permutation (``order``) they give the fold in input
+    order."""
     rng = np.random.default_rng(7)
     scans, n, bins = 2, 20_000, 300
     dest = rng.integers(-5, bins + 5, (scans, n)).astype(np.int32)
@@ -110,13 +135,22 @@ def test_segment_fold_plain_is_a_sequential_fold(sort):
     vals = (rng.standard_normal((scans, 3, n)) * 10.0 ** rng.uniform(-6, 3, (scans, 3, n)))
     vals = vals.astype(np.float32)
     vals[0, :, dest[0] == 7] = -0.0
-    got = segment_fold(torch.tensor(dest), torch.tensor(vals), bins).numpy()
+    if sort:
+        got = segment_fold(torch.tensor(dest), torch.tensor(vals), bins).numpy()
+    else:
+        with pytest.raises(ValueError, match="non-decreasing"):
+            segment_fold(torch.tensor(dest), torch.tensor(vals), bins)
+        perm = np.argsort(dest, axis=-1, kind="stable")
+        got = segment_fold(torch.tensor(np.take_along_axis(dest, perm, -1)), torch.tensor(vals),
+                           bins, order=torch.tensor(perm)).numpy()
     for b in range(scans):
         want = _seq_fold(dest[b], vals[b], bins)
         np.testing.assert_array_equal(got[b].view(np.int32), want.view(np.int32))
     assert (got[0, :, 7].view(np.int32) == 0).all()  # +0.0
-    np.testing.assert_array_equal(
-        segment_fold_plain(torch.tensor(dest[0]), torch.tensor(vals[0]), bins).numpy(), got[0])
+    if sort:
+        np.testing.assert_array_equal(
+            segment_fold_plain(torch.tensor(dest[0]), torch.tensor(vals[0]), bins).numpy(),
+            got[0])
 
 
 def test_segment_fold_refuses_bad_operands():
@@ -124,6 +158,56 @@ def test_segment_fold_refuses_bad_operands():
         segment_fold(torch.zeros(4, dtype=torch.int32), torch.zeros(9, 4), 3)
     with pytest.raises(ValueError, match="same leading dims"):
         segment_fold(torch.zeros(5, dtype=torch.int32), torch.zeros(2, 4), 3)
+    d, v = torch.zeros(4, dtype=torch.int32), torch.zeros(2, 4)
+    with pytest.raises(ValueError, match="order"):
+        segment_fold(d, v, 3, order=torch.zeros(5, dtype=torch.int64))
+    with pytest.raises(ValueError, match="bf16_terms"):
+        segment_fold(d, v, 3, bf16_terms=3)
+    with pytest.raises(ValueError, match="width"):
+        segment_fold(d, v, 3, width=2)
+
+
+def _bf16_terms(x: torch.Tensor, terms: int) -> list[torch.Tensor]:
+    """The ``mxu`` engine's split terms as its callers wrote them out."""
+    if terms == 0:
+        return [x]
+    t0 = x.to(torch.bfloat16).to(torch.float32)
+    return [t0] if terms == 1 else [t0, (x - t0).to(torch.bfloat16).to(torch.float32)]
+
+
+@pytest.mark.parametrize("c", range(1, 9))
+@pytest.mark.parametrize("terms", [0, 1, 2])
+def test_segment_fold_plain_options_equal_the_unfused_composition(c, terms):
+    """``order``, ``bf16_terms`` and ``width`` against the composition the
+    callers made before the fold took them in: the split terms, each
+    term's rows gathered by the sort's permutation, a sequential fold a
+    term (numpy's ``add.at``), the terms' float32 add, the bins padded to
+    ``width``; a batch of three scans over a [S, N, C] buffer read through
+    its transpose, keys out of range at both ends, long runs, -0.0 values.
+    Odd C pass the permutation, even C the rows already in sorted order."""
+    rng = np.random.default_rng(10 * c + terms)
+    scans, n, bins, width = 3, 4000, 500, 512
+    keys = rng.integers(-4, bins + 4, (scans, n))
+    keys[:, : n // 3] = rng.integers(0, 40, (scans, n // 3))  # runs of ~30 rows
+    perm = np.argsort(keys, axis=-1, kind="stable")
+    dest = np.take_along_axis(keys, perm, -1).astype(np.int32)
+    buf = (rng.standard_normal((scans, n, c)) * 10.0 ** rng.uniform(-6, 3, (scans, n, c)))
+    buf = buf.astype(np.float32)
+    buf[rng.random((scans, n)) < 0.02] = -0.0
+    ordered = c % 2 == 1
+    rows = buf if ordered else np.take_along_axis(buf, perm[..., None], 1)
+    got = segment_fold_plain(torch.tensor(dest), torch.tensor(rows).transpose(-1, -2), bins,
+                             order=torch.tensor(perm) if ordered else None, bf16_terms=terms,
+                             width=width)
+    assert got.shape == (scans, c, width)
+    for s in range(scans):
+        acc = None
+        for t in _bf16_terms(torch.tensor(buf[s]), terms):
+            part = _seq_fold(dest[s], t.numpy()[perm[s]].T, bins)
+            acc = part if acc is None else acc + part
+        want = np.zeros((c, width), np.float32)
+        want[:, :bins] = acc
+        np.testing.assert_array_equal(got[s].numpy().view(np.int32), want.view(np.int32))
 
 
 def test_lexsort3_is_lax_sort_order():
@@ -139,22 +223,30 @@ def test_lexsort3_is_lax_sort_order():
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("name", list(ENGINES))
-def test_engine_partials_bitwise_equal_reference(name, seed):
+def test_engine_partials_bitwise_equal_reference(name, seed, fold_spy):
+    """Every engine's partials bitwise the reference's; each fold call's
+    dest meets the kernel's contract (the fine leaf's overflowing segments
+    included), one fold call a run of a dense engine or the fallback."""
     n = ENGINES[name][3]
     pts, valid = _cloud(seed, n)
     want = _ref_partials_fn(name)(RCloud.from_points(pts, valid))
     got = _port_partials(name, pts, valid)
     _assert_partials_equal(want, got)
     assert int(got.num_voxels) > 100
+    assert len(fold_spy) == (0 if "morton" in name else 1)
+    if name == "fallback_fine_leaf":  # segments past the capacity, dropped
+        assert bool(got.overflow) and fold_spy[0][1]
 
 
 @pytest.mark.parametrize("name", list(ENGINES))
-def test_engine_batch_equals_single_scans(name):
+def test_engine_batch_equals_single_scans(name, fold_spy):
     """Each engine over a batch of three scans (one sort and one fold or
-    K1 call for the batch) equals its runs on each scan alone."""
+    K1 call for the batch, the fold's dest within the kernel's contract)
+    equals its runs on each scan alone."""
     n = ENGINES[name][3]
     clouds = [_cloud(10 + b, n) for b in range(3)]
     batch = _port_partials(name, np.stack([c[0] for c in clouds]), np.stack([c[1] for c in clouds]))
+    assert len(fold_spy) == (0 if "morton" in name else 1)
     for b, (pts, valid) in enumerate(clouds):
         single = _port_partials(name, pts, valid)
         for f in ("keys", "sums", "counts", "num_voxels", "overflow"):

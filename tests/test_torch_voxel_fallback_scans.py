@@ -21,6 +21,7 @@ from test_sharding import SHARD_CFG, _batch
 from test_torch_sharding import jax_draw_bits
 from test_torch_sharding_pipeline import _assert_crosscheck
 from test_torch_voxel_engine_scans import crosscheck_case
+from test_torch_voxel_engines import fold_spy  # noqa: F401  (a fixture)
 
 from pointcloud_obstacle_processing_tpu.parallel.sharding import dp_sp_pipeline as ref_dp_sp
 from pointcloud_obstacle_processing_tpu.parallel.sharding import make_mesh
@@ -38,8 +39,12 @@ SCAN_CASES = {
 
 
 @pytest.mark.parametrize("case", list(SCAN_CASES))
-def test_process_scan_off_the_sort_engine_meets_crosscheck_bar(case):
+def test_process_scan_off_the_sort_engine_meets_crosscheck_bar(case, fold_spy):
+    """Each case's scan; its segment fold calls (the fine leaf's 3-key
+    fallback, the buffer off the 128 grid's dense engine) within the
+    kernel's contract."""
     crosscheck_case(SCAN_CASES[case])
+    assert len(fold_spy) == {"fine_leaf": 1, "max_voxels_2040": 0, "max_points_8000": 1}[case]
 
 
 # the scatter engine's tables merged densely; a leaf whose lattice does not
