@@ -7,7 +7,8 @@ widths, the multi-device paths (point-sharded scans, the voxel-table
 merges, data parallel) on 4 ranks sharing the card, a batch of two
 fullscale windows, the flagship scan with each kNN engine, and the voxel
 engines off the sort engine's lattice order (``mxu``, ``scatter``, Morton,
-the 3-key fallback).
+the 3-key fallback), and the shadow stage's two kernels with the
+reference's trigonometry.
 
     python3 chip_smoke.py
 
@@ -199,6 +200,18 @@ Phases (any failure raises and exits non-zero before the last line):
    launch a term, the add) and that form's fold launches alone (a
    ``segment fold forms:`` JSON line); K2 on the dense bins and K1 on the
    Morton keys, checked and timed as in phase 2.
+13. The shadow stage's kernels (``csrc/shadow.cu``): ``shadow_slots`` and
+   ``shadow_raster`` bitwise their plain twins on a CPU copy of seeded
+   inputs at the flagship, fullscale and batch-of-32 shapes and of the
+   edge scan (``utils/shadow_cases.py``); the card's ``asin_like_xla`` and
+   ``tanf`` (``csrc/libm32.cuh``) bitwise the plain forms on every 509th
+   float32 of their domains; the stage's device operations and times on
+   the flagship scan's own inputs before (the stage's earlier eager form,
+   with CUDA's ``asinf``/``tanf``) and after; and the active slots of the
+   flagship and fullscale scans whose ``d`` or line CUDA's own trig would
+   change.  Every scan path of phases 3-10 counts both kernels among its
+   launches, and phases 3, 4, 8 and 9 hold them against their plain twins
+   on the path's own inputs and time them as in phase 2.
 
 Each phase prints its seconds.
 Its last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -246,6 +259,10 @@ NODE_WARMUP, NODE_WINDOWS, NODE_CADENCE_WINDOWS = 2, 10, 5
 FULLSCALE_FRAME_POINTS = 10_000
 FULLSCALE_NODE_WARMUP, FULLSCALE_NODE_WINDOWS = 1, 3
 NODE_MODES = ((False, False), (False, True), (True, False), (True, True))  # (async, device)
+SHADOW_PATH = ["shadow_slots", "shadow_raster"]  # the shadow stage's kernels, on every scan path
+SHADOW_SWEEP_STRIDE = 509  # phase 13: every 509th float32 of the trig routines' domains
+# phase 13: the cast_shadows calls of one scan, by path (captured in phases 3 and 4)
+SHADOW_SCANS: dict = {}
 
 
 def _mode_name(async_mode: bool, device_mode: bool) -> str:
@@ -622,6 +639,52 @@ def _capture(module, name: str, call) -> list:
     finally:
         setattr(module, name, fn)
     return seen
+
+
+def capture_shadow(call) -> tuple[tuple, tuple, tuple]:
+    """The arguments of the one call ``call()`` (a scan, batch or window)
+    makes to ``pipeline.cast_shadows``, and of the stage's calls to
+    ``ops.shadow.shadow_slots`` and ``shadow_raster``."""
+    from pointcloud_obstacle_processing_tpu_torch import pipeline
+    from pointcloud_obstacle_processing_tpu_torch.ops import shadow
+
+    slots, raster = [], []
+    stage = _capture(pipeline, "cast_shadows", lambda: slots.extend(_capture(
+        shadow, "shadow_slots", lambda: raster.extend(_capture(shadow, "shadow_raster", call)))))
+    ((stage_args, _),), ((s_args, _),), ((r_args, _),) = stage, slots, raster
+    return stage_args, s_args, r_args
+
+
+def _shadow_rows(path: str, what: str, s_args, r_args) -> list[dict]:
+    """The shadow kernels on a path's own inputs: each held bitwise against
+    its plain twin on a CPU copy (and the twin run on the card against the
+    same), then timed as in phase 2; the library call is none (no PyTorch
+    call computes either step)."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import shadow
+
+    pts, ok, pc, sv, tf, cfg = s_args
+    grid, lines, opacity = r_args
+    want = shadow.shadow_slots_plain(pts.cpu(), ok.cpu(), pc.cpu(), sv.cpu(), tf.to("cpu"), cfg)
+    err = _assert_equal(f"shadow_slots {path} ({what})", shadow.shadow_slots(*s_args), want)
+    _assert_equal(f"shadow_slots_plain {path} on the card", shadow.shadow_slots_plain(*s_args), want)
+    want_grid = shadow.shadow_raster_plain(grid.cpu(), lines.cpu(), opacity)
+    err = max(err, _assert_equal(f"shadow_raster {path} ({what})", shadow.shadow_raster(*r_args),
+                                 want_grid))
+    _assert_equal(f"shadow_raster_plain {path} on the card", shadow.shadow_raster_plain(*r_args),
+                  want_grid)
+    scans, c, m = pts[..., 0, 0].numel(), pts.shape[-2], sv.shape[-1]
+    h, w = grid.shape[-2:]
+    active = int(lines[..., 6].sum())
+    return [
+        _row("shadow_slots", path, f"{what}: {scans} x {c} cluster points, {m} slots",
+             "shadow.cu", "shadow.py:100 (per_cluster; plain XLA, no TPU kernel)", err,
+             lambda: shadow.shadow_slots(*s_args), lambda: shadow.shadow_slots_plain(*s_args),
+             _bound("shadow_slots", scans, c, m), plain_reps=5),
+        _row("shadow_raster", path, f"{what}: {scans} x {h} x {w} cells, {m} slots, {active} active",
+             "shadow.cu", "shadow.py:142 (the sweep raster; plain XLA, no TPU kernel)", err,
+             lambda: shadow.shadow_raster(*r_args), lambda: shadow.shadow_raster_plain(*r_args),
+             _bound("shadow_raster", scans, m, h, w), plain_reps=5),
+    ]
 
 
 def capture_k3_args(model, cloud, draw, name: str = "knn_mean") -> tuple:
@@ -1234,7 +1297,8 @@ def run_flagship(dev, card: str) -> tuple[dict, list[dict]]:
     gpu_clouds = [clouds[s].to(dev) for s in SCENE_SEEDS]
 
     # main path: counts from 0, one scan of each scene on the card
-    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop", "xla_sum", "covariance_tail"]
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop", "xla_sum", "covariance_tail",
+            *SHADOW_PATH]
     launches = dict.fromkeys(_build.LAUNCHES, 0)
     results = {}
     for s, gc in zip(SCENE_SEEDS, gpu_clouds):
@@ -1261,9 +1325,12 @@ def run_flagship(dev, card: str) -> tuple[dict, list[dict]]:
           f"launches over the {len(SCENE_SEEDS)} main-path scans {launches} [{card}]")
     loop_args = capture_loop_args(model, gpu_clouds[0], draw_cuda)
     sums, tails = capture_refine(lambda: model(gpu_clouds[0], draw=draw_cuda))
+    stage, s_args, r_args = capture_shadow(lambda: model(gpu_clouds[0], draw=draw_cuda))
+    SHADOW_SCANS["flagship"] = stage
     return launches, [check_k3_scan("flagship", model, gpu_clouds[0], draw_cuda),
                       _loop_row("flagship", "the scan's non-plane cloud", loop_args),
-                      *_sum_rows("flagship", sums), _tail_row("flagship", tails)]
+                      *_sum_rows("flagship", sums), _tail_row("flagship", tails),
+                      *_shadow_rows("flagship", "the scan's clusters", s_args, r_args)]
 
 
 def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
@@ -1285,7 +1352,7 @@ def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
     gpu_cloud = cloud.to(dev)
 
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded", "xla_sum",
-            "covariance_tail"]
+            "covariance_tail", *SHADOW_PATH]
     res, launches = _drive(model, gpu_cloud, draw_cuda, path)
     _check_overflows("fullscale", res)
     if int(res.stats.num_clusters) < 1:
@@ -1308,8 +1375,11 @@ def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
           f"per scan {n_ops} ({_ms(dev_ms)} of device time); kernel launches on the main-path "
           f"scan {launches} [{card}]")
     sums, tails = capture_refine(lambda: model(gpu_cloud, draw=draw_cuda))
+    stage, s_args, r_args = capture_shadow(lambda: model(gpu_cloud, draw=draw_cuda))
+    SHADOW_SCANS["fullscale"] = stage
     return launches, [check_k3_scan("fullscale", model, gpu_cloud, draw_cuda),
-                      *_sum_rows("fullscale", sums), _tail_row("fullscale", tails)], res
+                      *_sum_rows("fullscale", sums), _tail_row("fullscale", tails),
+                      *_shadow_rows("fullscale", "the window's clusters", s_args, r_args)], res
 
 
 def run_fullscale_bandoff(dev, card: str, banded) -> tuple[dict, list[dict]]:
@@ -1339,7 +1409,7 @@ def run_fullscale_bandoff(dev, card: str, banded) -> tuple[dict, list[dict]]:
     gpu_cloud = Cloud(points=torch.tensor(pts), valid=torch.tensor(valid)).to(dev)
 
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_grid_loop", "xla_sum",
-            "covariance_tail"]
+            "covariance_tail", *SHADOW_PATH]
     res, launches = _drive(model, gpu_cloud, draw_cuda, path)
     others = {k: launches[k] for k in ("cluster_loop", "cluster_sweep", "cluster_sweep_banded")}
     if launches["cluster_grid_loop"] != 1 or any(others.values()):
@@ -1595,7 +1665,7 @@ def run_batch(dev, card: str) -> tuple[dict, list[dict]]:
         return pipe(c, draw=draw)
 
     # main path: counts from 0, one batch
-    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop"]
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop", *SHADOW_PATH]
     _build.reset_launch_counts()
     res, sums, tails = count_refine(lambda: run(clouds, draw))
     torch.cuda.synchronize()
@@ -1644,7 +1714,9 @@ def run_batch(dev, card: str) -> tuple[dict, list[dict]]:
     (k3,) = _capture(outliers, "knn_mean", once)
     (lp,) = _capture(cluster, "cluster_loop", once)
     sums, tails = capture_refine(once)
+    _, s_args, r_args = capture_shadow(once)
     rows = [
+        *_shadow_rows("flagship_batch", f"the batch's clusters ({BATCH} scans)", s_args, r_args),
         _k1_batch_row("flagship_batch", *k1),
         _k2_batch_row("flagship_batch", k2[0]),
         _k3_row("flagship_batch", f"the batch's voxel clouds ({BATCH} scans)", k3[0]),
@@ -1707,7 +1779,9 @@ def _node_rows(path: str, once, loop: str) -> list[dict]:
     else:
         rows.append(_k5_row(path, _capture(cluster, "sweep_jump_banded", once)))
     sums, tails = capture_refine(once)
-    return rows + [*_sum_rows(path, sums), _tail_row(path, tails)]
+    _, s_args, r_args = capture_shadow(once)
+    return rows + [*_sum_rows(path, sums), _tail_row(path, tails),
+                   *_shadow_rows(path, "the window's clusters", s_args, r_args)]
 
 
 def _node_rig(cfg, dev, async_mode: bool, device_mode: bool, points: int, draw_for_cycle=None):
@@ -1822,7 +1896,8 @@ def run_node_flagship(dev, card: str) -> tuple[dict, list[dict], dict]:
 
     cfg = FLAGSHIP_CONFIG.replace(accumulate_count=NODE_FRAMES, publish_point_clouds=False)
     A = cfg.accumulate_count
-    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop", "xla_sum", "covariance_tail"]
+    path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop", "xla_sum", "covariance_tail",
+            *SHADOW_PATH]
     out, grids, trig, launches = {}, {}, {}, None
     for async_mode, device_mode in NODE_MODES:
         mode = _mode_name(async_mode, device_mode)
@@ -1980,7 +2055,7 @@ def run_node_fullscale(dev, card: str) -> tuple[dict, list[dict], dict]:
         raise AssertionError("fullscale node: device accumulation accepted a window that does "
                              "not divide max_points")
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded", "xla_sum",
-            "covariance_tail"]
+            "covariance_tail", *SHADOW_PATH]
     cycles = FULLSCALE_NODE_WARMUP + FULLSCALE_NODE_WINDOWS
     out, grids, launches, rows = {}, {}, None, []
     for async_mode in (False, True):
@@ -2076,13 +2151,15 @@ SP_CAPTURE = [(f"{_MOD}.voxel", "sorted_run_reduce"),
               (_MOD, "_xla_sum_kernel"), (f"{_MOD}.ransac", "covariance_tail")]
 # kernels each sharded path must launch on every rank, counted from 0
 SP_PATHS = {
-    "sp_flagship": ["runreduce", "compact_gather", "knn_mean_rows", "cluster_sweep_rows"],
+    "sp_flagship": ["runreduce", "compact_gather", "knn_mean_rows", "cluster_sweep_rows",
+                    *SHADOW_PATH],
     "sp_fullscale": ["runreduce", "runreduce_counts", "compact_gather", "knn_mean_rows",
-                     "cluster_sweep_banded_rows"],
+                     "cluster_sweep_banded_rows", *SHADOW_PATH],
     "sp_fullscale_replicated": ["runreduce", "runreduce_counts", "compact_gather",
-                                "knn_mean_rows", "cluster_sweep_banded_rows"],
-    "sp_dp_2x2": ["runreduce", "compact_gather", "knn_mean_rows", "cluster_sweep_rows"],
-    "data_parallel": ["runreduce", "compact_gather", "knn_mean", "cluster_loop"],
+                                "knn_mean_rows", "cluster_sweep_banded_rows", *SHADOW_PATH],
+    "sp_dp_2x2": ["runreduce", "compact_gather", "knn_mean_rows", "cluster_sweep_rows",
+                  *SHADOW_PATH],
+    "data_parallel": ["runreduce", "compact_gather", "knn_mean", "cluster_loop", *SHADOW_PATH],
     "merge_fullscale": ["runreduce", "runreduce_counts"],
 }
 
@@ -2555,7 +2632,7 @@ def run_fullscale_batch(dev, card: str) -> tuple[dict, list[dict]]:
 
     # main path: counts from 0, one batch
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded", "xla_sum",
-            "covariance_tail"]
+            "covariance_tail", *SHADOW_PATH]
     _build.reset_launch_counts()
     res, sums, tails = count_refine(lambda: run(clouds, draw))
     torch.cuda.synchronize()
@@ -3054,6 +3131,160 @@ def run_voxel_engines(dev, card: str) -> tuple[dict, list[dict]]:
     return launches, rows
 
 
+# ---- phase 13: the shadow stage's kernels and the reference's trig ----------
+
+
+def _eager_shadows_before(grid, cloud, clusters, world_from_sensor, config):
+    """The shadow stage as the port ran it before its two kernels: eager
+    PyTorch over ``[..., M, C]`` and ``[..., M, H, W]``, with torch's
+    ``arcsin`` and ``tan`` (on the card, CUDA's ``asinf`` and ``tanf``).
+    Phase 13's yardstick of device operations only."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.ops import f32, fma, int32_like_xla
+    from pointcloud_obstacle_processing_tpu_torch.ops.shadow import _cell, _lengths, sweep_lines
+
+    H, W = config.grid_height, config.grid_width
+    M = clusters.sizes.shape[-1]
+    lead = clusters.sizes.shape[:-1]
+    inf = float("inf")
+    spts = world_from_sensor.inverse().apply(cloud.points)
+    mask = (clusters.point_cluster[..., None, :] == torch.arange(M, device=grid.device)[:, None]) \
+        & cloud.valid[..., None, :]
+    sx, sy = spts[..., None, :, 0], spts[..., None, :, 1]
+    i_min = torch.argmin(torch.where(mask, sx, inf), dim=-1)
+    vmin = spts.gather(-2, i_min[..., None].expand(*lead, M, 3))
+    vmax = torch.where(mask, sx, -inf).max(dim=-1).values
+    width = torch.abs(torch.where(mask, sy, -inf).max(dim=-1).values
+                      - torch.where(mask, sy, inf).min(dim=-1).values)
+    c, v_len = _lengths(vmin)
+    e = torch.abs(vmax) - torch.abs(vmin[..., 0]) + f32(0.04)
+    d = fma(torch.tan(torch.arcsin(vmin[..., 2] / torch.clamp_min(c, 1e-20))), e, f32(0.25))
+    end = fma(vmin / torch.clamp_min(v_len, 1e-20)[..., None], d[..., None], vmin)
+    end_world, start_world = world_from_sensor.apply(torch.cat([end, vmin], dim=-2)).split(M, -2)
+    e_col, e_row = _cell(end_world, config)
+    s_col, s_row = _cell(start_world, config)
+    shift, n_lines = sweep_lines(width, config.block_size)
+    active = clusters.valid & (mask.sum(dim=-1) >= 2)
+    x0, y0, x1, y1 = s_col + shift, s_row, e_col + shift, e_row
+    steep = torch.abs(y1 - y0) > torch.abs(x1 - x0)
+    x0, y0 = torch.where(steep, y0, x0), torch.where(steep, x0, y0)
+    x1, y1 = torch.where(steep, y1, x1), torch.where(steep, x1, y1)
+    back = x0 > x1
+    x0, x1 = torch.where(back, x1, x0), torch.where(back, x0, x1)
+    y0, y1 = torch.where(back, y1, y0), torch.where(back, y0, y1)
+    dx, dy = (x1 - x0).to(torch.float32), (y1 - y0).to(torch.float32)
+    g = torch.where(dx == 0.0, 1.0, dy / torch.where(dx == 0.0, 1.0, dx))[..., None, None]
+    fx0, y0f = x0.to(torch.float32)[..., None, None], y0.to(torch.float32)[..., None, None]
+    ix0, ix1, n = x0[..., None, None], x1[..., None, None], n_lines[..., None, None]
+    rows = torch.arange(H, dtype=torch.int32, device=grid.device).reshape(H, 1)
+    cols = torch.arange(W, dtype=torch.int32, device=grid.device).reshape(1, W)
+
+    def fy(u):
+        return int32_like_xla(torch.floor(y0f + g * (u.to(torch.float32) - fx0)))
+
+    fy_r = fy(rows)
+    steep_hit = (rows >= ix0) & (rows <= ix1) & (cols >= fy_r - (n - 1)) & (cols <= fy_r + 1)
+    u_lo, u_hi = torch.maximum(ix0, cols - 1), torch.minimum(ix1, cols + (n - 1))
+    lo, hi = fy(u_lo), fy(u_hi)
+    shallow_hit = (u_lo <= u_hi) & (rows >= torch.minimum(lo, hi)) & (rows <= torch.maximum(lo, hi))
+    hit = (active[..., None, None] & torch.where(steep[..., None, None], steep_hit, shallow_hit)
+           ).any(dim=-3)
+    return torch.where(hit, torch.full_like(grid, config.grid_opacity), grid)
+
+
+def _cuda_trig_slots(stage) -> tuple[int, int, int]:
+    """On one scan's ``cast_shadows`` inputs: (active slots, slots whose
+    ``d`` from CUDA's ``asinf``/``tanf`` (torch's ``arcsin``/``tan`` on
+    the card) differs from the reference's, whose line differs).  The
+    reference's ``d`` is ``shadow_end`` run on the card, held bitwise to
+    its CPU run first; the lines are ``slot_lines`` of either end point."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.ops import f32, fma, shadow
+
+    grid, cloud, clusters, tf, cfg = stage
+    m = clusters.valid.shape[-1]
+    spts = tf.inverse().apply(cloud.points)
+    vmin, vmax, hmin, hmax, count = shadow.slot_extremes(spts, clusters.point_cluster, cloud.valid,
+                                                         m)
+    d, end = shadow.shadow_end(vmin, vmax)
+    d_cpu, _ = shadow.shadow_end(vmin.cpu(), vmax.cpu())
+    _assert_equal("shadow_end on the card", d.view(torch.int32), d_cpu.view(torch.int32))
+    c, v_len = shadow._lengths(vmin)
+    e = torch.abs(vmax) - torch.abs(vmin[..., 0]) + f32(0.04)
+    d_cuda = fma(torch.tan(torch.arcsin(vmin[..., 2] / torch.clamp_min(c, 1e-20))), e, f32(0.25))
+    end_cuda = fma(vmin / torch.clamp_min(v_len, 1e-20)[..., None], d_cuda[..., None], vmin)
+    active = clusters.valid & (count >= 2)
+
+    def lines(end_sensor):
+        end_world, start_world = tf.apply(torch.cat([end_sensor, vmin], dim=-2)).split(m, -2)
+        return shadow.slot_lines(start_world, end_world, torch.abs(hmax - hmin), active, cfg)
+
+    d_apart = (d_cuda.view(torch.int32) != d.view(torch.int32)) & active
+    lines_apart = (lines(end_cuda) != lines(end)).any(-1) & active
+    return int(active.sum()), int(d_apart.sum()), int(lines_apart.sum())
+
+
+def run_shadow(dev, card: str) -> None:
+    """Phase 13: the shadow kernels bitwise their plain twins on seeded
+    inputs at the flagship, fullscale and batch-of-32 shapes and on the
+    edge scan (``utils.shadow_cases``); the card's trig routines against
+    the plain forms over a strided sweep of their domains; the stage's
+    device operations and time on the flagship scan before (the earlier
+    eager form) and after; and how many slots of the flagship and fullscale scans
+    CUDA's own ``asinf``/``tanf`` would move."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as cfg
+    from pointcloud_obstacle_processing_tpu_torch.ops import libm, shadow
+    from pointcloud_obstacle_processing_tpu_torch.ops.transforms import RigidTransform
+    from pointcloud_obstacle_processing_tpu_torch.utils import shadow_cases
+
+    m = cfg.max_clusters
+    cases = {"flagship": shadow_cases.random_slots(0, 1, cfg.cluster_capacity, m),
+             "fullscale": shadow_cases.random_slots(1, 1, 16_384, m),
+             "batch": shadow_cases.random_slots(2, BATCH, cfg.cluster_capacity, m,
+                                                pose_per_scan=True),
+             "edges": shadow_cases.edge_slots(m)}
+    for name, case in cases.items():
+        args = [torch.tensor(case[k]) for k in ("points", "valid", "point_cluster", "slot_valid")]
+        tf = RigidTransform.from_quat_trans(case["quat"], case["trans"])
+        want = shadow.shadow_slots_plain(*args, tf, cfg)
+        got = shadow.shadow_slots(*[a.to(dev) for a in args], tf.to(dev), cfg)
+        _assert_equal(f"shadow_slots seeded {name}", got, want)
+        grid = torch.tensor(np.random.default_rng(3).choice(
+            [0, 100], (*want.shape[:-2], cfg.grid_height, cfg.grid_width)).astype(np.int8))
+        _assert_equal(f"shadow_raster seeded {name}", shadow.shadow_raster(grid.to(dev), got, 50),
+                      shadow.shadow_raster_plain(grid, want, 50))
+        print(f"shadow kernels seeded {name} {tuple(args[0].shape)}, {m} slots: equal to plain "
+              f"({int(want[..., 6].sum())} active slots) [{card}]")
+
+    for name, top in (("asin_like_xla", np.float32(1.0)),
+                      ("tanf", np.nextafter(np.float32(np.pi / 2), np.float32(4)))):
+        bits = np.arange(0, int(top.view(np.int32)) + 1, SHADOW_SWEEP_STRIDE, dtype=np.int32)
+        x = torch.tensor(np.concatenate([bits, bits | np.int32(-2**31)]).view(np.float32))
+        _assert_equal(f"libm32 {name} sweep", libm.on_card(name, x.to(dev)).view(torch.int32),
+                      libm.ROUTINES[name](x).view(torch.int32))
+        print(f"libm32 {name}: equal to the plain form on every {SHADOW_SWEEP_STRIDE}th float32 "
+              f"of [-{top!r}, {top!r}] ({x.numel():,} values) [{card}]")
+
+    grid, cloud, clusters, tf, scfg = SHADOW_SCANS["flagship"]
+    before = lambda: _eager_shadows_before(grid, cloud, clusters, tf, scfg)  # noqa: E731
+    after = lambda: shadow.cast_shadows(grid, cloud, clusters, tf, scfg)  # noqa: E731
+    apart = int((before() != after().grid).sum())
+    print(f"shadow stage, flagship scan: the eager form with CUDA's trig paints {apart} cells "
+          f"otherwise than the kernels [{card}]")
+    for label, fn in (("before (eager, CUDA trig)", before), ("after (two kernels)", after)):
+        dev_ms, ops = _device_profile(fn)
+        print(f"shadow stage {label}, flagship scan: {ops} device operations, device "
+              f"{_ms(dev_ms)}, call {_time_ms(fn):.4f} ms, host {_host_ms(fn):.4f} ms [{card}]")
+    for path, stage in SHADOW_SCANS.items():
+        active, d_apart, lines_apart = _cuda_trig_slots(stage)
+        print(f"CUDA asinf/tanf on the {path} scan: {d_apart} of {active} active slots get "
+              f"another d than the kernel's, {lines_apart} another line [{card}]")
+
+
 def main() -> None:
     import torch
 
@@ -3139,6 +3370,9 @@ def main() -> None:
     launches.update(voxel_launches)
     rows += voxel_rows
     print(f"phase 12 (voxel engines): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    run_shadow(dev, card)
+    print(f"phase 13 (shadow kernels, trig): {time.perf_counter() - t:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["path"]][r["name"]]

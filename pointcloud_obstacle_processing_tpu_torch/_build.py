@@ -50,7 +50,8 @@ NVCC_FLAGS = [
 LAUNCHES = {"runreduce": 0, "runreduce_counts": 0, "compact_gather": 0, "knn_mean": 0,
             "knn_mean_rows": 0, "cluster_loop": 0, "cluster_grid_loop": 0, "cluster_sweep": 0,
             "cluster_sweep_rows": 0, "cluster_sweep_banded": 0, "cluster_sweep_banded_rows": 0,
-            "segscan": 0, "binned_sum": 0, "xla_sum": 0, "covariance_tail": 0, "segment_fold": 0}
+            "segscan": 0, "binned_sum": 0, "xla_sum": 0, "covariance_tail": 0, "segment_fold": 0,
+            "shadow_slots": 0, "shadow_raster": 0, "libm32": 0}
 
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -97,6 +98,14 @@ _SIGNATURES = {
     # dest, vals, order (or null), scans, n, c, bins, width, vals' strides
     # (scan, channel, row), bf16 terms, out (every element written), stream
     "pcp_segment_fold": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _LL, _LL, _LL, _I, _VP, _VP],
+    # points, valid, point_cluster, slot_valid, quaternions [P, 4],
+    # translations [P, 3], pose stride, scans, c, m, block, 1/block, y_min,
+    # x_max, lines out, stream
+    "pcp_shadow_slots": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _F, _F, _VP, _VP],
+    # grid, lines, scans, m, h, w, opacity, out, stream
+    "pcp_shadow_raster": [_VP, _VP, _I, _I, _I, _I, _I, _VP, _VP],
+    # a, b (or null), n, routine (0 asin_like_xla, 1 tanf, 2 atan2f), out, stream
+    "pcp_libm32": [_VP, _VP, _LL, _I, _VP, _VP],
 }
 
 BUILD_SECONDS: list[float] = []  # wall time of each build this process ran

@@ -69,6 +69,19 @@ def sqrt32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(torch.float32)
 
 
+INT32_MAX = 2**31 - 1
+
+
+def int32_like_xla(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 as XLA's ``convert`` gives it, on every device:
+    truncated toward zero, saturated at the int32 range, NaN to 0.  (x86's
+    conversion, which PyTorch's CPU kernels use, gives INT32_MIN for every
+    value out of range and for NaN; the card's saturates as XLA does.)"""
+    out = torch.clamp(v, -(2.0**31), 2147483520.0).to(torch.int32)  # the float32 below 2^31
+    out = torch.where(v >= 2.0**31, INT32_MAX, out)
+    return torch.where(torch.isnan(v), 0, out)
+
+
 def sum_sq3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """``jnp.sum(p * p, axis=-1)`` over (x, y, z) as XLA:CPU evaluates it:
     the reduction's chain ``fma(z, z, fma(y, y, x * x))``."""

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import f32
+from . import f32, fma, int32_like_xla, recip32
 from ..config import PipelineConfig
 from ..types import Cloud
 from .filters import crop_box_mask
@@ -27,26 +27,32 @@ __all__ = ["grid_cell_xy", "grid_cell_index", "cell_counts", "holes", "crop_and_
 def grid_cell_xy(points: torch.Tensor, config: PipelineConfig):
     """World (x, y) -> (col, row) cells, bit-exact to the C++ loop search
     (cpp:134-150): a closed form plus fix-up steps that re-evaluate the
-    loop's own float32 conditions."""
+    loop's own float32 conditions, each as XLA:CPU evaluates the
+    reference's: the division by the block as the product with its
+    reciprocal (``ops.recip32``), the conversion saturating
+    (``ops.int32_like_xla``; an end point of the shadow can lie billions of
+    cells away), and each condition's product fused into its add,
+    ``fma(c, b, y_min) < y`` and ``fma(-r, b, x_max) > x``."""
     y = points[..., 1]
     x = points[..., 0]
     b = f32(config.block_size)
+    inv_b = recip32(config.block_size)
     y_min = f32(config.y_min)
     x_max = f32(config.x_max)
 
-    col = torch.clamp_min(torch.ceil((y - y_min) / b) - 1, 0).to(torch.int32)
-    row = torch.clamp_min(torch.ceil((x_max - x) / b) - 1, 0).to(torch.int32)
+    col = int32_like_xla(torch.clamp_min(torch.ceil((y - y_min) * inv_b) - 1, 0))
+    row = int32_like_xla(torch.clamp_min(torch.ceil((x_max - x) * inv_b) - 1, 0))
 
     for _ in range(2):  # advance while the loop condition still holds
         cf = col.to(torch.float32)
-        col = torch.where(y_min + (cf + 1.0) * b < y, col + 1, col)
+        col = torch.where(fma(cf + 1.0, b, y_min) < y, col + 1, col)
         rf = row.to(torch.float32)
-        row = torch.where(x_max - (rf + 1.0) * b > x, row + 1, row)
+        row = torch.where(fma(-(rf + 1.0), b, x_max) > x, row + 1, row)
     for _ in range(2):  # retreat while the previous step's condition fails
         cf = col.to(torch.float32)
-        col = torch.where((col > 0) & ~(y_min + cf * b < y), col - 1, col)
+        col = torch.where((col > 0) & ~(fma(cf, b, y_min) < y), col - 1, col)
         rf = row.to(torch.float32)
-        row = torch.where((row > 0) & ~(x_max - rf * b > x), row - 1, row)
+        row = torch.where((row > 0) & ~(fma(-rf, b, x_max) > x), row - 1, row)
     return col, row
 
 

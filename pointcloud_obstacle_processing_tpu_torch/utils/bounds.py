@@ -32,7 +32,8 @@ import math
 __all__ = ["HBM_BYTES_PER_S", "FP32_OPS_PER_S", "FP64_OPS_PER_S", "D2_OPS", "LATENCY_CLASS",
            "stage_bounds", "runreduce", "runreduce_counts", "compact_gather", "knn_mean",
            "cluster_sweep", "cluster_loop", "cluster_grid_loop", "cluster_sweep_banded",
-           "segscan", "binned_sum", "xla_sum", "covariance_tail", "segment_fold"]
+           "segscan", "binned_sum", "xla_sum", "covariance_tail", "segment_fold", "shadow_slots",
+           "shadow_raster"]
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -162,6 +163,21 @@ def segment_fold(scans: int, n: int, channels: int, width: int, order: bool = Fa
                   + scans * width * 4 * channels,
                   scans * n * channels * terms
                   + (scans * width * channels if bf16_terms == 2 else 0))
+
+
+def shadow_slots(scans: int, c: int, m: int) -> tuple[float, str]:
+    """The shadow's slot kernel: each scan's cloud read once, a point's
+    coordinates (12 bytes), its slot id (4) and its valid flag (1); each
+    slot's line (7 int32) written.  Its operations, a transform a point and
+    a slot's geometry, are orders below the bytes' time."""
+    return _bound(scans * (c * 17 + m * 28))
+
+
+def shadow_raster(scans: int, m: int, h: int, w: int) -> tuple[float, str]:
+    """The shadow's raster kernel: the grid read and written (a byte a cell
+    each way) and the lines read; one float32 hit test a cell and slot,
+    ``scans * h * w * m`` in all."""
+    return _bound(scans * (h * w * 2 + m * 28), scans * h * w * m)
 
 
 def stage_bounds(cfg, n_valid: int, n_voxels: int, n_cluster_rows: int, sweeps: int = 5) -> dict:

@@ -97,6 +97,13 @@ ROWS = [
     ("the dense engines' bins", "compact_gather", (3_988_864, 165_898), "0.0030"),
     ("the Morton keys", "runreduce", (100_352, 21_521, 1024), "0.0005"),
     ("the Morton keys", "runreduce", (2_097_152, 165_898, 4096), "0.0085"),
+    # the shadow kernels: 64 slots over the flagship's 1,024 and the
+    # fullscale 16,384 cluster points, and the batch of 32; 120 x 101 cells
+    ("the shadow stage's per-slot geometry", "shadow_slots", (1, 1024, 64), "0.0000057"),
+    ("the shadow stage's per-slot geometry", "shadow_slots", (1, 16_384, 64), "0.000084"),
+    ("the shadow stage's per-slot geometry", "shadow_slots", (32, 1024, 64), "0.00018"),
+    ("the shadow's closed-form sweep raster", "shadow_raster", (1, 64, 120, 101), "0.0000116"),
+    ("the shadow's closed-form sweep raster", "shadow_raster", (32, 64, 120, 101), "0.00037"),
 ]
 
 

@@ -175,6 +175,8 @@ def test_port_imports_without_jax():
         "import pointcloud_obstacle_processing_tpu_torch.models\n"
         "import pointcloud_obstacle_processing_tpu_torch.utils.scene\n"
         "import pointcloud_obstacle_processing_tpu_torch.utils.bounds\n"
+        "import pointcloud_obstacle_processing_tpu_torch.utils.shadow_cases\n"
+        "import pointcloud_obstacle_processing_tpu_torch.ops.libm\n"
         "import pointcloud_obstacle_processing_tpu_torch.ops.segscan\n"
         "import pointcloud_obstacle_processing_tpu_torch.ops.binning\n"
         "import pointcloud_obstacle_processing_tpu_torch.native\n"

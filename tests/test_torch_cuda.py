@@ -1217,3 +1217,118 @@ def test_voxel_engines_on_the_card_equal_cpu(dev, engine):
     assert _build.LAUNCHES[kernel] >= 1
     for f in ("keys", "sums", "counts", "num_voxels", "overflow"):
         _eq(getattr(got, f), getattr(want, f))
+
+
+def _shadow_case(kind: str):
+    """Shadow-stage inputs as CPU tensors and the pose: ``kind`` names a
+    shape (flagship: 1 scan of 1,024 cluster points, fullscale: 16,384,
+    batch: 32 scans of 1,024 with a pose a scan; 64 slots each) or the edge
+    scan (``utils.shadow_cases.edge_slots``, 64 slots)."""
+    from pointcloud_obstacle_processing_tpu_torch.ops.transforms import RigidTransform
+    from pointcloud_obstacle_processing_tpu_torch.utils import shadow_cases
+
+    case = {"flagship": lambda: shadow_cases.random_slots(0, 1, 1024, 64),
+            "fullscale": lambda: shadow_cases.random_slots(1, 1, 16_384, 64),
+            "batch": lambda: shadow_cases.random_slots(2, 32, 1024, 64, pose_per_scan=True),
+            "edges": lambda: shadow_cases.edge_slots(64)}[kind]()
+    args = [torch.tensor(case[k]) for k in ("points", "valid", "point_cluster", "slot_valid")]
+    return args, RigidTransform.from_quat_trans(case["quat"], case["trans"])
+
+
+@pytest.mark.parametrize("kind", ["flagship", "fullscale", "batch", "edges"])
+def test_shadow_kernels_equal_plain(dev, kind):
+    """``shadow_slots`` and ``shadow_raster`` on the card bitwise their plain
+    twins on the CPU, one launch each, at the flagship, fullscale and
+    batch-of-32 shapes and on the edge scan (a / c = +-1, a slot at the
+    sensor, subnormal and tiny z, ties, empty slots, ...)."""
+    from pointcloud_obstacle_processing_tpu_torch.config import REFERENCE_YAML_CONFIG as cfg
+    from pointcloud_obstacle_processing_tpu_torch.ops import shadow
+
+    args, tf = _shadow_case(kind)
+    want = shadow.shadow_slots_plain(*args, tf, cfg)
+    before = dict(_build.LAUNCHES)
+    got = shadow.shadow_slots(*[a.to(dev) for a in args], tf.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["shadow_slots"] == before["shadow_slots"] + 1
+    _eq(got, want)
+    grid = torch.tensor(np.random.default_rng(3).choice(
+        [0, 100], (*want.shape[:-2], cfg.grid_height, cfg.grid_width)).astype(np.int8))
+    want_grid = shadow.shadow_raster_plain(grid, want, 50)
+    got_grid = shadow.shadow_raster(grid.to(dev), got, 50)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["shadow_raster"] == before["shadow_raster"] + 1
+    _eq(got_grid, want_grid)
+    assert (want_grid == 50).any()
+
+
+@pytest.mark.parametrize("m", [1, 64, 300])
+def test_shadow_raster_on_extreme_lines(dev, m):
+    """The raster kernel on random lines with ends up to +-2^31 (int32
+    arithmetic wrapping, float conversions saturating), line counts up to
+    2^31 - 1, steep and active flags at random, more slots than a block
+    stages at once (300), against its plain twin."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import shadow
+
+    rng = np.random.default_rng(m)
+    scale = 2.0 ** rng.integers(1, 32, (4, m, 4))
+    ends = np.clip(rng.uniform(-1, 1, (4, m, 4)) * scale, -2**31, 2**31 - 1).astype(np.int32)
+    ends[..., :4][rng.random((4, m, 4)) < 0.5] %= 128
+    n = np.where(rng.random((4, m)) < 0.9, rng.integers(1, 40, (4, m)),
+                 rng.integers(-2**31, 2**31 - 1, (4, m))).astype(np.int32)
+    flags = rng.integers(0, 2, (4, m, 2)).astype(np.int32)
+    lines = torch.tensor(np.concatenate([ends, n[..., None], flags], -1))
+    grid = torch.tensor(rng.choice([0, 100], (4, 120, 101)).astype(np.int8))
+    _eq(shadow.shadow_raster(grid.to(dev), lines.to(dev), 7),
+        shadow.shadow_raster_plain(grid, lines, 7))
+
+
+def test_libm32_equals_plain(dev):
+    """The card's ``asin_like_xla``, ``tanf`` and ``atan2f``
+    (``csrc/libm32.cuh``) bitwise the plain forms on the CPU: every 1,021st
+    float32 of [-1, 1] and of [-pi/2, pi/2] rounded up, subnormals, and
+    ``atan2f`` on 100,000 seeded pairs over 80 decades with every special
+    pair."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import libm
+
+    def span(top, step):  # every step-th float32 of [-top, top], by bits
+        bits = np.arange(0, np.float32(top).view(np.int32) + 1, step, dtype=np.int32)
+        return np.concatenate([bits, bits | np.int32(-2**31)]).view(np.float32)
+
+    for name, top in (("asin_like_xla", 1.0), ("tanf", np.nextafter(np.float32(np.pi / 2), 9))):
+        x = torch.tensor(span(top, 1021))
+        _eq(libm.on_card(name, x.to(dev)).view(torch.int32), libm.ROUTINES[name](x).view(torch.int32))
+    rng = np.random.default_rng(4)
+    y = (rng.standard_normal(100_000) * 10.0 ** rng.uniform(-40, 38, 100_000)).astype(np.float32)
+    x = (rng.standard_normal(100_000) * 10.0 ** rng.uniform(-40, 38, 100_000)).astype(np.float32)
+    special = np.array([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, 1e-40, 3.0], np.float32)
+    sy, sx = np.meshgrid(special, special)
+    y, x = torch.tensor(np.concatenate([y, sy.ravel()])), torch.tensor(np.concatenate([x, sx.ravel()]))
+    _eq(libm.on_card("atan2f", y.to(dev), x.to(dev)).view(torch.int32),
+        libm.atan2f(y, x).view(torch.int32))
+
+
+def test_cast_shadows_launches_the_two_kernels_and_no_torch_trig(dev, monkeypatch):
+    """``cast_shadows`` on CUDA tensors launches ``shadow_slots`` and
+    ``shadow_raster`` once each for a batch, and calls neither
+    ``torch.arcsin`` nor ``torch.tan``; its grid is the CPU's."""
+    from pointcloud_obstacle_processing_tpu_torch import ClusterSet
+    from pointcloud_obstacle_processing_tpu_torch.config import REFERENCE_YAML_CONFIG as cfg
+    from pointcloud_obstacle_processing_tpu_torch.ops import shadow
+
+    (pts, ok, pc, sv), tf = _shadow_case("batch")
+    cloud = Cloud(points=pts, valid=ok)
+    clusters = ClusterSet(point_cluster=pc, sizes=torch.ones_like(pc[:, :64]), valid=sv,
+                          num_clusters=torch.full((32,), 64))
+    grid = torch.zeros(32, cfg.grid_height, cfg.grid_width, dtype=torch.int8)
+    want = shadow.cast_shadows(grid, cloud, clusters, tf, cfg).grid
+    for name in ("arcsin", "tan", "asin"):
+        monkeypatch.setattr(torch, name, lambda *a, **k: pytest.fail("torch trig on the card"))
+    _build.reset_launch_counts()
+    got = shadow.cast_shadows(grid.to(dev), cloud.to(dev),
+                              ClusterSet(*(getattr(clusters, f).to(dev) for f in
+                                           ("point_cluster", "sizes", "valid", "num_clusters"))),
+                              tf.to(dev), cfg).grid
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"shadow_slots": 1,
+                                                                "shadow_raster": 1}
+    _eq(got, want)

@@ -192,12 +192,16 @@ def test_shadow_lengths_are_bitwise_the_reference():
 
 
 def test_shadow_asin_tan_stay_within_ulps_of_the_reference():
-    """The shadow's ``tan(asin(x))`` is the one step of its geometry that is
-    not bitwise: XLA:CPU's float32 ``asin`` and ``tan`` are approximations
-    of its own.  On 200,000 seeded x in [-1, 1), torch's ``arcsin`` is
-    within 2 ulps of the reference's jitted ``jnp.arcsin`` and ``tan``, on
-    the reference's angles, within 1 ulp of ``jnp.tan``; the count of
-    ``tan(asin(x))`` results whose bits differ is printed under ``-s``."""
+    """The shadow's ``tan(asin(x))`` is bitwise the reference's: on 200,000
+    seeded x in [-1, 1), ``ops.libm.asin_like_xla`` (XLA:CPU's lowering of
+    ``jnp.arcsin`` over glibc's ``atan2f``) is 0 ulps from the jitted
+    ``jnp.arcsin``, ``ops.libm.tanf`` (glibc's) 0 ulps from ``jnp.tan`` on
+    the reference's angles, and 0 ``tan(asin(x))`` results differ.
+    Torch's own ``arcsin`` and ``tan`` stay within 2 and 1 ulps; the count
+    of their ``tan(asin(x))`` results whose bits differ is printed under
+    ``-s``."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import libm
+
     rng = np.random.default_rng(0)
     x = rng.uniform(-1.0, 1.0, 200_000).astype(np.float32)
 
@@ -207,11 +211,15 @@ def test_shadow_asin_tan_stay_within_ulps_of_the_reference():
         return np.abs(a - b)
 
     want_asin = np.asarray(jax.jit(jnp.arcsin)(x))
+    want_tan = jax.jit(jnp.tan)(want_asin)
+    assert ulps(libm.asin_like_xla(torch.tensor(x)), want_asin).max() == 0
+    assert ulps(libm.tanf(torch.tensor(want_asin)), want_tan).max() == 0
+    want = jax.jit(lambda v: jnp.tan(jnp.arcsin(v)))(x)
+    assert _bits_apart(libm.tanf(libm.asin_like_xla(torch.tensor(x))), want) == 0
     assert ulps(torch.arcsin(torch.tensor(x)), want_asin).max() <= 2
-    assert ulps(torch.tan(torch.tensor(want_asin)), jax.jit(jnp.tan)(want_asin)).max() <= 1
-    apart = _bits_apart(torch.tan(torch.arcsin(torch.tensor(x))),
-                        jax.jit(lambda v: jnp.tan(jnp.arcsin(v)))(x))
-    print(f"tan(asin(x)) differs from the reference's on {apart} of 200,000")
+    assert ulps(torch.tan(torch.tensor(want_asin)), want_tan).max() <= 1
+    apart = _bits_apart(torch.tan(torch.arcsin(torch.tensor(x))), want)
+    print(f"torch's tan(asin(x)) differs from the reference's on {apart} of 200,000")
 
 
 def test_shadow_lengths_match_the_reference_in_place(monkeypatch):
