@@ -7,8 +7,9 @@ widths, the multi-device paths (point-sharded scans, the voxel-table
 merges, data parallel) on 4 ranks sharing the card, a batch of two
 fullscale windows, the flagship scan with each kNN engine, and the voxel
 engines off the sort engine's lattice order (``mxu``, ``scatter``, Morton,
-the 3-key fallback), and the shadow stage's two kernels with the
-reference's trigonometry.
+the 3-key fallback), the shadow stage's two kernels with the
+reference's trigonometry, and the fused multiply-add chain kernel on
+near ties.
 
     python3 chip_smoke.py
 
@@ -211,7 +212,17 @@ Phases (any failure raises and exits non-zero before the last line):
    flagship and fullscale scans whose ``d`` or line CUDA's own trig would
    change.  Every scan path of phases 3-10 counts both kernels among its
    launches, and phases 3, 4, 8 and 9 hold them against their plain twins
-   on the path's own inputs and time them as in phase 2.
+   on the path's own inputs and time them as in phase 2.  Every scan path
+   also counts ``fma_chain`` (``csrc/fma_chain.cu``: ``ops.fma`` and the
+   chain helpers, one launch a call) among its launches, and phases 3, 4
+   and 8 hold it bitwise against its plain form on a CPU copy at RANSAC's
+   scoring shapes (the scan's own ``dot3`` of [B, N, 1] points against [B,
+   1, 128] planes) and time it as in phase 2, beside ``torch.addcmul``.
+14. ``fma_chain`` on the card bitwise its plain form on ``utils/fma_cases.py``'s
+   seeded near ties (triples, triples with a float32-subnormal result, and
+   ``dot3``/``sum_sq3``/``add_sq3`` operands whose second step is a near
+   tie), one launch a call, with how many of them the double-rounded form
+   (the float64 sum rounded to float32) misses.
 
 Each phase prints its seconds.
 Its last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -260,6 +271,9 @@ FULLSCALE_FRAME_POINTS = 10_000
 FULLSCALE_NODE_WARMUP, FULLSCALE_NODE_WINDOWS = 1, 3
 NODE_MODES = ((False, False), (False, True), (True, False), (True, True))  # (async, device)
 SHADOW_PATH = ["shadow_slots", "shadow_raster"]  # the shadow stage's kernels, on every scan path
+# the kernels every scan path launches: the shadow stage's, and the fused
+# multiply-add chains (``ops.fma``, many launches a scan)
+SCAN_PATH = [*SHADOW_PATH, "fma_chain"]
 SHADOW_SWEEP_STRIDE = 509  # phase 13: every 509th float32 of the trig routines' domains
 # phase 13: the cast_shadows calls of one scan, by path (captured in phases 3 and 4)
 SHADOW_SCANS: dict = {}
@@ -685,6 +699,45 @@ def _shadow_rows(path: str, what: str, s_args, r_args) -> list[dict]:
              lambda: shadow.shadow_raster(*r_args), lambda: shadow.shadow_raster_plain(*r_args),
              _bound("shadow_raster", scans, m, h, w), plain_reps=5),
     ]
+
+
+def capture_scoring(call) -> tuple:
+    """The arguments of the largest ``ops.dot3`` call that RANSAC makes in
+    ``call()`` (a scan, batch or window): its hypothesis scoring, the [B,
+    N, 1] points against the [B, 1, K] planes (``ransac._plane_dist``)."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    calls = [a for a, _ in _capture(ransac, "dot3", call)]
+    return max(calls, key=lambda a: torch.broadcast_shapes(*(t.shape for t in a)).numel())
+
+
+def _fma_row(path: str, what: str, args) -> dict:
+    """The fused multiply-add chain kernel at RANSAC's scoring shapes, on a
+    path's own operands: ``ops.dot3`` (one launch) held bitwise against its
+    plain form on a CPU copy, then timed as in phase 2 beside the plain
+    form on the card and ``torch.addcmul(c, a, b)``, one elementwise pass
+    of the same shapes (the yardstick; it does not round as the reference
+    does)."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import ops
+
+    ax, ay, az, bx, by, bz = args
+    got = ops.dot3(*args)
+    err = _assert_equal(f"fma_chain {path} ({what})", got,
+                        ops.dot3(*[t.cpu() for t in args]))
+    acc = got.clone()
+    pairs = ((ay, by), (ax, bx), (az, bz))
+    return _row("fma_chain", path,
+                f"{what}: dot3 of {tuple(ax.shape)} points and {tuple(bx.shape)} planes -> "
+                f"{tuple(got.shape)}", "fma_chain.cu",
+                "ransac.py:154 (the plane distance: XLA:CPU's fused multiply-adds; plain XLA, "
+                "no TPU kernel)", err, lambda: ops.dot3(*args),
+                lambda: ops.fma_chain_plain(pairs),
+                _bound("fma_chain", got.numel(), sum(t.numel() for t in args), len(pairs)),
+                library_fn=lambda: torch.addcmul(acc, ax, bx), plain_reps=5)
 
 
 def capture_k3_args(model, cloud, draw, name: str = "knn_mean") -> tuple:
@@ -1298,7 +1351,7 @@ def run_flagship(dev, card: str) -> tuple[dict, list[dict]]:
 
     # main path: counts from 0, one scan of each scene on the card
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop", "xla_sum", "covariance_tail",
-            *SHADOW_PATH]
+            *SCAN_PATH]
     launches = dict.fromkeys(_build.LAUNCHES, 0)
     results = {}
     for s, gc in zip(SCENE_SEEDS, gpu_clouds):
@@ -1327,10 +1380,12 @@ def run_flagship(dev, card: str) -> tuple[dict, list[dict]]:
     sums, tails = capture_refine(lambda: model(gpu_clouds[0], draw=draw_cuda))
     stage, s_args, r_args = capture_shadow(lambda: model(gpu_clouds[0], draw=draw_cuda))
     SHADOW_SCANS["flagship"] = stage
+    scoring = capture_scoring(lambda: model(gpu_clouds[0], draw=draw_cuda))
     return launches, [check_k3_scan("flagship", model, gpu_clouds[0], draw_cuda),
                       _loop_row("flagship", "the scan's non-plane cloud", loop_args),
                       *_sum_rows("flagship", sums), _tail_row("flagship", tails),
-                      *_shadow_rows("flagship", "the scan's clusters", s_args, r_args)]
+                      *_shadow_rows("flagship", "the scan's clusters", s_args, r_args),
+                      _fma_row("flagship", "RANSAC's scoring", scoring)]
 
 
 def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
@@ -1352,7 +1407,7 @@ def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
     gpu_cloud = cloud.to(dev)
 
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded", "xla_sum",
-            "covariance_tail", *SHADOW_PATH]
+            "covariance_tail", *SCAN_PATH]
     res, launches = _drive(model, gpu_cloud, draw_cuda, path)
     _check_overflows("fullscale", res)
     if int(res.stats.num_clusters) < 1:
@@ -1377,9 +1432,11 @@ def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
     sums, tails = capture_refine(lambda: model(gpu_cloud, draw=draw_cuda))
     stage, s_args, r_args = capture_shadow(lambda: model(gpu_cloud, draw=draw_cuda))
     SHADOW_SCANS["fullscale"] = stage
+    scoring = capture_scoring(lambda: model(gpu_cloud, draw=draw_cuda))
     return launches, [check_k3_scan("fullscale", model, gpu_cloud, draw_cuda),
                       *_sum_rows("fullscale", sums), _tail_row("fullscale", tails),
-                      *_shadow_rows("fullscale", "the window's clusters", s_args, r_args)], res
+                      *_shadow_rows("fullscale", "the window's clusters", s_args, r_args),
+                      _fma_row("fullscale", "RANSAC's scoring", scoring)], res
 
 
 def run_fullscale_bandoff(dev, card: str, banded) -> tuple[dict, list[dict]]:
@@ -1409,7 +1466,7 @@ def run_fullscale_bandoff(dev, card: str, banded) -> tuple[dict, list[dict]]:
     gpu_cloud = Cloud(points=torch.tensor(pts), valid=torch.tensor(valid)).to(dev)
 
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_grid_loop", "xla_sum",
-            "covariance_tail", *SHADOW_PATH]
+            "covariance_tail", *SCAN_PATH]
     res, launches = _drive(model, gpu_cloud, draw_cuda, path)
     others = {k: launches[k] for k in ("cluster_loop", "cluster_sweep", "cluster_sweep_banded")}
     if launches["cluster_grid_loop"] != 1 or any(others.values()):
@@ -1670,9 +1727,9 @@ def run_batch(dev, card: str) -> tuple[dict, list[dict]]:
     res, sums, tails = count_refine(lambda: run(clouds, draw))
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    if any(launches[k] != 1 for k in path):
-        raise AssertionError(f"batched flagship: each of {path} must launch once a batch, "
-                             f"got {launches}")
+    if any(launches[k] != 1 for k in path) or launches["fma_chain"] < 1:
+        raise AssertionError(f"batched flagship: each of {path} must launch once a batch, and "
+                             f"fma_chain at least once, got {launches}")
     check_refine_launches("batched flagship", launches, sums, tails)
     worst = 0.0
     for b in range(BATCH):
@@ -1717,6 +1774,7 @@ def run_batch(dev, card: str) -> tuple[dict, list[dict]]:
     _, s_args, r_args = capture_shadow(once)
     rows = [
         *_shadow_rows("flagship_batch", f"the batch's clusters ({BATCH} scans)", s_args, r_args),
+        _fma_row("flagship_batch", f"RANSAC's scoring ({BATCH} scans)", capture_scoring(once)),
         _k1_batch_row("flagship_batch", *k1),
         _k2_batch_row("flagship_batch", k2[0]),
         _k3_row("flagship_batch", f"the batch's voxel clouds ({BATCH} scans)", k3[0]),
@@ -1897,7 +1955,7 @@ def run_node_flagship(dev, card: str) -> tuple[dict, list[dict], dict]:
     cfg = FLAGSHIP_CONFIG.replace(accumulate_count=NODE_FRAMES, publish_point_clouds=False)
     A = cfg.accumulate_count
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_loop", "xla_sum", "covariance_tail",
-            *SHADOW_PATH]
+            *SCAN_PATH]
     out, grids, trig, launches = {}, {}, {}, None
     for async_mode, device_mode in NODE_MODES:
         mode = _mode_name(async_mode, device_mode)
@@ -2055,7 +2113,7 @@ def run_node_fullscale(dev, card: str) -> tuple[dict, list[dict], dict]:
         raise AssertionError("fullscale node: device accumulation accepted a window that does "
                              "not divide max_points")
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded", "xla_sum",
-            "covariance_tail", *SHADOW_PATH]
+            "covariance_tail", *SCAN_PATH]
     cycles = FULLSCALE_NODE_WARMUP + FULLSCALE_NODE_WINDOWS
     out, grids, launches, rows = {}, {}, None, []
     for async_mode in (False, True):
@@ -2152,14 +2210,14 @@ SP_CAPTURE = [(f"{_MOD}.voxel", "sorted_run_reduce"),
 # kernels each sharded path must launch on every rank, counted from 0
 SP_PATHS = {
     "sp_flagship": ["runreduce", "compact_gather", "knn_mean_rows", "cluster_sweep_rows",
-                    *SHADOW_PATH],
+                    *SCAN_PATH],
     "sp_fullscale": ["runreduce", "runreduce_counts", "compact_gather", "knn_mean_rows",
-                     "cluster_sweep_banded_rows", *SHADOW_PATH],
+                     "cluster_sweep_banded_rows", *SCAN_PATH],
     "sp_fullscale_replicated": ["runreduce", "runreduce_counts", "compact_gather",
-                                "knn_mean_rows", "cluster_sweep_banded_rows", *SHADOW_PATH],
+                                "knn_mean_rows", "cluster_sweep_banded_rows", *SCAN_PATH],
     "sp_dp_2x2": ["runreduce", "compact_gather", "knn_mean_rows", "cluster_sweep_rows",
-                  *SHADOW_PATH],
-    "data_parallel": ["runreduce", "compact_gather", "knn_mean", "cluster_loop", *SHADOW_PATH],
+                  *SCAN_PATH],
+    "data_parallel": ["runreduce", "compact_gather", "knn_mean", "cluster_loop", *SCAN_PATH],
     "merge_fullscale": ["runreduce", "runreduce_counts"],
 }
 
@@ -2632,7 +2690,7 @@ def run_fullscale_batch(dev, card: str) -> tuple[dict, list[dict]]:
 
     # main path: counts from 0, one batch
     path = ["runreduce", "compact_gather", "knn_mean", "cluster_sweep_banded", "xla_sum",
-            "covariance_tail", *SHADOW_PATH]
+            "covariance_tail", *SCAN_PATH]
     _build.reset_launch_counts()
     res, sums, tails = count_refine(lambda: run(clouds, draw))
     torch.cuda.synchronize()
@@ -3285,6 +3343,52 @@ def run_shadow(dev, card: str) -> None:
               f"another d than the kernel's, {lines_apart} another line [{card}]")
 
 
+# ---- phase 14: the fused multiply-add chain kernel on near ties -------------
+
+FMA_TIES = 200_000  # near-tie triples (and chain operands: 100,000 a helper)
+
+
+def run_fma(dev, card: str) -> None:
+    """Phase 14: ``ops.fma`` and the chain helpers on the card (one
+    ``fma_chain`` launch a call) bitwise their plain forms on a CPU copy, on
+    the seeded near-tie sets of ``utils.fma_cases``: triples, triples with
+    a float32-subnormal result, and ``dot3``/``sum_sq3``/``add_sq3``
+    operands whose second step is a near tie; each with how many elements
+    the double-rounded form (the float64 sum rounded to float32) misses."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import _build, ops
+    from pointcloud_obstacle_processing_tpu_torch.utils import fma_cases
+
+    sets = {"fma near ties": ("fma", fma_cases.near_ties(0, FMA_TIES)),
+            "fma subnormal results": ("fma", fma_cases.subnormal_ties(1, FMA_TIES // 10))}
+    for kind in ("dot3", "sum_sq3", "add_sq3"):
+        sets[f"{kind} near ties"] = (kind, fma_cases.chain_ties(2, FMA_TIES // 2, kind))
+    for label, (kind, arrays) in sets.items():
+        cpu = [torch.tensor(a) for a in arrays]
+        want = getattr(ops, kind)(*cpu)
+        card_ops = [t.to(dev) for t in cpu]
+        _build.reset_launch_counts()
+        got = getattr(ops, kind)(*card_ops)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if launched != {"fma_chain": 1}:
+            raise AssertionError(f"{label}: one fma_chain launch expected, got {launched}")
+        _assert_equal(f"fma_chain {label}", got.view(torch.int32), want.view(torch.int32))
+        if kind == "fma":
+            a, b, c = (x.double() for x in cpu)
+            old = (a * b + c).to(torch.float32)
+        elif kind == "dot3":
+            ax, ay, _, bx, by, _ = cpu
+            old = (ax.double() * bx.double() + (ay * by).double()).to(torch.float32)
+        else:
+            first, second = cpu[:2] if kind == "sum_sq3" else cpu[1::-1]
+            old = (second.double() * second.double() + (first * first).double()).to(torch.float32)
+        missed = int((old.view(torch.int32) != want.view(torch.int32)).sum())
+        print(f"fma_chain {label}: {len(cpu[0]):,} cases, equal to the plain form in one launch; "
+              f"the double-rounded form misses {missed:,} [{card}]")
+
+
 def main() -> None:
     import torch
 
@@ -3373,6 +3477,9 @@ def main() -> None:
     t = time.perf_counter()
     run_shadow(dev, card)
     print(f"phase 13 (shadow kernels, trig): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    run_fma(dev, card)
+    print(f"phase 14 (fma_chain near ties): {time.perf_counter() - t:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["path"]][r["name"]]

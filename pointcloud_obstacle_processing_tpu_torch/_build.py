@@ -51,7 +51,7 @@ LAUNCHES = {"runreduce": 0, "runreduce_counts": 0, "compact_gather": 0, "knn_mea
             "knn_mean_rows": 0, "cluster_loop": 0, "cluster_grid_loop": 0, "cluster_sweep": 0,
             "cluster_sweep_rows": 0, "cluster_sweep_banded": 0, "cluster_sweep_banded_rows": 0,
             "segscan": 0, "binned_sum": 0, "xla_sum": 0, "covariance_tail": 0, "segment_fold": 0,
-            "shadow_slots": 0, "shadow_raster": 0, "libm32": 0}
+            "shadow_slots": 0, "shadow_raster": 0, "libm32": 0, "fma_chain": 0}
 
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -106,6 +106,8 @@ _SIGNATURES = {
     "pcp_shadow_raster": [_VP, _VP, _I, _I, _I, _I, _I, _VP, _VP],
     # a, b (or null), n, routine (0 asin_like_xla, 1 tanf, 2 atan2f), out, stream
     "pcp_libm32": [_VP, _VP, _LL, _I, _VP, _VP],
+    # the arguments packed as csrc/fma_chain.cu's ChainArgs (ops._FMA_ARGS)
+    "pcp_fma_chain": [ctypes.c_char_p],
 }
 
 BUILD_SECONDS: list[float] = []  # wall time of each build this process ran

@@ -17,8 +17,8 @@
 // sum3(a, b) is jnp.sum(a * b) of three values as XLA:CPU contracts it in
 // these loops: fma(a2, b2, fma(a0, b0, a1 * b1)) for one scan,
 // fma(a2, b2, fma(a1, b1, a0 * b0)) under jax.vmap (`vmapped`).  The plain
-// version (ops.ransac.plane_tail_plain) takes each fma in float64 rounded
-// once, which is the fused result but for double-rounding ties.
+// version (ops.ransac.plane_tail_plain) takes each fma as ops.fma_plain,
+// the correctly rounded fused result, as __fmaf_rn is.
 //
 // One thread a scan, everything in registers: ~500 float32 operations, a
 // serial chain of ~2 us, run by the thread that holds the scan's final

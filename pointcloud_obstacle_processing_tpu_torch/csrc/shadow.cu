@@ -8,23 +8,34 @@
 // (ops/shadow.py shadow_slots_plain and shadow_raster_plain): every float
 // step is one IEEE operation rounded to nearest in the twins' operand
 // order (the _rn intrinsics; the file builds with -fmad=false), each fused
-// product of the twins (ops.fma: the float64 product and sum, rounded once
-// to float32) is that same float64 chain, and every float -> int32
-// conversion saturates with NaN to 0 (ops.int32_like_xla, XLA's convert,
-// which is also cvt.rzi.s32.f32's rule).
+// product of the twins (ops.fma, exact) is __fmaf_rn, and every float ->
+// int32 conversion saturates with NaN to 0 (ops.int32_like_xla, XLA's
+// convert, which is also cvt.rzi.s32.f32's rule).
 //
-// shadow_slots: a block a (slot, scan).  Its threads stride over the scan's
-// C points; a point of the slot (point_cluster == slot, valid) is taken to
-// the sensor frame (the pose's inverse, quat_rotate's fused form,
-// ops/transforms.py) and folded into the thread's first-index least x,
-// greatest x, least and greatest y and count; a warp and then a block
-// reduction join them.  Thread 0 then does the slot's geometry: vmin (point
-// 0 for an empty slot, as argmin of an all-inf row), the lengths, the
+// shadow_slots: one thread-block cluster a scan (the grid's y), of G
+// blocks of 1,024 threads, G = ceil(C / 2,048) up to 8 (C = 16,384: 8
+// blocks, 2 points a thread; C <= 2,048: one block).  Each block inverts
+// the pose once and reads its share of the scan's ids, valid flags and
+// member points once, coalesced; a point of a slot (point_cluster == slot
+// in [0, M), valid) is taken to the sensor frame (quat_rotate's fused
+// form, ops/transforms.py) and folded into the block's record of the slot
+// in shared memory: the first least x as a 64-bit key (order-preserving x
+// bits, index; NaN first, -0.0 == +0.0), the greatest x and the least and
+// greatest y as order-preserving integers with a NaN flag that wins, the
+// count.  A warp whose points all lie in one slot (a cluster's points
+// lie together in the buffer) reduces them first (__reduce_*_sync) and
+// its first lane takes one set of atomics; in a mixed warp each point
+// takes its own (min, max, add, or: the record does not depend on the
+// order).  After a cluster barrier, block rank 0 joins the other
+// blocks' records through distributed shared memory in rank order, then
+// runs the geometry of every slot at once, a thread a slot: vmin (point 0
+// for an empty slot, as argmin of an all-inf row), the lengths, the
 // reference's tan(asin(a / c)) through libm32.cuh (XLA:CPU's asin and
 // glibc's tanf, bit for bit), the end point, both points to the world
 // frame and into cells (grid_cell_xy's closed form and fix-up steps,
 // ops/occupancy.py), the sweep's shift and line count, and the line's
 // steep and back swaps.  Out: [scans, M, 7] int32 (ops.shadow.LINE_FIELDS).
+// No global scratch, no memset, one launch.
 //
 // shadow_raster: a thread a cell of [scans, H, W], the grid's y the scan.
 // The block stages its scan's lines in shared memory, 256 at a time, with
@@ -36,16 +47,19 @@
 // Bound on the H100: bytes (the cloud's points, ids and valid flags, and
 // the grid read and written, over 3.35 TB/s) against operations (B*H*W*M
 // raster tests at the float32 rate); at M = 64 both are microseconds, and
-// the two launches are latency: a block's serial geometry (two
-// trigonometric calls, a few dozen dependent float64 steps) and one pass
-// over a 12,120-cell grid.
+// the two launches are latency: a slot's serial geometry on one thread (two
+// trigonometric calls, a few dozen dependent steps) and one pass over a
+// 12,120-cell grid.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
 #include "libm32.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -54,14 +68,14 @@ using pcp_libm::div;
 using pcp_libm::mul;
 using pcp_libm::sub;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the raster's block
 constexpr int kFields = 7;  // x0, y0, x1, y1, n_lines, steep, active
-
-// ops.fma: the float64 product and sum, rounded once to float32
-__device__ __forceinline__ float fma64(float a, float b, float c) {
-  return __double2float_rn(__dadd_rn(__dmul_rn(static_cast<double>(a), static_cast<double>(b)),
-                                     static_cast<double>(c)));
-}
+// the slot kernel: a cluster of up to kMaxSlotBlocks blocks a scan, one
+// block for each kSlotPointsPerThread * kSlotThreads points
+constexpr int kSlotThreads = 1024;
+constexpr int kSlotPointsPerThread = 2;
+constexpr int kMaxSlotBlocks = 8;  // the portable cluster size
+constexpr size_t kSlotSmemDefault = 48 * 1024;
 
 // int32 arithmetic that wraps, as PyTorch's does
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -86,8 +100,8 @@ struct Vec3 {
 
 // ops/transforms.py _cross: component k is fma(a[k+1], b[k+2], -(a[k+2] * b[k+1]))
 __device__ __forceinline__ Vec3 cross(Vec3 a, Vec3 b) {
-  return {fma64(a.y, b.z, -mul(a.z, b.y)), fma64(a.z, b.x, -mul(a.x, b.z)),
-          fma64(a.x, b.y, -mul(a.y, b.x))};
+  return {__fmaf_rn(a.y, b.z, -mul(a.z, b.y)), __fmaf_rn(a.z, b.x, -mul(a.x, b.z)),
+          __fmaf_rn(a.x, b.y, -mul(a.y, b.x))};
 }
 
 // quat_rotate: fma(w, t, v) + cross(u, t), t = 2 * cross(u, v)
@@ -95,8 +109,8 @@ __device__ __forceinline__ Vec3 rotate(Vec3 u, float w, Vec3 v) {
   Vec3 t = cross(u, v);
   t = {mul(2.0f, t.x), mul(2.0f, t.y), mul(2.0f, t.z)};
   const Vec3 c = cross(u, t);
-  return {add(fma64(w, t.x, v.x), c.x), add(fma64(w, t.y, v.y), c.y),
-          add(fma64(w, t.z, v.z), c.z)};
+  return {add(__fmaf_rn(w, t.x, v.x), c.x), add(__fmaf_rn(w, t.y, v.y), c.y),
+          add(__fmaf_rn(w, t.z, v.z), c.z)};
 }
 
 struct Pose {
@@ -130,55 +144,46 @@ __device__ void grid_cell(float x, float y, const Grid& g, int* col_out, int* ro
   int row = to_int32(rr < 0.0f ? 0.0f : rr);
   for (int i = 0; i < 2; ++i) {  // advance while the loop condition still holds
     const float cf = __int2float_rn(col);
-    if (fma64(add(cf, 1.0f), g.block, g.y_min) < y) col = wadd(col, 1);
+    if (__fmaf_rn(add(cf, 1.0f), g.block, g.y_min) < y) col = wadd(col, 1);
     const float rf = __int2float_rn(row);
-    if (fma64(-add(rf, 1.0f), g.block, g.x_max) > x) row = wadd(row, 1);
+    if (__fmaf_rn(-add(rf, 1.0f), g.block, g.x_max) > x) row = wadd(row, 1);
   }
   for (int i = 0; i < 2; ++i) {  // retreat while the previous step's condition fails
     const float cf = __int2float_rn(col);
-    if (col > 0 && !(fma64(cf, g.block, g.y_min) < y)) col = wsub(col, 1);
+    if (col > 0 && !(__fmaf_rn(cf, g.block, g.y_min) < y)) col = wsub(col, 1);
     const float rf = __int2float_rn(row);
-    if (row > 0 && !(fma64(-rf, g.block, g.x_max) > x)) row = wsub(row, 1);
+    if (row > 0 && !(__fmaf_rn(-rf, g.block, g.x_max) > x)) row = wsub(row, 1);
   }
   *col_out = col;
   *row_out = row;
 }
 
-// PyTorch's reductions: NaN wins a max or a min; argmin takes the first
-// least value (a NaN before any number), -0.0 == +0.0
-__device__ __forceinline__ float nan_max(float a, float b) { return (a != a || a > b) ? a : b; }
-__device__ __forceinline__ float nan_min(float a, float b) { return (a != a || a < b) ? a : b; }
-__device__ __forceinline__ bool before(float xa, int ia, float xb, int ib) {
-  const bool na = xa != xa, nb = xb != xb;
-  if (na != nb) return na;
-  if (xa < xb) return true;
-  if (xb < xa) return false;
-  return ia < ib;
+// PyTorch's reductions as order-independent integer atomics: a float's
+// bits mapped so that unsigned order is float order (-inf lowest, +inf
+// highest; NaN apart, as a flag or as key 0)
+__device__ __forceinline__ unsigned ordered(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float unordered(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-struct Extremes {
-  float x_least;
-  int i_least;
-  float x_max, y_min, y_max;
+// argmin's key of a sensor x at point i: the first least value, a NaN
+// before any number, -0.0 == +0.0 (then the lower index wins)
+__device__ __forceinline__ unsigned least_key(float x) {
+  return x != x ? 0u : ordered(x == 0.0f ? 0.0f : x);
+}
+
+constexpr unsigned kNanX = 1, kNanY = 2;  // a NaN wins the max of x, the min and max of y
+
+// a slot's points folded so far, in shared memory
+struct SlotRecord {
+  unsigned long long least;  // (least_key(x) << 32) | index: the first least sensor x
+  unsigned x_max, y_min, y_max;  // ordered()
   int count;
+  unsigned nan;  // kNanX | kNanY
 };
-
-__device__ __forceinline__ void join(Extremes& a, const Extremes& b) {
-  if (before(b.x_least, b.i_least, a.x_least, a.i_least)) {
-    a.x_least = b.x_least;
-    a.i_least = b.i_least;
-  }
-  a.x_max = nan_max(a.x_max, b.x_max);
-  a.y_min = nan_min(a.y_min, b.y_min);
-  a.y_max = nan_max(a.y_max, b.y_max);
-  a.count += b.count;
-}
-
-__device__ __forceinline__ Extremes shuffle_down(const Extremes& e, int o) {
-  return {__shfl_down_sync(0xffffffffu, e.x_least, o), __shfl_down_sync(0xffffffffu, e.i_least, o),
-          __shfl_down_sync(0xffffffffu, e.x_max, o), __shfl_down_sync(0xffffffffu, e.y_min, o),
-          __shfl_down_sync(0xffffffffu, e.y_max, o), __shfl_down_sync(0xffffffffu, e.count, o)};
-}
 
 struct SlotArgs {
   const float* pts;         // [scans, C, 3]
@@ -193,57 +198,36 @@ struct SlotArgs {
   int* out;                 // [scans, M, 7]
 };
 
-__global__ void __launch_bounds__(kThreads) shadow_slots(SlotArgs a) {
-  const int slot = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const float* q = a.quat + static_cast<long long>(b) * a.pose_stride * 4;
-  const float* t = a.trans + static_cast<long long>(b) * a.pose_stride * 3;
-  const Pose world{{q[0], q[1], q[2]}, q[3], {t[0], t[1], t[2]}};
-  const Pose sensor = inverse(world);
+// the slot's geometry from its joined record (ops/shadow.py shadow_end,
+// slot_lines); vmin is point 0 for an empty slot, as argmin of an all-inf
+// row
+__device__ void slot_geometry(const SlotArgs& a, int b, int slot, const Pose& world,
+                              const Pose& sensor, const SlotRecord& r) {
+  const float nan = __int_as_float(0x7fc00000);
+  const float x_max = (r.nan & kNanX) ? nan : unordered(r.x_max);
+  const float y_min = (r.nan & kNanY) ? nan : unordered(r.y_min);
+  const float y_max = (r.nan & kNanY) ? nan : unordered(r.y_max);
   const long long base = static_cast<long long>(b) * a.c;
-  const float inf = __int_as_float(0x7f800000);
-
-  // an all-inf row's argmin is point 0: every thread starts there
-  Extremes e{inf, 0, -inf, inf, -inf, 0};
-  for (int i = tid; i < a.c; i += kThreads) {
-    if (a.point_cluster[base + i] != slot || !a.valid[base + i]) continue;
-    const float* p = a.pts + (base + i) * 3;
-    const Vec3 s = apply(sensor, {p[0], p[1], p[2]});
-    if (before(s.x, i, e.x_least, e.i_least)) {
-      e.x_least = s.x;
-      e.i_least = i;
-    }
-    e.x_max = nan_max(e.x_max, s.x);
-    e.y_min = nan_min(e.y_min, s.y);
-    e.y_max = nan_max(e.y_max, s.y);
-    e.count += 1;
-  }
-  for (int o = 16; o > 0; o >>= 1) join(e, shuffle_down(e, o));
-  __shared__ Extremes warps[kThreads / 32];
-  if ((tid & 31) == 0) warps[tid / 32] = e;
-  __syncthreads();
-  if (tid != 0) return;
-  for (int w = 1; w < kThreads / 32; ++w) join(e, warps[w]);
-
-  // the slot's geometry (ops/shadow.py shadow_end, slot_lines)
-  const float* p = a.pts + (base + e.i_least) * 3;
+  const float* p = a.pts + (base + static_cast<unsigned>(r.least & 0xffffffffu)) * 3;
   const Vec3 vmin = apply(sensor, {p[0], p[1], p[2]});
   const float bb = fabsf(vmin.x);
-  const float c = __fsqrt_rn(fma64(vmin.z, vmin.z, mul(bb, bb)));
+  const float c = __fsqrt_rn(__fmaf_rn(vmin.z, vmin.z, mul(bb, bb)));
   const float v_len =
-      __fsqrt_rn(fma64(vmin.z, vmin.z, fma64(vmin.y, vmin.y, mul(vmin.x, vmin.x))));
-  const float e_len = add(sub(fabsf(e.x_max), bb), __int_as_float(0x3d23d70a));  // + 0.04f
-  const float floor_len = __int_as_float(0x1e3ce508);                            // 1e-20f
+      __fsqrt_rn(__fmaf_rn(vmin.z, vmin.z, __fmaf_rn(vmin.y, vmin.y, mul(vmin.x, vmin.x))));
+  const float e_len = add(sub(fabsf(x_max), bb), __int_as_float(0x3d23d70a));  // + 0.04f
+  const float floor_len = __int_as_float(0x1e3ce508);                          // 1e-20f
   const float ratio = div(vmin.z, c < floor_len ? floor_len : c);  // clamp_min keeps NaN
-  const float d = fma64(pcp_libm::tanf(pcp_libm::asin_like_xla(ratio)), e_len, 0.25f);
+  const float d = __fmaf_rn(pcp_libm::tanf(pcp_libm::asin_like_xla(ratio)), e_len, 0.25f);
   const float len = v_len < floor_len ? floor_len : v_len;
-  const Vec3 end{fma64(div(vmin.x, len), d, vmin.x), fma64(div(vmin.y, len), d, vmin.y),
-                 fma64(div(vmin.z, len), d, vmin.z)};
+  const Vec3 end{__fmaf_rn(div(vmin.x, len), d, vmin.x), __fmaf_rn(div(vmin.y, len), d, vmin.y),
+                 __fmaf_rn(div(vmin.z, len), d, vmin.z)};
   const Vec3 end_w = apply(world, end), start_w = apply(world, vmin);
   int e_col, e_row, s_col, s_row;
   grid_cell(end_w.x, end_w.y, a.grid, &e_col, &e_row);
   grid_cell(start_w.x, start_w.y, a.grid, &s_col, &s_row);
 
-  const float per_block = mul(fabsf(sub(e.y_max, e.y_min)), a.grid.inv_block);
+  // the width's sign of zero does not matter: only its magnitude is used
+  const float per_block = mul(fabsf(sub(y_max, y_min)), a.grid.inv_block);
   const int shift = to_int32(ceilf(mul(per_block, 0.5f)));
   const int n_lines = wadd(to_int32(ceilf(per_block)), 3);
   int x0 = wadd(s_col, shift), y0 = s_row, x1 = wadd(e_col, shift), y1 = e_row;
@@ -256,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) shadow_slots(SlotArgs a) {
     int t = x0; x0 = x1; x1 = t;
     t = y0; y0 = y1; y1 = t;
   }
-  const bool active = a.slot_valid[static_cast<long long>(b) * a.m + slot] && e.count >= 2;
+  const bool active = a.slot_valid[static_cast<long long>(b) * a.m + slot] && r.count >= 2;
   int* o = a.out + (static_cast<long long>(b) * a.m + slot) * kFields;
   o[0] = x0;
   o[1] = y0;
@@ -265,6 +249,97 @@ __global__ void __launch_bounds__(kThreads) shadow_slots(SlotArgs a) {
   o[4] = n_lines;
   o[5] = steep;
   o[6] = active;
+}
+
+__global__ void __launch_bounds__(kSlotThreads) shadow_slots(SlotArgs a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.y, tid = threadIdx.x, lane = tid & 31;
+  extern __shared__ SlotRecord rec[];  // [M]
+
+  const float* q = a.quat + static_cast<long long>(b) * a.pose_stride * 4;
+  const float* t = a.trans + static_cast<long long>(b) * a.pose_stride * 3;
+  const Pose world{{q[0], q[1], q[2]}, q[3], {t[0], t[1], t[2]}};
+  const Pose sensor = inverse(world);
+  const long long base = static_cast<long long>(b) * a.c;
+
+  // an all-inf row's argmin is point 0: every slot starts there
+  for (int s = tid; s < a.m; s += kSlotThreads) {
+    const unsigned inf = ordered(__uint_as_float(0x7f800000u));
+    const unsigned minus_inf = ordered(__uint_as_float(0xff800000u));
+    rec[s] = {static_cast<unsigned long long>(inf) << 32, minus_inf, inf, minus_inf, 0, 0u};
+  }
+  __syncthreads();
+
+  // this block's share of the scan's points, each read once, folded into
+  // the slots' records by min, max, add and or: the records do not depend
+  // on the order
+  const int share = (a.c + blocks - 1) / blocks;
+  const int lo = rank * share, hi = min(a.c, lo + share);
+  for (int first = lo; first < hi; first += kSlotThreads) {
+    const int i = first + tid;
+    int slot = -1;
+    if (i < hi && a.valid[base + i]) slot = a.point_cluster[base + i];
+    const bool member = slot >= 0 && slot < a.m;
+    unsigned kx = ~0u, kx_max = 0u, ky_min = ~0u, ky_max = 0u, nan = 0u;
+    if (member) {
+      const float* p = a.pts + (base + i) * 3;
+      const Vec3 s = apply(sensor, {p[0], p[1], p[2]});
+      kx = least_key(s.x);
+      if (s.x != s.x) nan |= kNanX; else kx_max = ordered(s.x);
+      if (s.y != s.y) nan |= kNanY; else ky_min = ky_max = ordered(s.y);
+    }
+    // a warp whose points all lie in one slot reduces them first and takes
+    // one set of atomics; a mixed warp takes a set a point
+    const unsigned members = __ballot_sync(0xffffffffu, member);
+    if (!members) continue;
+    const int first_lane = __ffs(members) - 1;
+    const int s0 = __shfl_sync(0xffffffffu, slot, first_lane);
+    const bool uniform = __ballot_sync(0xffffffffu, member && slot == s0) == members;
+    unsigned index = static_cast<unsigned>(i);
+    int count = 1;
+    if (uniform) {  // non-members hold the identities
+      const unsigned least_x = __reduce_min_sync(0xffffffffu, kx);
+      index = __reduce_min_sync(0xffffffffu, member && kx == least_x ? index : ~0u);
+      kx = least_x;
+      kx_max = __reduce_max_sync(0xffffffffu, kx_max);
+      ky_min = __reduce_min_sync(0xffffffffu, ky_min);
+      ky_max = __reduce_max_sync(0xffffffffu, ky_max);
+      nan = __reduce_or_sync(0xffffffffu, nan);
+      count = __popc(members);
+    }
+    if (uniform ? lane == first_lane : member) {
+      SlotRecord& r = rec[slot];
+      atomicMin(&r.least, (static_cast<unsigned long long>(kx) << 32) | index);
+      atomicMax(&r.x_max, kx_max);
+      atomicMin(&r.y_min, ky_min);
+      atomicMax(&r.y_max, ky_max);
+      atomicAdd(&r.count, count);
+      if (nan) atomicOr(&r.nan, nan);
+    }
+  }
+  cluster.sync();  // every block's records are complete
+
+  // rank 0 joins the other blocks' records in rank order, a thread a slot
+  if (rank == 0) {
+    for (int s = tid; s < a.m; s += kSlotThreads) {
+      SlotRecord r = rec[s];
+      for (int k = 1; k < blocks; ++k) {
+        const SlotRecord* o = cluster.map_shared_rank(rec, k) + s;
+        r.least = min(r.least, o->least);
+        r.x_max = max(r.x_max, o->x_max);
+        r.y_min = min(r.y_min, o->y_min);
+        r.y_max = max(r.y_max, o->y_max);
+        r.count += o->count;
+        r.nan |= o->nan;
+      }
+      rec[s] = r;
+    }
+  }
+  cluster.sync();  // the other blocks' records stay until rank 0 has read them
+  if (rank != 0) return;
+  for (int s = tid; s < a.m; s += kSlotThreads) slot_geometry(a, b, s, world, sensor, rec[s]);
 }
 
 struct Line {
@@ -351,10 +426,32 @@ extern "C" int pcp_shadow_slots(const float* pts, const bool* valid, const int* 
                                 float inv_block, float y_min, float x_max, int* out, void* stream) {
   if (scans <= 0 || m <= 0) return 0;
   if (scans > 65535 || c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(m) * sizeof(SlotRecord);
+  if (smem > kSlotSmemDefault) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        shadow_slots, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   SlotArgs a{pts, valid, point_cluster, slot_valid, quat, trans, pose_stride, c, m,
              {block, inv_block, y_min, x_max}, out};
-  shadow_slots<<<dim3(m, scans), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const long long per_block = static_cast<long long>(kSlotThreads) * kSlotPointsPerThread;
+  const int blocks = static_cast<int>(
+      (c + per_block - 1) / per_block < kMaxSlotBlocks ? (c + per_block - 1) / per_block
+                                                       : kMaxSlotBlocks);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, scans);
+  cfg.blockDim = dim3(kSlotThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, shadow_slots, a);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" int pcp_shadow_raster(const int8_t* grid, const int* lines, int scans, int m, int h,

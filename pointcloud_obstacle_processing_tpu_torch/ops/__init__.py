@@ -40,19 +40,197 @@ def recip32(value: float) -> torch.Tensor:
     return torch.tensor(np.float32(1.0) / np.float32(value))
 
 
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` in float32 with one rounding.
+def fma_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors, correctly rounded to float32 once:
+    the port's single definition of the fused multiply-add.
 
-    XLA:CPU contracts a multiply that feeds an add into a fused
+    The float64 product of two float32 values is exact, so their float64
+    sum with ``c``, ``s``, rounds once.  Rounding ``s`` to float32 gives
+    the fused result wherever ``s`` is not a float32 rounding boundary: a
+    float32 midpoint (its low 29 mantissa bits 0x10000000) or a value of
+    the float32-subnormal range, where the boundaries lie elsewhere in the
+    bits.  Where ``s`` is one (rare; ``_round_to_odd``), the sum is taken
+    again rounded to odd, whose one rounding to float32 is correct, ties
+    included.  (XLA:CPU flushes a subnormal result to zero; the port keeps
+    it.)  Runs on any device; on the card only in checks."""
+    _check_float32("fma", (a, b, c))
+    # float64 in c, and in a or b where c is 0-d (a 0-d operand alone does
+    # not set the result's type): the sum is taken in float64, the product
+    # exact
+    c = c.double()
+    if not c.dim():
+        if a.numel() >= b.numel():
+            a = a.double()
+        else:
+            b = b.double()
+    s = torch.addcmul(c, a, b).contiguous()  # (the sum takes the layout of c)
+    r = s.to(torch.float32)
+    flat_s, flat_r = s.view(-1), r.view(-1)
+    # the low 29 mantissa bits 0x10000000 (1 or 0, as int64)
+    edge = torch.bitwise_and(flat_s.view(torch.int64), 0x1FFFFFFF).eq_(0x10000000)
+    small = flat_r.abs()
+    if small.numel() and small.min() <= _FLT_MIN:
+        edge |= (small <= _FLT_MIN) & (flat_s != 0)  # an exact zero is no boundary
+    if edge.any():
+        at = edge.nonzero()[:, 0]
+        where = torch.unravel_index(at, r.shape)
+        p, q, e = (t.expand(r.shape)[where] if t.dim() else t for t in (a, b, c))
+        flat_r[at] = _round_to_odd(p.double() * q.double(), e.double()).to(torch.float32)
+    return r
+
+
+_FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def _round_to_odd(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``p + c`` of float64 ``p`` and ``c`` rounded to odd: the float64 sum
+    ``s`` and its TwoSum error ``e`` (``s + e == p + c`` exactly); where
+    ``e != 0`` and ``s`` is finite with its last mantissa bit 0, ``s`` steps
+    one ulp toward ``e`` (the integer form of ``torch.nextafter``).  53 >=
+    24 + 2 bits, so its one rounding to float32 is the correctly rounded
+    ``p + c``."""
+    s = p + c
+    t = s - p
+    e = (p - (s - t)) + (c - t)
+    # an inexact s (e nonzero; NaN where s is not finite) whose last bit is
+    # even: one ulp down in magnitude where e and s differ in sign (bits - 1
+    # is then odd), up where they agree (bits | 1 = bits + 1); an odd s is
+    # left as it is by both steps
+    bits = s.view(torch.int64)
+    bits = (bits - (e * s < 0).long()) | (e.abs() > 0).long()
+    return bits.view(torch.float64)
+
+
+def _check_float32(name: str, operands) -> None:
+    for t in operands:
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
+            raise TypeError(f"{name}: float32 tensor operands, got "
+                            f"{getattr(t, 'dtype', type(t).__name__)}")
+
+
+def fma_chain(pairs, c: torch.Tensor | None = None) -> torch.Tensor:
+    """XLA:CPU's contracted chain of products: ``acc = c`` (or, with no
+    addend, ``acc = a0 * b0`` rounded), then ``acc = fma(a_i, b_i, acc)``
+    for each later pair ``(a_i, b_i)`` of ``pairs`` in order.  The forms
+    the port writes: one pair and an addend (``fma``), or three pairs and
+    none (``sum_sq3``, ``dot3``, ``add_sq3``).  Operands are float32
+    tensors that broadcast together.
+
+    CPU tensors take ``fma_chain_plain``; any CUDA operand takes one launch
+    of ``csrc/fma_chain.cu`` (``__fmul_rn`` and ``__fmaf_rn``: the same
+    roundings), where a 0-d CPU tensor (``f32``, ``recip32``) goes in by
+    value and every other operand must lie on the card.  The result is a
+    new contiguous float32 tensor."""
+    if (len(pairs), c is None) not in ((1, False), (3, True)):
+        raise ValueError("fma_chain: one pair and an addend, or three pairs and none")
+    operands = [t for pair in pairs for t in pair] + ([] if c is None else [c])
+    if any(isinstance(t, torch.Tensor) and t.is_cuda for t in operands):
+        return _fma_chain_kernel(pairs, c)
+    return fma_chain_plain(pairs, c)
+
+
+def fma_chain_plain(pairs, c: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of ``fma_chain``: ``fma_plain`` a step (on any
+    device)."""
+    if c is None:
+        (a0, b0), *pairs = pairs
+        _check_float32("fma_chain", (a0, b0))
+        c = a0 * b0
+    for a, b in pairs:
+        c = fma_plain(a, b, c)
+    return c
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` in float32 with one rounding, as XLA:CPU evaluates a
+    multiply that feeds an add: it contracts the two into a fused
     multiply-add, so the reference evaluates many of its float32 sums of
     products this way; the port writes out each such chain where a decision
-    or a bitwise result depends on it.  The float64 product of two float32
-    values is exact and the float64 sum rounds only when the addends lie
-    far apart in magnitude, so rounding the sum to float32 once gives the
-    fused result except in rare double-rounding ties.  The same float64
-    operations run on every device, so the CPU and the card agree bit for
-    bit."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
+    or a bitwise result depends on it.  CPU tensors take ``fma_plain``;
+    CUDA tensors one launch of the chain kernel (``fma_chain``)."""
+    return fma_chain(((a, b),), c)
+
+
+FMA_MAX_DIMS = 8  # dims of a chain's broadcast shape, after merging, the kernel takes
+_FMA_OPERANDS = 6  # three pairs, or a pair and the addend
+# ``csrc/fma_chain.cu``'s ``ChainArgs``: elements, dims, pairs, addend;
+# sizes; each operand's pointer (0: by value), float32 bits and strides;
+# out, stream; all 8-byte fields
+_FMA_ARGS = struct.Struct(f"<{4 + FMA_MAX_DIMS + _FMA_OPERANDS * (2 + FMA_MAX_DIMS) + 2}q")
+
+
+def _merged_dims(shape, strides) -> tuple[list[int], list[list[int]]]:
+    """The broadcast ``shape`` with its size-1 dims dropped and each dim
+    merged into the next inner one wherever every operand steps through
+    the two as one (``strides``: each operand's strides over ``shape``)."""
+    sizes, merged = [], [[] for _ in strides]
+    for d, n in enumerate(shape):
+        if n == 1:
+            continue
+        if sizes and all(m[-1] == st[d] * n for m, st in zip(merged, strides)):
+            sizes[-1] *= n
+            for m, st in zip(merged, strides):
+                m[-1] = st[d]
+            continue
+        sizes.append(n)
+        for m, st in zip(merged, strides):
+            m.append(st[d])
+    return sizes, merged
+
+
+def chain_layout(operands) -> tuple[torch.Size, list[int], list[list[int]]]:
+    """How the chain kernel reads ``operands``: (the broadcast shape, its
+    merged sizes, each operand's strides over them).  An operand steps by
+    its own stride through each dim it spans and by 0 through a broadcast
+    dim (a 0-d operand through all of them); ``_merged_dims`` then drops
+    the size-1 dims and merges the rest where it can."""
+    shape = torch.broadcast_shapes(*(t.shape for t in operands))
+    rank = len(shape)
+    strides = []
+    for t in operands:
+        st = [0] * rank
+        for d in range(1, t.dim() + 1):
+            if t.shape[-d] != 1:
+                st[rank - d] = t.stride(-d)
+        strides.append(st)
+    sizes, merged = _merged_dims(shape, strides)
+    return shape, sizes, merged
+
+
+def _fma_chain_kernel(pairs, c: torch.Tensor | None) -> torch.Tensor:
+    """One launch of the chain kernel: CUDA operands read in place by their
+    strides over the broadcast shape (``chain_layout``), 0-d CPU operands
+    by value; no copy, no scratch."""
+    operands = [t for pair in pairs for t in pair] + ([] if c is None else [c])
+    _check_float32("fma_chain", operands)
+    index = None
+    for t in operands:
+        if t.is_cuda:
+            if index is None:
+                index = t.get_device()
+            elif t.get_device() != index:
+                raise ValueError("fma_chain: every CUDA operand must lie on one device")
+        elif t.dim():
+            raise ValueError("fma_chain: a CPU operand mixed with CUDA operands must be 0-d")
+    shape, sizes, merged = chain_layout(operands)
+    out = torch.empty(shape, dtype=torch.float32, device=torch.device("cuda", index))
+    n = out.numel()
+    if not n:
+        return out
+    if len(sizes) > FMA_MAX_DIMS:
+        raise ValueError(f"fma_chain: {len(sizes)} dims after merging, more than {FMA_MAX_DIMS}")
+    pad = [0] * (FMA_MAX_DIMS - len(sizes))
+    fields = [n, len(sizes), len(pairs), int(c is not None), *sizes, *pad]
+    for t, st in zip(operands, merged):
+        if t.is_cuda:
+            fields += [t.data_ptr(), 0, *st, *pad]
+        else:  # by value: the constant's float32 bits
+            fields += [0, int(t.view(torch.int32).item()), *[0] * FMA_MAX_DIMS]
+    fields += [0] * ((2 + FMA_MAX_DIMS) * (_FMA_OPERANDS - len(operands)))
+    args = _FMA_ARGS.pack(*fields, out.data_ptr(), _build.stream_handle())
+    _build.check(_build.kernels().pcp_fma_chain(args), "fma_chain")
+    _build.LAUNCHES["fma_chain"] += 1
+    return out
 
 
 def sqrt32(x: torch.Tensor) -> torch.Tensor:
@@ -84,16 +262,17 @@ def int32_like_xla(v: torch.Tensor) -> torch.Tensor:
 
 def sum_sq3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """``jnp.sum(p * p, axis=-1)`` over (x, y, z) as XLA:CPU evaluates it:
-    the reduction's chain ``fma(z, z, fma(y, y, x * x))``."""
-    return fma(z, z, fma(y, y, x * x))
+    the reduction's chain ``fma(z, z, fma(y, y, x * x))`` (one launch on
+    the card)."""
+    return fma_chain(((x, x), (y, y), (z, z)))
 
 
 def dot3(ax, ay, az, bx, by, bz) -> torch.Tensor:
     """The written-out ``ax*bx + ay*by + az*bz`` as XLA:CPU evaluates it: the
     first product fused into the first add, the third into the second,
     ``fma(az, bz, fma(ax, bx, ay * by))`` (the distance kernels' cross term
-    and RANSAC's plane distance)."""
-    return fma(az, bz, fma(ax, bx, ay * by))
+    and RANSAC's plane distance; one launch on the card)."""
+    return fma_chain(((ay, by), (ax, bx), (az, bz)))
 
 
 def add_sq3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

@@ -161,8 +161,11 @@ def shadow_slots(points: torch.Tensor, valid: torch.Tensor, point_cluster: torch
     steep flag and whether the slot casts (valid, two points or more).
 
     CPU tensors take ``shadow_slots_plain``; CUDA tensors one launch of
-    ``csrc/shadow.cu``'s slot kernel for the batch (a block a scan and
-    slot), which takes the world -> sensor transform of the points in."""
+    ``csrc/shadow.cu``'s slot kernel for the batch: a thread-block cluster
+    a scan (up to 8 blocks, one for each 2,048 points) that reads each
+    point once, folds it into its slot's record in shared memory with the
+    world -> sensor transform inside, and runs the slots' geometry on block
+    0, a thread a slot."""
     if points.device.type == "cpu":
         return shadow_slots_plain(points, valid, point_cluster, slot_valid, world_from_sensor,
                                   config)

@@ -33,7 +33,7 @@ __all__ = ["HBM_BYTES_PER_S", "FP32_OPS_PER_S", "FP64_OPS_PER_S", "D2_OPS", "LAT
            "stage_bounds", "runreduce", "runreduce_counts", "compact_gather", "knn_mean",
            "cluster_sweep", "cluster_loop", "cluster_grid_loop", "cluster_sweep_banded",
            "segscan", "binned_sum", "xla_sum", "covariance_tail", "segment_fold", "shadow_slots",
-           "shadow_raster"]
+           "shadow_raster", "fma_chain"]
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -178,6 +178,14 @@ def shadow_raster(scans: int, m: int, h: int, w: int) -> tuple[float, str]:
     each way) and the lines read; one float32 hit test a cell and slot,
     ``scans * h * w * m`` in all."""
     return _bound(scans * (h * w * 2 + m * 28), scans * h * w * m)
+
+
+def fma_chain(out: int, operands: int, steps: int = 1) -> tuple[float, str]:
+    """The fused multiply-add chain (``ops.fma_chain``): the ``operands``'
+    elements read once (each operand its own elements, not the broadcast
+    shape's) and the ``out`` float32 results written; a multiply and an add
+    a step of the chain at each output."""
+    return _bound((operands + out) * 4, out * 2 * steps)
 
 
 def stage_bounds(cfg, n_valid: int, n_voxels: int, n_cluster_rows: int, sweeps: int = 5) -> dict:

@@ -1,0 +1,215 @@
+#!/usr/bin/env python3
+"""The shadow stage's slot kernel and the fused multiply-add chains of two
+checkouts of the PyTorch port, and their scans, timed in turns on one CUDA
+card.
+
+    python3 scripts/torch_shadow_fma_ab.py --parent _parent --out shadow_fma_ab.json
+
+``--parent`` names a directory that holds another checkout's
+``pointcloud_obstacle_processing_tpu_torch/`` (for example the parent
+commit's, from ``git archive``).  The script runs the parent, this
+checkout, this checkout and the parent, each in a process of its own that
+imports the package from its checkout and builds that checkout's kernels,
+with ``chip_smoke.py``'s timers from this checkout.  Each run:
+
+* ``ops.shadow.shadow_slots`` on ``utils.shadow_cases``' seeded inputs, 64
+  slots, at the flagship (1 x 1,024 cluster points), fullscale (1 x
+  16,384) and batch (32 x 1,024; 32 x 16,384) shapes: held bitwise against
+  that package's plain twin on a CPU copy, then call ms (CUDA events around
+  20 calls), device ms and device operations a call (``torch.profiler``)
+  and host ms (200 calls issued back to back);
+* ``ops.dot3`` at RANSAC's scoring shapes, seeded [B, N, 1] points against
+  [B, 1, 128] planes (flagship N = 24,576; fullscale 262,144; a batch of
+  32 at 24,576), timed the same way;
+* the ``process_scan`` p50 and the device operations and device time of
+  one scan: the flagship scenes (20 scans), the fullscale window (5) and
+  the flagship batch of 32 (10 batches, one ``batched_pipeline`` call a
+  batch).
+
+It prints one line per measure and run, and with ``--out FILE`` writes
+every number to FILE as JSON.  Every line names the card and its power
+limit.  It needs a CUDA card.
+
+    python3 scripts/torch_shadow_fma_ab.py --run DIR --label NAME
+
+is one such run, printing its results as one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+SHADOW_SHAPES = {"flagship": (1, 1024), "fullscale": (1, 16_384), "batch": (32, 1024),
+                 "batch_fullscale": (32, 16_384)}
+SCORING_SHAPES = {"flagship": (1, 24_576), "fullscale": (1, 262_144), "batch": (32, 24_576)}
+HYPOTHESES = 128
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _digest(t) -> str:
+    return hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+def _timed(cs, fn) -> dict:
+    dev_ms, dev_ops = cs._device_profile(fn)
+    return {"ms": cs._time_ms(fn), "device_ms": dev_ms, "device_ops": dev_ops,
+            "host_ms": cs._host_ms(fn)}
+
+
+def _batch_inputs(cs, dev):
+    """The flagship batch of 32 as ``chip_smoke.py`` phase 8 builds it:
+    8 scenes tiled, a RANSAC draw of its own for each scan."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import Cloud
+    from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as cfg
+    from pointcloud_obstacle_processing_tpu_torch.ops.ransac import draw_from_uniform
+
+    n = cfg.max_points
+    scenes = [cs._scene(s) for s in range(cs.BATCH_SCENES)]
+    pts = np.zeros((cs.BATCH, n, 3), np.float32)
+    valid = np.zeros((cs.BATCH, n), bool)
+    for b in range(cs.BATCH):
+        p = scenes[b % cs.BATCH_SCENES].points[:n]
+        pts[b, : len(p)] = p
+        valid[b, : len(p)] = True
+    u = np.random.default_rng(cs.RANSAC_SEED).random(
+        (cs.BATCH, cfg.max_planes, cfg.ransac_hypotheses, 3)).astype(np.float32)
+    clouds = Cloud(points=torch.tensor(pts, device=dev), valid=torch.tensor(valid, device=dev))
+    return clouds, draw_from_uniform(torch.tensor(u, device=dev))
+
+
+def run(root: str, label: str) -> dict:
+    import torch
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    from pointcloud_obstacle_processing_tpu_torch import Cloud, _build, ops
+    from pointcloud_obstacle_processing_tpu_torch.config import REFERENCE_YAML_CONFIG
+    from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as fl
+    from pointcloud_obstacle_processing_tpu_torch.models import REFERENCE_FULLSCALE_CONFIG as fs
+    from pointcloud_obstacle_processing_tpu_torch.models import ObstacleDetectionModel
+    from pointcloud_obstacle_processing_tpu_torch.ops import shadow
+    from pointcloud_obstacle_processing_tpu_torch.ops.transforms import RigidTransform
+    from pointcloud_obstacle_processing_tpu_torch.parallel.sharding import batched_pipeline
+    from pointcloud_obstacle_processing_tpu_torch.utils import shadow_cases
+    from pointcloud_obstacle_processing_tpu_torch.utils.scene import make_fullscale_window
+
+    cs = _chip_smoke()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_shadow_fma_ab: no CUDA device")
+    dev = torch.device("cuda")
+    card = f"{torch.cuda.get_device_name(0)}; nvidia-smi: {cs._nvidia_smi()}"
+    _build.kernels()
+    out = {"label": label, "root": root, "card": card, "shadow_slots": {}, "dot3": {},
+           "scan": {}}
+
+    for name, (scans, c) in SHADOW_SHAPES.items():
+        case = shadow_cases.random_slots(2, scans, c, 64, pose_per_scan=scans > 1)
+        args = [torch.tensor(case[k]) for k in ("points", "valid", "point_cluster", "slot_valid")]
+        tf = RigidTransform.from_quat_trans(case["quat"], case["trans"])
+        want = shadow.shadow_slots_plain(*args, tf, REFERENCE_YAML_CONFIG)
+        on_card = ([a.to(dev) for a in args], tf.to(dev))
+
+        def call(on_card=on_card):
+            return shadow.shadow_slots(*on_card[0], on_card[1], REFERENCE_YAML_CONFIG)
+
+        cs._assert_equal(f"shadow_slots {name}", call(), want)
+        out["shadow_slots"][name] = {**_timed(cs, call), "digest": _digest(want)}
+
+    g = torch.Generator().manual_seed(0)
+    for name, (b, n) in SCORING_SHAPES.items():
+        pts = [torch.rand(b, n, 1, generator=g).to(dev) * 8 for _ in range(3)]
+        planes = [torch.randn(b, 1, HYPOTHESES, generator=g).to(dev) for _ in range(3)]
+        args = (*pts, *planes)
+        out["dot3"][name] = {**_timed(cs, lambda args=args: ops.dot3(*args)),
+                             "digest": _digest(ops.dot3(*args))}
+
+    model = ObstacleDetectionModel(fl, device=dev)
+    draw, _ = cs._draws(fl, dev)
+    clouds = [Cloud.pad_to(cs._scene(s).points[: fl.max_points], fl.max_points).to(dev)
+              for s in cs.SCENE_SEEDS]
+    ops_, dev_ms = cs.scan_device_ops(model, clouds[0], draw)
+    out["scan"]["flagship"] = {
+        "p50_ms": statistics.median(cs._time_scans(model, clouds, draw, cs.TIMED_SCANS)),
+        "device_ops": ops_, "device_ms": dev_ms}
+    model = ObstacleDetectionModel(fs, device=dev)
+    draw, _ = cs._draws(fs, dev)
+    pts, valid = make_fullscale_window(cs.FULLSCALE_POINTS)
+    cloud = Cloud(points=torch.tensor(pts), valid=torch.tensor(valid)).to(dev)
+    ops_, dev_ms = cs.scan_device_ops(model, cloud, draw)
+    out["scan"]["fullscale"] = {
+        "p50_ms": statistics.median(cs._time_scans(model, [cloud], draw,
+                                                   cs.FULLSCALE_TIMED_SCANS)),
+        "device_ops": ops_, "device_ms": dev_ms}
+    clouds, draw = _batch_inputs(cs, dev)
+    pipe = batched_pipeline(fl)
+
+    def batch(c, draw):
+        return pipe(c, draw=draw)
+
+    ops_, dev_ms = cs.scan_device_ops(batch, clouds, draw)
+    out["scan"]["batch"] = {
+        "p50_ms": statistics.median(cs._time_scans(batch, [clouds], draw, cs.BATCH_TIMED)),
+        "device_ops": ops_, "device_ms": dev_ms}
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="checkout to compare this one with, in turns")
+    ap.add_argument("--run", help="one run: the checkout whose package to time")
+    ap.add_argument("--label", default="")
+    ap.add_argument("--out", help="JSON file for every run's numbers")
+    args = ap.parse_args()
+    if args.run:
+        print(json.dumps(run(args.run, args.label)))
+        return
+    if not args.parent:
+        ap.error("give --parent DIR (or --run DIR)")
+    runs = []
+    for label, root in (("parent", args.parent), ("change", str(ROOT)), ("change", str(ROOT)),
+                        ("parent", args.parent)):
+        res = subprocess.run([sys.executable, __file__, "--run", root, "--label", label],
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode:
+            sys.stderr.write(res.stdout[-4000:] + res.stderr[-8000:])
+            raise SystemExit(f"torch_shadow_fma_ab: the {label} run failed ({res.returncode})")
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+    ms = _chip_smoke()._ms  # "not measured" where the profiler recorded nothing
+    for i, r in enumerate(runs):
+        for what in ("shadow_slots", "dot3"):
+            for name, v in r[what].items():
+                print(f"run {i} {r['label']}: {what} {name}: call {v['ms']:.4f} ms, device "
+                      f"{ms(v['device_ms'])} in {v['device_ops']} operations, host "
+                      f"{v['host_ms']:.4f} ms (output {v['digest']}) [{r['card']}]")
+        for name, v in r["scan"].items():
+            print(f"run {i} {r['label']}: process_scan {name} p50 {v['p50_ms']:.3f} ms, device "
+                  f"operations {v['device_ops']} ({ms(v['device_ms'])}) [{r['card']}]")
+    for what in ("shadow_slots", "dot3"):
+        for name in runs[0][what]:
+            same = len({r[what][name]["digest"] for r in runs}) == 1
+            print(f"{what} {name}: the two checkouts' outputs "
+                  f"{'are equal' if same else 'differ'}")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(runs, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -104,6 +104,15 @@ ROWS = [
     ("the shadow stage's per-slot geometry", "shadow_slots", (32, 1024, 64), "0.00018"),
     ("the shadow's closed-form sweep raster", "shadow_raster", (1, 64, 120, 101), "0.0000116"),
     ("the shadow's closed-form sweep raster", "shadow_raster", (32, 64, 120, 101), "0.00037"),
+    # the fused multiply-add chain at RANSAC's scoring (dot3, three pairs):
+    # [B, N, 1] points against [B, 1, 128] planes, N = 24,576 (flagship
+    # and the batch of 32) and 262,144 (fullscale)
+    ("XLA:CPU's fused multiply-add chains", "fma_chain", (24_576 * 128, 3 * 24_576 + 3 * 128, 3),
+     "0.0038"),
+    ("XLA:CPU's fused multiply-add chains", "fma_chain",
+     (262_144 * 128, 3 * 262_144 + 3 * 128, 3), "0.0410"),
+    ("XLA:CPU's fused multiply-add chains", "fma_chain",
+     (32 * 24_576 * 128, 32 * (3 * 24_576 + 3 * 128), 3), "0.1230"),
 ]
 
 

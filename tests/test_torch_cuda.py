@@ -1332,3 +1332,134 @@ def test_cast_shadows_launches_the_two_kernels_and_no_torch_trig(dev, monkeypatc
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"shadow_slots": 1,
                                                                 "shadow_raster": 1}
     _eq(got, want)
+
+
+@pytest.mark.parametrize("kind", ["flagship", "fullscale", "batch_1024", "batch_16384", "wide",
+                                  "tiny", "one_slot", "runs", "nan"])
+def test_shadow_slots_cluster_equals_plain(dev, kind):
+    """The slot kernel (a thread-block cluster a scan, up to 8 blocks) on
+    every cluster size it takes: C = 1,024 and 16,384 for one scan and a
+    batch of 32, C = 10,240 (5 blocks, uneven shares), C = 100; every
+    point in one slot, and each slot's points in one run of the buffer
+    (warps that reduce one slot's points first, and warps at a run's
+    edge); NaN points.
+    Bitwise its plain twin on the CPU, one launch."""
+    from pointcloud_obstacle_processing_tpu_torch.config import REFERENCE_YAML_CONFIG as cfg
+    from pointcloud_obstacle_processing_tpu_torch.ops import shadow
+    from pointcloud_obstacle_processing_tpu_torch.ops.transforms import RigidTransform
+    from pointcloud_obstacle_processing_tpu_torch.utils import shadow_cases
+
+    scans, c = {"flagship": (1, 1024), "fullscale": (1, 16_384), "batch_1024": (32, 1024),
+                "batch_16384": (32, 16_384), "wide": (3, 10_240), "tiny": (2, 100),
+                "one_slot": (2, 16_384), "runs": (3, 16_384), "nan": (4, 4096)}[kind]
+    case = shadow_cases.random_slots(7, scans, c, 64, pose_per_scan=scans > 1)
+    if kind == "one_slot":
+        case["point_cluster"][:] = 0
+    if kind == "runs":
+        case["point_cluster"].sort(axis=-1)
+    if kind == "nan":
+        rng = np.random.default_rng(8)
+        case["points"][rng.random(case["points"].shape) < 0.002] = np.nan
+    args = [torch.tensor(case[k]) for k in ("points", "valid", "point_cluster", "slot_valid")]
+    tf = RigidTransform.from_quat_trans(case["quat"], case["trans"])
+    want = shadow.shadow_slots_plain(*args, tf, cfg)
+    before = _build.LAUNCHES["shadow_slots"]
+    got = shadow.shadow_slots(*[a.to(dev) for a in args], tf.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["shadow_slots"] == before + 1
+    _eq(got, want)
+
+
+def _fma_sets():
+    from pointcloud_obstacle_processing_tpu_torch.utils import fma_cases
+
+    return {"near_ties": fma_cases.near_ties(0, 100_000),
+            "subnormal_ties": fma_cases.subnormal_ties(1, 20_000)}
+
+
+@pytest.mark.parametrize("name", ["near_ties", "subnormal_ties"])
+def test_fma_chain_kernel_equals_plain_on_near_ties(dev, name):
+    """``ops.fma`` on the card (one launch of ``csrc/fma_chain.cu``) bitwise
+    the plain form on the CPU on the near-tie triples."""
+    from pointcloud_obstacle_processing_tpu_torch import ops
+
+    a, b, c = (torch.tensor(v) for v in _fma_sets()[name])
+    want = ops.fma_plain(a, b, c)
+    before = _build.LAUNCHES["fma_chain"]
+    got = ops.fma(a.to(dev), b.to(dev), c.to(dev))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fma_chain"] == before + 1
+    _eq(got.view(torch.int32), want.view(torch.int32))
+    _eq(ops.fma_plain(a.to(dev), b.to(dev), c.to(dev)).view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["dot3", "sum_sq3", "add_sq3"])
+def test_chain_helpers_take_one_launch_and_equal_plain(dev, kind, monkeypatch):
+    """Each helper on CUDA tensors: one ``fma_chain`` launch, no float64
+    tensor made, bitwise its plain form on the CPU on near-tie operands."""
+    from pointcloud_obstacle_processing_tpu_torch import ops
+    from pointcloud_obstacle_processing_tpu_torch.utils import fma_cases
+
+    operands = [torch.tensor(v) for v in fma_cases.chain_ties(2, 100_000, kind)]
+    want = getattr(ops, kind)(*operands)
+    on_card = [t.to(dev) for t in operands]
+    torch.cuda.synchronize()
+    monkeypatch.setattr(torch.Tensor, "double",
+                        lambda *a, **k: pytest.fail("a float64 tensor on the card"))
+    _build.reset_launch_counts()
+    got = getattr(ops, kind)(*on_card)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"fma_chain": 1}
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    _eq(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_fma_chain_broadcast_strided_operands_and_constants(dev):
+    """The chain kernel reads broadcast operands ([B, N, 1] points against
+    [B, 1, K] planes, RANSAC's scoring), transposed, sliced and unaligned
+    views, 0-d CPU constants (by value) and a 0-d card tensor in place:
+    each call one launch, bitwise the plain form."""
+    from pointcloud_obstacle_processing_tpu_torch import ops
+
+    g = torch.Generator().manual_seed(9)
+
+    def r(*s):
+        return torch.randn(*s, generator=g)
+
+    card0 = r(())  # a 0-d operand on the card: read in place, not by value
+    cases = [
+        ("dot3", (r(3, 2000, 1), r(3, 2000, 1), r(3, 2000, 1), r(3, 1, 128), r(3, 1, 128),
+                  r(3, 1, 128))),
+        ("fma", (r(64, 48).T, r(48, 1), r(1, 64))),
+        ("fma", (r(10, 20, 3)[..., 0], r(10, 20, 3)[..., 2], r(40)[::2])),
+        ("fma", (r(1000, 3), ops.f32(0.04), ops.f32(0.25))),
+        ("fma", (r(1001)[1:], r(1002)[2:], r(1000))),  # contiguous, not 16-byte aligned
+        ("fma", (r(1000, 3), ops.recip32(0.08), card0)),
+        ("sum_sq3", (r(5, 7, 9, 2, 3, 4, 1)[..., 0], r(1, 7, 1, 2, 1, 4), r(9, 1, 3, 1))),
+        ("add_sq3", (r(300), r(300), ops.f32(3.0))),
+    ]
+    for kind, operands in cases:
+        want = getattr(ops, kind)(*operands)
+        on_card = [t.to(dev) if t.dim() or t is card0 else t for t in operands]
+        before = _build.LAUNCHES["fma_chain"]
+        got = getattr(ops, kind)(*on_card)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["fma_chain"] == before + 1, kind
+        assert got.shape == want.shape and got.is_contiguous()
+        _eq(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_fma_chain_refuses_bad_operands(dev):
+    from pointcloud_obstacle_processing_tpu_torch import ops
+
+    x = torch.ones(8, device=dev)
+    with pytest.raises(TypeError):
+        ops.fma(x, x.double(), x)
+    with pytest.raises(TypeError):
+        ops.fma(x, x.int(), x)
+    with pytest.raises(TypeError):
+        ops.fma(x, 2.0, x)
+    with pytest.raises(ValueError):  # a CPU operand of rank 1 with CUDA operands
+        ops.fma(x, torch.ones(8), x)
+    with pytest.raises(ValueError):  # a form the port does not write
+        ops.fma_chain(((x, x),) * 2)
