@@ -8,8 +8,8 @@ merges, data parallel) on 4 ranks sharing the card, a batch of two
 fullscale windows, the flagship scan with each kNN engine, and the voxel
 engines off the sort engine's lattice order (``mxu``, ``scatter``, Morton,
 the 3-key fallback), the shadow stage's two kernels with the
-reference's trigonometry, and the fused multiply-add chain kernel on
-near ties.
+reference's trigonometry, the fused multiply-add chain kernel on
+near ties, and RANSAC's scoring and mask kernels.
 
     python3 chip_smoke.py
 
@@ -204,7 +204,8 @@ Phases (any failure raises and exits non-zero before the last line):
 13. The shadow stage's kernels (``csrc/shadow.cu``): ``shadow_slots`` and
    ``shadow_raster`` bitwise their plain twins on a CPU copy of seeded
    inputs at the flagship, fullscale and batch-of-32 shapes and of the
-   edge scan (``utils/shadow_cases.py``); the card's ``asin_like_xla`` and
+   edge scan (``utils/shadow_cases.py``), the raster timed there by device
+   time beside its bound (``raster seeded`` lines); the card's ``asin_like_xla`` and
    ``tanf`` (``csrc/libm32.cuh``) bitwise the plain forms on every 509th
    float32 of their domains; the stage's device operations and times on
    the flagship scan's own inputs before (the stage's earlier eager form,
@@ -214,15 +215,37 @@ Phases (any failure raises and exits non-zero before the last line):
    launches, and phases 3, 4, 8 and 9 hold them against their plain twins
    on the path's own inputs and time them as in phase 2.  Every scan path
    also counts ``fma_chain`` (``csrc/fma_chain.cu``: ``ops.fma`` and the
-   chain helpers, one launch a call) among its launches, and phases 3, 4
-   and 8 hold it bitwise against its plain form on a CPU copy at RANSAC's
-   scoring shapes (the scan's own ``dot3`` of [B, N, 1] points against [B,
-   1, 128] planes) and time it as in phase 2, beside ``torch.addcmul``.
+   chain helpers, one launch a call) among its launches; the scan paths
+   of phases 3-5, 8, 9 and 11 hold each of their run's ``fma_chain`` calls bitwise
+   against the plain form on a CPU copy (``capture_ransac``), and phases
+   3, 4 and 8 time the largest of them (the voxel key) as in phase 2,
+   beside ``torch.addcmul``.
 14. ``fma_chain`` on the card bitwise its plain form on ``utils/fma_cases.py``'s
    seeded near ties (triples, triples with a float32-subnormal result, and
    ``dot3``/``sum_sq3``/``add_sq3`` operands whose second step is a near
    tie), one launch a call, with how many of them the double-rounded form
-   (the float64 sum rounded to float32) misses.
+   (the float64 sum rounded to float32) misses; then the wrapper's host
+   time a call (``_host_ms``) at two of a flagship scan's call shapes (the
+   voxel key's ``fma`` with a constant, RANSAC's [1, 128] ``dot3``), with
+   its cached launch plan, with the cache cleared before every call, and
+   part by part (``_fma_host_parts``; ``fma_chain host`` lines).
+15. RANSAC's kernels (``csrc/ransac_score.cu``): ``ransac_score`` (the
+   scoring and selection, one launch, then the winner's mask) and
+   ``plane_inliers`` (the refinement's mask) bitwise their plain versions
+   on a CPU copy of ``utils/ransac_cases.py``'s seeded probes (points
+   within 8 ulps of the threshold, tied counts, gated-off scans, NaN
+   coordinates on invalid rows; K from 1 to 1,100, twice a case); then on
+   every call of each scan path's own run (flagship, fullscale, band off,
+   the batch of 32, the nodes, the fullscale batch of 2; every call
+   against the plain version on the card, the first also on a CPU copy),
+   with the launches of the path's counted run checked against its known
+   runs (``ransac_score`` once a round, ``plane_inliers`` 1 +
+   ``ransac_refine_iters`` times, ``max_planes`` rounds a run), and each timed
+   as in phase 2 beside the plain version on the card (the composition
+   they replaced: a ``[B, N, K]`` table and its passes); then
+   ``segment_planes`` on the flagship, fullscale and batch inputs with the
+   kernels and with the plain versions: device operations, device time
+   and peak device memory (``ransac stage`` lines).
 
 Each phase prints its seconds.
 Its last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -273,10 +296,15 @@ NODE_MODES = ((False, False), (False, True), (True, False), (True, True))  # (as
 SHADOW_PATH = ["shadow_slots", "shadow_raster"]  # the shadow stage's kernels, on every scan path
 # the kernels every scan path launches: the shadow stage's, and the fused
 # multiply-add chains (``ops.fma``, many launches a scan)
-SCAN_PATH = [*SHADOW_PATH, "fma_chain"]
+# RANSAC's scoring and mask kernels, on every scan path
+RANSAC_PATH = ["ransac_score", "plane_inliers"]
+SCAN_PATH = [*SHADOW_PATH, "fma_chain", *RANSAC_PATH]
 SHADOW_SWEEP_STRIDE = 509  # phase 13: every 509th float32 of the trig routines' domains
 # phase 13: the cast_shadows calls of one scan, by path (captured in phases 3 and 4)
 SHADOW_SCANS: dict = {}
+# phase 15: RANSAC's calls of one run, by path (``capture_ransac``), and the
+# RANSAC configuration of each path
+RANSAC_RUNS: dict = {}
 
 
 def _mode_name(async_mode: bool, device_mode: bool) -> str:
@@ -701,43 +729,91 @@ def _shadow_rows(path: str, what: str, s_args, r_args) -> list[dict]:
     ]
 
 
-def capture_scoring(call) -> tuple:
-    """The arguments of the largest ``ops.dot3`` call that RANSAC makes in
-    ``call()`` (a scan, batch or window): its hypothesis scoring, the [B,
-    N, 1] points against the [B, 1, K] planes (``ransac._plane_dist``)."""
+def capture_fma(call) -> list:
+    """Every call ``call()`` makes to ``ops.fma_chain`` (looked up at call
+    time by the chain helpers), as (pairs, addend, the card's result and
+    CPU copies of the operands, both taken as the call returns, and the
+    caller's ``file:line`` in the port, outside ``ops/__init__.py``)."""
+    from pointcloud_obstacle_processing_tpu_torch import ops
+
+    seen, fn = [], ops.fma_chain
+
+    def spy(pairs, c=None):
+        out = fn(pairs, c)
+        f = sys._getframe(1)
+        while f.f_code.co_filename == ops.__file__:
+            f = f.f_back
+        seen.append((pairs, c, out.cpu(), [(a.cpu(), b.cpu()) for a, b in pairs],
+                     None if c is None else c.cpu(),
+                     f"{Path(f.f_code.co_filename).name}:{f.f_lineno}"))
+        return out
+
+    ops.fma_chain = spy
+    try:
+        call()
+    finally:
+        ops.fma_chain = fn
+    return seen
+
+
+def capture_ransac(path: str, call, config, runs: int = 1) -> list:
+    """Record the calls ``call()`` (a scan, batch or window) makes to
+    ``pipeline.segment_planes`` and to ``ops.ransac.ransac_score`` and
+    ``plane_inliers`` (each looked up at call time by its caller) under
+    ``path`` for phase 15, with ``config`` and ``runs``, the RANSAC runs
+    (scans, batches or windows) of the path's counted main-path run.  Holds
+    every ``ops.fma_chain`` call of ``call()`` bitwise against its plain
+    form on a CPU copy of its operands, and returns those calls
+    (``capture_fma``)."""
     import torch
 
+    from pointcloud_obstacle_processing_tpu_torch import ops, pipeline
     from pointcloud_obstacle_processing_tpu_torch.ops import ransac
 
-    calls = [a for a, _ in _capture(ransac, "dot3", call)]
-    return max(calls, key=lambda a: torch.broadcast_shapes(*(t.shape for t in a)).numel())
+    scores, masks, chains = [], [], []
+    stage = _capture(pipeline, "segment_planes", lambda: scores.extend(_capture(
+        ransac, "ransac_score", lambda: masks.extend(_capture(
+            ransac, "plane_inliers", lambda: chains.extend(capture_fma(call)))))))
+    RANSAC_RUNS[path] = {"stage": stage[0], "score": [a for a, _ in scores], "mask": masks,
+                         "config": config, "runs": runs}
+    for i, (_, _, got, pairs, c, caller) in enumerate(chains):
+        want = ops.fma_chain_plain(pairs, c)
+        nan = torch.isnan(want)  # a NaN's payload is the device's own
+        _assert_equal(f"fma_chain {path} call {i} of {len(chains)} ({caller}) NaNs",
+                      torch.isnan(got), nan)
+        _assert_equal(f"fma_chain {path} call {i} of {len(chains)} ({caller})",
+                      got.view(torch.int32)[~nan], want.view(torch.int32)[~nan])
+    print(f"fma_chain {path}: every call of a run ({len(chains)}) equal to its plain form on a "
+          f"CPU copy")
+    return chains
 
 
-def _fma_row(path: str, what: str, args) -> dict:
-    """The fused multiply-add chain kernel at RANSAC's scoring shapes, on a
-    path's own operands: ``ops.dot3`` (one launch) held bitwise against its
-    plain form on a CPU copy, then timed as in phase 2 beside the plain
-    form on the card and ``torch.addcmul(c, a, b)``, one elementwise pass
-    of the same shapes (the yardstick; it does not round as the reference
-    does)."""
+def _fma_row(path: str, what: str, chains) -> dict:
+    """The fused multiply-add chain kernel on the largest call of a path's
+    run (``capture_ransac``'s calls, each already held bitwise against its
+    plain form on a CPU copy), timed as in phase 2 beside the plain form on
+    the card and ``torch.addcmul``, one elementwise pass over the call's
+    first pair and its addend (the chain's accumulator where it has none):
+    the yardstick, which does not round as the reference does."""
     import torch
 
     from pointcloud_obstacle_processing_tpu_torch import ops
 
-    ax, ay, az, bx, by, bz = args
-    got = ops.dot3(*args)
-    err = _assert_equal(f"fma_chain {path} ({what})", got,
-                        ops.dot3(*[t.cpu() for t in args]))
-    acc = got.clone()
-    pairs = ((ay, by), (ax, bx), (az, bz))
+    pairs, c, got, _, _, caller = max(chains, key=lambda r: r[2].numel())
+    operands = [t for p in pairs for t in p] + ([] if c is None else [c])
+    dev = next(t.device for t in operands if t.is_cuda)
+    (a, b), acc = pairs[0], (got if c is None else c).to(dev)
+    a, b = a.to(dev), b.to(dev)  # a 0-d constant on the card for addcmul
+    shapes = " x ".join(str(tuple(t.shape)) for t in operands)
     return _row("fma_chain", path,
-                f"{what}: dot3 of {tuple(ax.shape)} points and {tuple(bx.shape)} planes -> "
+                f"{what}: the largest of {len(chains)} calls, {len(pairs)} pair(s)"
+                f"{'' if c is None else ' and an addend'}, operands {shapes} -> "
                 f"{tuple(got.shape)}", "fma_chain.cu",
-                "ransac.py:154 (the plane distance: XLA:CPU's fused multiply-adds; plain XLA, "
-                "no TPU kernel)", err, lambda: ops.dot3(*args),
-                lambda: ops.fma_chain_plain(pairs),
-                _bound("fma_chain", got.numel(), sum(t.numel() for t in args), len(pairs)),
-                library_fn=lambda: torch.addcmul(acc, ax, bx), plain_reps=5)
+                f"{caller.split(':')[0]} (the port's call at {caller}: XLA:CPU's fused "
+                "multiply-add; plain XLA, no TPU kernel)", 0.0, lambda: ops.fma_chain(pairs, c),
+                lambda: ops.fma_chain_plain(pairs, c),
+                _bound("fma_chain", got.numel(), sum(t.numel() for t in operands), len(pairs)),
+                library_fn=lambda: torch.addcmul(acc, a, b), plain_reps=5)
 
 
 def capture_k3_args(model, cloud, draw, name: str = "knn_mean") -> tuple:
@@ -1380,12 +1456,13 @@ def run_flagship(dev, card: str) -> tuple[dict, list[dict]]:
     sums, tails = capture_refine(lambda: model(gpu_clouds[0], draw=draw_cuda))
     stage, s_args, r_args = capture_shadow(lambda: model(gpu_clouds[0], draw=draw_cuda))
     SHADOW_SCANS["flagship"] = stage
-    scoring = capture_scoring(lambda: model(gpu_clouds[0], draw=draw_cuda))
+    chains = capture_ransac("flagship", lambda: model(gpu_clouds[0], draw=draw_cuda), cfg,
+                            runs=len(SCENE_SEEDS))
     return launches, [check_k3_scan("flagship", model, gpu_clouds[0], draw_cuda),
                       _loop_row("flagship", "the scan's non-plane cloud", loop_args),
                       *_sum_rows("flagship", sums), _tail_row("flagship", tails),
                       *_shadow_rows("flagship", "the scan's clusters", s_args, r_args),
-                      _fma_row("flagship", "RANSAC's scoring", scoring)]
+                      _fma_row("flagship", "a scan", chains)]
 
 
 def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
@@ -1432,11 +1509,11 @@ def run_fullscale(dev, card: str) -> tuple[dict, list[dict]]:
     sums, tails = capture_refine(lambda: model(gpu_cloud, draw=draw_cuda))
     stage, s_args, r_args = capture_shadow(lambda: model(gpu_cloud, draw=draw_cuda))
     SHADOW_SCANS["fullscale"] = stage
-    scoring = capture_scoring(lambda: model(gpu_cloud, draw=draw_cuda))
+    chains = capture_ransac("fullscale", lambda: model(gpu_cloud, draw=draw_cuda), cfg)
     return launches, [check_k3_scan("fullscale", model, gpu_cloud, draw_cuda),
                       *_sum_rows("fullscale", sums), _tail_row("fullscale", tails),
                       *_shadow_rows("fullscale", "the window's clusters", s_args, r_args),
-                      _fma_row("fullscale", "RANSAC's scoring", scoring)], res
+                      _fma_row("fullscale", "a window", chains)], res
 
 
 def run_fullscale_bandoff(dev, card: str, banded) -> tuple[dict, list[dict]]:
@@ -1491,6 +1568,7 @@ def run_fullscale_bandoff(dev, card: str, banded) -> tuple[dict, list[dict]]:
           f"mode); device operations per scan {n_ops} ({_ms(dev_ms)} of device time); kernel "
           f"launches on the main-path scan {launches} [{card}]")
     args = capture_loop_args(model, gpu_cloud, draw_cuda)
+    capture_ransac("fullscale_bandoff", lambda: model(gpu_cloud, draw=draw_cuda), cfg)
     row = _grid_row("fullscale_bandoff", "the scan's non-plane cloud", args)
     sweeps = row["sweeps"]
     per_sweep = None if row["device_ms"] is None else row["device_ms"] / sweeps
@@ -1727,9 +1805,10 @@ def run_batch(dev, card: str) -> tuple[dict, list[dict]]:
     res, sums, tails = count_refine(lambda: run(clouds, draw))
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    if any(launches[k] != 1 for k in path) or launches["fma_chain"] < 1:
+    if any(launches[k] != 1 for k in path) or any(launches[k] < 1 for k in ("fma_chain",
+                                                                          *RANSAC_PATH)):
         raise AssertionError(f"batched flagship: each of {path} must launch once a batch, and "
-                             f"fma_chain at least once, got {launches}")
+                             f"fma_chain and {RANSAC_PATH} at least once, got {launches}")
     check_refine_launches("batched flagship", launches, sums, tails)
     worst = 0.0
     for b in range(BATCH):
@@ -1774,7 +1853,8 @@ def run_batch(dev, card: str) -> tuple[dict, list[dict]]:
     _, s_args, r_args = capture_shadow(once)
     rows = [
         *_shadow_rows("flagship_batch", f"the batch's clusters ({BATCH} scans)", s_args, r_args),
-        _fma_row("flagship_batch", f"RANSAC's scoring ({BATCH} scans)", capture_scoring(once)),
+        _fma_row("flagship_batch", f"a batch of {BATCH} scans",
+                 capture_ransac("flagship_batch", once, cfg)),
         _k1_batch_row("flagship_batch", *k1),
         _k2_batch_row("flagship_batch", k2[0]),
         _k3_row("flagship_batch", f"the batch's voxel clouds ({BATCH} scans)", k3[0]),
@@ -1817,11 +1897,12 @@ def _k5_row(path, calls, plain_reps=20):
     )
 
 
-def _node_rows(path: str, once, loop: str) -> list[dict]:
+def _node_rows(path: str, once, loop: str, config) -> list[dict]:
     """The node path's kernels on the inputs one of its windows gives them
     (``once`` runs that window's pipeline call again): K1, K2, K3, the
     cluster loop (``loop``: the loop kernel or K5), the sum kernel and
-    ``covariance_tail``, each checked and timed as in phase 2."""
+    ``covariance_tail``, each checked and timed as in phase 2; RANSAC's
+    calls recorded for phase 15."""
     from pointcloud_obstacle_processing_tpu_torch.ops import cluster, compaction, outliers, voxel
 
     (k1,) = _capture(voxel, "sorted_run_reduce", once)
@@ -1838,6 +1919,7 @@ def _node_rows(path: str, once, loop: str) -> list[dict]:
         rows.append(_k5_row(path, _capture(cluster, "sweep_jump_banded", once)))
     sums, tails = capture_refine(once)
     _, s_args, r_args = capture_shadow(once)
+    capture_ransac(path, once, config)
     return rows + [*_sum_rows(path, sums), _tail_row(path, tails),
                    *_shadow_rows(path, "the window's clusters", s_args, r_args)]
 
@@ -2052,7 +2134,7 @@ def run_node_flagship(dev, card: str) -> tuple[dict, list[dict], dict]:
             raise AssertionError(f"node flagship window {c}: {got} != direct {want}")
     print(f"node flagship sync+device: each of {n_win} windows == a direct process_frames of its "
           f"frames on the card (grid, counts, flags) [{card}]")
-    rows = _node_rows("node_flagship", lambda: direct(n_win - 1), "cluster_loop")
+    rows = _node_rows("node_flagship", lambda: direct(n_win - 1), "cluster_loop", cfg)
 
     # one window on the card == the port's CPU node on the same frames (the
     # same RANSAC uniforms on both sides)
@@ -2168,7 +2250,7 @@ def run_node_fullscale(dev, card: str) -> tuple[dict, list[dict], dict]:
                     raise AssertionError(f"fullscale node: kernels not launched in window "
                                          f"{i + 1}: {missing}")
             launches = per[-1]
-            rows = _node_rows("node_fullscale", once, "cluster_sweep_banded")
+            rows = _node_rows("node_fullscale", once, "cluster_sweep_banded", cfg)
         stamps = [t for t, _ in marks[FULLSCALE_NODE_WARMUP:]]
         rate = (len(stamps) - 1) / (stamps[-1] - stamps[0])
         measured = slice(FULLSCALE_NODE_WARMUP, None)
@@ -2743,6 +2825,7 @@ def run_fullscale_batch(dev, card: str) -> tuple[dict, list[dict]]:
 
     calls = _capture(cluster, "sweep_jump_banded", lambda: run(clouds, draw))
     sums, tails = capture_refine(lambda: run(clouds, draw))
+    capture_ransac("fullscale_batch", lambda: run(clouds, draw), cfg)
     return launches, [_k5_row("fullscale_batch", calls, plain_reps=3),
                       *_sum_rows("fullscale_batch", sums), _tail_row("fullscale_batch", tails)]
 
@@ -3313,10 +3396,17 @@ def run_shadow(dev, card: str) -> None:
         _assert_equal(f"shadow_slots seeded {name}", got, want)
         grid = torch.tensor(np.random.default_rng(3).choice(
             [0, 100], (*want.shape[:-2], cfg.grid_height, cfg.grid_width)).astype(np.int8))
+        want_grid = shadow.shadow_raster_plain(grid, want, 50)
         _assert_equal(f"shadow_raster seeded {name}", shadow.shadow_raster(grid.to(dev), got, 50),
-                      shadow.shadow_raster_plain(grid, want, 50))
+                      want_grid)
         print(f"shadow kernels seeded {name} {tuple(args[0].shape)}, {m} slots: equal to plain "
               f"({int(want[..., 6].sum())} active slots) [{card}]")
+        g = grid.to(dev)
+        bound = _bound("shadow_raster", got[..., 0, 0].numel(), m, cfg.grid_height,
+                       cfg.grid_width)[0]
+        print(f"raster seeded {name}: device "
+              f"{_ms(_device_ms(lambda g=g, got=got: shadow.shadow_raster(g, got, 50)))}, bound "
+              f"{bound:.7f} ms [{card}]")
 
     for name, top in (("asin_like_xla", np.float32(1.0)),
                       ("tanf", np.nextafter(np.float32(np.pi / 2), np.float32(4)))):
@@ -3387,6 +3477,229 @@ def run_fma(dev, card: str) -> None:
         missed = int((old.view(torch.int32) != want.view(torch.int32)).sum())
         print(f"fma_chain {label}: {len(cpu[0]):,} cases, equal to the plain form in one launch; "
               f"the double-rounded form misses {missed:,} [{card}]")
+
+    # the wrapper's host time a call at two of a flagship scan's own call
+    # shapes (the largest, the voxel key with a constant; RANSAC's [1, 128]
+    # hypothesis offset), with its cached plan and with the plan rebuilt
+    # every call, and part by part
+    g = torch.Generator().manual_seed(0)
+    shapes = {"fma [1, 100352, 3] with a constant (the voxel key)":
+              (((torch.rand(1, 100_352, 3, generator=g).to(dev), ops.f32(0.04)),),
+               torch.rand(1, 100_352, 3, generator=g).to(dev)),
+              "dot3 [1, 128] (RANSAC's hypothesis offset)":
+              (tuple((torch.randn(1, 128, generator=g).to(dev),
+                      torch.randn(1, 128, generator=g).to(dev)) for _ in range(3)), None)}
+    for label, (pairs, c) in shapes.items():
+        def cold(pairs=pairs, c=c):
+            ops._chain_plan.cache_clear()
+            return ops.fma_chain(pairs, c)
+
+        parts = _fma_host_parts(pairs, c)
+        print(f"fma_chain host {label}: {_host_ms(lambda p=pairs, c=c: ops.fma_chain(p, c)):.4f} "
+              f"ms a call with the cached plan, {_host_ms(cold):.4f} ms with the plan rebuilt "
+              f"every call; by part, us a call: "
+              f"{', '.join(f'{k} {v:.2f}' for k, v in parts.items())} [{card}]")
+
+
+def _fma_host_parts(pairs, c, reps: int = 2000) -> dict:
+    """The chain wrapper's host time a call (``ops._fma_chain_kernel``
+    behind ``ops.fma_chain``), part by part: each part ``reps`` times back
+    to back on the host's clock, in us a call; ``whole call`` is
+    ``ops.fma_chain`` itself, ``rest`` what the parts leave of it (Python's
+    calls and returns between them)."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import _build, ops
+
+    operands = [t for pair in pairs for t in pair] + ([] if c is None else [c])
+    key = tuple((t.shape, t.stride(), t.get_device(), t.dtype) for t in operands)
+    shape, n, packed, slots, out_at = ops._chain_plan(len(pairs), key)
+    card = next(t for t in operands if t.is_cuda)
+    lib = _build.kernels()
+    out = card.new_empty(shape)
+
+    def fields():
+        args = bytearray(packed)
+        for t, (at, on_card) in zip(operands, slots):
+            if on_card:
+                ops._PTR.pack_into(args, at, t.data_ptr())
+            else:
+                ops._BITS.pack_into(args, at + ops._FIELD, t.item())
+        ops._OUT_STREAM.pack_into(args, out_at, out.data_ptr(), _build.stream_handle())
+        return bytes(args)
+
+    args = fields()
+    parts = {
+        "whole call": lambda: ops.fma_chain(pairs, c),
+        "operand list and CUDA test": lambda: any(
+            isinstance(t, torch.Tensor) and t.is_cuda
+            for t in [t for pair in pairs for t in pair] + ([] if c is None else [c])),
+        "plan key (with the dtype check)":
+            lambda: tuple((t.shape, t.stride(), t.get_device(), t.dtype) for t in operands),
+        "plan lookup": lambda: ops._chain_plan(len(pairs), key),
+        "output allocation": lambda: card.new_empty(shape),
+        "fields (pointers, constants, out, stream)": fields,
+        "stream handle alone": _build.stream_handle,
+        "launch (ctypes call, CUDA launch, error check)":
+            lambda: _build.check(lib.pcp_fma_chain(args), "fma_chain"),
+    }
+    us = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us[name] = (time.perf_counter() - t) * 1e6 / reps
+        torch.cuda.synchronize()
+    us["rest"] = us["whole call"] - sum(v for k, v in us.items()
+                                        if k not in ("whole call", "stream handle alone"))
+    return us
+
+
+# ---- phase 15: RANSAC's scoring and mask kernels --------------------------
+
+# (scans, rows, hypotheses) of the seeded cases: rows off the 256-row tile,
+# K from 1 to past the 1,024 planes a block stages at once
+RANSAC_CASES = [(1, 24_576, 128), (32, 1_500, 128), (3, 777, 200), (1, 3_001, 1_000),
+                (2, 1_000, 1), (2, 300, 1_100)]
+
+
+def _ransac_equal(label: str, got, want) -> None:
+    """Two ``ransac_score`` results bitwise alike, field by field."""
+    import torch
+
+    for field, g, w in zip(want._fields, got, want):
+        if w.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        _assert_equal(f"{label} {field}", g, w)
+
+
+def _ransac_rows(path: str, run: dict) -> list[dict]:
+    """RANSAC's kernels on every call of a path's run: each held bitwise
+    against its plain version on the card (the first also on a CPU copy),
+    then timed on the first round's score call and the first refinement
+    mask beside the plain version on the card (the composition they
+    replaced)."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    def cpu(args):
+        return [a.cpu() if isinstance(a, torch.Tensor) and a.dim() else a for a in args]
+
+    for i, args in enumerate(run["score"]):
+        want = ransac.ransac_score_plain(*args)
+        _ransac_equal(f"ransac_score {path} round {i}", ransac.ransac_score(*args), want)
+        if not i:
+            _ransac_equal(f"ransac_score {path} round {i} (CPU plain)", want,
+                          ransac.ransac_score_plain(*cpu(args)))
+    for i, (args, kw) in enumerate(run["mask"]):
+        want = ransac.plane_inliers_plain(*args, **kw)
+        _assert_equal(f"plane_inliers {path} call {i}", ransac.plane_inliers(*args, **kw), want)
+        if not i:
+            _assert_equal(f"plane_inliers {path} call {i} (CPU plain)", want,
+                          ransac.plane_inliers_plain(*cpu(args), **dict(zip(kw, cpu(kw.values())))))
+    args = run["score"][0]
+    points, valid = args[:2]
+    scans, n, k = *valid.shape, args[2].shape[-1]
+    rows = int(valid.sum())
+    margs, mkw = next(c for c in run["mask"] if c[1])  # a refinement's mask, with its select
+    return [
+        _row("ransac_score", path,
+             f"round 0: {scans} x {n} rows ({rows} valid) against {k} hypotheses a scan; "
+             f"{len(run['score'])} rounds a run, all equal", "ransac_score.cu",
+             "ransac.py:154-168 (the hypotheses' scoring and selection; plain XLA, no TPU "
+             "kernel)", 0.0, lambda: ransac.ransac_score(*args),
+             lambda: ransac.ransac_score_plain(*args), _bound("ransac_score", scans, n, k, rows),
+             plain_reps=5),
+        _row("plane_inliers", path,
+             f"a refinement's mask: {scans} x {n} rows; {len(run['mask'])} calls a run, all "
+             f"equal", "ransac_score.cu",
+             "ransac.py:194-204 (the refinement's mask; plain XLA, no TPU kernel)", 0.0,
+             lambda: ransac.plane_inliers(*margs, **mkw),
+             lambda: ransac.plane_inliers_plain(*margs, **mkw),
+             _bound("plane_inliers", scans, n, True), plain_reps=5),
+    ]
+
+
+def _stage_numbers(fn) -> str:
+    """Device operations, device time and peak new device memory of one
+    call of ``fn``."""
+    import torch
+
+    dev_ms, ops = _device_profile(fn, reps=3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    return (f"{ops} device operations, device {_ms(dev_ms)}, call {_time_ms(fn, 5):.4f} ms, "
+            f"peak {peak:.1f} MiB above the inputs")
+
+
+def run_ransac(dev, card: str, launches: dict) -> list[dict]:
+    """Phase 15: RANSAC's scoring and mask kernels bitwise their plain
+    versions on seeded probes and on every scan path's own calls, the
+    launches a run, each kernel timed beside the composition it replaced,
+    and the RANSAC stage with and without the kernels.  Returns the kernel
+    rows."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import _build, pipeline
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+    from pointcloud_obstacle_processing_tpu_torch.utils import ransac_cases
+
+    for scans, n, k in RANSAC_CASES:
+        for kind in ("probes", "ties", "gated", "random"):
+            c = ransac_cases.score_case(n + k, scans, n, k, kind)
+            args = [torch.tensor(c[f]) for f in ("points", "valid", "nx", "ny", "nz", "ds",
+                                                  "gate")]
+            want = ransac.ransac_score_plain(*args, c["thresh"])
+            on_card = [a.to(dev) for a in args]
+            for rep in range(2):  # the cached scratch and tickets reset themselves
+                _build.reset_launch_counts()
+                got = ransac.ransac_score(*on_card, c["thresh"])
+                torch.cuda.synchronize()
+                if {key: v for key, v in _build.LAUNCHES.items() if v} != \
+                        {"ransac_score": 1, "plane_inliers": 1}:
+                    raise AssertionError(f"ransac_score seeded {kind}: launches {_build.LAUNCHES}")
+                _ransac_equal(f"ransac_score seeded {kind} {(scans, n, k)} call {rep}", got, want)
+        print(f"ransac_score seeded {(scans, n, k)}: probes, ties, gated, random each equal to "
+              f"the plain version on a CPU copy, twice, one score and one mask launch [{card}]")
+
+    rows = []
+    for path, run in RANSAC_RUNS.items():
+        cfg = run["config"]
+        # a round a plane slot, for each RANSAC run of the path's counted
+        # run (the flagship path counts its three scenes' scans)
+        runs = run["runs"]
+        want = {"ransac_score": runs * cfg.max_planes,
+                "plane_inliers": runs * cfg.max_planes * (1 + cfg.ransac_refine_iters)}
+        got = {key: launches[path][key] for key in want}
+        if got != want or len(run["score"]) != cfg.max_planes:
+            raise AssertionError(f"{path}: RANSAC launches {got} over {runs} run(s), expected "
+                                 f"{want}")
+        rows += _ransac_rows(path, run)
+        print(f"ransac {path}: every call of the run equal to the plain version; launches {got} "
+              f"[{card}]")
+    for path in ("flagship", "fullscale", "flagship_batch"):
+        args, kw = RANSAC_RUNS[path]["stage"]
+
+        def stage(args=args, kw=kw):
+            pipeline.segment_planes(*args, **kw)
+
+        kernels, saved = _stage_numbers(stage), (ransac.ransac_score, ransac.plane_inliers)
+        ransac.ransac_score, ransac.plane_inliers = ransac.ransac_score_plain, \
+            ransac.plane_inliers_plain
+        try:
+            plain = _stage_numbers(stage)
+        finally:
+            ransac.ransac_score, ransac.plane_inliers = saved
+        print(f"ransac stage {path}: with the kernels {kernels}; with the plain versions (the "
+              f"composition they replaced) {plain} [{card}]")
+    return rows
 
 
 def main() -> None:
@@ -3480,6 +3793,13 @@ def main() -> None:
     t = time.perf_counter()
     run_fma(dev, card)
     print(f"phase 14 (fma_chain near ties): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ransac_rows = run_ransac(dev, card, launches)
+    for r in ransac_rows:
+        print(f"kernel {r['name']} [{r['path']}: {r['shape']}]: equal to plain; {_times(r)} "
+              f"[{card}]")
+    rows += ransac_rows
+    print(f"phase 15 (RANSAC kernels): {time.perf_counter() - t:.1f} s")
 
     for r in rows:
         r["launches"] = launches[r["path"]][r["name"]]

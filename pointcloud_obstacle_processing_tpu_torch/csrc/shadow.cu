@@ -37,19 +37,27 @@
 // steep and back swaps.  Out: [scans, M, 7] int32 (ops.shadow.LINE_FIELDS).
 // No global scratch, no memset, one launch.
 //
-// shadow_raster: a thread a cell of [scans, H, W], the grid's y the scan.
-// The block stages its scan's lines in shared memory, 256 at a time, with
-// each line's gradient, float x0 and float y0; every thread then ORs the
-// steep or shallow hit of each active line (ops/shadow.py's closed forms,
-// int32 arithmetic wrapping as PyTorch's does) and writes its cell once:
-// the opacity, or the input grid's value.
+// shadow_raster: a block a tile of 8 x 16 cells of one scan (the grid's y),
+// a thread a cell.  The block takes its scan's lines, a line a thread, 128
+// at a time: each line's gradient, float x0 and float y0, and the box of
+// cells its sweep can hit (steep: rows x0..x1, columns from line_y
+// at the two ends widened by n - 1 below and 1 above; shallow: columns
+// x0 - (n - 1)..x1 + 1, rows between line_y at the ends; line_y is monotone
+// in u, float rounding and the saturating conversion included, so its ends
+// bound it).  A line whose per-cell int32 arithmetic could wrap (n =
+// INT_MIN, or ends near the int32 limits) goes on every tile's list.  The
+// active lines whose box meets the tile are compacted, in order, into a
+// list in shared memory (__ballot_sync and a prefix count); each thread ORs
+// the steep or shallow hit of the listed lines only (ops/shadow.py's
+// closed forms, int32 arithmetic wrapping as PyTorch's does) and writes
+// each cell once: the opacity, or the input grid's value.
 //
 // Bound on the H100: bytes (the cloud's points, ids and valid flags, and
 // the grid read and written, over 3.35 TB/s) against operations (B*H*W*M
 // raster tests at the float32 rate); at M = 64 both are microseconds, and
 // the two launches are latency: a slot's serial geometry on one thread (two
 // trigonometric calls, a few dozen dependent steps) and one pass over a
-// 12,120-cell grid.
+// 12,120-cell grid, where the cull leaves each cell a few lines to test.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -68,7 +76,7 @@ using pcp_libm::div;
 using pcp_libm::mul;
 using pcp_libm::sub;
 
-constexpr int kThreads = 256;  // the raster's block
+constexpr int kThreads = 256;  // the libm32 test entry's block
 constexpr int kFields = 7;  // x0, y0, x1, y1, n_lines, steep, active
 // the slot kernel: a cluster of up to kMaxSlotBlocks blocks a scan, one
 // block for each kSlotPointsPerThread * kSlotThreads points
@@ -353,20 +361,71 @@ __device__ __forceinline__ int line_y(const Line& l, int u) {
   return to_int32(floorf(add(l.fy0, mul(l.g, sub(__int2float_rn(u), l.fx0)))));
 }
 
-__global__ void __launch_bounds__(kThreads) shadow_raster(const int8_t* grid, const int* lines,
-                                                          int m, int h, int w, int8_t opacity,
-                                                          int8_t* out) {
-  __shared__ Line sl[kThreads];
+// whether a cell (row r, column col) lies in the line's sweep
+__device__ __forceinline__ bool line_hits(const Line& l, int r, int col) {
+  if (l.flags & 1) {  // steep: the column band [fy(r) - (n - 1), fy(r) + 1] of rows x0..x1
+    if (r < l.x0 || r > l.x1) return false;
+    const int fy = line_y(l, r);
+    return col >= wsub(fy, wsub(l.n, 1)) && col <= wadd(fy, 1);
+  }
+  // shallow: fy over [max(x0, c - 1), min(x1, c + n - 1)] spans these rows
+  const int u_lo = max(l.x0, col - 1), u_hi = min(l.x1, wadd(col, wsub(l.n, 1)));
+  if (u_lo > u_hi) return false;
+  const int lo = line_y(l, u_lo), hi = line_y(l, u_hi);
+  return r >= min(lo, hi) && r <= max(lo, hi);
+}
+
+// the cells a line's sweep can hit: rows [r0, r1] and columns [c0, c1] (in
+// int64: no wrap), or every cell where its per-cell int32 arithmetic could
+// wrap, for a grid w columns wide
+struct Box {
+  long long r0, r1, c0, c1;
+  bool all;
+};
+
+__device__ __forceinline__ bool fits_int32(long long v) { return v >= INT_MIN && v <= INT_MAX; }
+
+__device__ Box line_box(const Line& l, int w) {
+  const long long n1 = static_cast<long long>(l.n) - 1;
+  const long long ya = line_y(l, l.x0), yb = line_y(l, l.x1);
+  const long long lo_y = min(ya, yb), hi_y = max(ya, yb);
+  if (l.flags & 1) {  // wsub(fy, n - 1) and wadd(fy, 1) for fy in [lo_y, hi_y]
+    const bool wraps = !fits_int32(n1) || !fits_int32(lo_y - n1) || !fits_int32(hi_y - n1) ||
+                       !fits_int32(hi_y + 1);
+    return {l.x0, l.x1, lo_y - n1, hi_y + 1, wraps};
+  }
+  // wadd(col, n - 1) for col in [0, w - 1]
+  const bool wraps = !fits_int32(n1) || !fits_int32(w - 1 + n1);
+  return {lo_y, hi_y, l.x0 - n1, static_cast<long long>(l.x1) + 1, wraps};
+}
+
+constexpr int kTileRows = 8, kTileCols = 16;  // the raster's tile, a thread a cell
+constexpr int kRasterThreads = kTileRows * kTileCols;
+
+__global__ void __launch_bounds__(kRasterThreads) shadow_raster(const int8_t* grid,
+                                                                const int* lines, int m, int h,
+                                                                int w, int tiles_w,
+                                                                int8_t opacity, int8_t* out) {
+  constexpr int kWarps = kRasterThreads / 32;
+  __shared__ Line sl[kRasterThreads];
+  __shared__ int listed_before[kWarps + 1];
   const int b = blockIdx.y;
-  const int cell = blockIdx.x * kThreads + threadIdx.x;
-  const int r = cell / w, col = cell - r * w;
+  const int tr = blockIdx.x / tiles_w, tc = blockIdx.x - tr * tiles_w;
+  const int r0 = tr * kTileRows, c0 = tc * kTileCols;
+  const int r = r0 + threadIdx.x / kTileCols, col = c0 + threadIdx.x % kTileCols;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int* lb = lines + static_cast<long long>(b) * m * kFields;
+  const bool inside = r < h && col < w;
+  const long long cell = (static_cast<long long>(b) * h + r) * w + col;
+  const int8_t before = inside ? grid[cell] : 0;  // read early: its latency hides behind the lines
   bool hit = false;
-  for (int first = 0; first < m; first += kThreads) {
+  for (int first = 0; first < m; first += kRasterThreads) {
+    // a thread a line: its gradient, float ends and box
     const int k = first + threadIdx.x;
+    Line l;
+    bool listed = false;
     if (k < m) {
       const int* f = lb + static_cast<long long>(k) * kFields;
-      Line l;
       l.x0 = f[0];
       l.y0 = f[1];
       l.x1 = f[2];
@@ -377,34 +436,28 @@ __global__ void __launch_bounds__(kThreads) shadow_raster(const int8_t* grid, co
       l.g = dx == 0.0f ? 1.0f : div(dy, dx);
       l.fx0 = __int2float_rn(l.x0);
       l.fy0 = __int2float_rn(l.y0);
-      sl[threadIdx.x] = l;
-    }
-    __syncthreads();
-    const int count = min(kThreads, m - first);
-    if (r < h) {
-      for (int j = 0; j < count && !hit; ++j) {
-        const Line& l = sl[j];
-        if (!(l.flags & 2)) continue;
-        if (l.flags & 1) {  // steep: the column band [fy(r) - (n - 1), fy(r) + 1] of rows x0..x1
-          if (r >= l.x0 && r <= l.x1) {
-            const int fy = line_y(l, r);
-            hit = col >= wsub(fy, wsub(l.n, 1)) && col <= wadd(fy, 1);
-          }
-        } else {  // shallow: fy over [max(x0, c - 1), min(x1, c + n - 1)] spans these rows
-          const int u_lo = max(l.x0, col - 1), u_hi = min(l.x1, wadd(col, wsub(l.n, 1)));
-          if (u_lo <= u_hi) {
-            const int lo = line_y(l, u_lo), hi = line_y(l, u_hi);
-            hit = r >= min(lo, hi) && r <= max(lo, hi);
-          }
-        }
+      if (l.flags & 2) {
+        const Box box = line_box(l, w);
+        listed = box.all || (box.r0 <= r0 + kTileRows - 1 && box.r1 >= r0 &&
+                             box.c0 <= c0 + kTileCols - 1 && box.c1 >= c0);
       }
     }
+    // the tile's lines, compacted in order
+    const unsigned ballot = __ballot_sync(0xffffffffu, listed);
+    if (lane == 0) listed_before[warp + 1] = __popc(ballot);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      listed_before[0] = 0;
+      for (int i = 1; i <= kWarps; ++i) listed_before[i] += listed_before[i - 1];
+    }
+    __syncthreads();
+    if (listed) sl[listed_before[warp] + __popc(ballot & ((1u << lane) - 1u))] = l;
+    const int count = listed_before[kWarps];
+    __syncthreads();
+    for (int i = 0; i < count && !hit; ++i) hit = line_hits(sl[i], r, col);
     __syncthreads();
   }
-  if (r < h) {
-    const long long i = static_cast<long long>(b) * h * w + cell;
-    out[i] = hit ? opacity : grid[i];
-  }
+  if (inside) out[cell] = hit ? opacity : before;
 }
 
 // test entry: one libm32.cuh routine over n values (0: asin_like_xla(a),
@@ -458,9 +511,10 @@ extern "C" int pcp_shadow_raster(const int8_t* grid, const int* lines, int scans
                                  int w, int opacity, int8_t* out, void* stream) {
   if (scans <= 0 || h <= 0 || w <= 0) return 0;
   if (scans > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = static_cast<int>((static_cast<long long>(h) * w + kThreads - 1) / kThreads);
-  shadow_raster<<<dim3(blocks, scans), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      grid, lines, m, h, w, static_cast<int8_t>(opacity), out);
+  const int tiles_w = (w + kTileCols - 1) / kTileCols, tiles_h = (h + kTileRows - 1) / kTileRows;
+  shadow_raster<<<dim3(tiles_w * tiles_h, scans), kRasterThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(grid, lines, m, h, w, tiles_w,
+                                                       static_cast<int8_t>(opacity), out);
   return static_cast<int>(cudaGetLastError());
 }
 

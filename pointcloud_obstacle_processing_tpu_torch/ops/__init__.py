@@ -125,7 +125,7 @@ def fma_chain(pairs, c: torch.Tensor | None = None) -> torch.Tensor:
         raise ValueError("fma_chain: one pair and an addend, or three pairs and none")
     operands = [t for pair in pairs for t in pair] + ([] if c is None else [c])
     if any(isinstance(t, torch.Tensor) and t.is_cuda for t in operands):
-        return _fma_chain_kernel(pairs, c)
+        return _fma_chain_kernel(operands, len(pairs))
     return fma_chain_plain(pairs, c)
 
 
@@ -178,57 +178,91 @@ def _merged_dims(shape, strides) -> tuple[list[int], list[list[int]]]:
     return sizes, merged
 
 
-def chain_layout(operands) -> tuple[torch.Size, list[int], list[list[int]]]:
-    """How the chain kernel reads ``operands``: (the broadcast shape, its
-    merged sizes, each operand's strides over them).  An operand steps by
-    its own stride through each dim it spans and by 0 through a broadcast
-    dim (a 0-d operand through all of them); ``_merged_dims`` then drops
-    the size-1 dims and merges the rest where it can."""
-    shape = torch.broadcast_shapes(*(t.shape for t in operands))
+def _layout(shapes, strides) -> tuple[torch.Size, list[int], list[list[int]]]:
+    """How the chain kernel reads operands with these shapes and strides:
+    (the broadcast shape, its merged sizes, each operand's strides over
+    them).  An operand steps by its own stride through each dim it spans
+    and by 0 through a broadcast dim (a 0-d operand through all of them);
+    ``_merged_dims`` then drops the size-1 dims and merges the rest where
+    it can."""
+    shape = torch.broadcast_shapes(*shapes)
     rank = len(shape)
-    strides = []
-    for t in operands:
-        st = [0] * rank
-        for d in range(1, t.dim() + 1):
-            if t.shape[-d] != 1:
-                st[rank - d] = t.stride(-d)
-        strides.append(st)
-    sizes, merged = _merged_dims(shape, strides)
+    steps = []
+    for sh, st in zip(shapes, strides):
+        step = [0] * rank
+        for d in range(1, len(sh) + 1):
+            if sh[-d] != 1:
+                step[rank - d] = st[-d]
+        steps.append(step)
+    sizes, merged = _merged_dims(shape, steps)
     return shape, sizes, merged
 
 
-def _fma_chain_kernel(pairs, c: torch.Tensor | None) -> torch.Tensor:
-    """One launch of the chain kernel: CUDA operands read in place by their
-    strides over the broadcast shape (``chain_layout``), 0-d CPU operands
-    by value; no copy, no scratch."""
-    operands = [t for pair in pairs for t in pair] + ([] if c is None else [c])
-    _check_float32("fma_chain", operands)
+_FIELD = 8  # bytes a ``ChainArgs`` field
+_PTR = struct.Struct("<q")
+_BITS = struct.Struct("<f")  # a constant's float32 bits, the low half of its field
+_OUT_STREAM = struct.Struct("<qq")
+
+
+@functools.lru_cache(maxsize=4096)
+def _chain_plan(pairs: int, layout: tuple) -> tuple:
+    """What a chain launch's arguments hold that depends only on ``layout``,
+    each operand's (shape, strides, device index (-1 for the CPU), dtype):
+    (the output's shape, its elements, ``ChainArgs`` packed with every
+    pointer, constant and the out and stream fields zero, each operand's
+    (byte offset of its pointer field, whether it lies on the card), the
+    byte offset of the out field).  Raises on operands the kernel does not
+    take."""
     index = None
-    for t in operands:
-        if t.is_cuda:
+    for shape, _, device, dtype in layout:
+        if dtype != torch.float32:
+            raise TypeError(f"fma_chain: float32 tensor operands, got {dtype}")
+        if device >= 0:
             if index is None:
-                index = t.get_device()
-            elif t.get_device() != index:
+                index = device
+            elif device != index:
                 raise ValueError("fma_chain: every CUDA operand must lie on one device")
-        elif t.dim():
+        elif len(shape):
             raise ValueError("fma_chain: a CPU operand mixed with CUDA operands must be 0-d")
-    shape, sizes, merged = chain_layout(operands)
-    out = torch.empty(shape, dtype=torch.float32, device=torch.device("cuda", index))
-    n = out.numel()
-    if not n:
-        return out
-    if len(sizes) > FMA_MAX_DIMS:
+    shape, sizes, merged = _layout([sh for sh, *_ in layout], [st for _, st, *_ in layout])
+    n = shape.numel()
+    if n and len(sizes) > FMA_MAX_DIMS:
         raise ValueError(f"fma_chain: {len(sizes)} dims after merging, more than {FMA_MAX_DIMS}")
     pad = [0] * (FMA_MAX_DIMS - len(sizes))
-    fields = [n, len(sizes), len(pairs), int(c is not None), *sizes, *pad]
-    for t, st in zip(operands, merged):
-        if t.is_cuda:
-            fields += [t.data_ptr(), 0, *st, *pad]
+    fields = [n, len(sizes), pairs, int(len(layout) == 2 * pairs + 1), *sizes, *pad]
+    slots = []
+    for (_, _, device, _), st in zip(layout, merged):
+        slots.append((len(fields) * _FIELD, device >= 0))
+        fields += [0, 0, *(st + pad if device >= 0 else [0] * FMA_MAX_DIMS)]
+    fields += [0] * ((2 + FMA_MAX_DIMS) * (_FMA_OPERANDS - len(layout)))
+    out_at = len(fields) * _FIELD
+    return shape, n, _FMA_ARGS.pack(*fields, 0, 0), tuple(slots), out_at
+
+
+def _fma_chain_kernel(operands, pairs: int) -> torch.Tensor:
+    """One launch of the chain kernel on ``operands`` (the ``pairs`` pairs,
+    then the addend if any): CUDA operands read in place by their strides
+    over the broadcast shape (``_layout``), 0-d CPU operands by value; no
+    copy, no scratch.  Everything but the pointers and the constants comes
+    from ``_chain_plan``, cached on the operands' shapes, strides, devices
+    and dtypes."""
+    try:
+        layout = tuple((t.shape, t.stride(), t.get_device(), t.dtype) for t in operands)
+    except AttributeError:  # an operand that is no tensor
+        _check_float32("fma_chain", operands)
+        raise
+    shape, n, packed, slots, out_at = _chain_plan(pairs, layout)
+    out = next(t for t in operands if t.is_cuda).new_empty(shape)
+    if not n:
+        return out
+    args = bytearray(packed)
+    for t, (at, on_card) in zip(operands, slots):
+        if on_card:
+            _PTR.pack_into(args, at, t.data_ptr())
         else:  # by value: the constant's float32 bits
-            fields += [0, int(t.view(torch.int32).item()), *[0] * FMA_MAX_DIMS]
-    fields += [0] * ((2 + FMA_MAX_DIMS) * (_FMA_OPERANDS - len(operands)))
-    args = _FMA_ARGS.pack(*fields, out.data_ptr(), _build.stream_handle())
-    _build.check(_build.kernels().pcp_fma_chain(args), "fma_chain")
+            _BITS.pack_into(args, at + _FIELD, t.item())
+    _OUT_STREAM.pack_into(args, out_at, out.data_ptr(), _build.stream_handle())
+    _build.check(_build.kernels().pcp_fma_chain(bytes(args)), "fma_chain")
     _build.LAUNCHES["fma_chain"] += 1
     return out
 

@@ -15,7 +15,9 @@ have stopped change nothing.
 Every function also takes a batch of clouds (``[B, N]``): each scan keeps
 its own round state (``i``, ``found``, ``active`` are ``[B]``), the draw
 gets ``n_valid`` [B] and returns [B, K, 3], and the hypotheses are scored
-as one ``[B, N, K]`` table.
+for the whole batch at once: ``ransac_score`` (on the CPU a ``[B, N, K]``
+table; on the card one count-and-select launch that writes no such table,
+then the winner's mask) and ``plane_inliers`` (the refinement's mask).
 """
 
 from __future__ import annotations
@@ -43,11 +45,16 @@ from ..types import Cloud, PlaneModel, batch_of, scan_of
 __all__ = [
     "ransac_plane_once",
     "segment_planes",
+    "ransac_score",
+    "ransac_score_plain",
+    "plane_inliers",
+    "plane_inliers_plain",
     "covariance_tail",
     "hypotheses_for_confidence",
     "draw_from_uniform",
     "draw_from_bits",
     "PlaneOnceResult",
+    "ScoreResult",
     "SegmentPlanesResult",
 ]
 
@@ -196,6 +203,143 @@ def _plane_dist(x, y, z, nx, ny, nz, d) -> torch.Tensor:
     return dot3(x, y, z, nx, ny, nz) + d
 
 
+class ScoreResult(NamedTuple):  # RANSAC's scoring and selection, a scan a row
+    counts: torch.Tensor  # [B, K] int32 inliers a hypothesis, -1 where gated off
+    best: torch.Tensor  # [B] int64 the winner: the least k among the largest counts
+    found: torch.Tensor  # [B] bool: the winner's count > 0
+    normal: torch.Tensor  # [B, 3] the winner's normal
+    d: torch.Tensor  # [B] the winner's offset
+    inliers: torch.Tensor  # [B, N] bool the winner's mask
+
+
+def ransac_score_plain(points, valid, nx, ny, nz, ds, gate, thresh) -> ScoreResult:
+    """Plain PyTorch version of ``ransac_score``: the ``[B, N, K]`` distance
+    table, its mask and count, the gate, ``argmax`` and the gathers."""
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+    dists = torch.abs(_plane_dist(x[..., None], y[..., None], z[..., None],
+                                  nx[:, None, :], ny[:, None, :], nz[:, None, :],
+                                  ds[:, None, :]))  # [B, N, K]
+    inl = (dists < thresh) & valid[..., None]
+    counts = inl.sum(dim=-2, dtype=torch.int32)
+    counts = torch.where(gate, counts, -1)
+
+    # the winner of each scan, gathered with an index tensor: indexing with
+    # a 0-d tensor would read it back to the host
+    best = torch.argmax(counts, dim=-1, keepdim=True)  # [B, 1]
+    found = counts.gather(-1, best)[:, 0] > 0
+    normal = torch.stack([nx, ny, nz], dim=-1).gather(1, best[..., None].expand(-1, 1, 3))[:, 0]
+    d = ds.gather(-1, best)[:, 0]
+    inliers = inl.gather(-1, best[:, None, :].expand(-1, inl.shape[1], 1))[..., 0]
+    return ScoreResult(counts, best[:, 0], found, normal, d, inliers)
+
+
+# the score kernel's scratch: (device index, stream) -> int32 zeros, [B, K]
+# counts then a ticket a scan, which every launch leaves zero
+_SCORE_SCRATCH: dict = {}
+
+
+def _score_scratch(ref: torch.Tensor, stream: int, size: int) -> torch.Tensor:
+    """The cached scratch of ``ref``'s card and ``stream``, at least ``size``
+    int32 long (a larger one replaces it, made once by ``torch.zeros``)."""
+    key = (ref.get_device(), stream)
+    scratch = _SCORE_SCRATCH.get(key)
+    if scratch is None or scratch.numel() < size:
+        scratch = _SCORE_SCRATCH[key] = ref.new_zeros(size, dtype=torch.int32)
+    return scratch
+
+
+def ransac_score(points: torch.Tensor, valid: torch.Tensor, nx: torch.Tensor, ny: torch.Tensor,
+                 nz: torch.Tensor, ds: torch.Tensor, gate: torch.Tensor,
+                 thresh: torch.Tensor) -> ScoreResult:
+    """Score K plane hypotheses a scan against its points and pick the
+    winner: ``points`` [B, N, 3] float32, ``valid`` [B, N] bool, the planes
+    ``nx``, ``ny``, ``nz``, ``ds`` [B, K] float32, ``gate`` [B, K] bool (the
+    hypotheses that may win), ``thresh`` the float32 distance threshold (a
+    0-d CPU tensor, ``f32``).  A point is an inlier of plane k when it is
+    valid and ``|fma(z, nz, fma(x, nx, y * ny)) + d| < thresh``.
+
+    CPU tensors take ``ransac_score_plain``; CUDA tensors one launch of
+    ``csrc/ransac_score.cu``'s score kernel (each row read once, a count a
+    hypothesis by warp sums, the selection in the scan's last block; no
+    [B, N, K] tensor, no host read) and one of ``plane_inliers`` for the
+    winner's mask.  Bitwise alike."""
+    if points.device.type == "cpu":
+        return ransac_score_plain(points, valid, nx, ny, nz, ds, gate, thresh)
+    b, n = valid.shape
+    k = nx.shape[-1]
+    if points.shape != (b, n, 3) or any(t.shape != (b, k) for t in (nx, ny, nz, ds, gate)):
+        raise ValueError("ransac_score: points [B, N, 3], valid [B, N], the planes and gate [B, K]")
+    if b and (n < 1 or k < 1):
+        raise ValueError("ransac_score: N >= 1 points and K >= 1 hypotheses")
+    pts, ok, g = points.contiguous(), valid.contiguous(), gate.contiguous()
+    planes = [t.contiguous() for t in (nx, ny, nz, ds)]
+    _build.require_cuda("ransac_score", pts, ok, *planes, g,
+                        dtypes=(torch.float32, torch.bool, *[torch.float32] * 4, torch.bool))
+    counts = pts.new_empty((b, k), dtype=torch.int32)
+    best = pts.new_empty(b, dtype=torch.int64)
+    found = pts.new_empty(b, dtype=torch.bool)
+    normal = pts.new_empty((b, 3))
+    d = pts.new_empty(b)
+    if b:
+        stream = _build.stream_handle()
+        scratch = _score_scratch(pts, stream, b * k + b)
+        err = _build.kernels().pcp_ransac_score(
+            pts.data_ptr(), ok.data_ptr(), *[t.data_ptr() for t in planes], g.data_ptr(), b, n, k,
+            float(thresh), scratch.data_ptr(), counts.data_ptr(), best.data_ptr(),
+            found.data_ptr(), normal.data_ptr(), d.data_ptr(), stream)
+        _build.check(err, "ransac_score")
+        _build.LAUNCHES["ransac_score"] += 1
+    return ScoreResult(counts, best, found, normal, d, plane_inliers(pts, ok, normal, d, thresh))
+
+
+def plane_inliers_plain(points, valid, normal, d, thresh, prev=None, n_inl=None) -> torch.Tensor:
+    """Plain PyTorch version of ``plane_inliers``."""
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+    new_in = (torch.abs(_plane_dist(x, y, z, normal[:, 0, None], normal[:, 1, None],
+                                    normal[:, 2, None], d[:, None])) < thresh) & valid
+    if prev is None:
+        return new_in
+    return torch.where((n_inl >= 3.0)[:, None], new_in, prev)
+
+
+def plane_inliers(points: torch.Tensor, valid: torch.Tensor, normal: torch.Tensor,
+                  d: torch.Tensor, thresh: torch.Tensor, prev: torch.Tensor | None = None,
+                  n_inl: torch.Tensor | None = None) -> torch.Tensor:
+    """The inliers of one plane a scan: ``(|fma(z, nz, fma(x, nx, y * ny)) +
+    d| < thresh) & valid`` [B, N] bool for ``points`` [B, N, 3], ``normal``
+    [B, 3] and ``d`` [B]; with ``prev`` [B, N] and ``n_inl`` [B] float32,
+    scans with ``n_inl < 3`` keep ``prev`` (the refinement's select).
+
+    CPU tensors take ``plane_inliers_plain``; CUDA tensors one launch of
+    ``csrc/ransac_score.cu``'s mask kernel, the plane read from device
+    memory."""
+    if points.device.type == "cpu":
+        return plane_inliers_plain(points, valid, normal, d, thresh, prev, n_inl)
+    b, n = valid.shape
+    if points.shape != (b, n, 3) or normal.shape != (b, 3) or d.shape != (b,) or \
+            (prev is None) != (n_inl is None) or \
+            (prev is not None and (prev.shape != (b, n) or n_inl.shape != (b,))):
+        raise ValueError("plane_inliers: points [B, N, 3], valid [B, N], normal [B, 3], d [B]; "
+                         "prev [B, N] and n_inl [B] together")
+    operands = [points.contiguous(), valid.contiguous(), normal.contiguous(), d.contiguous()]
+    types = [torch.float32, torch.bool, torch.float32, torch.float32]
+    if prev is not None:
+        operands += [n_inl.contiguous(), prev.contiguous()]
+        types += [torch.float32, torch.bool]
+    _build.require_cuda("plane_inliers", *operands, dtypes=types)
+    out = operands[1].new_empty((b, n))
+    if out.numel():
+        pts, ok, nrm, dd = operands[:4]
+        err = _build.kernels().pcp_plane_inliers(
+            pts.data_ptr(), ok.data_ptr(), nrm.data_ptr(), dd.data_ptr(),
+            operands[4].data_ptr() if prev is not None else None,
+            operands[5].data_ptr() if prev is not None else None, b, n, float(thresh),
+            out.data_ptr(), _build.stream_handle())
+        _build.check(err, "plane_inliers")
+        _build.LAUNCHES["plane_inliers"] += 1
+    return out
+
+
 class PlaneOnceResult(NamedTuple):  # a leading [B] on every field for a batch
     normal: torch.Tensor  # [3] unit normal
     d: torch.Tensor  # [] plane offset (n·p + d = 0)
@@ -264,20 +408,8 @@ def _plane_once(cloud: Cloud, u: torch.Tensor, config: PipelineConfig, axis, vma
     cosang = torch.clamp(torch.abs(nx * ax[0] + ny * ax[1] + nz * ax[2]), 0.0, 1.0)
     axis_ok = torch.arccos(cosang) <= eps_angle
 
-    dists = torch.abs(_plane_dist(x[..., None], y[..., None], z[..., None],
-                                  nx[:, None, :], ny[:, None, :], nz[:, None, :],
-                                  ds[:, None, :]))  # [B, N, K]
-    inl = (dists < thresh) & valid[..., None]
-    counts = inl.sum(dim=-2, dtype=torch.int32)
-    counts = torch.where(axis_ok & ~degenerate & (n_valid >= 3)[:, None], counts, -1)
-
-    # the winner of each scan, gathered with an index tensor: indexing with
-    # a 0-d tensor would read it back to the host
-    best = torch.argmax(counts, dim=-1, keepdim=True)  # [B, 1]
-    found = counts.gather(-1, best)[:, 0] > 0
-    normal = torch.stack([nx, ny, nz], dim=-1).gather(1, best[..., None].expand(-1, 1, 3))[:, 0]
-    d = ds.gather(-1, best)[:, 0]
-    inliers = inl.gather(-1, best[:, None, :].expand(-1, inl.shape[1], 1))[..., 0]
+    gate = axis_ok & ~degenerate & (n_valid >= 3)[:, None]
+    _, _, found, normal, d, inliers = ransac_score(pts, valid, nx, ny, nz, ds, gate, thresh)
 
     # refinement (setOptimizeCoefficients); the reference's lax.cond on
     # ``found`` becomes a select over an unconditional computation.  Its
@@ -292,10 +424,8 @@ def _plane_once(cloud: Cloud, u: torch.Tensor, config: PipelineConfig, axis, vma
         off = pts1[:, :3] - cen[..., None]  # [B, 3, N]
         nrm, nd = covariance_tail(torch.where(r_in[:, None, :], off, 0.0), off, cen, n_inl,
                                   r_normal, r_d, vmapped)
-        new_in = (torch.abs(_plane_dist(x, y, z, nrm[:, 0, None], nrm[:, 1, None],
-                                        nrm[:, 2, None], nd[:, None])) < thresh) & valid
+        r_in = plane_inliers(pts, valid, nrm, nd, thresh, prev=r_in, n_inl=n_inl)
         r_normal, r_d = nrm, nd
-        r_in = torch.where((n_inl >= 3.0)[:, None], new_in, r_in)
     normal = torch.where(found[:, None], r_normal, normal)
     d = torch.where(found, r_d, d)
     inliers = torch.where(found[:, None], r_in, inliers) & found[:, None]

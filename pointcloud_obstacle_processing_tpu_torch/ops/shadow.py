@@ -240,8 +240,9 @@ def shadow_raster(grid: torch.Tensor, lines: torch.Tensor, opacity: int) -> torc
     per cell, from ``shadow_slots``' [..., M, 7] lines.
 
     CPU tensors take ``shadow_raster_plain``; CUDA tensors one launch of
-    ``csrc/shadow.cu``'s raster kernel for the batch (a thread a cell, the
-    scan's lines in shared memory), which writes every cell once."""
+    ``csrc/shadow.cu``'s raster kernel for the batch (a block a tile of 8
+    x 16 cells, a thread a cell, testing only the lines whose box of
+    reachable cells meets the tile), which writes every cell once."""
     if grid.device.type == "cpu":
         return shadow_raster_plain(grid, lines, opacity)
     lead, (H, W) = grid.shape[:-2], grid.shape[-2:]

@@ -18,8 +18,7 @@ without sparsity):
 
 * ``HBM_BYTES_PER_S`` = 3.35e12 B/s, HBM3.
 * ``FP32_OPS_PER_S`` = 67e12 op/s, float32 outside the tensor cores.
-* ``FP64_OPS_PER_S`` = 34e12 op/s, float64 outside the tensor cores
-  (RANSAC scores its hypotheses in float64).
+* ``FP64_OPS_PER_S`` = 34e12 op/s, float64 outside the tensor cores.
 
 A card set below 700 W runs slower under load; ``nvidia-smi`` gives its
 limit, which every measurement names beside these bounds.
@@ -33,7 +32,7 @@ __all__ = ["HBM_BYTES_PER_S", "FP32_OPS_PER_S", "FP64_OPS_PER_S", "D2_OPS", "LAT
            "stage_bounds", "runreduce", "runreduce_counts", "compact_gather", "knn_mean",
            "cluster_sweep", "cluster_loop", "cluster_grid_loop", "cluster_sweep_banded",
            "segscan", "binned_sum", "xla_sum", "covariance_tail", "segment_fold", "shadow_slots",
-           "shadow_raster", "fma_chain"]
+           "shadow_raster", "fma_chain", "ransac_score", "plane_inliers", "PLANE_TEST_OPS"]
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -43,6 +42,10 @@ FP64_OPS_PER_S = 34e12
 # the cross term's multiply and two fused multiply-adds; the d2 add,
 # multiply and subtract; the compare with the tolerance
 D2_OPS = 9
+
+# float32 operations a (point, plane) test in RANSAC: the plane distance's
+# three products and three adds, the absolute value, the compare
+PLANE_TEST_OPS = 8
 
 # bytes a packed cluster point: x, y, z, |p|^2 (16), the label (4) and the
 # valid byte (1)
@@ -188,6 +191,26 @@ def fma_chain(out: int, operands: int, steps: int = 1) -> tuple[float, str]:
     return _bound((operands + out) * 4, out * 2 * steps)
 
 
+def ransac_score(scans: int, n: int, k: int, valid_rows: int) -> tuple[float, str]:
+    """RANSAC's scoring and selection (``ops.ransac.ransac_score``): each
+    row's point (12 bytes) and valid flag read once, each hypothesis' plane
+    (16 bytes) and gate flag read once, the gated counts (4 bytes a
+    hypothesis), each scan's winner (index, flag, normal, offset: 25 bytes)
+    and the winner's mask (a byte a row) written; PLANE_TEST_OPS float32
+    operations for each of the ``valid_rows`` (all scans) against each of
+    the ``k`` planes of its scan."""
+    return _bound(scans * (n * 13 + k * 21 + 25 + n), valid_rows * k * PLANE_TEST_OPS)
+
+
+def plane_inliers(scans: int, n: int, select: bool = False) -> tuple[float, str]:
+    """One plane's inlier mask a scan (``ops.ransac.plane_inliers``): each
+    row's point and valid flag read once (and the previous mask, with
+    ``select``), the plane (16 bytes; and the inlier count, 4) read, the
+    mask written; PLANE_TEST_OPS float32 operations a row."""
+    return _bound(scans * (n * (14 + int(select)) + 16 + 4 * int(select)),
+                  scans * n * PLANE_TEST_OPS)
+
+
 def stage_bounds(cfg, n_valid: int, n_voxels: int, n_cluster_rows: int, sweeps: int = 5) -> dict:
     """``{stage: (seconds, limiter, note)}`` for one scan or window on the
     card, with the reference's stage keys.
@@ -226,14 +249,15 @@ def stage_bounds(cfg, n_valid: int, n_voxels: int, n_cluster_rows: int, sweeps: 
         f"{n_voxels} rows x {Wk} window x {D2_OPS} fp32 ops",)
 
     # 4. RANSAC: each round scores every hypothesis against every live row
-    #    in float64 (the plane distance's three products and three adds, the
-    #    absolute value and the compare: 8 operations), then refines the
-    #    best; the points (16 B) read twice a round, the inlier mask written
+    #    in float32 (__fmaf_rn chains: the plane distance's three products
+    #    and three adds, the absolute value and the compare, PLANE_TEST_OPS
+    #    operations), then refines the best; the points (16 B) read twice a
+    #    round, the inlier mask written
     K = cfg.ransac_hypotheses
     rounds = cfg.max_planes
     out["ransac"] = _bound(rounds * n_voxels * (16 * 2 + 1),
-                           fp64_ops=8.0 * rounds * K * n_voxels) + (
-        f"{rounds} rounds x {K} hyp x {n_voxels} rows, float64",)
+                           fp32_ops=float(PLANE_TEST_OPS) * rounds * K * n_voxels) + (
+        f"{rounds} rounds x {K} hyp x {n_voxels} rows, float32",)
 
     # 5. compact (K2): the mask once, the non-plane rows' 4 channels moved
     rows = min(n_cluster_rows, C)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The shadow stage's slot kernel and the fused multiply-add chains of two
-checkouts of the PyTorch port, and their scans, timed in turns on one CUDA
-card.
+"""Kernels of two checkouts of the PyTorch port, and their scans, timed in
+turns on one CUDA card: the shadow stage's kernels, RANSAC's round and the
+fused multiply-add chain wrapper.
 
     python3 scripts/torch_shadow_fma_ab.py --parent _parent --out shadow_fma_ab.json
 
@@ -10,25 +10,33 @@ card.
 commit's, from ``git archive``).  The script runs the parent, this
 checkout, this checkout and the parent, each in a process of its own that
 imports the package from its checkout and builds that checkout's kernels,
-with ``chip_smoke.py``'s timers from this checkout.  Each run:
+with ``chip_smoke.py``'s timers from this checkout.  Each run times the
+measures ``--measures`` names (all by default), each by call ms (CUDA
+events around 20 calls), device ms and device operations a call
+(``torch.profiler``) and host ms (200 calls issued back to back):
 
-* ``ops.shadow.shadow_slots`` on ``utils.shadow_cases``' seeded inputs, 64
-  slots, at the flagship (1 x 1,024 cluster points), fullscale (1 x
-  16,384) and batch (32 x 1,024; 32 x 16,384) shapes: held bitwise against
-  that package's plain twin on a CPU copy, then call ms (CUDA events around
-  20 calls), device ms and device operations a call (``torch.profiler``)
-  and host ms (200 calls issued back to back);
-* ``ops.dot3`` at RANSAC's scoring shapes, seeded [B, N, 1] points against
-  [B, 1, 128] planes (flagship N = 24,576; fullscale 262,144; a batch of
-  32 at 24,576), timed the same way;
-* the ``process_scan`` p50 and the device operations and device time of
-  one scan: the flagship scenes (20 scans), the fullscale window (5) and
-  the flagship batch of 32 (10 batches, one ``batched_pipeline`` call a
-  batch).
+* ``shadow_slots``: ``ops.shadow.shadow_slots`` on ``utils.shadow_cases``'
+  seeded inputs, 64 slots, at the flagship (1 x 1,024 cluster points),
+  fullscale (1 x 16,384) and batch (32 x 1,024; 32 x 16,384) shapes, held
+  bitwise against that package's plain twin on a CPU copy;
+* ``shadow_raster``: ``ops.shadow.shadow_raster`` on the seeded slot lines
+  (64 slots of a 120 x 101 grid) at the flagship, fullscale and
+  batch-of-32 shapes;
+* ``round``: ``ops.ransac.ransac_plane_once`` (one round: scoring,
+  selection, two refinement passes) on seeded clouds at the flagship (1 x
+  24,576 rows), fullscale (1 x 262,144) and batch (32 x 24,576) shapes, K
+  = 128, with its peak device memory above the inputs;
+* ``dot3``: ``ops.dot3`` at RANSAC's scoring shapes, seeded [B, N, 1]
+  points against [B, 1, 128] planes (the wrapper's host ms);
 
-It prints one line per measure and run, and with ``--out FILE`` writes
-every number to FILE as JSON.  Every line names the card and its power
-limit.  It needs a CUDA card.
+then the ``process_scan`` p50 and the device operations and device time of
+one scan: the flagship scenes (20 scans), the fullscale window (5) and the
+flagship batch of 32 (10 batches, one ``batched_pipeline`` call a batch).
+
+Outputs are digested, so the two checkouts are seen to agree.  It prints
+one line per measure and run, and with ``--out FILE`` writes every number
+to FILE as JSON.  Every line names the card and its power limit.  It needs
+a CUDA card.
 
     python3 scripts/torch_shadow_fma_ab.py --run DIR --label NAME
 
@@ -52,6 +60,7 @@ ROOT = Path(__file__).resolve().parent.parent
 SHADOW_SHAPES = {"flagship": (1, 1024), "fullscale": (1, 16_384), "batch": (32, 1024),
                  "batch_fullscale": (32, 16_384)}
 SCORING_SHAPES = {"flagship": (1, 24_576), "fullscale": (1, 262_144), "batch": (32, 24_576)}
+RASTER_SHAPES = {"flagship": (1, 1024), "fullscale": (1, 16_384), "batch": (32, 1024)}
 HYPOTHESES = 128
 
 
@@ -95,19 +104,128 @@ def _batch_inputs(cs, dev):
     return clouds, draw_from_uniform(torch.tensor(u, device=dev))
 
 
-def run(root: str, label: str) -> dict:
+def _peak_mib(fn) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def _shadow_slots(cs, dev) -> dict:
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.config import REFERENCE_YAML_CONFIG as cfg
+    from pointcloud_obstacle_processing_tpu_torch.ops import shadow
+    from pointcloud_obstacle_processing_tpu_torch.ops.transforms import RigidTransform
+    from pointcloud_obstacle_processing_tpu_torch.utils import shadow_cases
+
+    out = {}
+    for name, (scans, c) in SHADOW_SHAPES.items():
+        case = shadow_cases.random_slots(2, scans, c, 64, pose_per_scan=scans > 1)
+        args = [torch.tensor(case[k]) for k in ("points", "valid", "point_cluster", "slot_valid")]
+        tf = RigidTransform.from_quat_trans(case["quat"], case["trans"])
+        want = shadow.shadow_slots_plain(*args, tf, cfg)
+        on_card = ([a.to(dev) for a in args], tf.to(dev))
+
+        def call(on_card=on_card):
+            return shadow.shadow_slots(*on_card[0], on_card[1], cfg)
+
+        cs._assert_equal(f"shadow_slots {name}", call(), want)
+        out[name] = {**_timed(cs, call), "digest": _digest(want)}
+    return out
+
+
+def _shadow_raster(cs, dev) -> dict:
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.config import REFERENCE_YAML_CONFIG as cfg
+    from pointcloud_obstacle_processing_tpu_torch.ops import shadow
+    from pointcloud_obstacle_processing_tpu_torch.ops.transforms import RigidTransform
+    from pointcloud_obstacle_processing_tpu_torch.utils import shadow_cases
+
+    out = {}
+    for seed, (name, (scans, c)) in enumerate(RASTER_SHAPES.items()):
+        case = shadow_cases.random_slots(seed, scans, c, 64, pose_per_scan=scans > 1)
+        args = [torch.tensor(case[k]) for k in ("points", "valid", "point_cluster", "slot_valid")]
+        tf = RigidTransform.from_quat_trans(case["quat"], case["trans"])
+        lines = shadow.shadow_slots_plain(*args, tf, cfg).to(dev)
+        grid = torch.tensor(np.random.default_rng(3).choice(
+            [0, 100], (*lines.shape[:-2], cfg.grid_height, cfg.grid_width)).astype(np.int8),
+            device=dev)
+
+        def raster(grid=grid, lines=lines):
+            return shadow.shadow_raster(grid, lines, 50)
+
+        out[name] = {**_timed(cs, raster), "digest": _digest(raster()),
+                     "active": int(lines[..., 6].sum())}
+    return out
+
+
+def _round(cs, dev) -> dict:
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import Cloud
+    from pointcloud_obstacle_processing_tpu_torch.config import REFERENCE_YAML_CONFIG as cfg
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    rcfg = cfg.replace(ransac_hypotheses=HYPOTHESES)
+    out = {}
+    for name, (b, n) in SCORING_SHAPES.items():
+        rng = np.random.default_rng(b + n)
+        m = n // 2
+        pts = np.concatenate([
+            np.stack([rng.uniform(0, 4, (b, m)), rng.uniform(0, 3, (b, m)),
+                      rng.normal(0, 0.01, (b, m))], -1),
+            rng.uniform([0, 0, -0.3], [4, 3, 0.8], (b, n - m, 3))], 1).astype(np.float32)
+        valid = rng.random((b, n)) < 0.85
+        cloud = Cloud(points=torch.tensor(pts), valid=torch.tensor(valid)).to(dev)
+        draws = torch.tensor(rng.integers(0, int(valid.sum(-1).min()), (b, HYPOTHESES, 3)),
+                             device=dev)
+
+        def one_round(cloud=cloud, draws=draws):
+            return ransac.ransac_plane_once(cloud, draws, rcfg, vmapped=True)
+
+        res = one_round()
+        out[name] = {**_timed(cs, one_round), "peak_mib": _peak_mib(one_round),
+                     "digest": _digest(torch.cat([res.normal.view(-1), res.d.view(-1),
+                                                  res.inliers.view(-1).float()]))}
+    return out
+
+
+def _dot3(cs, dev) -> dict:
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import ops
+
+    g = torch.Generator().manual_seed(0)
+    out = {}
+    for name, (b, n) in SCORING_SHAPES.items():
+        pts = [torch.rand(b, n, 1, generator=g).to(dev) * 8 for _ in range(3)]
+        planes = [torch.randn(b, 1, HYPOTHESES, generator=g).to(dev) for _ in range(3)]
+        args = (*pts, *planes)
+        out[name] = {**_timed(cs, lambda args=args: ops.dot3(*args)),
+                     "digest": _digest(ops.dot3(*args))}
+    return out
+
+
+MEASURES = {"shadow_slots": _shadow_slots, "shadow_raster": _shadow_raster, "round": _round,
+            "dot3": _dot3}
+
+
+def run(root: str, label: str, measures: list[str]) -> dict:
     import torch
 
     sys.path.insert(0, str(Path(root).resolve()))
-    from pointcloud_obstacle_processing_tpu_torch import Cloud, _build, ops
-    from pointcloud_obstacle_processing_tpu_torch.config import REFERENCE_YAML_CONFIG
+    from pointcloud_obstacle_processing_tpu_torch import Cloud, _build
     from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as fl
     from pointcloud_obstacle_processing_tpu_torch.models import REFERENCE_FULLSCALE_CONFIG as fs
     from pointcloud_obstacle_processing_tpu_torch.models import ObstacleDetectionModel
-    from pointcloud_obstacle_processing_tpu_torch.ops import shadow
-    from pointcloud_obstacle_processing_tpu_torch.ops.transforms import RigidTransform
     from pointcloud_obstacle_processing_tpu_torch.parallel.sharding import batched_pipeline
-    from pointcloud_obstacle_processing_tpu_torch.utils import shadow_cases
     from pointcloud_obstacle_processing_tpu_torch.utils.scene import make_fullscale_window
 
     cs = _chip_smoke()
@@ -116,29 +234,9 @@ def run(root: str, label: str) -> dict:
     dev = torch.device("cuda")
     card = f"{torch.cuda.get_device_name(0)}; nvidia-smi: {cs._nvidia_smi()}"
     _build.kernels()
-    out = {"label": label, "root": root, "card": card, "shadow_slots": {}, "dot3": {},
-           "scan": {}}
-
-    for name, (scans, c) in SHADOW_SHAPES.items():
-        case = shadow_cases.random_slots(2, scans, c, 64, pose_per_scan=scans > 1)
-        args = [torch.tensor(case[k]) for k in ("points", "valid", "point_cluster", "slot_valid")]
-        tf = RigidTransform.from_quat_trans(case["quat"], case["trans"])
-        want = shadow.shadow_slots_plain(*args, tf, REFERENCE_YAML_CONFIG)
-        on_card = ([a.to(dev) for a in args], tf.to(dev))
-
-        def call(on_card=on_card):
-            return shadow.shadow_slots(*on_card[0], on_card[1], REFERENCE_YAML_CONFIG)
-
-        cs._assert_equal(f"shadow_slots {name}", call(), want)
-        out["shadow_slots"][name] = {**_timed(cs, call), "digest": _digest(want)}
-
-    g = torch.Generator().manual_seed(0)
-    for name, (b, n) in SCORING_SHAPES.items():
-        pts = [torch.rand(b, n, 1, generator=g).to(dev) * 8 for _ in range(3)]
-        planes = [torch.randn(b, 1, HYPOTHESES, generator=g).to(dev) for _ in range(3)]
-        args = (*pts, *planes)
-        out["dot3"][name] = {**_timed(cs, lambda args=args: ops.dot3(*args)),
-                             "digest": _digest(ops.dot3(*args))}
+    out = {"label": label, "root": root, "card": card, "scan": {}}
+    for what in measures:
+        out[what] = MEASURES[what](cs, dev)
 
     model = ObstacleDetectionModel(fl, device=dev)
     draw, _ = cs._draws(fl, dev)
@@ -176,16 +274,22 @@ def main() -> None:
     ap.add_argument("--run", help="one run: the checkout whose package to time")
     ap.add_argument("--label", default="")
     ap.add_argument("--out", help="JSON file for every run's numbers")
+    ap.add_argument("--measures", default=",".join(MEASURES),
+                    help=f"comma-separated, of {', '.join(MEASURES)} (default: all)")
     args = ap.parse_args()
+    measures = args.measures.split(",")
+    if not set(measures) <= set(MEASURES):
+        ap.error(f"--measures: of {', '.join(MEASURES)}")
     if args.run:
-        print(json.dumps(run(args.run, args.label)))
+        print(json.dumps(run(args.run, args.label, measures)))
         return
     if not args.parent:
         ap.error("give --parent DIR (or --run DIR)")
     runs = []
     for label, root in (("parent", args.parent), ("change", str(ROOT)), ("change", str(ROOT)),
                         ("parent", args.parent)):
-        res = subprocess.run([sys.executable, __file__, "--run", root, "--label", label],
+        res = subprocess.run([sys.executable, __file__, "--run", root, "--label", label,
+                              "--measures", args.measures],
                              capture_output=True, text=True, timeout=900)
         if res.returncode:
             sys.stderr.write(res.stdout[-4000:] + res.stderr[-8000:])
@@ -193,15 +297,16 @@ def main() -> None:
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
     ms = _chip_smoke()._ms  # "not measured" where the profiler recorded nothing
     for i, r in enumerate(runs):
-        for what in ("shadow_slots", "dot3"):
+        for what in measures:
             for name, v in r[what].items():
+                extra = f", peak {v['peak_mib']:.1f} MiB" if "peak_mib" in v else ""
                 print(f"run {i} {r['label']}: {what} {name}: call {v['ms']:.4f} ms, device "
                       f"{ms(v['device_ms'])} in {v['device_ops']} operations, host "
-                      f"{v['host_ms']:.4f} ms (output {v['digest']}) [{r['card']}]")
+                      f"{v['host_ms']:.4f} ms{extra} (output {v['digest']}) [{r['card']}]")
         for name, v in r["scan"].items():
             print(f"run {i} {r['label']}: process_scan {name} p50 {v['p50_ms']:.3f} ms, device "
                   f"operations {v['device_ops']} ({ms(v['device_ms'])}) [{r['card']}]")
-    for what in ("shadow_slots", "dot3"):
+    for what in measures:
         for name in runs[0][what]:
             same = len({r[what][name]["digest"] for r in runs}) == 1
             print(f"{what} {name}: the two checkouts' outputs "

@@ -104,15 +104,30 @@ ROWS = [
     ("the shadow stage's per-slot geometry", "shadow_slots", (32, 1024, 64), "0.00018"),
     ("the shadow's closed-form sweep raster", "shadow_raster", (1, 64, 120, 101), "0.0000116"),
     ("the shadow's closed-form sweep raster", "shadow_raster", (32, 64, 120, 101), "0.00037"),
-    # the fused multiply-add chain at RANSAC's scoring (dot3, three pairs):
-    # [B, N, 1] points against [B, 1, 128] planes, N = 24,576 (flagship
-    # and the batch of 32) and 262,144 (fullscale)
-    ("XLA:CPU's fused multiply-add chains", "fma_chain", (24_576 * 128, 3 * 24_576 + 3 * 128, 3),
-     "0.0038"),
-    ("XLA:CPU's fused multiply-add chains", "fma_chain",
-     (262_144 * 128, 3 * 262_144 + 3 * 128, 3), "0.0410"),
-    ("XLA:CPU's fused multiply-add chains", "fma_chain",
-     (32 * 24_576 * 128, 32 * (3 * 24_576 + 3 * 128), 3), "0.1230"),
+    # the fused multiply-add chain at each path's largest call, the voxel
+    # key (one pair and an addend): [B, N, 3] points, a 0-d constant and
+    # [B, N, 3] lattice products, N = 100,352 (flagship and the batch of
+    # 32) and 2,097,152 (fullscale)
+    ("XLA:CPU's fused multiply-add chains", "fma_chain", (301_056, 2 * 301_056 + 1, 1),
+     "0.0011"),
+    ("XLA:CPU's fused multiply-add chains", "fma_chain", (6_291_456, 2 * 6_291_456 + 1, 1),
+     "0.0225"),
+    ("XLA:CPU's fused multiply-add chains", "fma_chain", (9_633_792, 2 * 9_633_792 + 1, 1),
+     "0.0345"),
+    # RANSAC's scoring and selection on the paths' first rounds (the valid
+    # rows of the flagship's, fullscale's and the batch's voxel clouds, and
+    # the fullscale batch of 2), and a refinement's mask
+    ("the hypotheses' scoring and selection", "ransac_score", (1, 24_576, 128, 21_388),
+     "0.00033"),
+    ("the hypotheses' scoring and selection", "ransac_score", (1, 262_144, 128, 164_366),
+     "0.0025"),
+    ("the hypotheses' scoring and selection", "ransac_score", (32, 24_576, 128, 677_452),
+     "0.0104"),
+    ("the hypotheses' scoring and selection", "ransac_score", (2, 262_144, 128, 330_088),
+     "0.0050"),
+    ("a plane's inlier mask a scan", "plane_inliers", (1, 24_576, True), "0.00011"),
+    ("a plane's inlier mask a scan", "plane_inliers", (1, 262_144, True), "0.0012"),
+    ("a plane's inlier mask a scan", "plane_inliers", (32, 24_576, True), "0.0035"),
 ]
 
 
@@ -158,3 +173,19 @@ def test_stage_bounds_keep_the_reference_stages(preset):
     for stage, (seconds, limiter, note) in got.items():
         assert seconds > 0 and limiter in ("bytes", "operations") and note, stage
     assert bounds.LATENCY_CLASS == ref_bounds.LATENCY_CLASS
+
+
+def test_ransac_stage_bound_counts_float32_plane_tests():
+    """``stage_bounds["ransac"]`` counts the card's float32 plane tests
+    (``PLANE_TEST_OPS`` a valid row and hypothesis a round), and the two
+    RANSAC kernels' bounds count the same tests and bytes."""
+    cfg = port_models.REFERENCE_FULLSCALE_CONFIG
+    rounds, k, rows = cfg.max_planes, cfg.ransac_hypotheses, 165_898
+    seconds, limiter, note = bounds.stage_bounds(cfg, 1_929_208, rows, 7_069)["ransac"]
+    assert (seconds, limiter) == bounds._bound(rounds * rows * 33,
+                                               fp32_ops=bounds.PLANE_TEST_OPS * rounds * k * rows)
+    assert "float32" in note and limiter == "operations"
+    assert bounds.ransac_score(1, 262_144, k, rows) == bounds._bound(
+        262_144 * 14 + k * 21 + 25, rows * k * bounds.PLANE_TEST_OPS)
+    assert bounds.plane_inliers(2, 1000, True) == bounds._bound(2 * (1000 * 15 + 20),
+                                                                2 * 1000 * bounds.PLANE_TEST_OPS)

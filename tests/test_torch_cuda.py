@@ -1463,3 +1463,184 @@ def test_fma_chain_refuses_bad_operands(dev):
         ops.fma(x, torch.ones(8), x)
     with pytest.raises(ValueError):  # a form the port does not write
         ops.fma_chain(((x, x),) * 2)
+
+
+# RANSAC's scoring and mask kernels (csrc/ransac_score.cu): (scans, rows,
+# hypotheses), rows off the 256-row tile, hypotheses from 1 to past the
+# 1,024 planes a block stages at once
+RANSAC_SHAPES = [(1, 1000, 1), (3, 2000, 64), (1, 24_576, 128), (32, 1500, 128), (3, 777, 200),
+                 (1, 3001, 1000), (2, 300, 1100)]
+
+
+def _score_args(seed, scans, n, k, kind):
+    from pointcloud_obstacle_processing_tpu_torch.utils import ransac_cases
+
+    c = ransac_cases.score_case(seed, scans, n, k, kind)
+    return [torch.tensor(c[f]) for f in ("points", "valid", "nx", "ny", "nz", "ds", "gate")], \
+        c["thresh"]
+
+
+def _bitwise(a, b):
+    a, b = a.cpu(), b.cpu()
+    assert a.dtype == b.dtype and a.shape == b.shape
+    _eq(a.view(torch.int32) if a.dtype == torch.float32 else a,
+        b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+@pytest.mark.parametrize("kind", ["probes", "ties", "gated", "random"])
+@pytest.mark.parametrize("scans,n,k", RANSAC_SHAPES)
+def test_ransac_score_kernel_equals_plain(dev, kind, scans, n, k):
+    """``ransac_score`` on the card (one score launch, one mask launch)
+    bitwise its plain version on the CPU, on points a few ulps either side
+    of the threshold, tied counts, gated-off scans and NaN coordinates on
+    invalid rows; twice in a row, so the cached scratch and tickets are
+    seen to reset themselves.  Then ``plane_inliers`` with and without the
+    refinement's select."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    args, thresh = _score_args(scans * 7 + k, scans, n, k, kind)
+    want = ransac.ransac_score_plain(*args, thresh)
+    on_card = [a.to(dev) for a in args]
+    for _ in range(2):
+        _build.reset_launch_counts()
+        got = ransac.ransac_score(*on_card, thresh)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"ransac_score": 1,
+                                                                    "plane_inliers": 1}
+        for g, w in zip(got, want):
+            _bitwise(g, w)
+    points, valid = args[:2]
+    prev = torch.tensor(np.random.default_rng(k).random((scans, n)) < 0.5)
+    n_inl = torch.tensor(np.random.default_rng(n).choice([0.0, 2.0, 3.0, 50.0], scans),
+                         dtype=torch.float32)
+    for kw in ({}, {"prev": prev, "n_inl": n_inl}):
+        mask = ransac.plane_inliers(points.to(dev), valid.to(dev), want.normal.to(dev),
+                                    want.d.to(dev), thresh,
+                                    **{key: v.to(dev) for key, v in kw.items()})
+        _bitwise(mask, ransac.plane_inliers_plain(points, valid, want.normal, want.d, thresh,
+                                                  **kw))
+
+
+@pytest.mark.parametrize("scans,n,k", [(1, 24_576, 128), (1, 200_000, 64), (2, 200_000, 40),
+                                      (3, 200_000, 40)])
+def test_ransac_score_forms_on_a_compacted_tail_equal_plain(dev, scans, n, k):
+    """Each form of the score kernel, chosen by the call's rows (2 rows a
+    thread at the first three shapes, 8 at the last), on a compacted
+    cloud's invalid tail, whose warps skip the tests: bitwise the plain
+    version."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    args, thresh = _score_args(n + k, scans, n, k, "probes")
+    args[1][:, n // 2:] = False
+    want = ransac.ransac_score_plain(*args, thresh)
+    for g, w in zip(ransac.ransac_score(*[a.to(dev) for a in args], thresh), want):
+        _bitwise(g, w)
+
+
+@pytest.mark.parametrize("scans", [1, 3, 32])
+def test_ransac_round_launches_reads_and_memory(dev, scans):
+    """One ``ransac_plane_once`` round on the card at the flagship's 24,576
+    rows and K = 128: one score launch and 1 + ransac_refine_iters mask
+    launches, no host read (sync debug mode "error"), a peak of new memory
+    below one [B, N, K] float32 table, and the CPU's result bitwise."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    cfg = REFERENCE_YAML_CONFIG
+    n = 24_576
+    args, _ = _score_args(5, scans, n, 8, "probes")
+    points, valid = args[0], args[1]
+    points = torch.where(valid[..., None], points, 0.0)
+    draws = torch.tensor(np.random.default_rng(1).integers(
+        0, int(valid.sum(-1).min()), (scans, cfg.ransac_hypotheses, 3)))
+    cloud = Cloud(points=points, valid=valid)
+    want = ransac.ransac_plane_once(cloud, draws, cfg, vmapped=True)
+    cloud_c, draws_c = cloud.to(dev), draws.to(dev)
+    ransac.ransac_plane_once(cloud_c, draws_c, cfg, vmapped=True)  # the scratch, the allocator
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ransac.ransac_plane_once(cloud_c, draws_c, cfg, vmapped=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ransac_score"] == 1
+    assert _build.LAUNCHES["plane_inliers"] == 1 + cfg.ransac_refine_iters
+    assert torch.cuda.max_memory_allocated() - base < scans * n * cfg.ransac_hypotheses * 4
+    for g, w in zip(got, want):
+        _bitwise(g, w)
+
+
+def test_fma_chain_plan_cache_strides_pointers_and_constants(dev):
+    """The chain wrapper's cached plans: two calls with the same shapes and
+    other strides (a plan each), the same layout on new tensors (new
+    pointers) and with another constant (new bits); every call one launch,
+    bitwise the plain form."""
+    from pointcloud_obstacle_processing_tpu_torch import ops
+
+    g = torch.Generator().manual_seed(12)
+
+    def r(*s):
+        return torch.randn(*s, generator=g)
+
+    a = r(48, 64)
+    calls = [(a, r(64, 64)[:48], r(48, 64)), (a, r(64, 48).T, r(48, 64)),
+             (r(48, 64), r(64, 48).T, r(48, 64)), (r(48, 64), r(64, 48).T, r(48, 64)),
+             (r(48, 64), ops.f32(0.5), ops.f32(0.25)), (r(48, 64), ops.f32(-3.0), ops.f32(7.5)),
+             (r(48, 64)[:, 1:], ops.f32(-3.0), r(48, 63))]
+    for operands in calls:
+        want = ops.fma(*operands)
+        before = _build.LAUNCHES["fma_chain"]
+        got = ops.fma(*[t.to(dev) if t.dim() else t for t in operands])
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["fma_chain"] == before + 1
+        _eq(got.view(torch.int32), want.view(torch.int32))
+    for kind, args in (("dot3", [r(2, 300, 1)] * 3 + [r(2, 1, 128)] * 3),
+                       ("dot3", [r(2, 300, 1)] * 3 + [r(128, 2).T[:, None, :]] * 3)):
+        _eq(getattr(ops, kind)(*[t.to(dev) for t in args]).view(torch.int32),
+            getattr(ops, kind)(*args).view(torch.int32))
+
+
+def _raster_lines(kind: str, seed: int = 0):
+    """[scans, M, 7] lines for the raster kernel: ``edges`` lines of every
+    slope whose ends lie in and around the 120 x 101 grid, crossing many
+    16 x 16 tiles; ``crowded`` 300 lines through one tile; ``slots`` the
+    seeded batch's own slot lines."""
+    rng = np.random.default_rng(seed)
+    if kind == "slots":
+        from pointcloud_obstacle_processing_tpu_torch.ops import shadow
+
+        args, tf = _shadow_case("batch")
+        return shadow.shadow_slots_plain(*args, tf, REFERENCE_YAML_CONFIG)
+    m = 300 if kind == "crowded" else 64
+    lo, hi = ((-20, 140) if kind == "edges" else (40, 60))
+    ends = rng.integers(lo, hi, (4, m, 4)).astype(np.int32)
+    if kind == "crowded":
+        ends[..., 2:] = ends[..., :2] + rng.integers(-3, 4, (4, m, 2))
+    n = rng.integers(1, 12, (4, m, 1)).astype(np.int32)
+    flags = np.concatenate([rng.integers(0, 2, (4, m, 1)), rng.random((4, m, 1)) < 0.9], -1)
+    lines = np.concatenate([ends, n, flags.astype(np.int32)], -1)
+    return torch.tensor(lines)
+
+
+@pytest.mark.parametrize("kind", ["edges", "crowded", "slots"])
+def test_shadow_raster_tiles_equal_plain(dev, kind):
+    """The raster kernel's per-tile cull (each 8 x 16 tile tests only the
+    lines whose box meets it) on lines that cross tile edges, 300 lines in
+    one tile and the seeded batch's slot lines: one launch, bitwise its
+    plain twin."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import shadow
+
+    lines = _raster_lines(kind)
+    h, w = REFERENCE_YAML_CONFIG.grid_height, REFERENCE_YAML_CONFIG.grid_width
+    grid = torch.tensor(np.random.default_rng(5).choice([0, 100], (lines.shape[0], h, w))
+                        .astype(np.int8))
+    want = shadow.shadow_raster_plain(grid, lines, 9)
+    before = _build.LAUNCHES["shadow_raster"]
+    got = shadow.shadow_raster(grid.to(dev), lines.to(dev), 9)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["shadow_raster"] == before + 1
+    _eq(got, want)
+    assert (want == 9).any()

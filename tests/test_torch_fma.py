@@ -143,7 +143,7 @@ def test_fma_refuses_operands_that_are_not_float32_tensors(bad):
 
 @pytest.mark.parametrize("case", ["ransac", "transposed", "sliced", "constants", "merged"])
 def test_chain_layout_reads_each_operand_as_it_broadcasts(case):
-    """The kernel's view of a call (``ops.chain_layout``: merged sizes and
+    """The kernel's view of a call (``ops._layout``: merged sizes and
     each operand's strides over them, a broadcast dim's stride 0) reads
     every operand's elements exactly as ``expand`` lays them out, here
     replayed with ``as_strided`` on the CPU."""
@@ -156,7 +156,8 @@ def test_chain_layout_reads_each_operand_as_it_broadcasts(case):
         "constants": [r(7, 5), ops.f32(2.0), r(1, 5)],
         "merged": [r(4, 6, 8), r(4, 6, 8), r(4, 6, 8)],
     }[case]
-    shape, sizes, strides = ops.chain_layout(operands)
+    shape, sizes, strides = ops._layout([t.shape for t in operands],
+                                        [t.stride() for t in operands])
     assert len(sizes) <= ops.FMA_MAX_DIMS
     if case == "merged":
         assert sizes == [4 * 6 * 8]
@@ -164,3 +165,41 @@ def test_chain_layout_reads_each_operand_as_it_broadcasts(case):
         want = t.expand(shape).reshape(-1)
         got = torch.as_strided(t, sizes, st, t.storage_offset()).reshape(-1)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["ransac", "transposed", "constants", "merged"])
+def test_chain_plan_packs_the_layout(case):
+    """The chain wrapper's cached launch plan (``ops._chain_plan``, keyed on
+    each operand's shape, strides, device and dtype): its packed ``ChainArgs``
+    hold ``_layout``'s merged sizes and strides, with every pointer,
+    constant, out and stream field zero for the call to fill in at the
+    offsets the plan names; operands that differ from a planned call only
+    in a stride get a plan of their own."""
+    g = torch.Generator().manual_seed(6)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    pairs, operands = {
+        "ransac": (3, [r(2, 300, 1), r(2, 1, 128)] * 3),
+        "transposed": (1, [r(64, 48).T, r(48, 1), r(1, 64)]),
+        "constants": (1, [r(7, 5), ops.f32(2.0), ops.f32(0.5)]),
+        "merged": (1, [r(4, 6, 8), r(4, 6, 8), r(4, 6, 8)]),
+    }[case]
+    # the card's operands stand in as device 0 (the plan reads no memory)
+    layout = tuple((t.shape, t.stride(), 0 if t.dim() else -1, t.dtype) for t in operands)
+    shape, n, packed, slots, out_at = ops._chain_plan(pairs, layout)
+    want_shape, sizes, strides = ops._layout([t.shape for t in operands],
+                                             [t.stride() for t in operands])
+    assert shape == want_shape and n == want_shape.numel()
+    fields = ops._FMA_ARGS.unpack(packed)
+    dims = len(sizes)
+    assert fields[:4 + dims] == (n, dims, pairs, int(len(operands) == 2 * pairs + 1), *sizes)
+    per = 2 + ops.FMA_MAX_DIMS
+    for i, (t, st, (at, on_card)) in enumerate(zip(operands, strides, slots)):
+        base = 4 + ops.FMA_MAX_DIMS + i * per
+        assert at == 8 * base and on_card == bool(t.dim())
+        assert fields[base:base + 2] == (0, 0)  # pointer and constant: filled in a call
+        assert list(fields[base + 2:base + 2 + dims]) == (st if t.dim() else [0] * dims)
+    assert out_at == 8 * (len(fields) - 2) and fields[-2:] == (0, 0)
+    if case == "transposed":  # the same shapes, one operand's strides changed
+        other = (layout[0][0], (64, 1), 0, torch.float32), *layout[1:]
+        assert ops._chain_plan(pairs, other)[2] != packed
+        assert ops._chain_plan(pairs, other) is ops._chain_plan(pairs, other)
