@@ -9,7 +9,7 @@ fullscale windows, the flagship scan with each kNN engine, and the voxel
 engines off the sort engine's lattice order (``mxu``, ``scatter``, Morton,
 the 3-key fallback), the shadow stage's two kernels with the
 reference's trigonometry, the fused multiply-add chain kernel on
-near ties, and RANSAC's scoring and mask kernels.
+near ties, and RANSAC's round kernels.
 
     python3 chip_smoke.py
 
@@ -226,26 +226,38 @@ Phases (any failure raises and exits non-zero before the last line):
    tie), one launch a call, with how many of them the double-rounded form
    (the float64 sum rounded to float32) misses; then the wrapper's host
    time a call (``_host_ms``) at two of a flagship scan's call shapes (the
-   voxel key's ``fma`` with a constant, RANSAC's [1, 128] ``dot3``), with
+   voxel key's ``fma`` with a constant; a [1, 128] ``dot3``, the shape of
+   RANSAC's hypothesis offset where the round computes it eagerly), with
    its cached launch plan, with the cache cleared before every call, and
    part by part (``_fma_host_parts``; ``fma_chain host`` lines).
-15. RANSAC's kernels (``csrc/ransac_score.cu``): ``ransac_score`` (the
-   scoring and selection, one launch, then the winner's mask) and
-   ``plane_inliers`` (the refinement's mask) bitwise their plain versions
-   on a CPU copy of ``utils/ransac_cases.py``'s seeded probes (points
-   within 8 ulps of the threshold, tied counts, gated-off scans, NaN
-   coordinates on invalid rows; K from 1 to 1,100, twice a case); then on
-   every call of each scan path's own run (flagship, fullscale, band off,
-   the batch of 32, the nodes, the fullscale batch of 2; every call
-   against the plain version on the card, the first also on a CPU copy),
-   with the launches of the path's counted run checked against its known
-   runs (``ransac_score`` once a round, ``plane_inliers`` 1 +
-   ``ransac_refine_iters`` times, ``max_planes`` rounds a run), and each timed
-   as in phase 2 beside the plain version on the card (the composition
-   they replaced: a ``[B, N, K]`` table and its passes); then
-   ``segment_planes`` on the flagship, fullscale and batch inputs with the
-   kernels and with the plain versions: device operations, device time
-   and peak device memory (``ransac stage`` lines).
+15. RANSAC's kernels (``csrc/ransac_score.cu``): ``ransac_hypotheses_score``
+   (a round's hypotheses built from the draws, gated, scored and selected
+   in one launch), ``plane_inliers`` (the winner's and the refinement's
+   masks) and ``plane_inliers_close`` (the round's last mask, applied to
+   the loop's state in place) bitwise their plain versions on a CPU copy
+   of ``utils/ransac_cases.py``'s seeded rounds (``round_case``: points
+   within 8 ulps of the threshold of a drawn plane, tied counts,
+   degenerate draws, NaN coordinates on invalid rows; K from 1 to 1,100;
+   the axis gate in radians and in degrees; twice a case, and once more
+   with the gated counts and the winner's index written) and seeded loop
+   states; then on every call of each scan path's own run (flagship,
+   fullscale, band off, the batch of 32, the nodes, the fullscale batch of
+   2; every call against the plain version on the card, the first also on
+   a CPU copy; the calls' arguments cloned as they are made), with the
+   launches of the path's counted run checked against its known runs
+   (``ransac_hypotheses_score`` and ``plane_inliers_close`` once a round,
+   ``plane_inliers`` ``ransac_refine_iters`` times, ``max_planes`` rounds
+   a run; ``fma_chain`` 29 times a scan or batch), each timed as in phase
+   2 beside the plain version on the card (the closing mask on a fresh
+   copy of its state each call, so each timed call is the path's own
+   first); the score kernel's forms (rows a thread, hypotheses a z-slice)
+   on each path's first round, each bitwise the wrapper's, by device time
+   (``score forms`` lines), and the score wrapper's host time part by part
+   (``score host`` lines); then ``segment_planes`` on each path's own
+   input with the kernels (no ``fma_chain`` launch) and with the plain
+   versions: device operations, device time and peak device memory
+   (``ransac stage`` lines; the parent commit's round is timed against
+   this one by ``scripts/torch_shadow_fma_ab.py --measures stage``).
 
 Each phase prints its seconds.
 Its last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -296,9 +308,15 @@ NODE_MODES = ((False, False), (False, True), (True, False), (True, True))  # (as
 SHADOW_PATH = ["shadow_slots", "shadow_raster"]  # the shadow stage's kernels, on every scan path
 # the kernels every scan path launches: the shadow stage's, and the fused
 # multiply-add chains (``ops.fma``, many launches a scan)
-# RANSAC's scoring and mask kernels, on every scan path
-RANSAC_PATH = ["ransac_score", "plane_inliers"]
+# RANSAC's kernels, on every scan path: each round's hypotheses built, gated,
+# scored and selected in one launch; the winner's and the refinement's masks;
+# the mask that closes the round
+RANSAC_PATH = ["ransac_hypotheses_score", "plane_inliers", "plane_inliers_close"]
 SCAN_PATH = [*SHADOW_PATH, "fma_chain", *RANSAC_PATH]
+# fma_chain launches a scan (or batch) of the flagship, fullscale and batch
+# paths: RANSAC's round makes none since its score kernel builds the
+# hypotheses (it made 5 a round, 49 a scan, before)
+FMA_A_SCAN = 29
 SHADOW_SWEEP_STRIDE = 509  # phase 13: every 509th float32 of the trig routines' domains
 # phase 13: the cast_shadows calls of one scan, by path (captured in phases 3 and 4)
 SHADOW_SCANS: dict = {}
@@ -756,10 +774,39 @@ def capture_fma(call) -> list:
     return seen
 
 
+def _capture_cloned(module, name: str, call) -> list:
+    """``_capture``, each tensor argument (and each of a ``RoundState``'s)
+    cloned as the call is made: the mask that closes a RANSAC round updates
+    the loop's state in place, and so later rounds change the valid mask an
+    earlier call was given."""
+    import torch
+
+    def copy(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            return type(v)(*(copy(x) for x in v))
+        return v
+
+    seen, fn = [], getattr(module, name)
+
+    def spy(*a, **kw):
+        seen.append((tuple(copy(x) for x in a), {k: copy(v) for k, v in kw.items()}))
+        return fn(*a, **kw)
+
+    setattr(module, name, spy)
+    try:
+        call()
+    finally:
+        setattr(module, name, fn)
+    return seen
+
+
 def capture_ransac(path: str, call, config, runs: int = 1) -> list:
     """Record the calls ``call()`` (a scan, batch or window) makes to
-    ``pipeline.segment_planes`` and to ``ops.ransac.ransac_score`` and
-    ``plane_inliers`` (each looked up at call time by its caller) under
+    ``pipeline.segment_planes`` and to ``ops.ransac.ransac_hypotheses_score``,
+    ``plane_inliers`` and ``plane_inliers_close`` (each looked up at call
+    time by its caller; their arguments cloned as each call is made) under
     ``path`` for phase 15, with ``config`` and ``runs``, the RANSAC runs
     (scans, batches or windows) of the path's counted main-path run.  Holds
     every ``ops.fma_chain`` call of ``call()`` bitwise against its plain
@@ -770,12 +817,13 @@ def capture_ransac(path: str, call, config, runs: int = 1) -> list:
     from pointcloud_obstacle_processing_tpu_torch import ops, pipeline
     from pointcloud_obstacle_processing_tpu_torch.ops import ransac
 
-    scores, masks, chains = [], [], []
-    stage = _capture(pipeline, "segment_planes", lambda: scores.extend(_capture(
-        ransac, "ransac_score", lambda: masks.extend(_capture(
-            ransac, "plane_inliers", lambda: chains.extend(capture_fma(call)))))))
+    scores, masks, closes, chains = [], [], [], []
+    stage = _capture(pipeline, "segment_planes", lambda: scores.extend(_capture_cloned(
+        ransac, "ransac_hypotheses_score", lambda: masks.extend(_capture_cloned(
+            ransac, "plane_inliers", lambda: closes.extend(_capture_cloned(
+                ransac, "plane_inliers_close", lambda: chains.extend(capture_fma(call)))))))))
     RANSAC_RUNS[path] = {"stage": stage[0], "score": [a for a, _ in scores], "mask": masks,
-                         "config": config, "runs": runs}
+                         "close": [a for a, _ in closes], "config": config, "runs": runs}
     for i, (_, _, got, pairs, c, caller) in enumerate(chains):
         want = ops.fma_chain_plain(pairs, c)
         nan = torch.isnan(want)  # a NaN's payload is the device's own
@@ -3478,15 +3526,15 @@ def run_fma(dev, card: str) -> None:
         print(f"fma_chain {label}: {len(cpu[0]):,} cases, equal to the plain form in one launch; "
               f"the double-rounded form misses {missed:,} [{card}]")
 
-    # the wrapper's host time a call at two of a flagship scan's own call
-    # shapes (the largest, the voxel key with a constant; RANSAC's [1, 128]
-    # hypothesis offset), with its cached plan and with the plan rebuilt
-    # every call, and part by part
+    # the wrapper's host time a call at two shapes (a flagship scan's
+    # largest call, the voxel key with a constant; RANSAC's [1, 128]
+    # hypothesis offset in its eager form), with its cached plan and with
+    # the plan rebuilt every call, and part by part
     g = torch.Generator().manual_seed(0)
     shapes = {"fma [1, 100352, 3] with a constant (the voxel key)":
               (((torch.rand(1, 100_352, 3, generator=g).to(dev), ops.f32(0.04)),),
                torch.rand(1, 100_352, 3, generator=g).to(dev)),
-              "dot3 [1, 128] (RANSAC's hypothesis offset)":
+              "dot3 [1, 128] (RANSAC's hypothesis offset, eager)":
               (tuple((torch.randn(1, 128, generator=g).to(dev),
                       torch.randn(1, 128, generator=g).to(dev)) for _ in range(3)), None)}
     for label, (pairs, c) in shapes.items():
@@ -3557,7 +3605,7 @@ def _fma_host_parts(pairs, c, reps: int = 2000) -> dict:
     return us
 
 
-# ---- phase 15: RANSAC's scoring and mask kernels --------------------------
+# ---- phase 15: RANSAC's round kernels ---------------------------------------
 
 # (scans, rows, hypotheses) of the seeded cases: rows off the 256-row tile,
 # K from 1 to past the 1,024 planes a block stages at once
@@ -3566,53 +3614,184 @@ RANSAC_CASES = [(1, 24_576, 128), (32, 1_500, 128), (3, 777, 200), (1, 3_001, 1_
 
 
 def _ransac_equal(label: str, got, want) -> None:
-    """Two ``ransac_score`` results bitwise alike, field by field."""
+    """Two results of RANSAC's kernels (``RoundScore``, ``RoundState``, or
+    tuples of tensors) bitwise alike, field by field."""
     import torch
 
-    for field, g, w in zip(want._fields, got, want):
+    fields = getattr(want, "_fields", range(len(want)))
+    for field, g, w in zip(fields, got, want, strict=True):
         if w.dtype == torch.float32:
             g, w = g.view(torch.int32), w.view(torch.int32)
         _assert_equal(f"{label} {field}", g, w)
 
 
-def _ransac_rows(path: str, run: dict) -> list[dict]:
+def _cpu(v):
+    """``v`` with every tensor of more than 0 dims (and a NamedTuple's) on
+    the CPU: a copy of a call's arguments for the plain version there."""
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return v.cpu() if v.dim() else v
+    if isinstance(v, tuple) and hasattr(v, "_fields"):
+        return type(v)(*(_cpu(x) for x in v))
+    if isinstance(v, (tuple, list)):
+        return type(v)(_cpu(x) for x in v)
+    return v
+
+
+def _fresh(args):
+    """A closing call's arguments with a fresh copy of its state, which the
+    kernel updates in place."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    return (*args[:-1], ransac.RoundState(*[t.clone() for t in args[-1]]))
+
+
+# calls ``_row`` makes of a kernel's wrapper at most: ``_time_ms`` 21,
+# ``_device_ms`` 1 and 2 x 20 a profiler session, ``_host_ms`` 201
+ROW_CALLS = 21 + 1 + PROFILER_SESSIONS * 2 * 20 + 201
+# the score kernel's forms (rows a thread, hypotheses a z-slice) timed on
+# each path's first round
+SCORE_FORMS = ((2, 32), (2, 64), (2, 128), (8, 32), (8, 64), (8, 128))
+
+
+def _each_on_a_copy(args, count: int = ROW_CALLS):
+    """``plane_inliers_close`` on ``args``, each call on the next of
+    ``count`` copies of the state made beforehand: the kernel updates the
+    state in place, so a second call on one state would find the round's
+    inliers already taken, and every timed call is to be the path's own."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    states = iter([ransac.RoundState(*[t.clone() for t in args[-1]]) for _ in range(count)])
+    return lambda: ransac.plane_inliers_close(*args[:-1], next(states))
+
+
+def _score_host_parts(args, reps: int = 2000) -> dict:
+    """The score wrapper's host time a call (``ops.ransac.
+    ransac_hypotheses_score`` on ``args``, a path's captured call), part by
+    part: each part ``reps`` times back to back on the host's clock, in us
+    a call; ``rest`` is what the parts leave of the whole call."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import _build
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    points, valid, tri, n_valid, thresh, cos_min, axis = args
+    operands = (points, valid, tri, n_valid)
+    consts = (float(thresh), float(cos_min), tuple(axis))
+
+    def key():
+        return tuple((t.shape, t.stride(), t.get_device(), t.dtype) for t in operands)
+
+    b, k, packed = ransac._score_plan(key(), consts, None)
+    stream = _build.stream_handle()
+    scratch = ransac._score_scratch(points, stream, b * k + b)
+    found, normal, d = ransac._score_outputs(points, b)
+    lib = _build.kernels()
+
+    def fields():
+        out = bytearray(packed)
+        ransac._SCORE_IN.pack_into(out, 0, points.data_ptr(), valid.data_ptr(), tri.data_ptr(),
+                                   n_valid.data_ptr())
+        ransac._SCORE_OUT.pack_into(out, ransac._SCORE_OUT_AT, scratch.data_ptr(),
+                                    found.data_ptr(), normal.data_ptr(), d.data_ptr(), 0, 0,
+                                    stream)
+        return bytes(out)
+
+    packed_args = fields()
+    parts = {
+        "whole call": lambda: ransac.ransac_hypotheses_score(*args),
+        "constants (three floats and the axis)":
+            lambda: (float(thresh), float(cos_min), tuple(axis)),
+        "layout key": key,
+        "plan lookup (with its key)": lambda: ransac._score_plan(key(), consts, None),
+        "outputs (one allocation, three views)": lambda: ransac._score_outputs(points, b),
+        "stream handle": _build.stream_handle,
+        "scratch lookup": lambda: ransac._score_scratch(points, stream, b * k + b),
+        "fields (pointers)": fields,
+        "launch (ctypes call, CUDA launch, error check)":
+            lambda: _build.check(lib.pcp_ransac_score(packed_args), "ransac_hypotheses_score"),
+    }
+    us = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us[name] = (time.perf_counter() - t) * 1e6 / reps
+        torch.cuda.synchronize()
+    us["rest"] = us["whole call"] - sum(v for k, v in us.items()
+                                        if k not in ("whole call", "plan lookup (with its key)"))
+    return us
+
+
+def _ransac_rows(path: str, run: dict, card: str) -> list[dict]:
     """RANSAC's kernels on every call of a path's run: each held bitwise
     against its plain version on the card (the first also on a CPU copy),
-    then timed on the first round's score call and the first refinement
-    mask beside the plain version on the card (the composition they
-    replaced)."""
+    then timed on the first round's score call, the first refinement mask
+    and the first closing mask beside the plain version on the card; the
+    score kernel's forms on the first round, and its wrapper's host time
+    part by part."""
     import torch
 
     from pointcloud_obstacle_processing_tpu_torch.ops import ransac
 
-    def cpu(args):
-        return [a.cpu() if isinstance(a, torch.Tensor) and a.dim() else a for a in args]
-
     for i, args in enumerate(run["score"]):
-        want = ransac.ransac_score_plain(*args)
-        _ransac_equal(f"ransac_score {path} round {i}", ransac.ransac_score(*args), want)
+        want = ransac.ransac_hypotheses_score_plain(*args)
+        _ransac_equal(f"ransac_hypotheses_score {path} round {i}",
+                      ransac.ransac_hypotheses_score(*args), want)
         if not i:
-            _ransac_equal(f"ransac_score {path} round {i} (CPU plain)", want,
-                          ransac.ransac_score_plain(*cpu(args)))
+            _ransac_equal(f"ransac_hypotheses_score {path} round {i} (CPU plain)", want,
+                          ransac.ransac_hypotheses_score_plain(*_cpu(args)))
     for i, (args, kw) in enumerate(run["mask"]):
         want = ransac.plane_inliers_plain(*args, **kw)
         _assert_equal(f"plane_inliers {path} call {i}", ransac.plane_inliers(*args, **kw), want)
         if not i:
             _assert_equal(f"plane_inliers {path} call {i} (CPU plain)", want,
-                          ransac.plane_inliers_plain(*cpu(args), **dict(zip(kw, cpu(kw.values())))))
+                          ransac.plane_inliers_plain(*_cpu(args), **_cpu(kw)))
+    for i, args in enumerate(run["close"]):
+        want = ransac.plane_inliers_close_plain(*args)
+        _ransac_equal(f"plane_inliers_close {path} round {i}",
+                      ransac.plane_inliers_close(*_fresh(args)), want)
+        if not i:
+            _ransac_equal(f"plane_inliers_close {path} round {i} (CPU plain)", want,
+                          ransac.plane_inliers_close_plain(*_cpu(args)))
     args = run["score"][0]
     points, valid = args[:2]
-    scans, n, k = *valid.shape, args[2].shape[-1]
+    scans, n, k = *valid.shape, args[2].shape[1]
     rows = int(valid.sum())
     margs, mkw = next(c for c in run["mask"] if c[1])  # a refinement's mask, with its select
+    cargs = run["close"][0]
+    closed = ransac.plane_inliers_close_plain(*cargs)
+    _, _, _, found, active, _, state = cargs
+    af = active & found
+    close_counts = (scans, n, int(active.sum()), int(af.sum()),
+                    int((state.valid & af[:, None]).sum()), int((state.valid & ~closed.valid).sum()))
+
+    want = ransac.ransac_hypotheses_score(*args)
+    consts = (float(args[4]), float(args[5]), tuple(args[6]))
+    times = {}
+    for form in SCORE_FORMS:
+        _ransac_equal(f"ransac_hypotheses_score {path} round 0 form {form}",
+                      ransac._score_launch(args[:4], consts, form), want)
+        times[form] = _device_ms(lambda form=form: ransac._score_launch(args[:4], consts, form))
+    torch.cuda.synchronize()
+    auto = ransac.score_form(scans, n, k, ransac._sms(points.get_device()))
+    print(f"score forms {path}: {scans} x {n} rows ({rows} valid), K {k}, score_form's {auto}; "
+          f"device ms: " + ", ".join(f"{f} {_ms(v)}" for f, v in times.items())
+          + f"; each form equal [{card}]")
+    parts = _score_host_parts(args)
+    print(f"score host {path}: by part, us a call: "
+          f"{', '.join(f'{key} {v:.2f}' for key, v in parts.items())} [{card}]")
     return [
-        _row("ransac_score", path,
-             f"round 0: {scans} x {n} rows ({rows} valid) against {k} hypotheses a scan; "
-             f"{len(run['score'])} rounds a run, all equal", "ransac_score.cu",
-             "ransac.py:154-168 (the hypotheses' scoring and selection; plain XLA, no TPU "
-             "kernel)", 0.0, lambda: ransac.ransac_score(*args),
-             lambda: ransac.ransac_score_plain(*args), _bound("ransac_score", scans, n, k, rows),
-             plain_reps=5),
+        _row("ransac_hypotheses_score", path,
+             f"round 0: {scans} x {n} rows ({rows} valid) against {k} hypotheses a scan, built "
+             f"from the draws; {len(run['score'])} rounds a run, all equal", "ransac_score.cu",
+             "ransac.py:124-168 (the hypotheses' planes, gate, scoring and selection; plain "
+             "XLA, no TPU kernel)", 0.0, lambda: ransac.ransac_hypotheses_score(*args),
+             lambda: ransac.ransac_hypotheses_score_plain(*args),
+             _bound("ransac_hypotheses_score", scans, n, k, rows), plain_reps=5),
         _row("plane_inliers", path,
              f"a refinement's mask: {scans} x {n} rows; {len(run['mask'])} calls a run, all "
              f"equal", "ransac_score.cu",
@@ -3620,6 +3799,15 @@ def _ransac_rows(path: str, run: dict) -> list[dict]:
              lambda: ransac.plane_inliers(*margs, **mkw),
              lambda: ransac.plane_inliers_plain(*margs, **mkw),
              _bound("plane_inliers", scans, n, True), plain_reps=5),
+        _row("plane_inliers_close", path,
+             f"round 0's closing mask: {scans} x {n} rows, {close_counts[2]} scan(s) active, "
+             f"{close_counts[3]} found, {close_counts[4]} valid rows tested, {close_counts[5]} "
+             f"inliers; {len(run['close'])} calls a run, all equal; each timed call on a fresh "
+             f"copy of the state", "ransac_score.cu",
+             "ransac.py:194-214, 264-276 (the round's last mask and the loop's state; plain "
+             "XLA, no TPU kernel)", 0.0, _each_on_a_copy(cargs),
+             lambda: ransac.plane_inliers_close_plain(*cargs),
+             _bound("plane_inliers_close", *close_counts), plain_reps=5),
     ]
 
 
@@ -3640,65 +3828,118 @@ def _stage_numbers(fn) -> str:
 
 
 def run_ransac(dev, card: str, launches: dict) -> list[dict]:
-    """Phase 15: RANSAC's scoring and mask kernels bitwise their plain
-    versions on seeded probes and on every scan path's own calls, the
-    launches a run, each kernel timed beside the composition it replaced,
-    and the RANSAC stage with and without the kernels.  Returns the kernel
-    rows."""
+    """Phase 15: RANSAC's kernels bitwise their plain versions on seeded
+    rounds and on every scan path's own calls, the launches a run, each
+    kernel timed beside its plain version, the score kernel's forms and
+    host time, and the RANSAC stage with the kernels and with the plain
+    versions.  Returns the kernel rows."""
     import torch
 
     from pointcloud_obstacle_processing_tpu_torch import _build, pipeline
+    from pointcloud_obstacle_processing_tpu_torch.config import REFERENCE_YAML_CONFIG
     from pointcloud_obstacle_processing_tpu_torch.ops import ransac
     from pointcloud_obstacle_processing_tpu_torch.utils import ransac_cases
 
+    gates = {"radians": REFERENCE_YAML_CONFIG.eps_angle_radians,
+             "degrees": REFERENCE_YAML_CONFIG.replace(
+                 pcl_compat_eps_angle_bug=False).eps_angle_radians}
     for scans, n, k in RANSAC_CASES:
         for kind in ("probes", "ties", "gated", "random"):
-            c = ransac_cases.score_case(n + k, scans, n, k, kind)
-            args = [torch.tensor(c[f]) for f in ("points", "valid", "nx", "ny", "nz", "ds",
-                                                  "gate")]
-            want = ransac.ransac_score_plain(*args, c["thresh"])
+            c = ransac_cases.round_case(n + k, scans, n, k, kind)
+            args = [torch.tensor(c[f]) for f in ("points", "valid", "tri", "n_valid")]
             on_card = [a.to(dev) for a in args]
-            for rep in range(2):  # the cached scratch and tickets reset themselves
-                _build.reset_launch_counts()
-                got = ransac.ransac_score(*on_card, c["thresh"])
-                torch.cuda.synchronize()
-                if {key: v for key, v in _build.LAUNCHES.items() if v} != \
-                        {"ransac_score": 1, "plane_inliers": 1}:
-                    raise AssertionError(f"ransac_score seeded {kind}: launches {_build.LAUNCHES}")
-                _ransac_equal(f"ransac_score seeded {kind} {(scans, n, k)} call {rep}", got, want)
-        print(f"ransac_score seeded {(scans, n, k)}: probes, ties, gated, random each equal to "
-              f"the plain version on a CPU copy, twice, one score and one mask launch [{card}]")
+            for gate, eps in gates.items():
+                cos_min = ransac.axis_cos_min(eps)
+                planes = ransac.hypotheses_plain(args[0], args[2], args[3], cos_min,
+                                                 (0.0, 0.0, 1.0))
+                full = ransac.ransac_score_plain(*args[:2], *planes, c["thresh"])
+                want = ransac.RoundScore(full.found, full.normal, full.d)
+                label = f"ransac_hypotheses_score seeded {kind} {gate} {(scans, n, k)}"
+                for rep in range(2):  # the cached scratch and tickets reset themselves
+                    _build.reset_launch_counts()
+                    got = ransac.ransac_hypotheses_score(*on_card, c["thresh"], cos_min)
+                    torch.cuda.synchronize()
+                    if {key: v for key, v in _build.LAUNCHES.items() if v} != \
+                            {"ransac_hypotheses_score": 1}:
+                        raise AssertionError(f"{label}: launches {_build.LAUNCHES}")
+                    _ransac_equal(f"{label} call {rep}", got, want)
+                res, counts, best = ransac._score_launch(
+                    on_card, (float(c["thresh"]), float(cos_min), (0.0, 0.0, 1.0)), detail=True)
+                _ransac_equal(f"{label} with counts", (counts, best, *res), full[:5])
+        rng = np.random.default_rng(n)
+        c = ransac_cases.round_case(n * 3 + k, scans, n, k, "probes")
+        points, valid, tri, n_valid = (torch.tensor(c[f]) for f in ("points", "valid", "tri",
+                                                                     "n_valid"))
+        state = ransac.RoundState(
+            valid=valid, union=torch.tensor(rng.random((scans, n)) < 0.3),
+            last=torch.tensor(rng.random((scans, n)) < 0.3),
+            coeffs=torch.tensor(rng.standard_normal((scans, 4, 4)).astype(np.float32)),
+            pvalid=torch.tensor(rng.random((scans, 4)) < 0.5),
+            i=torch.tensor(rng.integers(0, 5, scans), dtype=torch.int32),
+            found=torch.tensor(rng.random(scans) < 0.5))
+        plane = ransac.ransac_hypotheses_score_plain(points, valid, tri, n_valid, c["thresh"],
+                                                     ransac.axis_cos_min(gates["radians"]),
+                                                     (0.0, 0.0, 1.0))
+        close = (points, plane.normal, plane.d, plane.found,
+                 torch.tensor(rng.random(scans) < 0.8), c["thresh"], state)
+        want = ransac.plane_inliers_close_plain(*close)
+        _build.reset_launch_counts()
+        got = ransac.plane_inliers_close(*_fresh([
+            *[a.to(dev) if a.dim() else a for a in close[:-1]],
+            ransac.RoundState(*[t.to(dev) for t in state])]))
+        torch.cuda.synchronize()
+        if {key: v for key, v in _build.LAUNCHES.items() if v} != {"plane_inliers_close": 1}:
+            raise AssertionError(f"plane_inliers_close seeded: launches {_build.LAUNCHES}")
+        _ransac_equal(f"plane_inliers_close seeded {(scans, n)}", got, want)
+        print(f"ransac seeded {(scans, n, k)}: ransac_hypotheses_score on probes, ties, "
+              f"degenerate draws and random draws at both gates (one launch a call; the counts "
+              f"and winner too) and plane_inliers_close (one launch) each equal to the plain "
+              f"version on a CPU copy [{card}]")
 
     rows = []
     for path, run in RANSAC_RUNS.items():
         cfg = run["config"]
         # a round a plane slot, for each RANSAC run of the path's counted
         # run (the flagship path counts its three scenes' scans)
-        runs = run["runs"]
-        want = {"ransac_score": runs * cfg.max_planes,
-                "plane_inliers": runs * cfg.max_planes * (1 + cfg.ransac_refine_iters)}
+        runs, rounds = run["runs"], cfg.max_planes
+        want = {"ransac_hypotheses_score": runs * rounds,
+                "plane_inliers": runs * rounds * cfg.ransac_refine_iters,
+                "plane_inliers_close": runs * rounds}
         got = {key: launches[path][key] for key in want}
-        if got != want or len(run["score"]) != cfg.max_planes:
+        if got != want or len(run["score"]) != rounds or len(run["close"]) != rounds:
             raise AssertionError(f"{path}: RANSAC launches {got} over {runs} run(s), expected "
                                  f"{want}")
-        rows += _ransac_rows(path, run)
-        print(f"ransac {path}: every call of the run equal to the plain version; launches {got} "
-              f"[{card}]")
-    for path in ("flagship", "fullscale", "flagship_batch"):
-        args, kw = RANSAC_RUNS[path]["stage"]
+        if path in ("flagship", "fullscale", "fullscale_bandoff", "flagship_batch") and \
+                launches[path]["fma_chain"] != FMA_A_SCAN * runs:
+            raise AssertionError(f"{path}: {launches[path]['fma_chain']} fma_chain launches over "
+                                 f"{runs} run(s), expected {FMA_A_SCAN} a run")
+        rows += _ransac_rows(path, run, card)
+        print(f"ransac {path}: every call of the run equal to the plain version; launches {got}, "
+              f"fma_chain {launches[path]['fma_chain']} over {runs} run(s) [{card}]")
+    for path, run in RANSAC_RUNS.items():
+        args, kw = run["stage"]
 
         def stage(args=args, kw=kw):
             pipeline.segment_planes(*args, **kw)
 
-        kernels, saved = _stage_numbers(stage), (ransac.ransac_score, ransac.plane_inliers)
-        ransac.ransac_score, ransac.plane_inliers = ransac.ransac_score_plain, \
-            ransac.plane_inliers_plain
+        _build.reset_launch_counts()
+        stage()
+        torch.cuda.synchronize()
+        if _build.LAUNCHES["fma_chain"]:
+            raise AssertionError(f"ransac stage {path}: {_build.LAUNCHES['fma_chain']} fma_chain "
+                                 f"launches, expected none")
+        kernels = _stage_numbers(stage)
+        names = ("ransac_hypotheses_score", "plane_inliers", "plane_inliers_close")
+        saved = [getattr(ransac, name) for name in names]
+        for name in names:
+            setattr(ransac, name, getattr(ransac, f"{name}_plain"))
         try:
             plain = _stage_numbers(stage)
         finally:
-            ransac.ransac_score, ransac.plane_inliers = saved
-        print(f"ransac stage {path}: with the kernels {kernels}; with the plain versions (the "
-              f"composition they replaced) {plain} [{card}]")
+            for name, fn in zip(names, saved):
+                setattr(ransac, name, fn)
+        print(f"ransac stage {path}: with the kernels {kernels}; the plain versions {plain} "
+              f"[{card}]")
     return rows
 
 

@@ -46,13 +46,14 @@ NVCC_FLAGS = [
 
 # kernel name -> launches since the last reset
 # (a kernel's mode or form that a path must be seen to take counts apart:
-# K1's counts mode, K3-K5 over a row range of the query rows)
+# K1's counts mode, K3-K5 over a row range of the query rows, the mask that
+# closes a RANSAC round)
 LAUNCHES = {"runreduce": 0, "runreduce_counts": 0, "compact_gather": 0, "knn_mean": 0,
             "knn_mean_rows": 0, "cluster_loop": 0, "cluster_grid_loop": 0, "cluster_sweep": 0,
             "cluster_sweep_rows": 0, "cluster_sweep_banded": 0, "cluster_sweep_banded_rows": 0,
             "segscan": 0, "binned_sum": 0, "xla_sum": 0, "covariance_tail": 0, "segment_fold": 0,
-            "shadow_slots": 0, "shadow_raster": 0, "libm32": 0, "fma_chain": 0, "ransac_score": 0,
-            "plane_inliers": 0}
+            "shadow_slots": 0, "shadow_raster": 0, "libm32": 0, "fma_chain": 0,
+            "ransac_hypotheses_score": 0, "plane_inliers": 0, "plane_inliers_close": 0}
 
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -109,14 +110,16 @@ _SIGNATURES = {
     "pcp_libm32": [_VP, _VP, _LL, _I, _VP, _VP],
     # the arguments packed as csrc/fma_chain.cu's ChainArgs (ops._FMA_ARGS)
     "pcp_fma_chain": [ctypes.c_char_p],
-    # points, valid, nx, ny, nz, ds, gate, scans, n, k, thresh, scratch
-    # (counts and tickets, zero between calls), counts, best, found,
-    # normal, d, stream
-    "pcp_ransac_score": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP, _VP, _VP, _VP,
-                         _VP, _VP, _VP],
+    # the arguments packed as csrc/ransac_score.cu's ScoreArgs (ops.ransac._SCORE_ARGS)
+    "pcp_ransac_score": [ctypes.c_char_p],
     # points, valid, normal, d, n_inl (or null), prev (or null), scans, n,
     # thresh, out, stream
     "pcp_plane_inliers": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _VP, _VP],
+    # points, normal, d, found, active, scans, n, max_planes, thresh; the
+    # state, updated in place: valid, union, last, coeffs, pvalid, i,
+    # found; stream
+    "pcp_plane_inliers_close": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP, _VP, _VP, _VP, _VP,
+                                _VP, _VP, _VP],
 }
 
 BUILD_SECONDS: list[float] = []  # wall time of each build this process ran

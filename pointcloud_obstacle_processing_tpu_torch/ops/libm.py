@@ -36,7 +36,7 @@ import torch
 from . import sqrt32
 from .. import _build
 
-__all__ = ["atan2f", "atanf", "tanf", "asin_like_xla", "on_card", "ROUTINES"]
+__all__ = ["atan2f", "atanf", "tanf", "asin_like_xla", "acos_like_xla", "on_card", "ROUTINES"]
 
 
 def _f(bits: int) -> float:
@@ -297,6 +297,17 @@ def asin_like_xla(x: torch.Tensor) -> torch.Tensor:
     are its argument returned untouched, needs no such care."""
     x = _flush(x)
     return 2.0 * _atan2f(x, 1.0 + sqrt32((1.0 - x) * (1.0 + x)), flush=True)
+
+
+def acos_like_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``arccos`` as XLA:CPU evaluates the reference's ``jnp.arccos``:
+    ``atan2f(sqrt((1 - x) * (1 + x)), x)``, the root correctly rounded, under
+    the flush-to-zero of ``asin_like_xla`` (read off the optimized HLO of
+    the jitted ``jnp.arccos``).  RANSAC's axis gate decides by it
+    (``ops.ransac.axis_cos_min``); torch's own ``arccos`` differs from it by
+    an ulp on about 2% of [0, 1]."""
+    x = _flush(x)
+    return _atan2f(sqrt32((1.0 - x) * (1.0 + x)), x, flush=True)
 
 
 ROUTINES = {"asin_like_xla": asin_like_xla, "tanf": tanf, "atan2f": atan2f}

@@ -14,17 +14,25 @@ have stopped change nothing.
 
 Every function also takes a batch of clouds (``[B, N]``): each scan keeps
 its own round state (``i``, ``found``, ``active`` are ``[B]``), the draw
-gets ``n_valid`` [B] and returns [B, K, 3], and the hypotheses are scored
-for the whole batch at once: ``ransac_score`` (on the CPU a ``[B, N, K]``
-table; on the card one count-and-select launch that writes no such table,
-then the winner's mask) and ``plane_inliers`` (the refinement's mask).
+gets ``n_valid`` [B] and returns [B, K, 3], and a round runs for the whole
+batch at once: ``ransac_hypotheses_score`` builds, gates, scores and
+selects the hypotheses (on the CPU ``hypotheses_plain`` and a ``[B, N, K]``
+table; on the card one launch that writes no such table),
+``plane_inliers`` gives the winner's mask, the refinement's and
+``ransac_plane_once``'s last (the round's last plane's, where it found
+one), and in ``segment_planes`` that last mask closes the round
+(``plane_inliers_close``: the round's mask applied to the loop's state in
+place).
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import struct
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from . import (
@@ -38,6 +46,7 @@ from . import (
     sum_like_xla,
     sum_like_xla_plain,
 )
+from .libm import acos_like_xla
 from .. import _build
 from ..config import PipelineConfig
 from ..types import Cloud, PlaneModel, batch_of, scan_of
@@ -45,15 +54,24 @@ from ..types import Cloud, PlaneModel, batch_of, scan_of
 __all__ = [
     "ransac_plane_once",
     "segment_planes",
-    "ransac_score",
+    "ransac_hypotheses_score",
+    "ransac_hypotheses_score_plain",
+    "hypotheses_plain",
+    "axis_cos_min",
+    "score_form",
     "ransac_score_plain",
     "plane_inliers",
     "plane_inliers_plain",
+    "plane_inliers_close",
+    "plane_inliers_close_plain",
     "covariance_tail",
     "hypotheses_for_confidence",
     "draw_from_uniform",
     "draw_from_bits",
     "PlaneOnceResult",
+    "RoundPlane",
+    "RoundScore",
+    "RoundState",
     "ScoreResult",
     "SegmentPlanesResult",
 ]
@@ -212,9 +230,84 @@ class ScoreResult(NamedTuple):  # RANSAC's scoring and selection, a scan a row
     inliers: torch.Tensor  # [B, N] bool the winner's mask
 
 
+class RoundScore(NamedTuple):  # a round's winner, a scan a row
+    found: torch.Tensor  # [B] bool: the winner's count > 0
+    normal: torch.Tensor  # [B, 3] the winner's normal
+    d: torch.Tensor  # [B] the winner's offset
+
+
+@functools.lru_cache(maxsize=64)
+def _cos_min(eps_bits: int) -> float:
+    eps = np.int32(eps_bits).view(np.float32)
+
+    def passes(bits: int) -> bool:
+        c = torch.tensor([bits], dtype=torch.int32).view(torch.float32)
+        return bool(acos_like_xla(c)[0] <= eps)
+
+    lo, hi = 0, 0x3F800000  # the bits of 0.0 and 1.0
+    if not passes(hi):
+        return math.inf
+    if passes(lo):
+        return 0.0
+    while hi - lo > 1:  # passes(hi), not passes(lo)
+        mid = (lo + hi) // 2
+        if passes(mid):
+            hi = mid
+        else:
+            lo = mid
+    return float(np.int32(hi).view(np.float32))
+
+
+def axis_cos_min(eps_angle: float) -> torch.Tensor:
+    """The axis gate's threshold for the float32 ``eps_angle``: the least
+    float32 ``c`` in [0, 1] with ``arccos(c) <= eps_angle``, where arccos is
+    the reference's ``jnp.arccos`` as XLA:CPU evaluates it
+    (``libm.acos_like_xla``), as a 0-d CPU float32 tensor (``inf`` where no
+    ``c`` passes).  arccos falls as ``c`` rises, so ``clamp(|cos|, 0, 1) >=
+    cos_min`` is the reference's ``arccos(clamp(|cos|, 0, 1)) <= eps``; a
+    NaN fails both.  Found once an ``eps`` by bisection over the float32
+    bit patterns of [0, 1] (``tests/test_torch_ransac_round.py`` holds the
+    two decisions equal around it)."""
+    return f32(_cos_min(int(np.float32(eps_angle).view(np.int32))))
+
+
+def hypotheses_plain(points, tri, n_valid, cos_min, axis):
+    """The round's K planes a scan and their gates, from the drawn points
+    ``tri`` [B, K, 3] (indices into ``points`` [B, N, 3]), ``n_valid`` [B]
+    int32, ``cos_min`` (``axis_cos_min``) and ``axis`` (three floats): the
+    reference's cross product, norm and offset as XLA:CPU contracts them
+    (bitwise equal to it: tests/test_torch_ransac.py), the axis gate in its
+    threshold form.  Returns (nx, ny, nz, ds, gate), [B, K] each."""
+    ax = [f32(a) for a in axis]
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]  # [B, N]
+    i0, i1, i2 = tri[..., 0], tri[..., 1], tri[..., 2]
+    p0x, p0y, p0z = _gather(x, i0), _gather(y, i0), _gather(z, i0)
+    p1x, p1y, p1z = _gather(x, i1), _gather(y, i1), _gather(z, i1)
+    p2x, p2y, p2z = _gather(x, i2), _gather(y, i2), _gather(z, i2)
+
+    ux, uy, uz = p1x - p0x, p1y - p0y, p1z - p0z
+    vx, vy, vz = p2x - p0x, p2y - p0y, p2z - p0z
+    nx = fma(uy, vz, -(uz * vy))
+    ny = fma(uz, vx, -(ux * vz))
+    nz = fma(ux, vy, -(uy * vx))
+    norms = sqrt32(add_sq3(nx, ny, nz))
+    degenerate = norms < f32(1e-12)
+    inv = 1.0 / torch.clamp_min(norms, 1e-20)
+    nx, ny, nz = nx * inv, ny * inv, nz * inv
+    ds = -dot3(nx, ny, nz, p0x, p0y, p0z)  # [B, K]
+
+    cosang = torch.clamp(torch.abs(nx * ax[0] + ny * ax[1] + nz * ax[2]), 0.0, 1.0)
+    gate = (cosang >= cos_min) & ~degenerate & (n_valid >= 3)[:, None]
+    return nx, ny, nz, ds, gate
+
+
 def ransac_score_plain(points, valid, nx, ny, nz, ds, gate, thresh) -> ScoreResult:
-    """Plain PyTorch version of ``ransac_score``: the ``[B, N, K]`` distance
-    table, its mask and count, the gate, ``argmax`` and the gathers."""
+    """A round's scoring and selection on given planes (``nx``, ``ny``,
+    ``nz``, ``ds``, ``gate`` [B, K]) in plain PyTorch: the ``[B, N, K]``
+    distance table, its mask and count, the gate, ``argmax`` and the
+    gathers.  With ``hypotheses_plain`` it is the score kernel's reference
+    (``ransac_hypotheses_score_plain``); the tests read the gated counts
+    and the winner's index and mask from it."""
     x, y, z = points[..., 0], points[..., 1], points[..., 2]
     dists = torch.abs(_plane_dist(x[..., None], y[..., None], z[..., None],
                                   nx[:, None, :], ny[:, None, :], nz[:, None, :],
@@ -233,6 +326,44 @@ def ransac_score_plain(points, valid, nx, ny, nz, ds, gate, thresh) -> ScoreResu
     return ScoreResult(counts, best[:, 0], found, normal, d, inliers)
 
 
+def ransac_hypotheses_score_plain(points, valid, tri, n_valid, thresh, cos_min,
+                                  axis) -> RoundScore:
+    """Plain PyTorch version of ``ransac_hypotheses_score``:
+    ``hypotheses_plain``, then ``ransac_score_plain``'s selection."""
+    planes = hypotheses_plain(points, tri, n_valid, cos_min, axis)
+    return RoundScore(*ransac_score_plain(points, valid, *planes, thresh)[2:5])
+
+
+SCORE_THREADS = 256  # rows a block of the score kernel takes R at a time
+SCORE_CHUNK = 1024  # planes a block stages at a time
+SCORE_BLOCKS_AN_SM = 2  # the blocks an SM a call aims for (the forms' rows and slices)
+
+
+def score_form(scans: int, n: int, k: int, sms: int) -> tuple[int, int]:
+    """The score kernel's form for ``scans`` x ``n`` rows and ``k``
+    hypotheses on a card of ``sms`` SMs: (rows a thread, hypotheses a
+    z-slice).  8 rows a thread where the call's blocks still fill every SM
+    twice (a batch of 32 flagship scans), else 2 (the flagship's 24,576
+    rows, fullscale's 262,144).  Where the row blocks fall short of two an
+    SM and the planes fit one staged chunk, the hypotheses are split over
+    the grid's z into slices of a multiple of 32, as many as bring the
+    blocks to two an SM (the flagship's 48 row blocks take 4 slices of 32);
+    else one slice of all K."""
+    target = SCORE_BLOCKS_AN_SM * sms
+    rows = 8 if scans * n >= target * SCORE_THREADS * 8 else 2
+    blocks = scans * -(-n // (SCORE_THREADS * rows))
+    groups = -(-k // 32)
+    slices = 1
+    if k <= SCORE_CHUNK and 0 < blocks < target:
+        slices = min(groups, -(-target // blocks))
+    return rows, 32 * -(-groups // slices)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 # the score kernel's scratch: (device index, stream) -> int32 zeros, [B, K]
 # counts then a ticket a scan, which every launch leaves zero
 _SCORE_SCRATCH: dict = {}
@@ -248,48 +379,120 @@ def _score_scratch(ref: torch.Tensor, stream: int, size: int) -> torch.Tensor:
     return scratch
 
 
-def ransac_score(points: torch.Tensor, valid: torch.Tensor, nx: torch.Tensor, ny: torch.Tensor,
-                 nz: torch.Tensor, ds: torch.Tensor, gate: torch.Tensor,
-                 thresh: torch.Tensor) -> ScoreResult:
-    """Score K plane hypotheses a scan against its points and pick the
-    winner: ``points`` [B, N, 3] float32, ``valid`` [B, N] bool, the planes
-    ``nx``, ``ny``, ``nz``, ``ds`` [B, K] float32, ``gate`` [B, K] bool (the
-    hypotheses that may win), ``thresh`` the float32 distance threshold (a
-    0-d CPU tensor, ``f32``).  A point is an inlier of plane k when it is
-    valid and ``|fma(z, nz, fma(x, nx, y * ny)) + d| < thresh``.
+# ``csrc/ransac_score.cu``'s ``ScoreArgs``: four operand pointers, five
+# sizes, five float32 constants (each in the low half of its field), six
+# output and scratch pointers and the stream; all 8-byte fields
+_SCORE_ARGS = struct.Struct("<4q5q" + "fi" * 5 + "7q")
+_SCORE_IN = struct.Struct("<4q")
+_SCORE_OUT = struct.Struct("<7q")
+_SCORE_OUT_AT = 8 * (4 + 5 + 5)
+_SCORE_TYPES = (torch.float32, torch.bool, torch.int64, torch.int32)
 
-    CPU tensors take ``ransac_score_plain``; CUDA tensors one launch of
-    ``csrc/ransac_score.cu``'s score kernel (each row read once, a count a
-    hypothesis by warp sums, the selection in the scan's last block; no
-    [B, N, K] tensor, no host read) and one of ``plane_inliers`` for the
-    winner's mask.  Bitwise alike."""
-    if points.device.type == "cpu":
-        return ransac_score_plain(points, valid, nx, ny, nz, ds, gate, thresh)
-    b, n = valid.shape
-    k = nx.shape[-1]
-    if points.shape != (b, n, 3) or any(t.shape != (b, k) for t in (nx, ny, nz, ds, gate)):
-        raise ValueError("ransac_score: points [B, N, 3], valid [B, N], the planes and gate [B, K]")
+
+def _is_contiguous(shape, stride) -> bool:
+    """Whether a tensor of ``shape`` and ``stride`` is laid out row-major
+    with no gaps (a dim of size 1 may take any stride)."""
+    step = 1
+    for size, st in zip(reversed(shape), reversed(stride)):
+        if size != 1 and st != step:
+            return False
+        step *= size
+    return True
+
+
+@functools.lru_cache(maxsize=1024)
+def _score_plan(layout: tuple, constants: tuple, form) -> tuple:
+    """What a score launch's arguments hold that depends only on the
+    operands' layout (points, valid, tri, n_valid: each one's shape,
+    strides, device index and dtype), the constants (thresh, cos_min, the
+    axis' three floats) and ``form`` (None: ``score_form``'s): (scans, K,
+    ``ScoreArgs`` packed with every pointer zero).  Raises on operands the
+    kernel does not take."""
+    (p_shape, _, index, _), (v_shape, *_), (t_shape, *_), (c_shape, *_) = layout
+    b, n = v_shape
+    k = t_shape[1] if len(t_shape) == 3 else -1
+    if p_shape != (b, n, 3) or t_shape != (b, k, 3) or c_shape != (b,):
+        raise ValueError("ransac_hypotheses_score: points [B, N, 3], valid [B, N], "
+                         "tri [B, K, 3], n_valid [B]")
     if b and (n < 1 or k < 1):
-        raise ValueError("ransac_score: N >= 1 points and K >= 1 hypotheses")
-    pts, ok, g = points.contiguous(), valid.contiguous(), gate.contiguous()
-    planes = [t.contiguous() for t in (nx, ny, nz, ds)]
-    _build.require_cuda("ransac_score", pts, ok, *planes, g,
-                        dtypes=(torch.float32, torch.bool, *[torch.float32] * 4, torch.bool))
-    counts = pts.new_empty((b, k), dtype=torch.int32)
-    best = pts.new_empty(b, dtype=torch.int64)
-    found = pts.new_empty(b, dtype=torch.bool)
-    normal = pts.new_empty((b, 3))
-    d = pts.new_empty(b)
+        raise ValueError("ransac_hypotheses_score: N >= 1 points and K >= 1 hypotheses")
+    for i, ((shape, stride, dev, dtype), want) in enumerate(zip(layout, _SCORE_TYPES)):
+        if dev < 0 or dev != index:
+            raise ValueError("ransac_hypotheses_score: every operand must lie on one CUDA device")
+        if not _is_contiguous(shape, stride):
+            raise ValueError(f"ransac_hypotheses_score: operand {i} must be contiguous")
+        if dtype != want:
+            raise TypeError(f"ransac_hypotheses_score: operand {i} must be {want}, got {dtype}")
+    rows, slice_ = form if form is not None else score_form(b, n, k, _sms(index))
+    thresh, cos_min, axis = constants
+    ax, ay, az = (float(np.float32(a)) for a in axis)
+    packed = _SCORE_ARGS.pack(*[0] * 4, b, n, k, rows, slice_, thresh, 0, cos_min, 0, ax, 0,
+                              ay, 0, az, 0, *[0] * 7)
+    return b, k, packed
+
+
+def _score_outputs(pts: torch.Tensor, b: int) -> RoundScore:
+    """The score kernel's outputs for ``b`` scans, views of one allocation
+    on ``pts``' device: normal [B, 3] and d [B] float32, then found [B]
+    bool (a view that reinterprets the bytes)."""
+    out = pts.new_empty(4 * b + -(-b // 4))
+    return RoundScore(out.view(torch.bool).as_strided((b,), (1,), 16 * b),
+                      out.as_strided((b, 3), (3, 1)), out.as_strided((b,), (1,), 3 * b))
+
+
+def _score_launch(operands, constants, form=None, detail: bool = False):
+    """One launch of the score kernel on ``operands`` (points, valid, tri,
+    n_valid) and ``constants`` (thresh, cos_min, the axis), in ``form``
+    (rows a thread, hypotheses a z-slice; None: ``score_form``'s, which the
+    wrapper takes; the tests hold every form alike); the launch fields come
+    from ``_score_plan``, cached a layout.  Returns a ``RoundScore``; with
+    ``detail`` (the tests), also the gated counts [B, K] int32 and the
+    winner's index [B] int64, which the kernel writes only then."""
+    pts, valid, tri, n_valid = operands
+    b, k, packed = _score_plan(
+        tuple((t.shape, t.stride(), t.get_device(), t.dtype) for t in operands), constants, form)
+    found, normal, d = _score_outputs(pts, b)
+    counts = best = None
+    if detail:
+        counts, best = tri.new_empty((b, k), dtype=torch.int32), tri.new_empty(b)
     if b:
         stream = _build.stream_handle()
-        scratch = _score_scratch(pts, stream, b * k + b)
-        err = _build.kernels().pcp_ransac_score(
-            pts.data_ptr(), ok.data_ptr(), *[t.data_ptr() for t in planes], g.data_ptr(), b, n, k,
-            float(thresh), scratch.data_ptr(), counts.data_ptr(), best.data_ptr(),
-            found.data_ptr(), normal.data_ptr(), d.data_ptr(), stream)
-        _build.check(err, "ransac_score")
-        _build.LAUNCHES["ransac_score"] += 1
-    return ScoreResult(counts, best, found, normal, d, plane_inliers(pts, ok, normal, d, thresh))
+        args = bytearray(packed)
+        _SCORE_IN.pack_into(args, 0, pts.data_ptr(), valid.data_ptr(), tri.data_ptr(),
+                            n_valid.data_ptr())
+        _SCORE_OUT.pack_into(args, _SCORE_OUT_AT, _score_scratch(pts, stream, b * k + b).data_ptr(),
+                             found.data_ptr(), normal.data_ptr(), d.data_ptr(),
+                             0 if counts is None else counts.data_ptr(),
+                             0 if best is None else best.data_ptr(), stream)
+        _build.check(_build.kernels().pcp_ransac_score(bytes(args)), "ransac_hypotheses_score")
+        _build.LAUNCHES["ransac_hypotheses_score"] += 1
+    res = RoundScore(found, normal, d)
+    return (res, counts, best) if detail else res
+
+
+def ransac_hypotheses_score(points: torch.Tensor, valid: torch.Tensor, tri: torch.Tensor,
+                            n_valid: torch.Tensor, thresh: torch.Tensor, cos_min: torch.Tensor,
+                            axis=(0.0, 0.0, 1.0)) -> RoundScore:
+    """A round's hypotheses built, gated, scored and selected: ``points``
+    [B, N, 3] float32, ``valid`` [B, N] bool, ``tri`` [B, K, 3] int64 the
+    drawn points (indices into the scan's rows, valid-first), ``n_valid``
+    [B] int32, ``thresh`` the float32 distance threshold and ``cos_min``
+    the axis gate's (``axis_cos_min``; 0-d CPU tensors, ``f32``), ``axis``
+    three floats.  Hypothesis k is the plane through its three points
+    (``hypotheses_plain``); it may win where its gate holds; a point is its
+    inlier when valid and ``|fma(z, nz, fma(x, nx, y * ny)) + d| < thresh``.
+    Returns the winner (the least k among the largest inlier counts):
+    found (its count > 0), normal and offset.
+
+    CPU tensors take ``ransac_hypotheses_score_plain``; CUDA tensors one
+    launch of ``csrc/ransac_score.cu``'s score kernel, each block building
+    the K planes from the drawn points in shared memory (no [B, K] plane
+    tensor, no [B, N, K] table, no host read), in ``score_form``'s form.
+    Bitwise alike."""
+    if not points.is_cuda:
+        return ransac_hypotheses_score_plain(points, valid, tri, n_valid, thresh, cos_min, axis)
+    return _score_launch((points, valid, tri, n_valid),
+                         (float(thresh), float(cos_min), tuple(axis)))
 
 
 def plane_inliers_plain(points, valid, normal, d, thresh, prev=None, n_inl=None) -> torch.Tensor:
@@ -340,6 +543,77 @@ def plane_inliers(points: torch.Tensor, valid: torch.Tensor, normal: torch.Tenso
     return out
 
 
+class RoundState(NamedTuple):  # the removal loop's state, a scan a row
+    valid: torch.Tensor  # [B, N] bool the points not yet taken by a plane
+    union: torch.Tensor  # [B, N] bool the points every plane took
+    last: torch.Tensor  # [B, N] bool the last active round's mask
+    coeffs: torch.Tensor  # [B, max_planes, 4] float32 the planes kept
+    pvalid: torch.Tensor  # [B, max_planes] bool
+    i: torch.Tensor  # [B] int32 the planes kept
+    found: torch.Tensor  # [B] bool: the last active round found a plane
+
+
+def plane_inliers_close_plain(points, normal, d, found, active, thresh,
+                              state: RoundState) -> RoundState:
+    """Plain PyTorch version of ``plane_inliers_close``: the round's mask,
+    the inliers of its plane where it found one, applied to the loop's
+    state where the round is active (``_segment_planes``'s where chain)."""
+    valid, union, last, coeffs, pvalid, i, state_found = state
+    inliers = plane_inliers_plain(points, valid, normal, d, thresh) & found[:, None]
+    at_i = torch.arange(coeffs.shape[1], device=i.device) == i[:, None]  # [B, max_planes]
+    row = torch.cat([normal, d[:, None]], dim=-1)  # [B, 4]
+    a = active[:, None]
+    return RoundState(
+        valid=torch.where(a, valid & ~inliers, valid),
+        union=torch.where(a, union | inliers, union),
+        last=torch.where(a, inliers, last),
+        coeffs=torch.where((active & found)[:, None, None] & at_i[..., None], row[:, None, :],
+                           coeffs),
+        pvalid=torch.where(a & at_i, found[:, None], pvalid),
+        i=i + (active & found).to(torch.int32),
+        found=torch.where(active, found, state_found),
+    )
+
+
+def plane_inliers_close(points: torch.Tensor, normal: torch.Tensor, d: torch.Tensor,
+                        found: torch.Tensor, active: torch.Tensor, thresh: torch.Tensor,
+                        state: RoundState) -> RoundState:
+    """Close a RANSAC round: its mask ``(|fma(z, nz, fma(x, nx, y * ny)) +
+    d| < thresh) & valid & found`` for the round's plane (``normal`` [B, 3],
+    ``d`` [B], ``found`` [B] bool), applied to the loop's ``state`` in scans
+    where ``active`` [B] bool holds: ``valid &= ~mask``, ``union |= mask``,
+    ``last = mask``, the plane into ``coeffs[i]`` where found, ``pvalid[i]
+    = found``, ``i += found``, the loop's ``found`` set.  The refinement's
+    running mask is the mask of its running plane, so the round's last
+    refinement mask, with ``found``, is this mask (held pass by pass in
+    ``tests/test_torch_ransac_round.py``).
+
+    CPU tensors take ``plane_inliers_close_plain`` (new tensors); CUDA
+    tensors one launch of ``csrc/ransac_score.cu``'s closing kernel, which
+    updates the state's tensors in place and returns them."""
+    if not points.is_cuda:
+        return plane_inliers_close_plain(points, normal, d, found, active, thresh, state)
+    b, n = state.valid.shape
+    mp = state.coeffs.shape[1]
+    shapes = [(b, n, 3), (b, 3), (b,), (b,), (b,), (b, n), (b, n), (b, n), (b, mp, 4), (b, mp),
+              (b,), (b,)]
+    operands = [points, normal, d, found, active, *state]
+    if any(t.shape != s for t, s in zip(operands, shapes)):
+        raise ValueError("plane_inliers_close: points [B, N, 3], normal [B, 3], d, found and "
+                         "active [B]; the state's masks [B, N], coeffs [B, P, 4], pvalid [B, P], "
+                         "i and found [B]")
+    _build.require_cuda("plane_inliers_close", *operands, dtypes=(
+        torch.float32, torch.float32, torch.float32, torch.bool, torch.bool, torch.bool,
+        torch.bool, torch.bool, torch.float32, torch.bool, torch.int32, torch.bool))
+    if b:
+        err = _build.kernels().pcp_plane_inliers_close(
+            *[t.data_ptr() for t in operands[:5]], b, n, mp, float(thresh),
+            *[t.data_ptr() for t in state], _build.stream_handle())
+        _build.check(err, "plane_inliers_close")
+        _build.LAUNCHES["plane_inliers_close"] += 1
+    return state
+
+
 class PlaneOnceResult(NamedTuple):  # a leading [B] on every field for a batch
     normal: torch.Tensor  # [3] unit normal
     d: torch.Tensor  # [] plane offset (n·p + d = 0)
@@ -353,11 +627,19 @@ def ransac_plane_once(cloud: Cloud, u: torch.Tensor, config: PipelineConfig,
     valid points, in input order), or one a scan from [B, K, 3] draws over
     a batch of clouds.  ``vmapped`` (by default: whether a batch was given)
     takes the refinement's arithmetic as the reference's ``jax.vmap``
-    evaluates it, else as its single scan does (``_sum3``)."""
+    evaluates it, else as its single scan does (``_sum3``).  The round's
+    mask is the inliers of its last plane where it found one (the
+    refinement's running mask is its running plane's: ``_round_plane``)."""
     cloud, single = batch_of(cloud)
     vmapped = not single if vmapped is None else vmapped
-    res = _plane_once(cloud, u[None] if single else u, config, axis, vmapped,
-                      _with_ones(cloud.points))
+    pts, valid = cloud.points.contiguous(), cloud.valid.contiguous()
+    r = _round_plane(Cloud(points=pts, valid=valid), u[None] if single else u, config, axis,
+                     vmapped, _with_ones(pts))
+    inliers = plane_inliers(pts, valid, r.refined_normal, r.refined_d,
+                            f32(config.plane_segment_dist_thresh)) & r.found[:, None]
+    res = PlaneOnceResult(normal=torch.where(r.found[:, None], r.refined_normal, r.normal),
+                          d=torch.where(r.found, r.refined_d, r.d), inliers=inliers,
+                          found=r.found)
     return scan_of(res) if single else res
 
 
@@ -372,64 +654,57 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(-1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
 
 
-def _plane_once(cloud: Cloud, u: torch.Tensor, config: PipelineConfig, axis, vmapped: bool,
-                pts1: torch.Tensor) -> PlaneOnceResult:
-    """``ransac_plane_once`` over a batch: cloud [B, N], draws [B, K, 3];
-    ``pts1``: ``_with_ones(cloud.points)``."""
+class RoundPlane(NamedTuple):  # a round's planes before its last mask, a scan a row
+    found: torch.Tensor  # [B] bool: the winner's count > 0
+    normal: torch.Tensor  # [B, 3] the winner's normal
+    d: torch.Tensor  # [B] the winner's offset
+    refined_normal: torch.Tensor  # [B, 3] the last refinement pass's (the winner's if none ran)
+    refined_d: torch.Tensor  # [B]
+
+
+def _round_plane(cloud: Cloud, u: torch.Tensor, config: PipelineConfig, axis, vmapped: bool,
+                 pts1: torch.Tensor, n_valid: torch.Tensor | None = None) -> RoundPlane:
+    """A round up to its last mask over a batch: cloud [B, N] (contiguous),
+    draws [B, K, 3]; ``pts1``: ``_with_ones(cloud.points)``; ``n_valid``:
+    each scan's valid points, where the caller has counted them.  The
+    winner, then ``ransac_refine_iters`` refinement passes, each but the
+    last followed by its mask.  The tail keeps the plane where n_inl < 3
+    and the mask keeps its mask, so the running mask is always the running
+    plane's, and the round's mask is the inliers of ``refined_normal``,
+    ``refined_d`` where found (``ransac_plane_once``,
+    ``plane_inliers_close``)."""
     pts = cloud.points
     valid = cloud.valid
     thresh = f32(config.plane_segment_dist_thresh)
-    eps_angle = f32(config.eps_angle_radians)
-    ax = [f32(a) for a in axis]
-    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]  # [B, N]
 
     # valid-first permutation: a draw in [0, n_valid) names a valid point
-    perm = torch.sort((~valid).to(torch.int8), dim=-1, stable=True).indices
-    n_valid = valid.sum(dim=-1, dtype=torch.int32)
-    tri = _gather(perm, u)  # [B, K, 3]
-    i0, i1, i2 = tri[..., 0], tri[..., 1], tri[..., 2]
-    p0x, p0y, p0z = _gather(x, i0), _gather(y, i0), _gather(z, i0)
-    p1x, p1y, p1z = _gather(x, i1), _gather(y, i1), _gather(z, i1)
-    p2x, p2y, p2z = _gather(x, i2), _gather(y, i2), _gather(z, i2)
-
-    ux, uy, uz = p1x - p0x, p1y - p0y, p1z - p0z
-    vx, vy, vz = p2x - p0x, p2y - p0y, p2z - p0z
-    # cross product, norm and offset as XLA:CPU contracts the reference's
-    # expressions (bitwise equal to it: tests/test_torch_ransac.py)
-    nx = fma(uy, vz, -(uz * vy))
-    ny = fma(uz, vx, -(ux * vz))
-    nz = fma(ux, vy, -(uy * vx))
-    norms = sqrt32(add_sq3(nx, ny, nz))
-    degenerate = norms < f32(1e-12)
-    inv = 1.0 / torch.clamp_min(norms, 1e-20)
-    nx, ny, nz = nx * inv, ny * inv, nz * inv
-    ds = -dot3(nx, ny, nz, p0x, p0y, p0z)  # [B, K]
-
-    cosang = torch.clamp(torch.abs(nx * ax[0] + ny * ax[1] + nz * ax[2]), 0.0, 1.0)
-    axis_ok = torch.arccos(cosang) <= eps_angle
-
-    gate = axis_ok & ~degenerate & (n_valid >= 3)[:, None]
-    _, _, found, normal, d, inliers = ransac_score(pts, valid, nx, ny, nz, ds, gate, thresh)
+    perm = torch.sort(valid.to(torch.int8), dim=-1, descending=True, stable=True).indices
+    if n_valid is None:
+        n_valid = valid.sum(dim=-1, dtype=torch.int32)
+    found, normal, d = ransac_hypotheses_score(
+        pts, valid, _gather(perm, u), n_valid, thresh, axis_cos_min(config.eps_angle_radians),
+        axis)
+    iters = config.ransac_refine_iters
+    r_normal, r_d = normal, d
+    if not iters:
+        return RoundPlane(found, normal, d, r_normal, r_d)
 
     # refinement (setOptimizeCoefficients); the reference's lax.cond on
     # ``found`` becomes a select over an unconditional computation.  Its
     # sums in XLA:CPU's order (``sum_like_xla``): the inlier count and the
     # centroid's sums in one call, the covariance's nine (products rounded,
     # then summed) and the per-scan 3x3 tail in another
-    r_normal, r_d, r_in = normal, d, inliers
-    for _ in range(config.ransac_refine_iters):
+    r_in = plane_inliers(pts, valid, normal, d, thresh)
+    for p in range(iters):
         s4 = sum_like_xla(torch.where(r_in[:, None, :], pts1, 0.0))  # [B, 4]: sx, sy, sz, n
         n_inl = s4[:, 3]
         cen = s4[:, :3] / torch.clamp_min(n_inl, 3.0)[:, None]
         off = pts1[:, :3] - cen[..., None]  # [B, 3, N]
-        nrm, nd = covariance_tail(torch.where(r_in[:, None, :], off, 0.0), off, cen, n_inl,
-                                  r_normal, r_d, vmapped)
-        r_in = plane_inliers(pts, valid, nrm, nd, thresh, prev=r_in, n_inl=n_inl)
-        r_normal, r_d = nrm, nd
-    normal = torch.where(found[:, None], r_normal, normal)
-    d = torch.where(found, r_d, d)
-    inliers = torch.where(found[:, None], r_in, inliers) & found[:, None]
-    return PlaneOnceResult(normal=normal, d=d, inliers=inliers, found=found)
+        r_normal, r_d = covariance_tail(torch.where(r_in[:, None, :], off, 0.0), off, cen, n_inl,
+                                        r_normal, r_d, vmapped)
+        if p < iters - 1:
+            r_in = plane_inliers(pts, valid, r_normal, r_d, thresh, prev=r_in, n_inl=n_inl)
+    return RoundPlane(found, normal, d, r_normal, r_d)
 
 
 class SegmentPlanesResult(NamedTuple):  # a leading [B] on every field for a batch
@@ -465,42 +740,35 @@ def _segment_planes(cloud: Cloud, config: PipelineConfig, draw: Draw, axis,
     b, n = cloud.valid.shape
     dev = cloud.device
     max_planes = config.max_planes
-    frac = f32(config.plane_min_remaining_frac)
+    thresh = f32(config.plane_segment_dist_thresh)
     n0 = cloud.valid.sum(dim=-1, dtype=torch.int32)
-    slots = torch.arange(max_planes, device=dev)
-
-    valid = cloud.valid
-    coeffs = torch.zeros(b, max_planes, 4, dtype=torch.float32, device=dev)
-    pvalid = torch.zeros(b, max_planes, dtype=torch.bool, device=dev)
-    i = torch.zeros(b, dtype=torch.int32, device=dev)
-    found = torch.ones(b, dtype=torch.bool, device=dev)
-    union = torch.zeros(b, n, dtype=torch.bool, device=dev)
-    last = torch.zeros(b, n, dtype=torch.bool, device=dev)
-    pts1 = _with_ones(cloud.points)  # fixed over the rounds
-    for r in range(max_planes):
-        remaining = valid.sum(dim=-1, dtype=torch.int32)
-        active = (remaining.to(torch.float32) > frac * n0.to(torch.float32)) & found & (i < max_planes)
-        res = _plane_once(Cloud(points=cloud.points, valid=valid), draw(r, remaining),
-                          config, axis, vmapped, pts1)
-        at_i = slots == i[:, None]  # [B, max_planes]
-        row = torch.cat([res.normal, res.d[:, None]], dim=-1)  # [B, 4]
-        coeffs = torch.where((active & res.found)[:, None, None] & at_i[..., None],
-                             row[:, None, :], coeffs)
-        pvalid = torch.where(active[:, None] & at_i, res.found[:, None], pvalid)
-        a = active[:, None]
-        valid = torch.where(a, valid & ~res.inliers, valid)
-        union = torch.where(a, union | res.inliers, union)
-        last = torch.where(a, res.inliers, last)
-        i = i + (active & res.found).to(torch.int32)
-        found = torch.where(active, res.found, found)
-    remaining = valid.sum(dim=-1, dtype=torch.int32)
-    truncated = (
-        (remaining.to(torch.float32) > frac * n0.to(torch.float32)) & found & (i >= max_planes)
+    floor = f32(config.plane_min_remaining_frac) * n0.to(torch.float32)
+    pts = cloud.points.contiguous()
+    # the loop's state; on the card each round's closing launch updates it
+    # in place (valid is the caller's: copied)
+    state = RoundState(
+        valid=cloud.valid.clone(memory_format=torch.contiguous_format),
+        union=torch.zeros(b, n, dtype=torch.bool, device=dev),
+        last=torch.zeros(b, n, dtype=torch.bool, device=dev),
+        coeffs=torch.zeros(b, max_planes, 4, dtype=torch.float32, device=dev),
+        pvalid=torch.zeros(b, max_planes, dtype=torch.bool, device=dev),
+        i=torch.zeros(b, dtype=torch.int32, device=dev),
+        found=torch.ones(b, dtype=torch.bool, device=dev),
     )
+    pts1 = _with_ones(pts)  # fixed over the rounds
+    for r in range(max_planes):
+        remaining = state.valid.sum(dim=-1, dtype=torch.int32)
+        active = (remaining.to(torch.float32) > floor) & state.found & (state.i < max_planes)
+        plane = _round_plane(Cloud(points=pts, valid=state.valid), draw(r, remaining), config,
+                             axis, vmapped, pts1, n_valid=remaining)
+        state = plane_inliers_close(pts, plane.refined_normal, plane.refined_d, plane.found,
+                                    active, thresh, state)
+    remaining = state.valid.sum(dim=-1, dtype=torch.int32)
+    truncated = (remaining.to(torch.float32) > floor) & state.found & (state.i >= max_planes)
     return SegmentPlanesResult(
-        planes=PlaneModel(coeffs=coeffs, valid=pvalid, num_planes=i),
-        nonplane_cloud=Cloud(points=cloud.points, valid=valid),
-        plane_union=union,
-        last_plane=last,
+        planes=PlaneModel(coeffs=state.coeffs, valid=state.pvalid, num_planes=state.i),
+        nonplane_cloud=Cloud(points=cloud.points, valid=state.valid),
+        plane_union=state.union,
+        last_plane=state.last,
         truncated=truncated,
     )

@@ -32,7 +32,8 @@ __all__ = ["HBM_BYTES_PER_S", "FP32_OPS_PER_S", "FP64_OPS_PER_S", "D2_OPS", "LAT
            "stage_bounds", "runreduce", "runreduce_counts", "compact_gather", "knn_mean",
            "cluster_sweep", "cluster_loop", "cluster_grid_loop", "cluster_sweep_banded",
            "segscan", "binned_sum", "xla_sum", "covariance_tail", "segment_fold", "shadow_slots",
-           "shadow_raster", "fma_chain", "ransac_score", "plane_inliers", "PLANE_TEST_OPS"]
+           "shadow_raster", "fma_chain", "ransac_hypotheses_score",
+           "plane_inliers", "plane_inliers_close", "PLANE_TEST_OPS", "HYPOTHESIS_OPS"]
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -46,6 +47,14 @@ D2_OPS = 9
 # float32 operations a (point, plane) test in RANSAC: the plane distance's
 # three products and three adds, the absolute value, the compare
 PLANE_TEST_OPS = 8
+
+# float32 operations a RANSAC hypothesis built from its three points: the
+# six differences, the cross product (three products, three fused steps of
+# two), the norm's chain (a product, two fused steps), the root, the
+# degenerate test, the clamp, the reciprocal, three products, the offset's
+# chain and sign, the axis cosine's three products, two adds, absolute
+# value, clamp and compare, and the gate's two ands
+HYPOTHESIS_OPS = 44
 
 # bytes a packed cluster point: x, y, z, |p|^2 (16), the label (4) and the
 # valid byte (1)
@@ -191,15 +200,33 @@ def fma_chain(out: int, operands: int, steps: int = 1) -> tuple[float, str]:
     return _bound((operands + out) * 4, out * 2 * steps)
 
 
-def ransac_score(scans: int, n: int, k: int, valid_rows: int) -> tuple[float, str]:
-    """RANSAC's scoring and selection (``ops.ransac.ransac_score``): each
-    row's point (12 bytes) and valid flag read once, each hypothesis' plane
-    (16 bytes) and gate flag read once, the gated counts (4 bytes a
-    hypothesis), each scan's winner (index, flag, normal, offset: 25 bytes)
-    and the winner's mask (a byte a row) written; PLANE_TEST_OPS float32
-    operations for each of the ``valid_rows`` (all scans) against each of
-    the ``k`` planes of its scan."""
-    return _bound(scans * (n * 13 + k * 21 + 25 + n), valid_rows * k * PLANE_TEST_OPS)
+def ransac_hypotheses_score(scans: int, n: int, k: int, valid_rows: int) -> tuple[float, str]:
+    """A RANSAC round's hypotheses built, gated, scored and selected
+    (``ops.ransac.ransac_hypotheses_score``): each row's point (12 bytes)
+    and valid flag read once, each hypothesis' three drawn indices (24
+    bytes) and each scan's valid count (4) read once, each scan's winner
+    (found, normal, offset: 17 bytes) written; HYPOTHESIS_OPS float32
+    operations a hypothesis and PLANE_TEST_OPS for each of the
+    ``valid_rows`` (all scans) against each of the ``k`` planes of its
+    scan."""
+    return _bound(scans * (n * 13 + k * 24 + 4 + 17),
+                  valid_rows * k * PLANE_TEST_OPS + scans * k * HYPOTHESIS_OPS)
+
+
+def plane_inliers_close(scans: int, n: int, active: int, found: int, tested_rows: int,
+                        inliers: int) -> tuple[float, str]:
+    """The mask that closes a RANSAC round (``ops.ransac.plane_inliers_close``)
+    in place, from what this call's data needs: each scan's active flag; in
+    each of the ``active`` scans, ``last`` written a row and the scan's
+    found flag, plane (16 bytes), plane count (read and written, 8), the
+    loop's found flag and its slot of coefficients and flag (17) moved; in
+    each of the ``found`` scans (active, and the round found a plane) the
+    valid flag read a row; each of the ``tested_rows`` (valid rows of those
+    scans) its point read (12 bytes) and PLANE_TEST_OPS float32
+    operations; each of the ``inliers`` its valid and union flags
+    written."""
+    return _bound(scans + active * (n + 43) + found * n + tested_rows * 12 + inliers * 2,
+                  tested_rows * PLANE_TEST_OPS)
 
 
 def plane_inliers(scans: int, n: int, select: bool = False) -> tuple[float, str]:

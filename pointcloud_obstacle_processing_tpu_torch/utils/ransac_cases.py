@@ -1,10 +1,12 @@
-"""Seeded inputs of RANSAC's scoring (``ops.ransac.ransac_score``) and mask
+"""Seeded inputs of RANSAC's round (``ops.ransac.ransac_hypotheses_score``,
+and its reference on given planes, ``ransac_score_plain``) and mask
 (``plane_inliers``) that reach their edges: points a few ulps either side
 of the distance threshold, counts that tie, hypotheses gated off, invalid
 rows with NaN coordinates, and planes padded past a warp's 32.
 
-``score_case`` returns numpy arrays, so the CPU tests, the card tests and
-``chip_smoke.py`` phase 15 hand the same values to every version.
+``score_case`` (given planes) and ``round_case`` (drawn triples) return
+numpy arrays, so the CPU tests, the card tests and ``chip_smoke.py`` phase
+15 hand the same values to every version.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 
 from ..ops import dot3, f32
 
-__all__ = ["THRESH", "score_case", "probe_points"]
+__all__ = ["THRESH", "score_case", "round_case", "probe_points"]
 
 THRESH = 0.04  # the shipped plane_segment_dist_thresh
 
@@ -104,3 +106,63 @@ def score_case(seed: int, scans: int, n: int, k: int, kind: str = "probes") -> d
     return {"points": pts, "valid": valid, "nx": normals[..., 0].copy(),
             "ny": normals[..., 1].copy(), "nz": normals[..., 2].copy(), "ds": ds, "gate": gate,
             "thresh": f32(THRESH)}
+
+
+# three points of a near-horizontal plane through the origin's neighbourhood,
+# exact in float32: the probes' hypothesis in ``round_case``
+_PROBE_TRIPLE = np.float32([[0.5, 0.5, 0.0], [2.5, 0.75, 0.001], [1.0, 2.5, -0.001]])
+
+
+def round_case(seed: int, scans: int, n: int, k: int, kind: str = "probes") -> dict:
+    """``score_case``'s clouds (``scans`` x ``n`` rows, NaN coordinates on
+    invalid rows) with ``k`` drawn triples a scan, as a round draws them:
+    indices of valid rows (a scan with none draws row 0).  ``kind``:
+
+    * ``"probes"``: hypothesis 0 of each scan draws three fixed points of a
+      near-horizontal plane, and a share of the other valid rows lie within
+      8 ulps of the threshold of the plane those points build
+      (``ops.ransac.hypotheses_plain``);
+    * ``"ties"``: each scan's best hypothesis is drawn again at several k,
+      so the largest count ties;
+    * ``"gated"``: scan 0 draws only degenerate triples (a point repeated),
+      every other scan about half;
+    * ``"random"``: random triples.
+
+    Returns numpy ``points`` [B, N, 3], ``valid`` [B, N], ``tri`` [B, K, 3]
+    int64, ``n_valid`` [B] int32, and ``thresh`` (``ops.f32``)."""
+    from ..ops import ransac
+
+    c = score_case(seed, scans, n, k, "random")
+    pts, valid = c["points"], c["valid"]
+    rng = np.random.default_rng(seed + 1)
+    tri = np.zeros((scans, k, 3), np.int64)
+    axis = (0.0, 0.0, 1.0)
+    for b in range(scans):
+        rows = np.flatnonzero(valid[b])
+        if not len(rows):
+            continue
+        tri[b] = rows[rng.integers(0, len(rows), (k, 3))]
+        if kind == "probes" and len(rows) > 3:
+            pts[b, rows[:3]] = _PROBE_TRIPLE
+            tri[b, 0] = rows[:3]
+            nx, ny, nz, d, _ = (t.numpy()[0, 0] for t in ransac.hypotheses_plain(
+                torch.tensor(_PROBE_TRIPLE[None]), torch.arange(3)[None, None],
+                torch.tensor([3], dtype=torch.int32), f32(0.0), axis))
+            probes = probe_points(rng, np.float32([nx, ny, nz]), d,
+                                  bases=max(1, len(rows) // 40))
+            at = rows[3:3 + len(probes)]
+            pts[b, at] = probes[: len(at)]
+        if kind == "gated":
+            off = np.ones(k, bool) if b == 0 else rng.random(k) < 0.5
+            tri[b, off, 1] = tri[b, off, 0]
+    n_valid = valid.sum(-1).astype(np.int32)
+    if kind == "ties":
+        t_pts, t_valid = torch.tensor(pts), torch.tensor(valid)
+        planes = ransac.hypotheses_plain(t_pts, torch.tensor(tri), torch.tensor(n_valid), f32(0.0),
+                                         axis)
+        counts = ransac.ransac_score_plain(t_pts, t_valid, *planes, f32(THRESH)).counts.numpy()
+        for b in range(scans):
+            top = int(np.argmax(counts[b]))
+            copies = rng.choice(k, size=min(k, 4), replace=False)
+            tri[b, copies] = tri[b, top]
+    return {"points": pts, "valid": valid, "tri": tri, "n_valid": n_valid, "thresh": f32(THRESH)}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Kernels of two checkouts of the PyTorch port, and their scans, timed in
-turns on one CUDA card: the shadow stage's kernels, RANSAC's round and the
-fused multiply-add chain wrapper.
+turns on one CUDA card: the shadow stage's kernels, RANSAC's round, its
+stage and its scoring entry, and the fused multiply-add chain wrapper.
 
     python3 scripts/torch_shadow_fma_ab.py --parent _parent --out shadow_fma_ab.json
 
@@ -28,6 +28,17 @@ events around 20 calls), device ms and device operations a call
   = 128, with its peak device memory above the inputs;
 * ``dot3``: ``ops.dot3`` at RANSAC's scoring shapes, seeded [B, N, 1]
   points against [B, 1, 128] planes (the wrapper's host ms);
+* ``stage``: ``ops.ransac.segment_planes`` on the cloud that enters it in
+  the flagship scan (scene 0), the fullscale window and the flagship batch
+  of 32, with that run's config and draws: besides the timings above, its
+  synced time (p50 of 10 calls, each between two synchronizes, as
+  ``scripts/torch_profile_scan.py`` times a stage) and peak device memory;
+* ``score``: a round's scoring on the first round's inputs of the same
+  three clouds (K = 128, seeded draws): ``score``, the entry the round
+  calls (``ransac_hypotheses_score``; in a checkout without it,
+  ``ransac_score`` on planes built eagerly beforehand, which also launches
+  the winner's mask), and ``score_and_mask``, the hypotheses, their
+  scoring and the winner's mask, the same function in both checkouts;
 
 then the ``process_scan`` p50 and the device operations and device time of
 one scan: the flagship scenes (20 scans), the fullscale window (5) and the
@@ -213,8 +224,153 @@ def _dot3(cs, dev) -> dict:
     return out
 
 
+def _stage_inputs(cs, dev) -> dict:
+    """The arguments of ``segment_planes`` in the flagship scan of scene 0,
+    the fullscale window and the flagship batch of 32, captured from one run
+    of each."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch import Cloud, pipeline
+    from pointcloud_obstacle_processing_tpu_torch.models import FLAGSHIP_CONFIG as fl
+    from pointcloud_obstacle_processing_tpu_torch.models import REFERENCE_FULLSCALE_CONFIG as fs
+    from pointcloud_obstacle_processing_tpu_torch.models import ObstacleDetectionModel
+    from pointcloud_obstacle_processing_tpu_torch.parallel.sharding import batched_pipeline
+    from pointcloud_obstacle_processing_tpu_torch.utils.scene import make_fullscale_window
+
+    def capture(run):
+        seen, fn = [], pipeline.segment_planes
+        pipeline.segment_planes = lambda *a, **kw: seen.append((a, kw)) or fn(*a, **kw)
+        try:
+            run()
+        finally:
+            pipeline.segment_planes = fn
+        return seen[0]
+
+    draw, _ = cs._draws(fl, dev)
+    cloud = Cloud.pad_to(cs._scene(cs.SCENE_SEEDS[0]).points[: fl.max_points],
+                         fl.max_points).to(dev)
+    out = {"flagship": capture(lambda: ObstacleDetectionModel(fl, device=dev)(cloud, draw=draw))}
+    draw, _ = cs._draws(fs, dev)
+    pts, valid = make_fullscale_window(cs.FULLSCALE_POINTS)
+    cloud = Cloud(points=torch.tensor(pts), valid=torch.tensor(valid)).to(dev)
+    out["fullscale"] = capture(lambda: ObstacleDetectionModel(fs, device=dev)(cloud, draw=draw))
+    clouds, draw = _batch_inputs(cs, dev)
+    out["batch"] = capture(lambda: batched_pipeline(fl)(clouds, draw=draw))
+    return out
+
+
+def _synced_ms(fn, reps: int = 10) -> float:
+    import time
+
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _stage(cs, dev) -> dict:
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    out = {}
+    for name, (args, kw) in _stage_inputs(cs, dev).items():
+        def stage(args=args, kw=kw):
+            return ransac.segment_planes(*args, **kw)
+
+        res = stage()
+        out[name] = {**_timed(cs, stage), "synced_ms": _synced_ms(stage),
+                     "peak_mib": _peak_mib(stage),
+                     "digest": _digest(torch.cat([res.planes.coeffs.view(-1),
+                                                  res.nonplane_cloud.valid.view(-1).float(),
+                                                  res.last_plane.view(-1).float()]))}
+    return out
+
+
+def _eager_hypotheses(points, tri, n_valid, eps):
+    """The hypotheses as the round built them eagerly before the score
+    kernel took them in: the cross product, norm and offset through
+    ``ops.fma``/``add_sq3``/``dot3`` launches, the axis gate through
+    ``torch.arccos``."""
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.ops import add_sq3, dot3, f32, fma, sqrt32
+
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+
+    def g(v, idx):
+        return v.gather(-1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
+
+    (p0x, p0y, p0z), (p1x, p1y, p1z), (p2x, p2y, p2z) = (
+        (g(x, tri[..., v]), g(y, tri[..., v]), g(z, tri[..., v])) for v in range(3))
+    ux, uy, uz = p1x - p0x, p1y - p0y, p1z - p0z
+    vx, vy, vz = p2x - p0x, p2y - p0y, p2z - p0z
+    nx, ny, nz = fma(uy, vz, -(uz * vy)), fma(uz, vx, -(ux * vz)), fma(ux, vy, -(uy * vx))
+    norms = sqrt32(add_sq3(nx, ny, nz))
+    inv = 1.0 / torch.clamp_min(norms, 1e-20)
+    nx, ny, nz = nx * inv, ny * inv, nz * inv
+    ds = -dot3(nx, ny, nz, p0x, p0y, p0z)
+    cosang = torch.clamp(torch.abs(nx * f32(0.0) + ny * f32(0.0) + nz * f32(1.0)), 0.0, 1.0)
+    gate = (torch.arccos(cosang) <= f32(eps)) & ~(norms < f32(1e-12)) & (n_valid >= 3)[:, None]
+    return nx, ny, nz, ds, gate
+
+
+def _score(cs, dev) -> dict:
+    import torch
+
+    from pointcloud_obstacle_processing_tpu_torch.ops import f32, ransac
+
+    out = {}
+    for name, (args, _) in _stage_inputs(cs, dev).items():
+        cloud, cfg = args[0], args[1]
+        points, valid = cloud.points, cloud.valid
+        if points.dim() == 2:
+            points, valid = points[None], valid[None]
+        points, valid = points.contiguous(), valid.contiguous()
+        n_valid = valid.sum(-1, dtype=torch.int32)
+        u = np.random.default_rng(0).random((valid.shape[0], HYPOTHESES, 3))
+        u = torch.tensor(u * n_valid.cpu().numpy()[:, None, None], device=dev).long()
+        perm = torch.sort((~valid).to(torch.int8), dim=-1, stable=True).indices
+        tri = perm.gather(-1, u.reshape(u.shape[0], -1)).reshape(u.shape)
+        thresh, eps = f32(cfg.plane_segment_dist_thresh), cfg.eps_angle_radians
+        if hasattr(ransac, "ransac_hypotheses_score"):
+            cos_min = ransac.axis_cos_min(eps)
+
+            def score():
+                return ransac.ransac_hypotheses_score(points, valid, tri, n_valid, thresh,
+                                                      cos_min)
+
+            def score_and_mask():
+                s = score()
+                return s.found, s.normal, s.d, ransac.plane_inliers(points, valid, s.normal, s.d,
+                                                                    thresh)
+        else:
+            planes = _eager_hypotheses(points, tri, n_valid, eps)
+
+            def score():
+                return ransac.ransac_score(points, valid, *planes, thresh)
+
+            def score_and_mask():
+                s = ransac.ransac_score(points, valid, *_eager_hypotheses(points, tri, n_valid,
+                                                                          eps), thresh)
+                return s.found, s.normal, s.d, s.inliers
+
+        found, normal, d, mask = score_and_mask()
+        digest = _digest(torch.cat([found.float(), normal.view(-1), d, mask.view(-1).float()]))
+        out[name] = {**_timed(cs, score), "digest": digest}
+        out[f"{name}_with_hypotheses_and_mask"] = {**_timed(cs, score_and_mask), "digest": digest}
+    return out
+
+
 MEASURES = {"shadow_slots": _shadow_slots, "shadow_raster": _shadow_raster, "round": _round,
-            "dot3": _dot3}
+            "dot3": _dot3, "stage": _stage, "score": _score}
 
 
 def run(root: str, label: str, measures: list[str]) -> dict:
@@ -300,6 +456,7 @@ def main() -> None:
         for what in measures:
             for name, v in r[what].items():
                 extra = f", peak {v['peak_mib']:.1f} MiB" if "peak_mib" in v else ""
+                extra += f", synced {v['synced_ms']:.4f} ms" if "synced_ms" in v else ""
                 print(f"run {i} {r['label']}: {what} {name}: call {v['ms']:.4f} ms, device "
                       f"{ms(v['device_ms'])} in {v['device_ops']} operations, host "
                       f"{v['host_ms']:.4f} ms{extra} (output {v['digest']}) [{r['card']}]")

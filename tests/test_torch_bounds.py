@@ -114,20 +114,34 @@ ROWS = [
      "0.0225"),
     ("XLA:CPU's fused multiply-add chains", "fma_chain", (9_633_792, 2 * 9_633_792 + 1, 1),
      "0.0345"),
-    # RANSAC's scoring and selection on the paths' first rounds (the valid
-    # rows of the flagship's, fullscale's and the batch's voxel clouds, and
-    # the fullscale batch of 2), and a refinement's mask
-    ("the hypotheses' scoring and selection", "ransac_score", (1, 24_576, 128, 21_388),
-     "0.00033"),
-    ("the hypotheses' scoring and selection", "ransac_score", (1, 262_144, 128, 164_366),
-     "0.0025"),
-    ("the hypotheses' scoring and selection", "ransac_score", (32, 24_576, 128, 677_452),
-     "0.0104"),
-    ("the hypotheses' scoring and selection", "ransac_score", (2, 262_144, 128, 330_088),
-     "0.0050"),
+    # a refinement's mask on the paths' first rounds
     ("a plane's inlier mask a scan", "plane_inliers", (1, 24_576, True), "0.00011"),
     ("a plane's inlier mask a scan", "plane_inliers", (1, 262_144, True), "0.0012"),
     ("a plane's inlier mask a scan", "plane_inliers", (32, 24_576, True), "0.0035"),
+    # the round's hypotheses built and scored in one launch on the paths'
+    # first rounds (the valid rows of the flagship's, fullscale's and the
+    # batch's voxel clouds, and the fullscale batch of 2), and the mask that
+    # closes the round (active and found scans, valid rows tested, inliers)
+    ("the round's hypotheses built from the draws", "ransac_hypotheses_score",
+     (1, 24_576, 128, 21_388), "0.00033"),
+    ("the round's hypotheses built from the draws", "ransac_hypotheses_score",
+     (1, 262_144, 128, 164_366), "0.0025"),
+    ("the round's hypotheses built from the draws", "ransac_hypotheses_score",
+     (32, 24_576, 128, 677_452), "0.0104"),
+    ("the round's hypotheses built from the draws", "ransac_hypotheses_score",
+     (2, 262_144, 128, 330_088), "0.0050"),
+    ("the round's hypotheses built from the draws", "ransac_hypotheses_score",
+     (1, 262_144, 128, 64_487), "0.0010"),
+    ("the mask that closes a RANSAC round", "plane_inliers_close",
+     (1, 24_576, 1, 1, 21_388, 20_822), "0.00010"),
+    ("the mask that closes a RANSAC round", "plane_inliers_close",
+     (1, 262_144, 1, 1, 164_366, 157_297), "0.00084"),
+    ("the mask that closes a RANSAC round", "plane_inliers_close",
+     (32, 24_576, 32, 32, 677_452, 657_504), "0.0033"),
+    ("the mask that closes a RANSAC round", "plane_inliers_close",
+     (2, 262_144, 2, 2, 330_088, 314_521), "0.0017"),
+    ("the mask that closes a RANSAC round", "plane_inliers_close",
+     (1, 262_144, 1, 1, 64_487, 61_838), "0.00042"),
 ]
 
 
@@ -185,7 +199,22 @@ def test_ransac_stage_bound_counts_float32_plane_tests():
     assert (seconds, limiter) == bounds._bound(rounds * rows * 33,
                                                fp32_ops=bounds.PLANE_TEST_OPS * rounds * k * rows)
     assert "float32" in note and limiter == "operations"
-    assert bounds.ransac_score(1, 262_144, k, rows) == bounds._bound(
-        262_144 * 14 + k * 21 + 25, rows * k * bounds.PLANE_TEST_OPS)
+    assert bounds.ransac_hypotheses_score(1, 262_144, k, rows) == bounds._bound(
+        262_144 * 13 + k * 24 + 21, rows * k * bounds.PLANE_TEST_OPS + k * bounds.HYPOTHESIS_OPS)
     assert bounds.plane_inliers(2, 1000, True) == bounds._bound(2 * (1000 * 15 + 20),
                                                                 2 * 1000 * bounds.PLANE_TEST_OPS)
+
+
+def test_round_kernel_bounds_count_their_work():
+    """The round's two kernels: the score kernel's bound adds the drawn
+    indices and the hypotheses' arithmetic to the scoring's and writes only
+    the winner; the closing mask counts what the call's data needs: last a
+    row of an active scan, valid a row where a plane was found, the point
+    of each valid row tested there, two flags an inlier."""
+    k, rows = 128, 21_388
+    assert bounds.ransac_hypotheses_score(1, 24_576, k, rows) == bounds._bound(
+        24_576 * 13 + k * 24 + 21, rows * k * bounds.PLANE_TEST_OPS + k * bounds.HYPOTHESIS_OPS)
+    assert bounds.plane_inliers_close(3, 1000, 2, 1, 900, 400) == bounds._bound(
+        3 + 2 * 1043 + 1000 + 900 * 12 + 400 * 2, 900 * bounds.PLANE_TEST_OPS)
+    # no active scan: a flag a scan read, nothing tested
+    assert bounds.plane_inliers_close(3, 1000, 0, 0, 0, 0) == bounds._bound(3, 0)

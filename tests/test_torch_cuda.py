@@ -1465,9 +1465,9 @@ def test_fma_chain_refuses_bad_operands(dev):
         ops.fma_chain(((x, x),) * 2)
 
 
-# RANSAC's scoring and mask kernels (csrc/ransac_score.cu): (scans, rows,
-# hypotheses), rows off the 256-row tile, hypotheses from 1 to past the
-# 1,024 planes a block stages at once
+# RANSAC's round kernels (csrc/ransac_score.cu): (scans, rows, hypotheses),
+# rows off the 256-row tile, hypotheses from 1 to past the 1,024 planes a
+# block stages at once
 RANSAC_SHAPES = [(1, 1000, 1), (3, 2000, 64), (1, 24_576, 128), (32, 1500, 128), (3, 777, 200),
                  (1, 3001, 1000), (2, 300, 1100)]
 
@@ -1480,6 +1480,25 @@ def _score_args(seed, scans, n, k, kind):
         c["thresh"]
 
 
+def _case_args(seed, scans, n, k, kind, tail=False):
+    """``ransac_cases.round_case`` as tensors: (points, valid, tri, n_valid),
+    thresh; with ``tail``, the back half of every scan invalid (a
+    compacted cloud's tail) and the draws taken again from the front."""
+    from pointcloud_obstacle_processing_tpu_torch.utils import ransac_cases
+
+    c = ransac_cases.round_case(seed, scans, n, k, kind)
+    points, valid, tri, n_valid = (torch.tensor(c[f]) for f in ("points", "valid", "tri",
+                                                                 "n_valid"))
+    if tail:
+        valid[:, n // 2:] = False
+        n_valid = valid.sum(-1, dtype=torch.int32)
+        rng = np.random.default_rng(seed)
+        for b in range(scans):
+            rows = torch.nonzero(valid[b])[:, 0]
+            tri[b] = rows[torch.tensor(rng.integers(0, len(rows), (k, 3)))]
+    return [points, valid, tri, n_valid], c["thresh"]
+
+
 def _bitwise(a, b):
     a, b = a.cpu(), b.cpu()
     assert a.dtype == b.dtype and a.shape == b.shape
@@ -1487,28 +1506,57 @@ def _bitwise(a, b):
         b.view(torch.int32) if b.dtype == torch.float32 else b)
 
 
+def _score_detail(on_card, thresh, cos_min, form=None):
+    """One launch of the score kernel that also writes the gated counts and
+    the winner's index: (RoundScore, counts, best)."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    return ransac._score_launch(on_card, (float(thresh), float(cos_min), (0.0, 0.0, 1.0)),
+                                form, detail=True)
+
+
+def _score_plain(args, thresh, cos_min):
+    """The score kernel's reference on CPU tensors: ``hypotheses_plain``,
+    then ``ransac_score_plain`` (counts, best, found, normal, d, mask)."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    points, valid, tri, n_valid = args
+    planes = ransac.hypotheses_plain(points, tri, n_valid, cos_min, (0.0, 0.0, 1.0))
+    return ransac.ransac_score_plain(points, valid, *planes, thresh)
+
+
+def _same_score(got, want):
+    """A ``_score_detail`` result bitwise the plain reference's counts,
+    best, found, normal and d."""
+    res, counts, best = got
+    for g, w in zip((counts, best, *res), want[:5], strict=True):
+        _bitwise(g, w)
+
+
 @pytest.mark.parametrize("kind", ["probes", "ties", "gated", "random"])
 @pytest.mark.parametrize("scans,n,k", RANSAC_SHAPES)
 def test_ransac_score_kernel_equals_plain(dev, kind, scans, n, k):
-    """``ransac_score`` on the card (one score launch, one mask launch)
-    bitwise its plain version on the CPU, on points a few ulps either side
-    of the threshold, tied counts, gated-off scans and NaN coordinates on
-    invalid rows; twice in a row, so the cached scratch and tickets are
-    seen to reset themselves.  Then ``plane_inliers`` with and without the
-    refinement's select."""
+    """``ransac_hypotheses_score`` on the card (one launch) bitwise its
+    plain version on the CPU, on points a few ulps either side of the
+    threshold of a drawn plane, tied counts, degenerate draws and NaN
+    coordinates on invalid rows; twice in a row, so the cached scratch and
+    tickets are seen to reset themselves; and once more with the gated
+    counts and the winner's index written.  Then ``plane_inliers`` with and
+    without the refinement's select."""
     from pointcloud_obstacle_processing_tpu_torch.ops import ransac
 
-    args, thresh = _score_args(scans * 7 + k, scans, n, k, kind)
-    want = ransac.ransac_score_plain(*args, thresh)
+    args, thresh = _case_args(scans * 7 + k, scans, n, k, kind)
+    cos_min = ransac.axis_cos_min(REFERENCE_YAML_CONFIG.eps_angle_radians)
+    want = _score_plain(args, thresh, cos_min)
     on_card = [a.to(dev) for a in args]
     for _ in range(2):
         _build.reset_launch_counts()
-        got = ransac.ransac_score(*on_card, thresh)
+        got = ransac.ransac_hypotheses_score(*on_card, thresh, cos_min)
         torch.cuda.synchronize()
-        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"ransac_score": 1,
-                                                                    "plane_inliers": 1}
-        for g, w in zip(got, want):
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"ransac_hypotheses_score": 1}
+        for g, w in zip(got, want[2:5], strict=True):
             _bitwise(g, w)
+    _same_score(_score_detail(on_card, thresh, cos_min), want)
     points, valid = args[:2]
     prev = torch.tensor(np.random.default_rng(k).random((scans, n)) < 0.5)
     n_inl = torch.tensor(np.random.default_rng(n).choice([0.0, 2.0, 3.0, 50.0], scans),
@@ -1530,11 +1578,10 @@ def test_ransac_score_forms_on_a_compacted_tail_equal_plain(dev, scans, n, k):
     version."""
     from pointcloud_obstacle_processing_tpu_torch.ops import ransac
 
-    args, thresh = _score_args(n + k, scans, n, k, "probes")
-    args[1][:, n // 2:] = False
-    want = ransac.ransac_score_plain(*args, thresh)
-    for g, w in zip(ransac.ransac_score(*[a.to(dev) for a in args], thresh), want):
-        _bitwise(g, w)
+    args, thresh = _case_args(n + k, scans, n, k, "probes", tail=True)
+    cos_min = ransac.axis_cos_min(REFERENCE_YAML_CONFIG.eps_angle_radians)
+    _same_score(_score_detail([a.to(dev) for a in args], thresh, cos_min),
+                _score_plain(args, thresh, cos_min))
 
 
 @pytest.mark.parametrize("scans", [1, 3, 32])
@@ -1566,11 +1613,199 @@ def test_ransac_round_launches_reads_and_memory(dev, scans):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["ransac_score"] == 1
+    assert _build.LAUNCHES["ransac_hypotheses_score"] == 1
     assert _build.LAUNCHES["plane_inliers"] == 1 + cfg.ransac_refine_iters
+    assert _build.LAUNCHES["fma_chain"] == 0
     assert torch.cuda.max_memory_allocated() - base < scans * n * cfg.ransac_hypotheses * 4
     for g, w in zip(got, want):
         _bitwise(g, w)
+
+
+def _tensors(obj):
+    """Every tensor of a result (NamedTuples and dataclasses), in order."""
+    import dataclasses
+
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+    elif isinstance(obj, tuple):
+        for v in obj:
+            yield from _tensors(v)
+
+
+def _bitwise_nan(a, b):
+    """``_bitwise``, but a NaN is any NaN (its payload is the device's own:
+    a hypothesis through a NaN coordinate)."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != torch.float32:
+        return _bitwise(a, b)
+    assert a.shape == b.shape
+    nan = torch.isnan(b)
+    _eq(torch.isnan(a), nan)
+    _eq(a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])
+
+
+# the round's shapes: flagship, fullscale (and band off), the batch of 32, the
+# fullscale batch of 2; then rows off the tile, K past a warp, past a chunk
+ROUND_SHAPES = [(1, 24_576, 128), (1, 262_144, 128), (32, 24_576, 128), (2, 262_144, 128),
+                (3, 777, 200), (2, 1000, 1), (2, 300, 1100)]
+
+
+def _round_args(seed, scans, n, k):
+    """Seeded ``score_case`` clouds (NaN coordinates on invalid rows) with
+    draws through the valid-first permutation; scan 1 (of two or more) has
+    2 valid points, scan 2 none."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+    from pointcloud_obstacle_processing_tpu_torch.utils import ransac_cases
+
+    c = ransac_cases.score_case(seed, scans, n, k, "random")
+    points, valid = torch.tensor(c["points"]), torch.tensor(c["valid"])
+    if scans > 1:
+        valid[1] = False
+        valid[1, [5, n // 2]] = True
+    if scans > 2:
+        valid[2] = False
+    n_valid = valid.sum(-1, dtype=torch.int32)
+    rng = np.random.default_rng(seed)
+    u = torch.tensor((rng.random((scans, k, 3)) * np.maximum(n_valid.numpy(), 1)[:, None, None])
+                     .astype(np.int64))
+    perm = torch.sort(valid.to(torch.int8), dim=-1, descending=True, stable=True).indices
+    return points, valid, ransac._gather(perm, u), n_valid
+
+
+@pytest.mark.parametrize("eps", [REFERENCE_YAML_CONFIG.eps_angle_radians,
+                                 REFERENCE_YAML_CONFIG.replace(
+                                     pcl_compat_eps_angle_bug=False).eps_angle_radians],
+                         ids=["radians", "degrees"])
+@pytest.mark.parametrize("scans,n,k", ROUND_SHAPES)
+def test_ransac_hypotheses_score_kernel_equals_plain(dev, scans, n, k, eps):
+    """``ransac_hypotheses_score`` on the card (one launch: the hypotheses
+    built, gated, scored and selected) bitwise its plain version on the CPU
+    at the paths' shapes and off them, with scans of 0 and 2 valid points
+    and both gate settings; twice, so the scratch is seen to reset; and
+    each of its forms (rows a thread, slices) alike."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import f32, ransac
+
+    points, valid, tri, n_valid = _round_args(n + k, scans, n, k)
+    thresh, cos_min = f32(0.04), ransac.axis_cos_min(eps)
+    want = _score_plain((points, valid, tri, n_valid), thresh, cos_min)
+    on_card = [t.to(dev) for t in (points, valid, tri, n_valid)]
+    forms = [None, None] + ([(2, 32), (2, 64), (2, 128), (8, 32), (8, 128)] if k == 128 else [])
+    for form in forms:
+        _build.reset_launch_counts()
+        if form is None:
+            got = ransac.ransac_hypotheses_score(*on_card, thresh, cos_min)
+        else:
+            res, counts, best = _score_detail(on_card, thresh, cos_min, form)
+            _bitwise(counts, want.counts)
+            _bitwise(best, want.best)
+            got = res
+        torch.cuda.synchronize()
+        assert {key: v for key, v in _build.LAUNCHES.items() if v} == \
+            {"ransac_hypotheses_score": 1}
+        for g, w in zip(got, want[2:5], strict=True):
+            _bitwise_nan(g, w)
+    if scans > 2:
+        assert not want.found[1:3].any()
+
+
+def test_ransac_score_split_forms_agree_at_the_flagship_shape(dev):
+    """The score kernel split over 1, 2 and 4 slices of hypotheses at the
+    flagship's 24,576 rows (and 8 rows a thread in one slice of 32): one
+    launch each, every form bitwise the plain version, counts and winner
+    included (the probes' points a few ulps either side of the threshold
+    of a drawn plane); the wrapper's own form alike."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    args, thresh = _case_args(24_576, 1, 24_576, 128, "probes")
+    cos_min = ransac.axis_cos_min(REFERENCE_YAML_CONFIG.eps_angle_radians)
+    want = _score_plain(args, thresh, cos_min)
+    on_card = [a.to(dev) for a in args]
+    for form in ((2, 128), (2, 64), (2, 32), (8, 32)):
+        _build.reset_launch_counts()
+        _same_score(_score_detail(on_card, thresh, cos_min, form), want)
+        assert _build.LAUNCHES["ransac_hypotheses_score"] == 1
+    for g, w in zip(ransac.ransac_hypotheses_score(*on_card, thresh, cos_min), want[2:5],
+                    strict=True):
+        _bitwise(g, w)
+
+
+@pytest.mark.parametrize("scans,n", [(1, 24_576), (1, 262_144), (32, 24_576), (6, 3000)])
+def test_plane_inliers_close_kernel_equals_plain(dev, scans, n):
+    """The closing mask on the card (one launch, the state updated in place)
+    bitwise its plain version on the CPU, on seeded round states: scans
+    active or not, found or not, at plane slots 0 to ``max_planes`` (none
+    free); the returned state is the one given."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import f32, ransac
+    from pointcloud_obstacle_processing_tpu_torch.utils import ransac_cases
+
+    rng = np.random.default_rng(n + scans)
+    c = ransac_cases.score_case(n, scans, n, 8, "probes")
+    points = torch.tensor(c["points"])
+    mp = 4
+    normal = torch.stack([torch.tensor(c[f][:, 0]) for f in ("nx", "ny", "nz")], -1)
+    d = torch.tensor(c["ds"][:, 0])
+    found = torch.tensor(rng.random(scans) < 0.8)
+    active = torch.tensor(rng.random(scans) < 0.8)
+    found[0] = active[0] = True
+    state = ransac.RoundState(
+        valid=torch.tensor(c["valid"]), union=torch.tensor(rng.random((scans, n)) < 0.3),
+        last=torch.tensor(rng.random((scans, n)) < 0.3),
+        coeffs=torch.tensor(rng.standard_normal((scans, mp, 4)).astype(np.float32)),
+        pvalid=torch.tensor(rng.random((scans, mp)) < 0.5),
+        i=torch.tensor(rng.integers(0, mp + 1, scans), dtype=torch.int32),
+        found=torch.tensor(rng.random(scans) < 0.5))
+    thresh = f32(0.04)
+    want = ransac.plane_inliers_close_plain(points, normal, d, found, active, thresh, state)
+    on_card = ransac.RoundState(*[t.to(dev) for t in state])
+    _build.reset_launch_counts()
+    got = ransac.plane_inliers_close(points.to(dev), normal.to(dev), d.to(dev), found.to(dev),
+                                     active.to(dev), thresh, on_card)
+    torch.cuda.synchronize()
+    assert {key: v for key, v in _build.LAUNCHES.items() if v} == {"plane_inliers_close": 1}
+    assert all(g is t for g, t in zip(got, on_card))
+    for g, w in zip(got, want):
+        _bitwise(g, w)
+    assert want.last[0].any()
+
+
+@pytest.mark.parametrize("scans", [1, 3])
+def test_segment_planes_launches_a_round_on_the_card(dev, scans):
+    """``segment_planes`` on the card at the flagship's 24,576 rows: each of
+    the ``max_planes`` rounds one ``ransac_hypotheses_score`` launch,
+    ``ransac_refine_iters`` masks (the winner's, then every refinement pass
+    but the last) and one closing mask, the refinement's sums and tails,
+    and no ``fma_chain``: the counts fixed from the known rounds; no host
+    read; the CPU's result bitwise."""
+    from pointcloud_obstacle_processing_tpu_torch.ops import ransac
+
+    cfg = REFERENCE_YAML_CONFIG
+    args, _ = _score_args(9, scans, 24_576, 8, "random")
+    valid = args[1]
+    cloud = Cloud(points=torch.where(valid[..., None], args[0], 0.0), valid=valid)
+    u = np.random.default_rng(2).random((scans, cfg.max_planes, cfg.ransac_hypotheses, 3))
+    u = torch.tensor(u.astype(np.float32))
+    want = ransac.segment_planes(cloud, cfg, draw_from_uniform(u))
+    cloud_c, draw_c = cloud.to(dev), draw_from_uniform(u.to(dev))
+    ransac.segment_planes(cloud_c, cfg, draw_c)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ransac.segment_planes(cloud_c, cfg, draw_c)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    rounds, iters = cfg.max_planes, cfg.ransac_refine_iters
+    assert {key: v for key, v in _build.LAUNCHES.items() if v} == {
+        "ransac_hypotheses_score": rounds, "plane_inliers": rounds * iters,
+        "plane_inliers_close": rounds, "xla_sum": rounds * iters,
+        "covariance_tail": rounds * iters}
+    for g, w in zip(_tensors(got), _tensors(want), strict=True):
+        _bitwise(g, w)
+    assert int(want.planes.num_planes.sum()) >= 1
 
 
 def test_fma_chain_plan_cache_strides_pointers_and_constants(dev):

@@ -1,15 +1,17 @@
-"""RANSAC's scoring and selection (``ops.ransac.ransac_score``) and its
-inlier mask (``plane_inliers``) on the CPU.
+"""RANSAC's scoring and selection on given planes (``ops.ransac.
+ransac_score_plain``, the score kernel's reference with ``hypotheses_plain``)
+and its inlier mask (``plane_inliers``) on the CPU.
 
-Their plain versions are the composition ``_plane_once`` ran before them
-(the ``[B, N, K]`` distance table, its mask and count, the gate, ``argmax``
-and the gathers; the refinement's distance, threshold and select), written
-out here as it stood and held bitwise to them on seeded clouds and on
-points a few ulps either side of the threshold.  Then the round as a whole
-against the JAX package: ``ransac_plane_once`` and ``segment_planes``
-bitwise the reference's for K in {64, 128, 200}, one scan and a batch of 3.
-On the CPU no kernel is launched; ``tests/test_torch_cuda.py`` holds the
-kernels to these plain versions on the card.
+The plain versions are the composition ``_plane_once`` ran before the
+round's kernels (the ``[B, N, K]`` distance table, its mask and count, the
+gate, ``argmax`` and the gathers; the refinement's distance, threshold and
+select), written out here as it stood and held bitwise to them on seeded
+clouds and on points a few ulps either side of the threshold.  Then the
+round as a whole against the JAX package: ``ransac_plane_once`` and
+``segment_planes`` bitwise the reference's for K in {64, 128, 200}, one
+scan and a batch of 3.  On the CPU no kernel is launched;
+``tests/test_torch_cuda.py`` holds the kernels to these plain versions on
+the card.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ def _case(seed, scans, n, k, kind):
 
 def _composition_before(points, valid, nx, ny, nz, ds, gate, thresh):
     """The scoring and selection as ``_plane_once`` wrote them inline before
-    ``ransac_score``."""
+    the score kernel."""
     x, y, z = points[..., 0], points[..., 1], points[..., 2]
     dists = torch.abs(dot3(x[..., None], y[..., None], z[..., None], nx[:, None, :],
                            ny[:, None, :], nz[:, None, :]) + ds[:, None, :])
@@ -76,11 +78,9 @@ def test_score_plain_is_the_composition_it_replaces(kind, scans, n, k):
     args, thresh = _case(11, scans, n, k, kind)
     want = _composition_before(*args, thresh)
     _build.reset_launch_counts()
-    got = ransac.ransac_score(*args, thresh)  # CPU tensors: the plain version
+    got = ransac.ransac_score_plain(*args, thresh)
     assert not any(_build.LAUNCHES.values())
-    for g, w in zip(got, want):
-        _bits_equal(g, w)
-    for g, w in zip(ransac.ransac_score_plain(*args, thresh), want):
+    for g, w in zip(got, want, strict=True):
         _bits_equal(g, w)
     assert got.counts.shape == (scans, k) and got.inliers.shape == (scans, n)
 
@@ -129,7 +129,7 @@ def test_ties_go_to_the_first_k():
     args, thresh = _case(2, 1, 900, 300, "random")
     points, valid, nx, ny, nz, ds, gate = args
     gate[:] = True
-    top = int(ransac.ransac_score(*args, thresh).best[0])
+    top = int(ransac.ransac_score_plain(*args, thresh).best[0])
     planes = (nx, ny, nz, ds)
     for k in (7, 40, 299):  # copies of the winner, in three warps
         for t in planes:
@@ -137,17 +137,17 @@ def test_ties_go_to_the_first_k():
     if top not in (7, 40, 299):  # the winner itself now holds no inlier
         for t, v in zip(planes, (0.0, 0.0, 1.0, -100.0)):
             t[0, top] = v
-    got = ransac.ransac_score(*args, thresh)
+    got = ransac.ransac_score_plain(*args, thresh)
     order = [k for k in range(300) if int(got.counts[0, k]) == int(got.counts[0].max())]
     assert {7, 40, 299} <= set(order) and int(got.best[0]) == order[0]
     gate[0, order[0]] = False
-    got = ransac.ransac_score(*args, thresh)
+    got = ransac.ransac_score_plain(*args, thresh)
     assert int(got.best[0]) == order[1] and int(got.counts[0, order[0]]) == -1
 
 
 def test_all_gated_off_is_k0_and_not_found():
     args, thresh = _case(4, 2, 500, 64, "gated")
-    got = ransac.ransac_score(*args, thresh)
+    got = ransac.ransac_score_plain(*args, thresh)
     assert (got.counts[0] == -1).all() and int(got.best[0]) == 0 and not bool(got.found[0])
     nx, ny, nz, ds = args[2:6]
     _bits_equal(got.normal[0], torch.stack([nx[0, 0], ny[0, 0], nz[0, 0]]))
@@ -205,8 +205,8 @@ def test_plane_once_is_bitwise_the_reference(hypotheses, batch):
 @pytest.mark.parametrize("hypotheses", [64, 128, 200])
 @pytest.mark.parametrize("batch", [False, True])
 def test_segment_planes_is_bitwise_the_reference(hypotheses, batch):
-    """``segment_planes`` (every round through ``ransac_score`` and
-    ``plane_inliers``) against the jitted reference, its key chain replayed
+    """``segment_planes`` (every round through ``ransac_hypotheses_score``,
+    ``plane_inliers`` and ``plane_inliers_close``) against the jitted reference, its key chain replayed
     a scan (``jax_key_chain_draw``), alone or under ``jax.vmap`` over 3
     scans: planes, masks and the truncation flag bitwise."""
     ref_cfg, cfg = (c.replace(ransac_hypotheses=hypotheses) for c in (REF_CFG, CFG))
