@@ -14,8 +14,10 @@ to; the kernels' results then do not depend on what the compiler fuses.
 Where the reference's chain is fused (XLA:CPU contracts it), a kernel
 writes ``__fmaf_rn`` out, which the flag leaves alone.
 
-Each kernel wrapper counts its launches in ``LAUNCHES``: one per call that
-launched the kernel, none for calls that took the plain PyTorch version.
+Each kernel wrapper runs its launch inside ``launch(name)``, which counts
+it in ``LAUNCHES`` (one per call that launched the kernel, none for calls
+that took the plain PyTorch version) and, while the program's tracing is
+on (``utils.timing``), records the wrapper's ``pcp.kernel.<name>`` span.
 """
 
 from __future__ import annotations
@@ -26,13 +28,14 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "kernels", "check", "stream_handle", "require_cuda",
-           "resolve_device"]
+from .utils import timing
+
+__all__ = ["LAUNCHES", "launch", "reset_launch_counts", "kernels", "check", "stream_handle",
+           "require_cuda", "resolve_device"]
 
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
@@ -122,12 +125,68 @@ _SIGNATURES = {
                                 _VP, _VP, _VP],
 }
 
-BUILD_SECONDS: list[float] = []  # wall time of each build this process ran
-
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class _Launch:
+    """``launch``'s context while tracing is off: counts the launch in
+    ``LAUNCHES`` when its block ends without an exception and without
+    ``skip``."""
+
+    __slots__ = ("key", "skipped")
+
+    def __init__(self, key: str):
+        self.key = key
+        self.skipped = False
+
+    def skip(self) -> None:
+        """Nothing to launch this call (an empty operand): count nothing."""
+        self.skipped = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None and not self.skipped:
+            LAUNCHES[self.key] += 1
+        return False
+
+
+class _TracedLaunch(timing.Span):
+    """``launch``'s context while tracing is on: the same count, and the
+    ``pcp.kernel.<name>`` span counting ``launches``."""
+
+    __slots__ = ("key", "skipped")
+
+    def __init__(self, key: str):
+        super().__init__(_SPAN_NAMES[key], "launches")
+        self.key = key
+        self.skipped = False
+
+    def skip(self) -> None:
+        self.skipped = True
+        self.count = None
+
+    def __exit__(self, exc_type, exc, tb):
+        super().__exit__(exc_type, exc, tb)
+        if exc_type is None and not self.skipped:
+            LAUNCHES[self.key] += 1
+        return False
+
+
+_SPAN_NAMES = {k: "pcp.kernel." + k for k in LAUNCHES}
+
+
+def launch(name: str):
+    """The context a kernel wrapper runs in, from its entry (past the CPU
+    tensors' plain branch) to its launch's return: counts the launch in
+    ``LAUNCHES[name]`` and, while tracing is on, is the
+    ``pcp.kernel.<name>`` span, whose ``launches`` count goes to the
+    stage and call around it."""
+    return _TracedLaunch(name) if timing.is_tracing() else _Launch(name)
 
 
 def _nvcc() -> str:
@@ -154,7 +213,6 @@ def kernels() -> ctypes.CDLL:
         _OUT.mkdir(exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         objs = [_OUT / f"{s.stem}.{os.getpid()}.o" for s in sources]
-        t0 = time.perf_counter()
         nvcc = _nvcc()
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)])
                  for s, o in zip(sources, objs)]
@@ -165,7 +223,6 @@ def kernels() -> ctypes.CDLL:
                        check=True)
         for o in objs:
             o.unlink()
-        BUILD_SECONDS.append(time.perf_counter() - t0)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():

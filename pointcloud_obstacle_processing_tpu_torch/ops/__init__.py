@@ -246,24 +246,25 @@ def _fma_chain_kernel(operands, pairs: int) -> torch.Tensor:
     copy, no scratch.  Everything but the pointers and the constants comes
     from ``_chain_plan``, cached on the operands' shapes, strides, devices
     and dtypes."""
-    try:
-        layout = tuple((t.shape, t.stride(), t.get_device(), t.dtype) for t in operands)
-    except AttributeError:  # an operand that is no tensor
-        _check_float32("fma_chain", operands)
-        raise
-    shape, n, packed, slots, out_at = _chain_plan(pairs, layout)
-    out = next(t for t in operands if t.is_cuda).new_empty(shape)
-    if not n:
-        return out
-    args = bytearray(packed)
-    for t, (at, on_card) in zip(operands, slots):
-        if on_card:
-            _PTR.pack_into(args, at, t.data_ptr())
-        else:  # by value: the constant's float32 bits
-            _BITS.pack_into(args, at + _FIELD, t.item())
-    _OUT_STREAM.pack_into(args, out_at, out.data_ptr(), _build.stream_handle())
-    _build.check(_build.kernels().pcp_fma_chain(bytes(args)), "fma_chain")
-    _build.LAUNCHES["fma_chain"] += 1
+    with _build.launch("fma_chain") as launch:
+        try:
+            layout = tuple((t.shape, t.stride(), t.get_device(), t.dtype) for t in operands)
+        except AttributeError:  # an operand that is no tensor
+            _check_float32("fma_chain", operands)
+            raise
+        shape, n, packed, slots, out_at = _chain_plan(pairs, layout)
+        out = next(t for t in operands if t.is_cuda).new_empty(shape)
+        if not n:
+            launch.skip()
+            return out
+        args = bytearray(packed)
+        for t, (at, on_card) in zip(operands, slots):
+            if on_card:
+                _PTR.pack_into(args, at, t.data_ptr())
+            else:  # by value: the constant's float32 bits
+                _BITS.pack_into(args, at + _FIELD, t.item())
+        _OUT_STREAM.pack_into(args, out_at, out.data_ptr(), _build.stream_handle())
+        _build.check(_build.kernels().pcp_fma_chain(bytes(args)), "fma_chain")
     return out
 
 
@@ -472,21 +473,24 @@ def _xla_sum_kernel(a: torch.Tensor, b: torch.Tensor | None,
     """One launch of the sum kernel at every length: a thread-block cluster
     of up to ``blocks`` blocks a tile of rows (``csrc/xla_sum.cu``),
     strided operands read in place, no scratch."""
-    one_row = b is None and a.dim() == 1  # [N] -> []
-    _check_operands("sum_like_xla", a[None] if one_row else a, b)
-    ta, ra = (a, (1, 1, a.shape[0], 0, 0, a.stride(0))) if one_row else _rows(a)
-    tb, rb = (None, (0,) * 6) if b is None else _rows(b)
-    lead, s_a, n = ra[:3]
-    s_b = 1 if b is None else rb[1]
-    out = torch.empty(a.shape[:-1] if b is None else (*a.shape[:-1], s_b),
-                      dtype=torch.float32, device=a.device)
-    if out.numel():
-        plan = _launch_plan(a.get_device(), lead, s_a, 0 if b is None else s_b, n, False, blocks)
-        args = _SUM_ARGS.pack(ta.data_ptr(), *ra[3:], 0 if tb is None else tb.data_ptr(),
-                              *rb[3:], lead, s_a, s_b, n, *plan, out.data_ptr(),
-                              _build.stream_handle(), *_NO_TAIL)
-        _build.check(_build.kernels().pcp_xla_sum(args), "xla_sum")
-        _build.LAUNCHES["xla_sum"] += 1
+    with _build.launch("xla_sum") as launch:
+        one_row = b is None and a.dim() == 1  # [N] -> []
+        _check_operands("sum_like_xla", a[None] if one_row else a, b)
+        ta, ra = (a, (1, 1, a.shape[0], 0, 0, a.stride(0))) if one_row else _rows(a)
+        tb, rb = (None, (0,) * 6) if b is None else _rows(b)
+        lead, s_a, n = ra[:3]
+        s_b = 1 if b is None else rb[1]
+        out = torch.empty(a.shape[:-1] if b is None else (*a.shape[:-1], s_b),
+                          dtype=torch.float32, device=a.device)
+        if out.numel():
+            plan = _launch_plan(a.get_device(), lead, s_a, 0 if b is None else s_b, n, False,
+                                blocks)
+            args = _SUM_ARGS.pack(ta.data_ptr(), *ra[3:], 0 if tb is None else tb.data_ptr(),
+                                  *rb[3:], lead, s_a, s_b, n, *plan, out.data_ptr(),
+                                  _build.stream_handle(), *_NO_TAIL)
+            _build.check(_build.kernels().pcp_xla_sum(args), "xla_sum")
+        else:
+            launch.skip()
     return out
 
 

@@ -89,18 +89,19 @@ def binned_weighted_sum(ids, weights, valid, k: int, hi_size: int = 128, chunk: 
     only the reference's TPU layout and change nothing here."""
     if weights.device.type == "cpu":
         return binned_weighted_sum_plain(ids, weights, valid, k, hi_size, chunk, exact_f32)
-    _check(ids, weights, valid, k, chunk)
-    n, c = weights.shape
-    if ids.dtype != torch.int32 or not ids.is_contiguous():
-        ids = ids.to(torch.int32).contiguous()  # as the reference casts them
-    _build.require_cuda("binned_weighted_sum", ids, weights, valid, dtypes=_DTYPES)
-    if n * c == 0:
-        return torch.zeros(k, c, dtype=torch.float32, device=weights.device)
-    # the C call zeroes ``out`` and launches on the same stream
-    out = torch.empty(k, c, dtype=torch.float32, device=weights.device)
-    err = _build.kernels().pcp_binned_sum(ids.data_ptr(), weights.data_ptr(), valid.data_ptr(),
-                                          n, c, k, int(exact_f32), out.data_ptr(),
-                                          _build.stream_handle())
-    _build.check(err, "binned_sum")
-    _build.LAUNCHES["binned_sum"] += 1
+    with _build.launch("binned_sum") as launch:
+        _check(ids, weights, valid, k, chunk)
+        n, c = weights.shape
+        if ids.dtype != torch.int32 or not ids.is_contiguous():
+            ids = ids.to(torch.int32).contiguous()  # as the reference casts them
+        _build.require_cuda("binned_weighted_sum", ids, weights, valid, dtypes=_DTYPES)
+        if n * c == 0:
+            launch.skip()
+            return torch.zeros(k, c, dtype=torch.float32, device=weights.device)
+        # the C call zeroes ``out`` and launches on the same stream
+        out = torch.empty(k, c, dtype=torch.float32, device=weights.device)
+        err = _build.kernels().pcp_binned_sum(ids.data_ptr(), weights.data_ptr(), valid.data_ptr(),
+                                              n, c, k, int(exact_f32), out.data_ptr(),
+                                              _build.stream_handle())
+        _build.check(err, "binned_sum")
     return out

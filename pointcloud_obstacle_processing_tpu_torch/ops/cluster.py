@@ -32,7 +32,8 @@ propagation over the compacted non-plane buffer.
   loop kernels test that on the card; the per-sweep form reads
   ``changed.any()`` back to the host after each sweep, the banded loop
   after each sweep from the second (one read for a whole batch), and
-  ``ClusterOutput.host_syncs`` counts those reads.
+  ``ClusterOutput.host_syncs`` counts those reads, each of which is a
+  ``pcp.host_read`` span (``utils.timing``).
 
 The reference tracks the frontier only on its TPU path; the port tracks it
 on every device, which is output-identical (see ``sweep_jump_banded``).
@@ -73,6 +74,7 @@ import torch
 from . import add_sq3, dot3, f32, fma, query_range, sqrt32, sum_like_xla, sum_sq3
 from .. import _build
 from ..types import Cloud, ClusterSet, PointIndicesArray, PointWithRad, batch_of, scan_of
+from ..utils import timing
 
 __all__ = [
     "euclidean_cluster",
@@ -166,22 +168,22 @@ def sweep_jump(pch, valid, labels, tol2: float, rows=None) -> torch.Tensor:
     the point-sharded path's row range."""
     if pch.device.type == "cpu":
         return sweep_jump_plain(pch, valid, labels, tol2, rows)
-    n = labels.shape[0]
-    first, count = query_range(n, rows)
-    if pch.shape != (4, n) or valid.shape != (n,) or labels.shape != (n,):
-        raise ValueError("sweep_jump: point channels [4, C], valid [C] and labels [C]")
-    _build.require_cuda("sweep_jump", pch, valid, labels,
-                        dtypes=[torch.float32, torch.bool, torch.int32])
-    x, y, z, p_sq = pch
-    lib = _build.kernels()
-    out = torch.empty(count, dtype=torch.int32, device=pch.device)
-    err = lib.pcp_cluster_sweep(
-        x.data_ptr(), y.data_ptr(), z.data_ptr(), p_sq.data_ptr(), valid.data_ptr(),
-        labels.data_ptr(), n, first, count, float(np.float32(tol2)), out.data_ptr(),
-        _build.stream_handle(),
-    )
-    _build.check(err, "cluster_sweep")
-    _build.LAUNCHES["cluster_sweep" if rows is None else "cluster_sweep_rows"] += 1
+    with _build.launch("cluster_sweep" if rows is None else "cluster_sweep_rows"):
+        n = labels.shape[0]
+        first, count = query_range(n, rows)
+        if pch.shape != (4, n) or valid.shape != (n,) or labels.shape != (n,):
+            raise ValueError("sweep_jump: point channels [4, C], valid [C] and labels [C]")
+        _build.require_cuda("sweep_jump", pch, valid, labels,
+                            dtypes=[torch.float32, torch.bool, torch.int32])
+        x, y, z, p_sq = pch
+        lib = _build.kernels()
+        out = torch.empty(count, dtype=torch.int32, device=pch.device)
+        err = lib.pcp_cluster_sweep(
+            x.data_ptr(), y.data_ptr(), z.data_ptr(), p_sq.data_ptr(), valid.data_ptr(),
+            labels.data_ptr(), n, first, count, float(np.float32(tol2)), out.data_ptr(),
+            _build.stream_handle(),
+        )
+        _build.check(err, "cluster_sweep")
     return out
 
 
@@ -279,40 +281,40 @@ def sweep_jump_banded(pk, valid, labels, tol2: float, tile: int, window: int, st
     if pk.device.type == "cpu":
         return sweep_jump_banded_plain(pk, valid, labels, tol2, tile, window, starts, tile_live,
                                        tile_range)
-    n = labels.shape[-1]
-    lead = labels.shape[:-1]
-    if tile != BAND_TILE or n % tile or window % 128 or not tile <= window < n:
-        raise ValueError(
-            f"sweep_jump_banded: needs tile {BAND_TILE}, a capacity divisible by it and "
-            f"a window that is a multiple of 128 below the capacity (got tile={tile}, "
-            f"window={window}, capacity={n})"
+    with _build.launch("cluster_sweep_banded" if tile_range is None
+                       else "cluster_sweep_banded_rows"):
+        n = labels.shape[-1]
+        lead = labels.shape[:-1]
+        if tile != BAND_TILE or n % tile or window % 128 or not tile <= window < n:
+            raise ValueError(
+                f"sweep_jump_banded: needs tile {BAND_TILE}, a capacity divisible by it and "
+                f"a window that is a multiple of 128 below the capacity (got tile={tile}, "
+                f"window={window}, capacity={n})"
+            )
+        tiles = n // tile
+        first, count = query_range(tiles, tile_range)
+        if len(lead) > 1 or pk.shape != (*lead, n, 4) or valid.shape != labels.shape or \
+                starts.shape != (*lead, tiles) or \
+                (tile_live is not None and tile_live.shape != starts.shape):
+            raise ValueError("sweep_jump_banded: packed points [C, 4], valid and labels [C], "
+                             "starts and tile_live [C / 128] (a leading [B] on each for a batch)")
+        if pk.data_ptr() % 16:
+            raise ValueError("sweep_jump_banded: the packed points must be 16-byte aligned")
+        ops = [pk, valid, labels, starts]
+        dtypes = [torch.float32, torch.bool, torch.int32, torch.int32]
+        if tile_live is not None:
+            ops.append(tile_live)
+            dtypes.append(torch.bool)
+        _build.require_cuda("sweep_jump_banded", *ops, dtypes=dtypes)
+        lib = _build.kernels()
+        batch = labels[..., 0].numel()
+        out = torch.empty(*lead, count * tile, dtype=torch.int32, device=pk.device)
+        err = lib.pcp_cluster_sweep_banded(
+            pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), starts.data_ptr(),
+            None if tile_live is None else tile_live.data_ptr(), batch, n, first, count, window,
+            float(np.float32(tol2)), out.data_ptr(), _build.stream_handle(),
         )
-    tiles = n // tile
-    first, count = query_range(tiles, tile_range)
-    if len(lead) > 1 or pk.shape != (*lead, n, 4) or valid.shape != labels.shape or \
-            starts.shape != (*lead, tiles) or \
-            (tile_live is not None and tile_live.shape != starts.shape):
-        raise ValueError("sweep_jump_banded: packed points [C, 4], valid and labels [C], "
-                         "starts and tile_live [C / 128] (a leading [B] on each for a batch)")
-    if pk.data_ptr() % 16:
-        raise ValueError("sweep_jump_banded: the packed points must be 16-byte aligned")
-    ops = [pk, valid, labels, starts]
-    dtypes = [torch.float32, torch.bool, torch.int32, torch.int32]
-    if tile_live is not None:
-        ops.append(tile_live)
-        dtypes.append(torch.bool)
-    _build.require_cuda("sweep_jump_banded", *ops, dtypes=dtypes)
-    lib = _build.kernels()
-    batch = labels[..., 0].numel()
-    out = torch.empty(*lead, count * tile, dtype=torch.int32, device=pk.device)
-    err = lib.pcp_cluster_sweep_banded(
-        pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), starts.data_ptr(),
-        None if tile_live is None else tile_live.data_ptr(), batch, n, first, count, window,
-        float(np.float32(tol2)), out.data_ptr(), _build.stream_handle(),
-    )
-    _build.check(err, "cluster_sweep_banded")
-    _build.LAUNCHES["cluster_sweep_banded" if tile_range is None
-                    else "cluster_sweep_banded_rows"] += 1
+        _build.check(err, "cluster_sweep_banded")
     return out
 
 
@@ -348,8 +350,10 @@ def _sweep_loop(sweep, labels, max_iters: int) -> LoopOutput:
         sweeps += 1
         if it + 1 < max_iters:
             host_syncs += 1
-            if not bool(changed.any()):
-                break
+            any_changed = changed.any()
+            with timing.host_read():
+                if not bool(any_changed):
+                    break
     return LoopOutput(labels, changed.any(), sweeps, host_syncs)
 
 
@@ -420,25 +424,25 @@ def grid_loop(pk, valid, labels, tol2: float, max_iters: int) -> LoopOutput:
     (scan, query tile, column chunk) work items on every SM, and two
     grid-wide barriers a sweep end the sweep and the hook (with the change
     test).  Raises if the card cannot hold the grid co-resident."""
-    n = pk.shape[-2]
-    lead = pk.shape[:-2]
-    batch = pk[..., 0, 0].numel()
-    _build.require_cuda("cluster_grid_loop", pk, valid, labels,
-                        dtypes=[torch.float32, torch.bool, torch.int32])
-    if pk.data_ptr() % 16:
-        raise ValueError("cluster_grid_loop: the packed points must be 16-byte aligned")
-    lib = _build.kernels()
-    out = torch.empty(*lead, n, dtype=torch.int32, device=pk.device)
-    unconverged = torch.empty(lead, dtype=torch.bool, device=pk.device)
-    sweeps = torch.empty(lead, dtype=torch.int32, device=pk.device)
-    scratch = torch.empty(5 * batch * n + 4 * batch, dtype=torch.int32, device=pk.device)
-    err = lib.pcp_cluster_grid_loop(
-        pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), batch, n, float(np.float32(tol2)),
-        int(max_iters), out.data_ptr(), unconverged.data_ptr(),
-        sweeps.data_ptr(), scratch.data_ptr(), _build.stream_handle(),
-    )
-    _build.check(err, "cluster_grid_loop")
-    _build.LAUNCHES["cluster_grid_loop"] += 1
+    with _build.launch("cluster_grid_loop"):
+        n = pk.shape[-2]
+        lead = pk.shape[:-2]
+        batch = pk[..., 0, 0].numel()
+        _build.require_cuda("cluster_grid_loop", pk, valid, labels,
+                            dtypes=[torch.float32, torch.bool, torch.int32])
+        if pk.data_ptr() % 16:
+            raise ValueError("cluster_grid_loop: the packed points must be 16-byte aligned")
+        lib = _build.kernels()
+        out = torch.empty(*lead, n, dtype=torch.int32, device=pk.device)
+        unconverged = torch.empty(lead, dtype=torch.bool, device=pk.device)
+        sweeps = torch.empty(lead, dtype=torch.int32, device=pk.device)
+        scratch = torch.empty(5 * batch * n + 4 * batch, dtype=torch.int32, device=pk.device)
+        err = lib.pcp_cluster_grid_loop(
+            pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), batch, n, float(np.float32(tol2)),
+            int(max_iters), out.data_ptr(), unconverged.data_ptr(),
+            sweeps.data_ptr(), scratch.data_ptr(), _build.stream_handle(),
+        )
+        _build.check(err, "cluster_grid_loop")
     return LoopOutput(out, unconverged, sweeps, 0)
 
 
@@ -448,31 +452,31 @@ def loop_kernel(pk, valid, labels, tol2: float, max_iters: int,
     capacity whose points fit a block's shared memory): one thread-block
     cluster of ``blocks`` blocks a scan (by default 16 or 8 for one scan,
     ``LOOP_BATCH_BLOCKS`` for a batch where it fits)."""
-    n = pk.shape[-2]
-    lead = pk.shape[:-2]
-    batch = pk[..., 0, 0].numel()
-    _build.require_cuda("cluster_loop", pk, valid, labels,
-                        dtypes=[torch.float32, torch.bool, torch.int32])
-    if pk.data_ptr() % 16:
-        raise ValueError("cluster_loop: the packed points must be 16-byte aligned")
-    if blocks is None:
-        blocks = (batch > 1 and _loop_blocks(n, LOOP_BATCH_BLOCKS)) or _loop_blocks(n)
-    elif blocks not in (1, 2, 4, 8, 16) or not _loop_blocks(n, blocks):
-        blocks = 0
-    if not blocks:
-        raise RuntimeError(f"cluster_loop: no thread-block cluster of the requested blocks "
-                           f"with {n} points in shared memory fits this card")
-    lib = _build.kernels()
-    out = torch.empty(*lead, n, dtype=torch.int32, device=pk.device)
-    unconverged = torch.empty(lead, dtype=torch.bool, device=pk.device)
-    sweeps = torch.empty(lead, dtype=torch.int32, device=pk.device)
-    err = lib.pcp_cluster_loop(
-        pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), batch, n, float(np.float32(tol2)),
-        int(max_iters), blocks, out.data_ptr(), unconverged.data_ptr(),
-        sweeps.data_ptr(), _build.stream_handle(),
-    )
-    _build.check(err, "cluster_loop")
-    _build.LAUNCHES["cluster_loop"] += 1
+    with _build.launch("cluster_loop"):
+        n = pk.shape[-2]
+        lead = pk.shape[:-2]
+        batch = pk[..., 0, 0].numel()
+        _build.require_cuda("cluster_loop", pk, valid, labels,
+                            dtypes=[torch.float32, torch.bool, torch.int32])
+        if pk.data_ptr() % 16:
+            raise ValueError("cluster_loop: the packed points must be 16-byte aligned")
+        if blocks is None:
+            blocks = (batch > 1 and _loop_blocks(n, LOOP_BATCH_BLOCKS)) or _loop_blocks(n)
+        elif blocks not in (1, 2, 4, 8, 16) or not _loop_blocks(n, blocks):
+            blocks = 0
+        if not blocks:
+            raise RuntimeError(f"cluster_loop: no thread-block cluster of the requested blocks "
+                               f"with {n} points in shared memory fits this card")
+        lib = _build.kernels()
+        out = torch.empty(*lead, n, dtype=torch.int32, device=pk.device)
+        unconverged = torch.empty(lead, dtype=torch.bool, device=pk.device)
+        sweeps = torch.empty(lead, dtype=torch.int32, device=pk.device)
+        err = lib.pcp_cluster_loop(
+            pk.data_ptr(), valid.data_ptr(), labels.data_ptr(), batch, n, float(np.float32(tol2)),
+            int(max_iters), blocks, out.data_ptr(), unconverged.data_ptr(),
+            sweeps.data_ptr(), _build.stream_handle(),
+        )
+        _build.check(err, "cluster_loop")
     return LoopOutput(out, unconverged, sweeps, 0)
 
 
@@ -528,8 +532,10 @@ def _banded_loop(pk, valid, labels, tol2: float, band_window: int, starts, max_i
         # changed nothing has no live tile and changes nothing
         if 0 < it < max_iters - 1:
             host_syncs += 1
-            if not bool(changed.any()):
-                break
+            any_changed = changed.any()
+            with timing.host_read():
+                if not bool(any_changed):
+                    break
     return labels, changed.any(dim=-1), host_syncs
 
 

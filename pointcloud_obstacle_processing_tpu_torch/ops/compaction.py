@@ -70,19 +70,19 @@ def compact_and_gather_exact(bins: torch.Tensor, occ2d: torch.Tensor, capacity: 
                          "(both with the same leading scan axis, if any)")
     if bins.device.type == "cpu":
         return compact_and_gather_plain(bins, occ2d, capacity)
-    _build.require_cuda("compact_and_gather_exact", bins, occ2d, dtypes=_DTYPES)
-    dev = bins.device
-    batch = bins[..., 0, 0].numel()
-    loc = torch.empty(*lead, capacity, dtype=torch.int32, device=dev)
-    vals = torch.empty(*lead, capacity, c, dtype=torch.float32, device=dev)
-    # num of each scan, then the kernel's per-1,024-column block counts
-    scratch = torch.empty(batch * (1 + -(-k // 1024)), dtype=torch.int32, device=dev)
-    err = _build.kernels().pcp_compact_gather(
-        bins.data_ptr(), occ2d.data_ptr(), batch, c, k, capacity, loc.data_ptr(),
-        vals.data_ptr(), scratch.data_ptr(), _build.stream_handle(),
-    )
-    _build.check(err, "compact_gather")
-    _build.LAUNCHES["compact_gather"] += 1
+    with _build.launch("compact_gather"):
+        _build.require_cuda("compact_and_gather_exact", bins, occ2d, dtypes=_DTYPES)
+        dev = bins.device
+        batch = bins[..., 0, 0].numel()
+        loc = torch.empty(*lead, capacity, dtype=torch.int32, device=dev)
+        vals = torch.empty(*lead, capacity, c, dtype=torch.float32, device=dev)
+        # num of each scan, then the kernel's per-1,024-column block counts
+        scratch = torch.empty(batch * (1 + -(-k // 1024)), dtype=torch.int32, device=dev)
+        err = _build.kernels().pcp_compact_gather(
+            bins.data_ptr(), occ2d.data_ptr(), batch, c, k, capacity, loc.data_ptr(),
+            vals.data_ptr(), scratch.data_ptr(), _build.stream_handle(),
+        )
+        _build.check(err, "compact_gather")
     return loc, scratch[:batch].reshape(lead), vals
 
 

@@ -318,18 +318,20 @@ def on_card(routine: str, a: torch.Tensor, b: torch.Tensor | None = None) -> tor
     evaluates it: one launch over a contiguous float32 CUDA tensor, a thread
     a value.  The shadow kernel calls these routines inline; this entry lets
     a check hold them to the plain forms above."""
-    names = list(ROUTINES)
-    if routine not in names or (b is None) != (routine != "atan2f"):
-        raise ValueError(f"on_card: a routine of {names}, with b for atan2f only")
-    ops = (a, b) if b is not None else (a,)
-    _build.require_cuda("libm32", *ops, dtypes=(torch.float32,) * len(ops))
-    if b is not None and b.shape != a.shape:
-        raise ValueError("on_card: a and b of one shape")
-    out = torch.empty_like(a)
-    if out.numel():
-        err = _build.kernels().pcp_libm32(a.data_ptr(), 0 if b is None else b.data_ptr(),
-                                          a.numel(), names.index(routine), out.data_ptr(),
-                                          _build.stream_handle())
-        _build.check(err, "libm32")
-        _build.LAUNCHES["libm32"] += 1
+    with _build.launch("libm32") as launch:
+        names = list(ROUTINES)
+        if routine not in names or (b is None) != (routine != "atan2f"):
+            raise ValueError(f"on_card: a routine of {names}, with b for atan2f only")
+        ops = (a, b) if b is not None else (a,)
+        _build.require_cuda("libm32", *ops, dtypes=(torch.float32,) * len(ops))
+        if b is not None and b.shape != a.shape:
+            raise ValueError("on_card: a and b of one shape")
+        out = torch.empty_like(a)
+        if out.numel():
+            err = _build.kernels().pcp_libm32(a.data_ptr(), 0 if b is None else b.data_ptr(),
+                                              a.numel(), names.index(routine), out.data_ptr(),
+                                              _build.stream_handle())
+            _build.check(err, "libm32")
+        else:
+            launch.skip()
     return out

@@ -168,30 +168,30 @@ def knn_mean(pch, p_sq, valid, starts, row_tile: int, width: int, k: int,
     row_tile)."""
     if p_sq.device.type == "cpu":
         return knn_mean_plain(pch, p_sq, valid, starts, row_tile, width, k, tile_range)
-    n = p_sq.shape[-1]
-    lead = p_sq.shape[:-1]
-    first, tiles = query_range(starts.shape[0], tile_range)
-    if width > n or width % 16 or not 1 <= k <= _SEL:
-        raise ValueError(f"knn_mean: window width {width} must be <= {n} and a multiple of 16, "
-                         f"and 1 <= k <= {_SEL} (got k={k})")
-    if any(t.shape != p_sq.shape for t in (*pch, valid)) or len(pch) != 3 or \
-            p_sq.dim() > 2 or starts.dim() != 1:
-        raise ValueError("knn_mean: three channels, p_sq and valid, all [N] or all [B, N]; "
-                         "[tiles] starts")
-    _build.require_cuda(
-        "knn_mean", *pch, p_sq, valid, starts,
-        dtypes=[torch.float32] * 4 + [torch.bool, torch.int32],
-    )
-    lib = _build.kernels()
-    batch = p_sq[..., 0].numel()
-    out = torch.empty(*lead, tiles * row_tile, dtype=torch.float32, device=p_sq.device)
-    err = lib.pcp_knn_mean(
-        pch[0].data_ptr(), pch[1].data_ptr(), pch[2].data_ptr(), p_sq.data_ptr(),
-        valid.data_ptr(), starts.data_ptr(), batch, n, first, tiles, row_tile, width, k,
-        float(np.float32(BIG)), float(f32(BIG * 0.5)), out.data_ptr(), _build.stream_handle(),
-    )
-    _build.check(err, "knn_mean")
-    _build.LAUNCHES["knn_mean" if tile_range is None else "knn_mean_rows"] += 1
+    with _build.launch("knn_mean" if tile_range is None else "knn_mean_rows"):
+        n = p_sq.shape[-1]
+        lead = p_sq.shape[:-1]
+        first, tiles = query_range(starts.shape[0], tile_range)
+        if width > n or width % 16 or not 1 <= k <= _SEL:
+            raise ValueError(f"knn_mean: window width {width} must be <= {n} and a multiple of 16, "
+                             f"and 1 <= k <= {_SEL} (got k={k})")
+        if any(t.shape != p_sq.shape for t in (*pch, valid)) or len(pch) != 3 or \
+                p_sq.dim() > 2 or starts.dim() != 1:
+            raise ValueError("knn_mean: three channels, p_sq and valid, all [N] or all [B, N]; "
+                             "[tiles] starts")
+        _build.require_cuda(
+            "knn_mean", *pch, p_sq, valid, starts,
+            dtypes=[torch.float32] * 4 + [torch.bool, torch.int32],
+        )
+        lib = _build.kernels()
+        batch = p_sq[..., 0].numel()
+        out = torch.empty(*lead, tiles * row_tile, dtype=torch.float32, device=p_sq.device)
+        err = lib.pcp_knn_mean(
+            pch[0].data_ptr(), pch[1].data_ptr(), pch[2].data_ptr(), p_sq.data_ptr(),
+            valid.data_ptr(), starts.data_ptr(), batch, n, first, tiles, row_tile, width, k,
+            float(np.float32(BIG)), float(f32(BIG * 0.5)), out.data_ptr(), _build.stream_handle(),
+        )
+        _build.check(err, "knn_mean")
     return out
 
 

@@ -187,27 +187,29 @@ def covariance_tail(masked_off, off, cen, n_inl, normal, d, vmapped: bool):
     if masked_off.device.type == "cpu":
         return plane_tail_plain(sum_like_xla_plain(masked_off, off), cen, n_inl, normal, d,
                                 vmapped)
-    bsz, n = masked_off.shape[0], masked_off.shape[-1]
-    if masked_off.shape != (bsz, 3, n) or off.shape != (bsz, 3, n) or cen.shape != (bsz, 3) or \
-            n_inl.shape != (bsz,) or normal.shape != (bsz, 3) or d.shape != (bsz,):
-        raise ValueError("covariance_tail: masked_off and off [B, 3, N], cen [B, 3], n_inl [B], "
-                         "normal [B, 3], d [B]")
-    cen, normal, d = cen.contiguous(), normal.contiguous(), d.contiguous()
-    index = masked_off.get_device()  # -1 for a CPU tensor
-    if any(t.get_device() != index or t.dtype != torch.float32
-           for t in (off, cen, n_inl, normal, d)) or masked_off.dtype != torch.float32:
-        raise ValueError("covariance_tail: float32 operands on one CUDA device")
-    out_n = torch.empty_like(normal)
-    out_d = torch.empty_like(d)
-    if bsz:
-        plan = _launch_plan(index, bsz, 3, 3, n, True, None)
-        args = _SUM_ARGS.pack(
-            masked_off.data_ptr(), *masked_off.stride(), off.data_ptr(), *off.stride(), bsz, 3,
-            3, n, *plan, 0, _build.stream_handle(), cen.data_ptr(), n_inl.data_ptr(),
-            n_inl.stride(0), normal.data_ptr(), d.data_ptr(), int(vmapped), out_n.data_ptr(),
-            out_d.data_ptr())
-        _build.check(_build.kernels().pcp_covariance_tail(args), "covariance_tail")
-        _build.LAUNCHES["covariance_tail"] += 1
+    with _build.launch("covariance_tail") as launch:
+        bsz, n = masked_off.shape[0], masked_off.shape[-1]
+        if masked_off.shape != (bsz, 3, n) or off.shape != (bsz, 3, n) or cen.shape != (bsz, 3) or \
+                n_inl.shape != (bsz,) or normal.shape != (bsz, 3) or d.shape != (bsz,):
+            raise ValueError("covariance_tail: masked_off and off [B, 3, N], cen [B, 3], "
+                             "n_inl [B], normal [B, 3], d [B]")
+        cen, normal, d = cen.contiguous(), normal.contiguous(), d.contiguous()
+        index = masked_off.get_device()  # -1 for a CPU tensor
+        if any(t.get_device() != index or t.dtype != torch.float32
+               for t in (off, cen, n_inl, normal, d)) or masked_off.dtype != torch.float32:
+            raise ValueError("covariance_tail: float32 operands on one CUDA device")
+        out_n = torch.empty_like(normal)
+        out_d = torch.empty_like(d)
+        if bsz:
+            plan = _launch_plan(index, bsz, 3, 3, n, True, None)
+            args = _SUM_ARGS.pack(
+                masked_off.data_ptr(), *masked_off.stride(), off.data_ptr(), *off.stride(), bsz, 3,
+                3, n, *plan, 0, _build.stream_handle(), cen.data_ptr(), n_inl.data_ptr(),
+                n_inl.stride(0), normal.data_ptr(), d.data_ptr(), int(vmapped), out_n.data_ptr(),
+                out_d.data_ptr())
+            _build.check(_build.kernels().pcp_covariance_tail(args), "covariance_tail")
+        else:
+            launch.skip()
     return out_n, out_d
 
 
@@ -448,24 +450,28 @@ def _score_launch(operands, constants, form=None, detail: bool = False):
     from ``_score_plan``, cached a layout.  Returns a ``RoundScore``; with
     ``detail`` (the tests), also the gated counts [B, K] int32 and the
     winner's index [B] int64, which the kernel writes only then."""
-    pts, valid, tri, n_valid = operands
-    b, k, packed = _score_plan(
-        tuple((t.shape, t.stride(), t.get_device(), t.dtype) for t in operands), constants, form)
-    found, normal, d = _score_outputs(pts, b)
-    counts = best = None
-    if detail:
-        counts, best = tri.new_empty((b, k), dtype=torch.int32), tri.new_empty(b)
-    if b:
-        stream = _build.stream_handle()
-        args = bytearray(packed)
-        _SCORE_IN.pack_into(args, 0, pts.data_ptr(), valid.data_ptr(), tri.data_ptr(),
-                            n_valid.data_ptr())
-        _SCORE_OUT.pack_into(args, _SCORE_OUT_AT, _score_scratch(pts, stream, b * k + b).data_ptr(),
-                             found.data_ptr(), normal.data_ptr(), d.data_ptr(),
-                             0 if counts is None else counts.data_ptr(),
-                             0 if best is None else best.data_ptr(), stream)
-        _build.check(_build.kernels().pcp_ransac_score(bytes(args)), "ransac_hypotheses_score")
-        _build.LAUNCHES["ransac_hypotheses_score"] += 1
+    with _build.launch("ransac_hypotheses_score") as launch:
+        pts, valid, tri, n_valid = operands
+        b, k, packed = _score_plan(
+            tuple((t.shape, t.stride(), t.get_device(), t.dtype) for t in operands), constants,
+            form)
+        found, normal, d = _score_outputs(pts, b)
+        counts = best = None
+        if detail:
+            counts, best = tri.new_empty((b, k), dtype=torch.int32), tri.new_empty(b)
+        if b:
+            stream = _build.stream_handle()
+            args = bytearray(packed)
+            _SCORE_IN.pack_into(args, 0, pts.data_ptr(), valid.data_ptr(), tri.data_ptr(),
+                                n_valid.data_ptr())
+            _SCORE_OUT.pack_into(args, _SCORE_OUT_AT,
+                                 _score_scratch(pts, stream, b * k + b).data_ptr(),
+                                 found.data_ptr(), normal.data_ptr(), d.data_ptr(),
+                                 0 if counts is None else counts.data_ptr(),
+                                 0 if best is None else best.data_ptr(), stream)
+            _build.check(_build.kernels().pcp_ransac_score(bytes(args)), "ransac_hypotheses_score")
+        else:
+            launch.skip()
     res = RoundScore(found, normal, d)
     return (res, counts, best) if detail else res
 
@@ -518,28 +524,30 @@ def plane_inliers(points: torch.Tensor, valid: torch.Tensor, normal: torch.Tenso
     memory."""
     if points.device.type == "cpu":
         return plane_inliers_plain(points, valid, normal, d, thresh, prev, n_inl)
-    b, n = valid.shape
-    if points.shape != (b, n, 3) or normal.shape != (b, 3) or d.shape != (b,) or \
-            (prev is None) != (n_inl is None) or \
-            (prev is not None and (prev.shape != (b, n) or n_inl.shape != (b,))):
-        raise ValueError("plane_inliers: points [B, N, 3], valid [B, N], normal [B, 3], d [B]; "
-                         "prev [B, N] and n_inl [B] together")
-    operands = [points.contiguous(), valid.contiguous(), normal.contiguous(), d.contiguous()]
-    types = [torch.float32, torch.bool, torch.float32, torch.float32]
-    if prev is not None:
-        operands += [n_inl.contiguous(), prev.contiguous()]
-        types += [torch.float32, torch.bool]
-    _build.require_cuda("plane_inliers", *operands, dtypes=types)
-    out = operands[1].new_empty((b, n))
-    if out.numel():
-        pts, ok, nrm, dd = operands[:4]
-        err = _build.kernels().pcp_plane_inliers(
-            pts.data_ptr(), ok.data_ptr(), nrm.data_ptr(), dd.data_ptr(),
-            operands[4].data_ptr() if prev is not None else None,
-            operands[5].data_ptr() if prev is not None else None, b, n, float(thresh),
-            out.data_ptr(), _build.stream_handle())
-        _build.check(err, "plane_inliers")
-        _build.LAUNCHES["plane_inliers"] += 1
+    with _build.launch("plane_inliers") as launch:
+        b, n = valid.shape
+        if points.shape != (b, n, 3) or normal.shape != (b, 3) or d.shape != (b,) or \
+                (prev is None) != (n_inl is None) or \
+                (prev is not None and (prev.shape != (b, n) or n_inl.shape != (b,))):
+            raise ValueError("plane_inliers: points [B, N, 3], valid [B, N], normal [B, 3], "
+                             "d [B]; prev [B, N] and n_inl [B] together")
+        operands = [points.contiguous(), valid.contiguous(), normal.contiguous(), d.contiguous()]
+        types = [torch.float32, torch.bool, torch.float32, torch.float32]
+        if prev is not None:
+            operands += [n_inl.contiguous(), prev.contiguous()]
+            types += [torch.float32, torch.bool]
+        _build.require_cuda("plane_inliers", *operands, dtypes=types)
+        out = operands[1].new_empty((b, n))
+        if out.numel():
+            pts, ok, nrm, dd = operands[:4]
+            err = _build.kernels().pcp_plane_inliers(
+                pts.data_ptr(), ok.data_ptr(), nrm.data_ptr(), dd.data_ptr(),
+                operands[4].data_ptr() if prev is not None else None,
+                operands[5].data_ptr() if prev is not None else None, b, n, float(thresh),
+                out.data_ptr(), _build.stream_handle())
+            _build.check(err, "plane_inliers")
+        else:
+            launch.skip()
     return out
 
 
@@ -593,24 +601,26 @@ def plane_inliers_close(points: torch.Tensor, normal: torch.Tensor, d: torch.Ten
     updates the state's tensors in place and returns them."""
     if not points.is_cuda:
         return plane_inliers_close_plain(points, normal, d, found, active, thresh, state)
-    b, n = state.valid.shape
-    mp = state.coeffs.shape[1]
-    shapes = [(b, n, 3), (b, 3), (b,), (b,), (b,), (b, n), (b, n), (b, n), (b, mp, 4), (b, mp),
-              (b,), (b,)]
-    operands = [points, normal, d, found, active, *state]
-    if any(t.shape != s for t, s in zip(operands, shapes)):
-        raise ValueError("plane_inliers_close: points [B, N, 3], normal [B, 3], d, found and "
-                         "active [B]; the state's masks [B, N], coeffs [B, P, 4], pvalid [B, P], "
-                         "i and found [B]")
-    _build.require_cuda("plane_inliers_close", *operands, dtypes=(
-        torch.float32, torch.float32, torch.float32, torch.bool, torch.bool, torch.bool,
-        torch.bool, torch.bool, torch.float32, torch.bool, torch.int32, torch.bool))
-    if b:
-        err = _build.kernels().pcp_plane_inliers_close(
-            *[t.data_ptr() for t in operands[:5]], b, n, mp, float(thresh),
-            *[t.data_ptr() for t in state], _build.stream_handle())
-        _build.check(err, "plane_inliers_close")
-        _build.LAUNCHES["plane_inliers_close"] += 1
+    with _build.launch("plane_inliers_close") as launch:
+        b, n = state.valid.shape
+        mp = state.coeffs.shape[1]
+        shapes = [(b, n, 3), (b, 3), (b,), (b,), (b,), (b, n), (b, n), (b, n), (b, mp, 4), (b, mp),
+                  (b,), (b,)]
+        operands = [points, normal, d, found, active, *state]
+        if any(t.shape != s for t, s in zip(operands, shapes)):
+            raise ValueError("plane_inliers_close: points [B, N, 3], normal [B, 3], d, found "
+                             "and active [B]; the state's masks [B, N], coeffs [B, P, 4], "
+                             "pvalid [B, P], i and found [B]")
+        _build.require_cuda("plane_inliers_close", *operands, dtypes=(
+            torch.float32, torch.float32, torch.float32, torch.bool, torch.bool, torch.bool,
+            torch.bool, torch.bool, torch.float32, torch.bool, torch.int32, torch.bool))
+        if b:
+            err = _build.kernels().pcp_plane_inliers_close(
+                *[t.data_ptr() for t in operands[:5]], b, n, mp, float(thresh),
+                *[t.data_ptr() for t in state], _build.stream_handle())
+            _build.check(err, "plane_inliers_close")
+        else:
+            launch.skip()
     return state
 
 

@@ -142,31 +142,31 @@ def sorted_run_reduce(skey, offs, sentinel: int, capacity: int, group: int | Non
         return sorted_run_reduce_plain(skey, offs, sentinel, capacity, group, quantum)
 
     offs = tuple(offs)
-    pay_dtype = torch.int32 if quantum is not None else torch.float32
-    if len(offs) not in ((2,) if quantum is not None else (3, 4)):
-        raise ValueError("offs must be (pxy, pz) with quantum, else three float32 buffers "
-                         "(or four: the fourth the per-row counts)")
-    _build.require_cuda("sorted_run_reduce", skey, *offs,
-                        dtypes=[torch.int32] + [pay_dtype] * len(offs))
-    if any(o.shape != skey.shape for o in offs):
-        raise ValueError("sorted_run_reduce: payloads must match the key shape")
-    if w > 4096:
-        raise ValueError(f"sorted_run_reduce: window {w} exceeds the kernel's 4096 rows")
-    lib = _build.kernels()
-    dev = skey.device
-    batch = skey[..., 0].numel()
-    vals = torch.empty(*lead, capacity, 5, dtype=torch.float32, device=dev)
-    num = torch.empty(lead, dtype=torch.int32, device=dev)
-    # the kernel's look-back workspace (csrc/runreduce.cu), cleared by the call
-    workspace = torch.empty(batch * (n // w) * 44 + 16, dtype=torch.uint8, device=dev)
-    packed = quantum is not None
-    counts = len(offs) == 4
-    err = lib.pcp_runreduce(
-        skey.data_ptr(), offs[0].data_ptr(), offs[1].data_ptr(),
-        None if packed else offs[2].data_ptr(), offs[3].data_ptr() if counts else None,
-        int(packed), float(np.float32(quantum)) if packed else 0.0, batch, n, w, sentinel,
-        capacity, workspace.data_ptr(), vals.data_ptr(), num.data_ptr(), _build.stream_handle(),
-    )
-    _build.check(err, "runreduce")
-    _build.LAUNCHES["runreduce_counts" if counts else "runreduce"] += 1
+    with _build.launch("runreduce_counts" if len(offs) == 4 else "runreduce"):
+        pay_dtype = torch.int32 if quantum is not None else torch.float32
+        if len(offs) not in ((2,) if quantum is not None else (3, 4)):
+            raise ValueError("offs must be (pxy, pz) with quantum, else three float32 buffers "
+                             "(or four: the fourth the per-row counts)")
+        _build.require_cuda("sorted_run_reduce", skey, *offs,
+                            dtypes=[torch.int32] + [pay_dtype] * len(offs))
+        if any(o.shape != skey.shape for o in offs):
+            raise ValueError("sorted_run_reduce: payloads must match the key shape")
+        if w > 4096:
+            raise ValueError(f"sorted_run_reduce: window {w} exceeds the kernel's 4096 rows")
+        lib = _build.kernels()
+        dev = skey.device
+        batch = skey[..., 0].numel()
+        vals = torch.empty(*lead, capacity, 5, dtype=torch.float32, device=dev)
+        num = torch.empty(lead, dtype=torch.int32, device=dev)
+        # the kernel's look-back workspace (csrc/runreduce.cu), cleared by the call
+        workspace = torch.empty(batch * (n // w) * 44 + 16, dtype=torch.uint8, device=dev)
+        packed = quantum is not None
+        counts = len(offs) == 4
+        err = lib.pcp_runreduce(
+            skey.data_ptr(), offs[0].data_ptr(), offs[1].data_ptr(),
+            None if packed else offs[2].data_ptr(), offs[3].data_ptr() if counts else None,
+            int(packed), float(np.float32(quantum)) if packed else 0.0, batch, n, w, sentinel,
+            capacity, workspace.data_ptr(), vals.data_ptr(), num.data_ptr(), _build.stream_handle(),
+        )
+        _build.check(err, "runreduce")
     return vals, num

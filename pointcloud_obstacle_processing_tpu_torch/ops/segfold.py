@@ -120,20 +120,20 @@ def segment_fold(dest: torch.Tensor, vals: torch.Tensor, bins: int,
     every output element once."""
     if vals.device.type == "cpu":
         return segment_fold_plain(dest, vals, bins, order, bf16_terms, width)
-    width = _check(dest, vals, bins, order, bf16_terms, width)
-    dest = dest.contiguous()
-    ops = [dest] if order is None else [dest, order.contiguous()]
-    _build.require_cuda("segment_fold", *ops, dtypes=(torch.int32, torch.int64))
-    if vals.dtype != torch.float32 or vals.get_device() != dest.get_device():
-        raise TypeError("segment_fold: vals must be float32 on dest's CUDA device")
-    lead, (c, n) = vals.shape[:-2], vals.shape[-2:]
-    scans = math.prod(lead)
-    v = vals.reshape(scans, c, n)  # a view where the strides allow it
-    out = torch.empty(*lead, c, width, dtype=torch.float32, device=vals.device)
-    err = _build.kernels().pcp_segment_fold(
-        dest.data_ptr(), v.data_ptr(), 0 if order is None else ops[1].data_ptr(), scans, n, c,
-        bins, width, v.stride(0), v.stride(1), v.stride(2), bf16_terms, out.data_ptr(),
-        _build.stream_handle())
-    _build.check(err, "segment_fold")
-    _build.LAUNCHES["segment_fold"] += 1
+    with _build.launch("segment_fold"):
+        width = _check(dest, vals, bins, order, bf16_terms, width)
+        dest = dest.contiguous()
+        ops = [dest] if order is None else [dest, order.contiguous()]
+        _build.require_cuda("segment_fold", *ops, dtypes=(torch.int32, torch.int64))
+        if vals.dtype != torch.float32 or vals.get_device() != dest.get_device():
+            raise TypeError("segment_fold: vals must be float32 on dest's CUDA device")
+        lead, (c, n) = vals.shape[:-2], vals.shape[-2:]
+        scans = math.prod(lead)
+        v = vals.reshape(scans, c, n)  # a view where the strides allow it
+        out = torch.empty(*lead, c, width, dtype=torch.float32, device=vals.device)
+        err = _build.kernels().pcp_segment_fold(
+            dest.data_ptr(), v.data_ptr(), 0 if order is None else ops[1].data_ptr(), scans, n, c,
+            bins, width, v.stride(0), v.stride(1), v.stride(2), bf16_terms, out.data_ptr(),
+            _build.stream_handle())
+        _build.check(err, "segment_fold")
     return out

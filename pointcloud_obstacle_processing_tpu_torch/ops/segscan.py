@@ -79,22 +79,24 @@ def segmented_inclusive_scan(values: torch.Tensor, heads: torch.Tensor) -> torch
     ``segmented_inclusive_scan`` on the same inputs."""
     if values.device.type == "cpu":
         return segmented_inclusive_scan_plain(values, heads)
-    v = _as_channels(values, heads).contiguous()
-    c, n = v.shape
-    _build.require_cuda("segmented_inclusive_scan", v, heads, dtypes=[torch.float32, torch.bool])
-    if v.numel() == 0:
-        return values.clone()
-    lib = _build.kernels()
-    out = torch.empty_like(v)
-    # the values and flags of tiles with a live element (flags twice, for
-    # the steps in global memory of rows past 2^24 values), the tiles' live
-    # flags and the -0.0 bits of the flagged values
-    scratch = torch.empty_like(v) if n > HALO else out
-    flags = torch.empty(2 * n, dtype=torch.uint8, device=v.device)
-    ints = torch.empty(-(-n // TILE) + c * -(-n // 32), dtype=torch.int32, device=v.device)
-    err = lib.pcp_segscan(v.data_ptr(), heads.data_ptr(), c, n, out.data_ptr(),
-                          scratch.data_ptr(), flags.data_ptr(), ints.data_ptr(),
-                          _build.stream_handle())
-    _build.check(err, "segscan")
-    _build.LAUNCHES["segscan"] += 1
+    with _build.launch("segscan") as launch:
+        v = _as_channels(values, heads).contiguous()
+        c, n = v.shape
+        _build.require_cuda("segmented_inclusive_scan", v, heads,
+                            dtypes=[torch.float32, torch.bool])
+        if v.numel() == 0:
+            launch.skip()
+            return values.clone()
+        lib = _build.kernels()
+        out = torch.empty_like(v)
+        # the values and flags of tiles with a live element (flags twice, for
+        # the steps in global memory of rows past 2^24 values), the tiles' live
+        # flags and the -0.0 bits of the flagged values
+        scratch = torch.empty_like(v) if n > HALO else out
+        flags = torch.empty(2 * n, dtype=torch.uint8, device=v.device)
+        ints = torch.empty(-(-n // TILE) + c * -(-n // 32), dtype=torch.int32, device=v.device)
+        err = lib.pcp_segscan(v.data_ptr(), heads.data_ptr(), c, n, out.data_ptr(),
+                              scratch.data_ptr(), flags.data_ptr(), ints.data_ptr(),
+                              _build.stream_handle())
+        _build.check(err, "segscan")
     return out.reshape(values.shape)

@@ -169,29 +169,31 @@ def shadow_slots(points: torch.Tensor, valid: torch.Tensor, point_cluster: torch
     if points.device.type == "cpu":
         return shadow_slots_plain(points, valid, point_cluster, slot_valid, world_from_sensor,
                                   config)
-    lead, (c, m) = points.shape[:-2], (points.shape[-2], slot_valid.shape[-1])
-    if points.shape[-1] != 3 or valid.shape != (*lead, c) or point_cluster.shape != (*lead, c) \
-            or slot_valid.shape != (*lead, m):
-        raise ValueError("shadow_slots: points [..., C, 3], valid and point_cluster [..., C], "
-                         "slot_valid [..., M]")
-    scans = 1
-    for s in lead:
-        scans *= s
-    pts, ok = points.contiguous(), valid.contiguous()
-    pc, sv = point_cluster.contiguous(), slot_valid.contiguous()
-    q, t, pose_stride = _pose(world_from_sensor, scans)
-    _build.require_cuda("shadow_slots", pts, ok, pc, sv, q, t,
-                        dtypes=(torch.float32, torch.bool, torch.int32, torch.bool, torch.float32,
-                                torch.float32))
-    out = torch.empty(*lead, m, len(LINE_FIELDS), dtype=torch.int32, device=pts.device)
-    if out.numel():
-        err = _build.kernels().pcp_shadow_slots(
-            pts.data_ptr(), ok.data_ptr(), pc.data_ptr(), sv.data_ptr(), q.data_ptr(),
-            t.data_ptr(), pose_stride, scans, c, m, float(f32(config.block_size)),
-            float(recip32(config.block_size)), float(f32(config.y_min)), float(f32(config.x_max)),
-            out.data_ptr(), _build.stream_handle())
-        _build.check(err, "shadow_slots")
-        _build.LAUNCHES["shadow_slots"] += 1
+    with _build.launch("shadow_slots") as launch:
+        lead, (c, m) = points.shape[:-2], (points.shape[-2], slot_valid.shape[-1])
+        if points.shape[-1] != 3 or valid.shape != (*lead, c) or point_cluster.shape != (*lead, c) \
+                or slot_valid.shape != (*lead, m):
+            raise ValueError("shadow_slots: points [..., C, 3], valid and point_cluster [..., C], "
+                             "slot_valid [..., M]")
+        scans = 1
+        for s in lead:
+            scans *= s
+        pts, ok = points.contiguous(), valid.contiguous()
+        pc, sv = point_cluster.contiguous(), slot_valid.contiguous()
+        q, t, pose_stride = _pose(world_from_sensor, scans)
+        _build.require_cuda("shadow_slots", pts, ok, pc, sv, q, t,
+                            dtypes=(torch.float32, torch.bool, torch.int32, torch.bool,
+                                    torch.float32, torch.float32))
+        out = torch.empty(*lead, m, len(LINE_FIELDS), dtype=torch.int32, device=pts.device)
+        if out.numel():
+            err = _build.kernels().pcp_shadow_slots(
+                pts.data_ptr(), ok.data_ptr(), pc.data_ptr(), sv.data_ptr(), q.data_ptr(),
+                t.data_ptr(), pose_stride, scans, c, m, float(f32(config.block_size)),
+                float(recip32(config.block_size)), float(f32(config.y_min)),
+                float(f32(config.x_max)), out.data_ptr(), _build.stream_handle())
+            _build.check(err, "shadow_slots")
+        else:
+            launch.skip()
     return out
 
 
@@ -245,21 +247,23 @@ def shadow_raster(grid: torch.Tensor, lines: torch.Tensor, opacity: int) -> torc
     reachable cells meets the tile), which writes every cell once."""
     if grid.device.type == "cpu":
         return shadow_raster_plain(grid, lines, opacity)
-    lead, (H, W) = grid.shape[:-2], grid.shape[-2:]
-    if lines.shape[:-2] != lead or lines.shape[-1] != len(LINE_FIELDS):
-        raise ValueError("shadow_raster: grid [..., H, W] and lines [..., M, 7]")
-    g, ln = grid.contiguous(), lines.contiguous()
-    _build.require_cuda("shadow_raster", g, ln, dtypes=(torch.int8, torch.int32))
-    scans = 1
-    for s in lead:
-        scans *= s
-    out = torch.empty_like(g)
-    if out.numel():
-        err = _build.kernels().pcp_shadow_raster(g.data_ptr(), ln.data_ptr(), scans, lines.shape[-2],
-                                                 H, W, int(opacity), out.data_ptr(),
-                                                 _build.stream_handle())
-        _build.check(err, "shadow_raster")
-        _build.LAUNCHES["shadow_raster"] += 1
+    with _build.launch("shadow_raster") as launch:
+        lead, (H, W) = grid.shape[:-2], grid.shape[-2:]
+        if lines.shape[:-2] != lead or lines.shape[-1] != len(LINE_FIELDS):
+            raise ValueError("shadow_raster: grid [..., H, W] and lines [..., M, 7]")
+        g, ln = grid.contiguous(), lines.contiguous()
+        _build.require_cuda("shadow_raster", g, ln, dtypes=(torch.int8, torch.int32))
+        scans = 1
+        for s in lead:
+            scans *= s
+        out = torch.empty_like(g)
+        if out.numel():
+            err = _build.kernels().pcp_shadow_raster(g.data_ptr(), ln.data_ptr(), scans,
+                                                     lines.shape[-2], H, W, int(opacity),
+                                                     out.data_ptr(), _build.stream_handle())
+            _build.check(err, "shadow_raster")
+        else:
+            launch.skip()
     return out
 
 

@@ -51,6 +51,7 @@ from ..ops.voxel import (
 )
 from ..pipeline import _post_voxel, process_scan
 from ..types import Cloud, PipelineResult
+from ..utils import timing
 from .collectives import Axis, Mesh
 
 __all__ = ["batched_pipeline", "data_parallel_pipeline", "process_scan_point_sharded",
@@ -235,54 +236,57 @@ def process_scan_point_sharded(cloud_shard: Cloud, config: PipelineConfig,
     config.validate()
     if cloud_shard.points.dim() != 3:
         raise ValueError("process_scan_point_sharded: a batch of shards, [b, N / S, 3]")
-    dev = cloud_shard.device
-    if world_from_sensor is None:
-        world_from_sensor = RigidTransform.identity(dev)
-    S = axis.size
-    n_in = axis.psum(cloud_shard.count())
+    with timing.span("pcp.call"):
+        dev = cloud_shard.device
+        if world_from_sensor is None:
+            world_from_sensor = RigidTransform.identity(dev)
+        S = axis.size
+        n_in = axis.psum(cloud_shard.count())
 
-    # stage 1: the shard's histogram, summed over the axis
-    in_box, counts_local = cell_counts(cloud_shard, config)
-    counts = axis.psum(counts_local)
-    _, hole_grid = holes(counts, config)
-    n_cropped = axis.psum(in_box.sum(dim=-1, dtype=torch.int32))
+        # stage 1: the shard's histogram, summed over the axis
+        with timing.span("pcp.stage.crop_and_seed"):
+            in_box, counts_local = cell_counts(cloud_shard, config)
+            counts = axis.psum(counts_local)
+            _, hole_grid = holes(counts, config)
+            n_cropped = axis.psum(in_box.sum(dim=-1, dtype=torch.int32))
 
-    # stage 2: the shard's voxel table, merged over the axis
-    bounds = ((config.x_min, config.y_min, config.z_min),
-              (config.x_max, config.y_max, config.z_max))
-    leaf = config.downsample_leaf_size
-    parts = voxel_partials(Cloud(points=cloud_shard.points, valid=in_box), leaf,
-                           config.max_voxels, bounds, config.voxel_sum_precision,
-                           config.voxel_binning, config.voxel_order,
-                           config.voxel_payload_packing)
-    spec = _pack_spec(bounds, leaf)
-    packable = _packable(spec)
-    if distribute_merge is None:
-        distribute_merge = S > 2 and S * config.max_voxels >= _SORT_MERGE_MIN_ROWS
-    if (distribute_merge and S > 1 and packable and config.max_voxels % 128 == 0
-            and 2 * config.max_voxels // S >= 128):
-        merged = _distributed_merge(parts, config, axis, spec)
-    elif packable:  # keys packed on each rank before the gather: 20 bytes a row
-        merged = merge_voxel_partials_packed(
-            axis.all_gather(_pack_keys(parts.keys, parts.counts, spec), dim=-1),
-            axis.all_gather(parts.sums, dim=-2), axis.all_gather(parts.counts, dim=-1),
-            config.max_voxels, spec, leaf, tables=S)
-    else:  # the (ix, iy, iz) tables gathered, merged by the 3-key sort
-        merged = merge_voxel_partials(
-            VoxelPartials(keys=axis.all_gather(parts.keys, dim=-2),
-                          sums=axis.all_gather(parts.sums, dim=-2),
-                          counts=axis.all_gather(parts.counts, dim=-1),
-                          num_voxels=parts.num_voxels, overflow=parts.overflow),
-            config.max_voxels, bounds, leaf)
-    vox = finalize_voxels(merged)
+        # stage 2: the shard's voxel table, merged over the axis
+        with timing.span("pcp.stage.voxel_downsample"):
+            bounds = ((config.x_min, config.y_min, config.z_min),
+                      (config.x_max, config.y_max, config.z_max))
+            leaf = config.downsample_leaf_size
+            parts = voxel_partials(Cloud(points=cloud_shard.points, valid=in_box), leaf,
+                                   config.max_voxels, bounds, config.voxel_sum_precision,
+                                   config.voxel_binning, config.voxel_order,
+                                   config.voxel_payload_packing)
+            spec = _pack_spec(bounds, leaf)
+            packable = _packable(spec)
+            if distribute_merge is None:
+                distribute_merge = S > 2 and S * config.max_voxels >= _SORT_MERGE_MIN_ROWS
+            if (distribute_merge and S > 1 and packable and config.max_voxels % 128 == 0
+                    and 2 * config.max_voxels // S >= 128):
+                merged = _distributed_merge(parts, config, axis, spec)
+            elif packable:  # keys packed on each rank before the gather: 20 bytes a row
+                merged = merge_voxel_partials_packed(
+                    axis.all_gather(_pack_keys(parts.keys, parts.counts, spec), dim=-1),
+                    axis.all_gather(parts.sums, dim=-2), axis.all_gather(parts.counts, dim=-1),
+                    config.max_voxels, spec, leaf, tables=S)
+            else:  # the (ix, iy, iz) tables gathered, merged by the 3-key sort
+                merged = merge_voxel_partials(
+                    VoxelPartials(keys=axis.all_gather(parts.keys, dim=-2),
+                                  sums=axis.all_gather(parts.sums, dim=-2),
+                                  counts=axis.all_gather(parts.counts, dim=-1),
+                                  num_voxels=parts.num_voxels, overflow=parts.overflow),
+                    config.max_voxels, bounds, leaf)
+            vox = finalize_voxels(merged)
 
-    # stages 3-8 on the merged cloud; a shard's own table overflow drops
-    # voxels before the merge sees them, so its flag is ORed in too
-    return _post_voxel(
-        vox.cloud, vox.num_voxels, hole_grid, n_in, n_cropped, config, world_from_sensor, draw,
-        vox.overflow | axis.any(parts.overflow), vmapped=True,
-        shard=axis if shard_post_voxel and S > 1 else None,
-    )
+        # stages 3-8 on the merged cloud; a shard's own table overflow drops
+        # voxels before the merge sees them, so its flag is ORed in too
+        return _post_voxel(
+            vox.cloud, vox.num_voxels, hole_grid, n_in, n_cropped, config, world_from_sensor, draw,
+            vox.overflow | axis.any(parts.overflow), vmapped=True,
+            shard=axis if shard_post_voxel and S > 1 else None,
+        )
 
 
 def dp_sp_pipeline(config: PipelineConfig, mesh: Mesh, data_axis: str = "data",

@@ -18,7 +18,10 @@ Counterpart of ``pointcloud_obstacle_processing_tpu/pipeline.py``
 
 Every stage runs on the device of the input cloud.  The only host reads are
 the cluster loop's per-sweep convergence checks (``PipelineResult.
-host_syncs``).
+host_syncs``).  While the program's tracing is on (``utils.timing``), a
+call is a ``pcp.call`` span holding one ``pcp.stage.<stage>`` span a stage,
+named as the stage's entry point (the voxel stage's compaction, with
+``downsample_input_data`` off, included).
 
 ``process_scan`` takes one cloud ``[N]`` or a batch ``[B, N]`` (the
 reference's ``jax.vmap``, written out): every stage runs on the batch, each
@@ -42,6 +45,7 @@ from .ops.shadow import cast_shadows
 from .ops.transforms import RigidTransform
 from .ops.voxel import voxel_downsample
 from .types import Cloud, OccupancyGrid, PipelineResult, StageStats, batch_of, scan_of
+from .utils import timing
 
 __all__ = ["process_scan", "process_frames", "jit_pipeline", "default_draw"]
 
@@ -70,38 +74,43 @@ def process_scan(cloud: Cloud, config: PipelineConfig,
     ``world_from_sensor`` is the sensor pose for the shadow geometry,
     identity by default; a batch takes one pose for all or one a scan.
     """
-    dev = cloud.device
-    cloud, single = batch_of(cloud)
-    if world_from_sensor is None:
-        world_from_sensor = RigidTransform.identity(dev)
-    if draw is None:
-        draw = default_draw(config, generator, dev, None if single else cloud.valid.shape[0])
-    if single:
-        one_draw = draw
-        draw = lambda r, n_valid: one_draw(r, n_valid[0])[None]  # noqa: E731
+    with timing.span("pcp.call"):
+        dev = cloud.device
+        cloud, single = batch_of(cloud)
+        if world_from_sensor is None:
+            world_from_sensor = RigidTransform.identity(dev)
+        if draw is None:
+            draw = default_draw(config, generator, dev, None if single else cloud.valid.shape[0])
+        if single:
+            one_draw = draw
+            draw = lambda r, n_valid: one_draw(r, n_valid[0])[None]  # noqa: E731
 
-    n_in = cloud.count()
-    seed = crop_and_seed(cloud, config)
-    cropped = seed.cloud
-    if config.downsample_input_data:
-        bounds = (
-            (config.x_min, config.y_min, config.z_min),
-            (config.x_max, config.y_max, config.z_max),
-        )  # cropped points are in the box: the lattice key packs
-        vox = voxel_downsample(
-            cropped, config.downsample_leaf_size, config.max_voxels, bounds,
-            config.voxel_sum_precision, config.voxel_binning, config.voxel_order,
-            config.voxel_payload_packing,
+        n_in = cloud.count()
+        with timing.span("pcp.stage.crop_and_seed"):
+            seed = crop_and_seed(cloud, config)
+        cropped = seed.cloud
+        # the voxel stage: the VoxelGrid, or the cropped cloud compacted
+        # straight into the voxel slots
+        with timing.span("pcp.stage.voxel_downsample"):
+            if config.downsample_input_data:
+                bounds = (
+                    (config.x_min, config.y_min, config.z_min),
+                    (config.x_max, config.y_max, config.z_max),
+                )  # cropped points are in the box: the lattice key packs
+                vox = voxel_downsample(
+                    cropped, config.downsample_leaf_size, config.max_voxels, bounds,
+                    config.voxel_sum_precision, config.voxel_binning, config.voxel_order,
+                    config.voxel_payload_packing,
+                )
+                voxel_cloud, n_voxels, voxel_overflow = vox.cloud, vox.num_voxels, vox.overflow
+            else:
+                comp0 = compact(cropped, config.max_voxels)
+                voxel_cloud, n_voxels, voxel_overflow = comp0.cloud, comp0.count, comp0.overflow
+        res = _post_voxel(
+            voxel_cloud, n_voxels, seed.hole_grid, n_in, cropped.count(), config,
+            world_from_sensor, draw, voxel_overflow, vmapped=not single,
         )
-        voxel_cloud, n_voxels, voxel_overflow = vox.cloud, vox.num_voxels, vox.overflow
-    else:  # the cropped cloud compacted straight into the voxel slots
-        comp0 = compact(cropped, config.max_voxels)
-        voxel_cloud, n_voxels, voxel_overflow = comp0.cloud, comp0.count, comp0.overflow
-    res = _post_voxel(
-        voxel_cloud, n_voxels, seed.hole_grid, n_in, cropped.count(), config,
-        world_from_sensor, draw, voxel_overflow, vmapped=not single,
-    )
-    return scan_of(res) if single else res
+        return scan_of(res) if single else res
 
 
 def process_frames(frames: torch.Tensor, frame_valid: torch.Tensor, config: PipelineConfig,
@@ -167,30 +176,37 @@ def _post_voxel(voxel_cloud: Cloud, n_voxels: torch.Tensor, hole_grid: torch.Ten
     backend = config.knn_backend
     if backend in ("banded", "banded_approx") and not config.downsample_input_data:
         backend = "approx"
-    outl = remove_statistical_outliers(
-        voxel_cloud,
-        config.statistical_outlier_mean_k,
-        config.statistical_outlier_std_dev_thresh,
-        row_tile=config.knn_row_tile,
-        backend=backend,
-        band=config.knn_band,
-        shard=shard,
-    )
-    seg = segment_planes(outl.cloud, config, draw, vmapped=vmapped)
-    comp = compact(seg.nonplane_cloud, config.cluster_capacity)
-    clus = euclidean_cluster(
-        comp.cloud,
-        config.euc_cluster_tolerance,
-        config.euc_min_cluster_size,
-        config.euc_max_cluster_size,
-        config.max_clusters,
-        config.cluster_max_iters,
-        band_window=config.cluster_band_window,
-        shard=shard,
-    )
-    centroids = cluster_centroids(comp.cloud, clus.clusters)
-    shadows = cast_shadows(hole_grid, comp.cloud, clus.clusters, world_from_sensor, config)
-    grid_data = mark_obstacles(shadows.grid, seg.nonplane_cloud, config)
+    with timing.span("pcp.stage.remove_statistical_outliers"):
+        outl = remove_statistical_outliers(
+            voxel_cloud,
+            config.statistical_outlier_mean_k,
+            config.statistical_outlier_std_dev_thresh,
+            row_tile=config.knn_row_tile,
+            backend=backend,
+            band=config.knn_band,
+            shard=shard,
+        )
+    with timing.span("pcp.stage.segment_planes"):
+        seg = segment_planes(outl.cloud, config, draw, vmapped=vmapped)
+    with timing.span("pcp.stage.compact"):
+        comp = compact(seg.nonplane_cloud, config.cluster_capacity)
+    with timing.span("pcp.stage.euclidean_cluster"):
+        clus = euclidean_cluster(
+            comp.cloud,
+            config.euc_cluster_tolerance,
+            config.euc_min_cluster_size,
+            config.euc_max_cluster_size,
+            config.max_clusters,
+            config.cluster_max_iters,
+            band_window=config.cluster_band_window,
+            shard=shard,
+        )
+    with timing.span("pcp.stage.cluster_centroids"):
+        centroids = cluster_centroids(comp.cloud, clus.clusters)
+    with timing.span("pcp.stage.cast_shadows"):
+        shadows = cast_shadows(hole_grid, comp.cloud, clus.clusters, world_from_sensor, config)
+    with timing.span("pcp.stage.mark_obstacles"):
+        grid_data = mark_obstacles(shadows.grid, seg.nonplane_cloud, config)
     grid = OccupancyGrid(
         data=grid_data,
         resolution=config.block_size,

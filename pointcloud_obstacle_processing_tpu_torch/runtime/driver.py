@@ -39,6 +39,13 @@ asynchronous dispatch, this node writes it out on CUDA streams):
   window over and publishing the window before it.  Windows are issued in
   order on the node's stream; ``flush`` joins the thread.
 
+While the program's tracing is on (``utils.timing.tracing``), each
+cycle's ``metrics`` entry also holds its host seconds by stage, in its
+device-to-host reads and in the kernel wrappers (``host_seconds``), and
+its launch and read counts, from the spans its dispatch closed; the
+reference's per-cycle TOTAL TIME table of the stages (cpp:872-925) is
+logged at debug level.
+
 The RANSAC draws of window c come from the node's own device
 ``torch.Generator`` (seeded from ``seed``), or from ``draw_for_cycle(c)``
 where it is given (the tests replay the reference's
@@ -61,6 +68,7 @@ from ..native import ScanAccumulator, decode_cloud2_organized
 from ..ops.transforms import RigidTransform
 from ..pipeline import default_draw, process_frames, process_scan
 from ..types import Cloud
+from ..utils import timing
 from .bus import MessageBus
 from .msgs import (
     Header,
@@ -131,6 +139,29 @@ def _wait(event) -> None:
     """Wait on the host for an event (a no-op once it has completed)."""
     if event is not None:
         event.synchronize()
+
+
+def _span_metrics(spans: list, seq: int) -> dict:
+    """A cycle's ``metrics`` fields from the spans its dispatch closed: host
+    seconds by stage, in the host reads (``host_read``) and in the kernel
+    wrappers (``kernels``), and the launch and host read counts; logs the
+    stages' TOTAL TIME table at debug level."""
+    totals = timing.totals(spans)
+    stages = {name[len("pcp.stage."):]: t.seconds for name, t in totals.items()
+              if name.startswith("pcp.stage.")}
+    if log.isEnabledFor(logging.DEBUG):
+        table = timing.StageTimer()
+        for name, seconds in stages.items():
+            table.record(name, seconds)
+        log.debug("cycle %d host time by stage\n%s", seq, table.table())
+    kernels = [t for name, t in totals.items() if name.startswith("pcp.kernel.")]
+    read = totals.get("pcp.host_read")
+    return {
+        "host_seconds": {**stages, "host_read": read.seconds if read else 0.0,
+                         "kernels": sum(t.seconds for t in kernels)},
+        "launches": sum(t.counts.get("launches", 0) for t in kernels),
+        "host_reads": read.counts.get("host_reads", 0) if read else 0,
+    }
 
 
 class ObstacleDetectionNode:
@@ -338,8 +369,9 @@ class ObstacleDetectionNode:
         """Issue window ``c`` (buffers of parity ``p``) to the card: the
         poses' and (host mode) the snapshot's copies, the pipeline, and the
         copies of what ``_publish`` reads into pinned buffers, followed by
-        an event.  Returns (result, host arrays, bytes fetched, event)."""
-        with _on(self._stream):
+        an event.  Returns (result, host arrays, bytes fetched, event, the
+        spans the dispatch closed)."""
+        with _on(self._stream), timing.collect() as spans:
             dev, cfg = self.device, self.config
             poses = self._poses[p].to(dev, non_blocking=True)
             sensor = RigidTransform(poses[-1, :4], poses[-1, 4:])
@@ -361,7 +393,7 @@ class ObstacleDetectionNode:
                 self._snap_done[p] = self._mem.event(self._stream)
                 result = process_scan(cloud, cfg, sensor, draw=draw)
             host, fetch_bytes = self._fetch(result, p)
-            return result, host, fetch_bytes, self._mem.event(self._stream)
+            return result, host, fetch_bytes, self._mem.event(self._stream), spans
 
     def _fetch(self, result, p: int) -> dict:
         """Start the copies of every field ``_publish`` reads into the
@@ -421,7 +453,7 @@ class ObstacleDetectionNode:
     def _publish(self, dispatched, seq, upload_bytes: int = 0, t_trigger: float | None = None):
         """Wait for one window's copies and publish the topic surface."""
         t0 = time.perf_counter()
-        result, host, fetch_bytes, done = dispatched
+        result, host, fetch_bytes, done, spans = dispatched
         _wait(done)
         cfg = self.config
         self.last_result = result
@@ -481,6 +513,7 @@ class ObstacleDetectionNode:
                 "fetch_bytes": int(fetch_bytes),
                 **counts,
                 **flags,
+                **(_span_metrics(spans, seq) if spans else {}),
             }
         )
         if flags["cluster_band_overflow"]:

@@ -25,7 +25,8 @@ from pointcloud_obstacle_processing_tpu_torch import native
 from pointcloud_obstacle_processing_tpu_torch.config import PipelineConfig
 from pointcloud_obstacle_processing_tpu_torch.runtime import bus, calibration, msgs, recording, tf
 from pointcloud_obstacle_processing_tpu_torch.runtime import transport
-from pointcloud_obstacle_processing_tpu_torch.utils.timing import StageTimer, profile_trace, time_fn
+from pointcloud_obstacle_processing_tpu_torch.utils import timing
+from pointcloud_obstacle_processing_tpu_torch.utils.timing import StageTimer, profile_trace
 
 
 def _unit_quats(rng, n):
@@ -314,13 +315,22 @@ def test_stage_timer_marks_clamped_below_noise():
 
 
 def test_time_fn_and_trace_on_the_cpu(tmp_path):
+    """``profile_trace`` exports a chrome trace of one call with the
+    program's tracing on for it: the call's spans lie in the trace as
+    ``record_function`` ranges, and stay for ``take``; tracing is off
+    again after it."""
     import json
 
     import torch
 
-    x = torch.ones(1000)
-    t = StageTimer()
-    assert t.measure("sum", lambda a: a.sum(), x, iters=3) > 0
-    assert time_fn(lambda a: a * 2, x, iters=3, warmup=1) > 0
-    path = profile_trace(lambda a: a * 2, x, trace_dir=str(tmp_path))
-    assert json.load(open(path))["traceEvents"]
+    def call(a):
+        with timing.span("pcp.call"):
+            with timing.span("pcp.stage.sum"):
+                return (a * 2).sum()
+
+    timing.take()
+    path = profile_trace(call, torch.ones(1000), trace_dir=str(tmp_path))
+    events = json.load(open(path))["traceEvents"]
+    assert {"pcp.call", "pcp.stage.sum"} <= {e.get("name") for e in events}
+    assert [s.name for s in timing.take().spans] == ["pcp.stage.sum", "pcp.call"]
+    assert timing.span("pcp.call") is timing.OFF
